@@ -1,0 +1,407 @@
+"""Drive the PyTorch/CUDA port on one GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the final line):
+  1. build   every CUDA kernel of the slice from presto_tpu_torch/csrc,
+             one nvcc per source, all started together;
+  2. kernels each kernel against its plain PyTorch version on the card,
+             at the main path's shapes and at a ragged shape, with
+             kernel / plain / library times and the card's bound;
+  3. main    a 128-channel 8-bit filterbank of 2^22 samples (2^21-bin
+             spectra) with a strong accelerated pulsar, through
+             survey_head + seam_fft_search (nsub 32, zmax 200, numharm 8)
+             over a DDplan fan-out, launch counters read around it; and
+             a small spectrum searched on the card and on the CPU;
+  4. summary the kernels line, the card, and the final ok line.
+
+Prints the full results as one JSON line (``results: {...}``).  Imports
+no JAX and nothing of the JAX package.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+# published H100 SXM peaks (NVIDIA data sheet): device memory rate and
+# float32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_time_ms(fn, reps=3):
+    """Mean device time of fn() over reps launches after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def bound_ms(nbytes, flops):
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    tf = flops / PEAK_F32_FLOPS * 1e3
+    return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def phase_build():
+    from presto_tpu_torch import cuda_build
+    t0 = time.time()
+    logs = cuda_build.build_all(["plane_build", "stage_reduce"])
+    secs = time.time() - t0
+    log("build: %.1f s (parallel nvcc, sm_90a)" % secs)
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log("  %s: %s" % (name, line.strip()))
+    return secs
+
+
+def bench_searcher():
+    from presto_tpu_torch.search import accel
+    nbins = 1 << 21
+    T = (1 << 22) * 1.28e-4
+    return accel.AccelSearch(accel.AccelConfig(zmax=200, numharm=8),
+                             T=T, numbins=nbins, device="cuda"), nbins
+
+
+def check_plane_build(s, nbins, gen):
+    """Kernel 1 at the main path's shape (from a random spectrum through
+    the searcher's own windows/normalization/forward FFT) and ragged."""
+    from presto_tpu_torch.search import build_cuda
+    pairs = torch.randn((nbins, 2), generator=gen, device="cuda")
+    S = s.forward_spectra(pairs)
+    Kc = s._kbank
+    nblocks, nb_pad, numr = s.plane_geom()
+    off = s.hw_eff * 2
+    args = (S, Kc, s.numz_pad, nb_pad, s.cfg.uselen, off)
+    out = {}
+    got = build_cuda.build_plane(*args)
+    want = build_cuda.build_plane_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    pads_zero = bool((got[s.cfg.numz:] == 0).all()
+                     and (got[:, nblocks * s.cfg.uselen:] == 0).all())
+    log("plane_build bench: S %s, Kc %s -> plane %s; max_abs_err %.3g "
+        "(plane max %.3g), pads zero %s" % (tuple(S.shape), tuple(Kc.shape),
+                                            tuple(got.shape), err, scale,
+                                            pads_zero))
+    ok = err <= 1e-4 * scale and pads_zero and bool(torch.isfinite(got).all())
+    del got, want
+    # ragged: non-power-of-8 rows and blocks, unaligned window
+    Sr = torch.randn((13, 2048), dtype=torch.complex64, generator=gen,
+                     device="cuda")
+    Kr = torch.randn((51, 4096), dtype=torch.complex64, generator=gen,
+                     device="cuda")
+    rg = build_cuda.build_plane(Sr, Kr, 56, 16, 3000, 300)
+    rw = build_cuda.build_plane_plain(Sr, Kr, 56, 16, 3000, 300)
+    rerr = float((rg - rw).abs().max())
+    rok = rerr <= 1e-4 * float(rw.abs().max())
+    log("plane_build ragged (13 blocks of 4096, 51 rows, uselen 3000, "
+        "off 300): max_abs_err %.3g %s" % (rerr, "ok" if rok else "FAIL"))
+    n = Kc.shape[1]
+    nbytes = (S.numel() * 8 + Kc.numel() * 8 + n // 2 * 8
+              + s.numz_pad * numr * 4)
+    flops = nblocks * s.cfg.numz * (6 * n + 5 * n * np.log2(n)
+                                    + 3 * s.cfg.uselen)
+    bms, by = bound_ms(nbytes, flops)
+    ms = cuda_time_ms(lambda: build_cuda.build_plane(*args))
+    plain_ms = cuda_time_ms(lambda: build_cuda.build_plane_plain(*args), 1)
+    prod = torch.cat([S, S], dim=-1)[:, None, :] * Kc[None]
+    lib_ms = cuda_time_ms(
+        lambda: torch.fft.ifft(prod, dim=-1).abs().square(), 1)
+    del prod
+    torch.cuda.empty_cache()
+    out.update(ok=ok and rok, max_abs_err=err, rel_err=err / scale,
+               ragged_err=rerr, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bms, bound_by=by,
+               tolerance="max|kernel-plain| <= 1e-4 * max|plain|")
+    log("plane_build: kernel %.3f ms, plain %.3f ms, library (ifft+abs^2) "
+        "%.3f ms, bound %.3f ms (%s)" % (ms, plain_ms, lib_ms, bms, by))
+    return out, S
+
+
+def check_stage_reduce(s, S, gen):
+    """Kernel 2 on a real bench plane, and at a ragged 5-stage shape."""
+    from presto_tpu_torch.search import accel, accel_cuda, build_cuda
+    nblocks, nb_pad, numr = s.plane_geom()
+    plane = build_cuda.build_plane(S, s._kbank, s.numz_pad, nb_pad,
+                                   s.cfg.uselen, s.hw_eff * 2)
+    slab, _k, start_cols = s.slab_plan(numr)
+    scols = torch.tensor(start_cols, dtype=torch.int32, device="cuda")
+    nst = s.cfg.numharmstages
+    args = (plane, scols, s._zinds, slab, nst)
+    gm, gz = accel_cuda.reduce_stages(*args)
+    wm, wz = accel_cuda.reduce_stages_plain(*args)
+    torch.cuda.synchronize()
+    err = float((gm - wm).abs().max())
+    zeq = bool((gz == wz).all())
+    log("stage_reduce bench: plane %s, %d slabs of %d, %d stages; "
+        "max_abs_err %.3g, colz equal %s" % (tuple(plane.shape),
+                                             len(start_cols), slab, nst,
+                                             err, zeq))
+    ok = err == 0.0 and zeq
+    # ragged: 16 harmonics (5 stages), 29 rows, unaligned slabs
+    cfg = accel.AccelConfig(zmax=28, numharm=16)
+    fz = accel._harm_fracs_and_zinds(cfg, cfg.numz)
+    zi = torch.tensor(np.stack([np.concatenate([z, np.arange(cfg.numz, 32)])
+                                for st in fz for (_h, _t, z) in st]),
+                      dtype=torch.int32, device="cuda")
+    P = torch.rand((32, 5000), generator=gen, device="cuda")
+    sc = torch.tensor([0, 1234, 3999], dtype=torch.int32, device="cuda")
+    rm, rz = accel_cuda.reduce_stages(P, sc, zi, 1000, 5)
+    pm, pz = accel_cuda.reduce_stages_plain(P, sc, zi, 1000, 5)
+    rerr = float((rm - pm).abs().max())
+    rok = rerr == 0.0 and bool((rz == pz).all())
+    log("stage_reduce ragged (5 stages, 32 rows, slabs of 1000): "
+        "max_abs_err %.3g %s" % (rerr, "ok" if rok else "FAIL"))
+    nterms = (1 << (nst - 1)) - 1
+    ncols = len(start_cols) * slab
+    nbytes = plane.numel() * 4 + scols.numel() * 4 + s._zinds.numel() * 4 \
+        + 2 * len(start_cols) * nst * slab * 4
+    flops = ncols * plane.shape[0] * (nterms + nst)
+    bms, by = bound_ms(nbytes, flops)
+    ms = cuda_time_ms(lambda: accel_cuda.reduce_stages(*args))
+    plain_ms = cuda_time_ms(lambda: accel_cuda.reduce_stages_plain(*args),
+                            1)
+    del plane
+    torch.cuda.empty_cache()
+    log("stage_reduce: kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s)"
+        % (ms, plain_ms, bms, by))
+    return dict(ok=ok and rok, max_abs_err=err, ragged_err=rerr, ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                bound_by=by, tolerance="exact (same float32 add order)")
+
+
+def synth_filterbank(path, gen, N, nchan, dt, lofreq, cw, f0, fdot, dm,
+                     width):
+    """Seeded 8-bit filterbank made on the card: gaussian pulses (fwhm
+    ``width`` turns) dispersed by the cold-plasma delay, baseline 32, noise
+    sigma 6, quantized x4 like models/synth.fake_filterbank_file."""
+    from presto_tpu_torch.io.sigproc import FilterbankHeader, write_filterbank
+    from presto_tpu_torch.ops.dedispersion import delay_from_dm
+    freqs = lofreq + np.arange(nchan) * cw
+    delays = delay_from_dm(dm, freqs)
+    delays = torch.tensor(delays - delays.min(), dtype=torch.float64,
+                          device="cuda")
+    out = torch.empty((N, nchan), dtype=torch.uint8, device="cuda")
+    sig = width / 2.35482
+    step = 1 << 20
+    for t0 in range(0, N, step):
+        t = (torch.arange(t0, min(N, t0 + step), device="cuda",
+                          dtype=torch.float64) + 0.5) * dt
+        tc = t[:, None] - delays[None, :]
+        ph = torch.remainder(f0 * tc + 0.5 * fdot * tc * tc, 1.0)
+        pulse = torch.exp(-0.5 * ((ph - 0.5) / sig) ** 2).float()
+        x = 32.0 + 1.0 * pulse + 6.0 * torch.randn(
+            pulse.shape, generator=gen, device="cuda")
+        out[t0:t0 + t.shape[0]] = torch.clamp(torch.round(x * 4.0),
+                                              0, 255).to(torch.uint8)
+    hdr = FilterbankHeader(source_name="FAKEPSR", machine_id=10,
+                           telescope_id=6, fch1=lofreq + (nchan - 1) * cw,
+                           foff=-cw, nchans=nchan, nbits=8,
+                           tstart=59000.0, tsamp=dt, nifs=1,
+                           rawdatafile=os.path.basename(path))
+    write_filterbank(path, hdr, out.cpu().numpy())
+
+
+def phase_main(workdir, gen):
+    from presto_tpu_torch.pipeline import fusion, survey
+    from presto_tpu_torch.search import accel_cuda, build_cuda
+    N, nchan, dt, lofreq, cw = 1 << 22, 128, 1.28e-4, 1214.0, 3.0
+    # 0.5 ms pulses: one DM step (0.2) smears 0.24 ms across the band
+    f0, fdot, dm, width = 40.3, 1.4e-4, 22.0, 0.02
+    stages = {}
+    t0 = time.time()
+    raw = os.path.join(workdir, "psr.fil")
+    synth_filterbank(raw, gen, N, nchan, dt, lofreq, cw, f0, fdot, dm,
+                     width)
+    stages["synth_s"] = time.time() - t0
+    cfg = survey.SurveyConfig(lodm=20.0, hidm=24.0, nsub=32, zmax=200,
+                              numharm=8, skip_rfifind=True,
+                              singlepulse=False, fold_top=0,
+                              durable_stages=True)
+    build_cuda.launches = 0
+    accel_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    seam = survey.survey_head(raw, cfg, workdir, device="cuda")
+    torch.cuda.synchronize()
+    stages["survey_head_s"] = time.time() - t0
+    t0 = time.time()
+    cands = survey.seam_fft_search(seam, cfg, device="cuda")
+    torch.cuda.synchronize()
+    stages["fft_search_s"] = time.time() - t0
+    launches = {"plane_build": build_cuda.launches,
+                "stage_reduce": accel_cuda.launches}
+    ndms = len(cands)
+    block = seam.blocks[0]
+    nbins = (block.numout & ~1) // 2
+    T = block.numout * dt
+    stages["fft_search_per_dm_s"] = stages["fft_search_s"] / max(ndms, 1)
+    # one DM's breakdown: searcher set-up (host kernel bank), search_many
+    # (device + collect), eliminate_harmonics + remove_duplicates (host)
+    n = block.numout & ~1
+    pairs = fusion.fused_rfft_batch(block.series_dev[:1, :n])
+    t0 = time.time()
+    searcher = survey.searcher_for(cfg, T, nbins, device="cuda")
+    torch.cuda.synchronize()
+    stages["one_dm_setup_s"] = time.time() - t0
+    t0 = time.time()
+    raw1 = searcher.search_many(pairs)[0]
+    stages["one_dm_search_s"] = time.time() - t0
+    t0 = time.time()
+    survey.remove_duplicates(survey.eliminate_harmonics(raw1))
+    stages["one_dm_post_s"] = time.time() - t0
+    stages["one_dm_raw_cands"] = len(raw1)
+    # the device share of the survey head: one streamed dedispersion
+    # step at the main path's block shape and delay plan, times blocks
+    from presto_tpu_torch.apps import common, prepsubband
+    from presto_tpu_torch.ops import dedispersion as dd
+    fb = common.open_raw(raw)
+    args = prepsubband.build_parser().parse_args(
+        ["-lodm", "20", "-dmstep", "0.2", "-numdms", str(ndms), "-nsub",
+         "32", "-nobary", raw])
+    _dms, chan_bins, dm_bins = prepsubband.plan_delays(fb.header, args)
+    blocklen = common.stream_blocklen(nchan, int(max(chan_bins.max(),
+                                                     dm_bins.max())), N)
+    fb.close()
+    step = dd.make_block_step(chan_bins, dm_bins, 32)
+    blk = [torch.rand((nchan, blocklen), generator=gen, device="cuda")
+           for _ in range(2)]
+    sub0 = dd.dedisp_subbands_block(blk[0], blk[1], chan_bins, 32)
+    stages["dedisp_step_ms"] = cuda_time_ms(
+        lambda: step(blk[0], blk[1], sub0))
+    stages["dedisp_blocks"] = -(-N // blocklen) + 2
+    log("main: %d DMs (DDplan %g-%g, nsub 32), numout %d (%d bins), "
+        "zmax 200, numharm 8" % (ndms, cfg.lodm, cfg.hidm, block.numout,
+                                 nbins))
+    log("main: stage times %s" % json.dumps(
+        {k: round(v, 3) for k, v in stages.items()}))
+    log("main: launches %s" % json.dumps(launches))
+    best_name, best = max(((k, c) for k, cs in cands.items() for c in cs
+                           if c.r / T > cfg.flo),
+                          key=lambda kc: kc[1].sigma)
+    bdm = float(best_name.rsplit("_DM", 1)[1])
+    f = best.r / T
+    h = max(1, round(f / f0))
+    log("main: best candidate DM %.2f, f %.6f Hz (harmonic %d of %.2f), "
+        "z %.1f, sigma %.1f, numharm %d" % (bdm, f, h, f0, best.z,
+                                           best.sigma, best.numharm))
+    ok = (abs(bdm - dm) <= 0.21 and abs(f / h - f0) < 0.1
+          and nbins == 1 << 21
+          and all(v == ndms > 0 for v in launches.values()))
+    return dict(ok=ok, ndms=ndms, nbins=nbins, stages=stages,
+                launches=launches, best_dm=bdm, best_freq=f,
+                best_sigma=best.sigma, best_z=best.z)
+
+
+def phase_small_reference(gen):
+    """A small spectrum searched on the card and by the plain versions
+    on the CPU: the strong candidates' keys agree, powers within 1e-4."""
+    from presto_tpu_torch.search import accel
+    n = 1 << 16
+    t = np.arange(n) * 1e-3
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=n) + 0.1 * np.cos(2 * np.pi * (37.3 * t
+                                                       + 0.002 * t * t))
+    full = np.fft.rfft(x)
+    packed = full[:-1].copy()
+    packed[0] = full[0].real + 1j * full[-1].real
+    pairs = np.stack([packed.real, packed.imag], -1).astype(np.float32)
+    cfg = accel.AccelConfig(zmax=20, numharm=8, sigma=3.0)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        s = accel.AccelSearch(cfg, T=n * 1e-3, numbins=n // 2, device=dev)
+        res[dev] = s.search(pairs)
+    key = lambda c: (c.numharm, round(2 * c.r), round(2 * c.z))  # noqa
+    strong = {key(c): c.power for c in res["cpu"]
+              if c.power > 1.01 * s.powcut[int(np.log2(c.numharm))]}
+    got = {key(c): c.power for c in res["cuda"]}
+    ok = bool(strong) and all(
+        k in got and abs(got[k] - p) <= 1e-4 * p for k, p in strong.items())
+    log("small reference: %d strong CPU candidates, card list %d, agree %s"
+        % (len(strong), len(got), ok))
+    return ok
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import presto_tpu_torch  # noqa: F401  (fails outside the repo)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log("card: %s" % card)
+    t_start = time.time()
+    results = {"card": card}
+    results["build_s"] = phase_build()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+    s, nbins = bench_searcher()
+    k1, S = check_plane_build(s, nbins, gen)
+    k2 = check_stage_reduce(s, S, gen)
+    del S, s
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        main_res = phase_main(work, gen)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    small_ok = phase_small_reference(gen)
+    results.update(plane_build=k1, stage_reduce=k2, main=main_res,
+                   small_reference_ok=small_ok,
+                   total_s=time.time() - t_start)
+    kernels = []
+    for name, src, rep, k in (
+            ("plane_build", "presto_tpu_torch/csrc/plane_build.cu",
+             "presto_tpu/search/build_pallas.py:136", k1),
+            ("stage_reduce", "presto_tpu_torch/csrc/stage_reduce.cu",
+             "presto_tpu/search/accel_pallas.py:245", k2)):
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep,
+                        "launches": main_res["launches"][name],
+                        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                        "bound_by": k["bound_by"],
+                        "library_ms": k["library_ms"], "ok": k["ok"],
+                        "tolerance": k["tolerance"]})
+    log("results: %s" % json.dumps(results, default=float))
+    failed = [n for n, ok in (("plane_build", k1["ok"]),
+                              ("stage_reduce", k2["ok"]),
+                              ("main", main_res["ok"]),
+                              ("small_reference", small_ok)) if not ok]
+    if failed:
+        print("chip_smoke: FAILED phases: %s" % failed, file=sys.stderr)
+        return 1
+    log("total %.1f s" % results["total_s"])
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,179 @@
+"""Shared app plumbing the slice needs (host copy, trimmed).
+
+Copy of the parts of ``presto_tpu/apps/common.py`` that the
+prepsubband streaming loop uses: the raw-data flags, BlockPrep (per-
+block clipping, on by default), stream_blocklen, pad_to_good_N,
+set_onoff and fil_to_inf.  The port reads SIGPROC filterbanks only;
+PSRFITS input and barycentring are left for later slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Optional, Tuple
+
+import numpy as np
+
+from presto_tpu_torch.io.infodata import InfoData
+from presto_tpu_torch.io.sigproc import FilterbankFile
+from presto_tpu_torch.ops.clipping import clip_times, remove_zerodm
+from presto_tpu_torch.utils.psr import choose_N, good_fft_size
+
+
+def add_common_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-o", dest="outfile", type=str, required=False,
+                   help="Root of the output file names")
+    p.add_argument("-ncpus", type=int, default=1,
+                   help="Accepted for parity")
+
+
+def add_raw_flags(p: argparse.ArgumentParser) -> None:
+    """The raw-data input flags of the prep family."""
+    p.add_argument("-filterbank", action="store_true",
+                   help="Raw data in SIGPROC filterbank format")
+    p.add_argument("-psrfits", action="store_true",
+                   help="Raw data in PSRFITS format (not in the port yet)")
+    p.add_argument("-invert", action="store_true",
+                   help="For rawdata, flip (or invert) the band")
+    p.add_argument("-noclip", action="store_true",
+                   help="Do not clip the data (default is to clip)")
+    p.add_argument("-offset", type=int, default=0,
+                   help="Number of spectra to offset into as starting "
+                        "data point")
+    p.add_argument("-start", type=float, default=0.0,
+                   help="Starting point of the processing as a fraction "
+                        "of the full obs")
+
+
+def open_raw(paths) -> FilterbankFile:
+    """Open one SIGPROC filterbank (the only format in this slice)."""
+    if isinstance(paths, str):
+        paths = [paths]
+    if len(paths) != 1:
+        raise NotImplementedError("multi-file observations come in a "
+                                  "later slice of the port")
+    if paths[0].endswith((".fits", ".sf", ".fit")):
+        raise NotImplementedError("PSRFITS input comes in a later slice "
+                                  "of the port")
+    return FilterbankFile(paths[0])
+
+
+def clip_sigma_from(args) -> float:
+    """-noclip beats -clip (the reference's noclipP sets clip=0)."""
+    if getattr(args, "noclip", False):
+        return 0.0
+    return getattr(args, "clip", 6.0)
+
+
+def start_skip_spectra(args, N: int) -> int:
+    """First spectrum to process from -offset/-start."""
+    skip = int(getattr(args, "offset", 0) or 0)
+    frac = float(getattr(args, "start", 0.0) or 0.0)
+    if frac > 0.0:
+        skip = max(skip, int(frac * N))
+    return min(skip, N)
+
+
+class BlockPrep:
+    """Per-block preprocessing: band invert, clipping (with carry
+    state), zero-DM removal, running-average subtraction
+    (read_psrdata/prep_subbands, backend_common.c:505-738).  Masks
+    come with rfifind in a later slice."""
+
+    def __init__(self, args):
+        self.invert = bool(getattr(args, "invert", False))
+        self.clip = clip_sigma_from(args)
+        self.zerodm = bool(getattr(args, "zerodm", False))
+        self.runavg = bool(getattr(args, "runavg", False))
+        self._clip_state = None
+
+    def __call__(self, block):
+        """block: [T, C] float32 (ascending freq); returns same shape."""
+        if self.invert:
+            block = block[:, ::-1]
+        if self.clip > 0:
+            block, _, self._clip_state = clip_times(
+                block, self.clip, self._clip_state)
+        if self.zerodm:
+            block = remove_zerodm(block)
+        if self.runavg:
+            block = block - block.mean(axis=0, keepdims=True)
+        return block
+
+
+def pad_to_good_N(series: np.ndarray, numout: int = 0
+                  ) -> Tuple[np.ndarray, int, int]:
+    """Pad (with the per-series mean) or truncate the LAST axis to a
+    highly factorable length (choose_N(valid) when numout is 0).
+    Returns (padded, valid, numout)."""
+    valid = series.shape[-1]
+    if not numout:
+        numout = choose_N(valid) or good_fft_size(valid, multiple_of=2)
+    if numout > valid:
+        pad_shape = series.shape[:-1] + (numout - valid,)
+        mean = series.mean(axis=-1, keepdims=True)
+        series = np.concatenate(
+            [series, np.broadcast_to(mean.astype(series.dtype),
+                                     pad_shape)], axis=-1)
+    else:
+        series = series[..., :numout]
+        valid = numout
+    return series, valid, numout
+
+
+def set_onoff(info: InfoData, valid: int, numout: int) -> None:
+    """Record the data/padding boundary in the .inf when padding was
+    added (makeinf.h onoff semantics)."""
+    if numout > valid:
+        info.numonoff = 2
+        info.onoff = [(0.0, float(valid - 1)),
+                      (float(numout - 1), float(numout - 1))]
+
+
+# sigproc telescope_id -> name (get_telescope_name, sigproc_fb.c:70-140)
+SIGPROC_TELESCOPES = {
+    0: "Fake", 1: "Arecibo", 2: "Ooty", 3: "Nancay", 4: "Parkes",
+    5: "Jodrell", 6: "GBT", 7: "GMRT", 8: "Effelsberg", 9: "ATA",
+    10: "SRT", 11: "LOFAR", 12: "VLA", 64: "MeerKAT", 65: "KAT-7",
+}
+
+
+def sigproc_coord_to_str(coord: float) -> str:
+    """sigproc packed coordinate (hhmmss.s / ddmmss.s) -> 'hh:mm:ss.ssss'."""
+    sign = "-" if coord < 0 else ""
+    c = abs(float(coord))
+    hh = int(c / 10000.0)
+    mm = int((c - hh * 10000.0) / 100.0)
+    ss = c - hh * 10000.0 - mm * 100.0
+    return "%s%.2d:%.2d:%07.4f" % (sign, hh, mm, ss)
+
+
+def fil_to_inf(fb: FilterbankFile, outbase: str, N: int,
+               dm: float = 0.0, bary: int = 0) -> InfoData:
+    hdr = fb.header
+    tel = SIGPROC_TELESCOPES.get(getattr(hdr, "telescope_id", -1),
+                                 "Unknown")
+    return InfoData(
+        name=outbase, telescope=tel, instrument="Unknown",
+        ra_str=sigproc_coord_to_str(getattr(hdr, "src_raj", 0.0)),
+        dec_str=sigproc_coord_to_str(getattr(hdr, "src_dej", 0.0)),
+        object=hdr.source_name or "Unknown",
+        mjd_i=int(hdr.tstart), mjd_f=hdr.tstart % 1.0, bary=bary,
+        N=float(N), dt=hdr.tsamp, band="Radio", dm=dm,
+        freq=hdr.lofreq, freqband=abs(hdr.foff) * hdr.nchans,
+        num_chan=hdr.nchans, chan_wid=abs(hdr.foff),
+        analyzer="presto_tpu")
+
+
+def stream_blocklen(nchan: int, maxd: int,
+                    nspec: Optional[int] = None) -> int:
+    """Streaming block length for the two-block dedispersion window:
+    at most a ~128 MB [nchan, blocklen] float32 block, longer than the
+    largest delay, clamped to the observation (a mostly-zero block
+    would poison the clipper's running statistics)."""
+    budget = (1 << 25) // max(nchan, 1)
+    base = max(1 << 12, min(1 << 17, budget))
+    blocklen = max(base, 1 << (maxd + 1).bit_length())
+    if nspec is not None and 0 < nspec < blocklen:
+        blocklen = max(int(nspec), 1 << (maxd + 1).bit_length())
+    return blocklen

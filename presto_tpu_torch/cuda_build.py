@@ -1,0 +1,92 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` carries a plain C entry point and is compiled
+with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
+``_build/lib<name>-<source hash>.so`` inside this package (listed in
+``.gitignore``), then loaded with ``ctypes``.  The build runs at first
+use; ``build_all`` starts one nvcc per source at once.  A missing
+toolchain raises: nothing falls back to another implementation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, Sequence
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "presto_tpu_torch need the CUDA toolkit")
+    return path
+
+
+def _target(name: str) -> str:
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + ARCH.encode()).hexdigest()
+    return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, digest[:12]))
+
+
+def _start(name: str):
+    """Start nvcc for one source (None when the library is current)."""
+    out = _target(name)
+    if os.path.exists(out):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = "%s.%d.tmp" % (out, os.getpid())
+    cmd = [nvcc(), ARCH, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
+           os.path.join(CSRC, name + ".cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> str:
+    if job is None:
+        return ""
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed for %s.cu:\n%s" % (name, log))
+    os.replace(tmp, out)
+    return log
+
+
+def build_all(names: Sequence[str]) -> Dict[str, str]:
+    """Compile every named source in parallel; returns nvcc's output
+    (register and shared-memory use from ``-Xptxas -v``) per name."""
+    jobs = {n: _start(n) for n in names}
+    return {n: _finish(n, j) for n, j in jobs.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built if needed)."""
+    lib = _libs.get(name)
+    if lib is None:
+        t0 = time.time()
+        _finish(name, _start(name))
+        lib = ctypes.CDLL(_target(name))
+        lib.build_seconds = time.time() - t0
+        _libs[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t from a C entry point."""
+    if rc != 0:
+        raise RuntimeError("%s: CUDA error %d" % (what, rc))

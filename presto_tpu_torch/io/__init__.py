@@ -1,0 +1,1 @@
+"""io layer of the PyTorch port (mirrors presto_tpu/io)."""

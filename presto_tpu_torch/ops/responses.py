@@ -1,0 +1,152 @@
+"""Fourier-domain response templates (host-side, float64 numpy).
+
+Host copy of ``presto_tpu/ops/responses.py`` for the PyTorch port, which imports
+nothing from the JAX package.
+
+Parity targets: reference src/responses.c.
+  r_resp_halfwidth      responses.c:11-27
+  z_resp_halfwidth      responses.c:29-66
+  gen_r_response        responses.c:165-232  (sinc interpolation kernel)
+  gen_z_response        responses.c:234-322  (constant-fdot template via
+                                              Fresnel integrals)
+  place_complex_kernel  corr_prep.c:58-80    (NR wrap-around placement)
+  spread_no_pad         corr_prep.c:28-40    (interbin zero interleave)
+
+These run once at search setup in float64 (SURVEY.md §7.3 hard part 2:
+Fresnel accuracy is a setup-time concern, so it stays on host at full
+precision); the resulting kernel banks move to device as float32 pairs.
+The port keeps the z-only parts: the jerk (w) and binary-orbit responses
+are left for later slices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+from scipy.special import fresnel as _fresnel
+
+# Reference constants (include/presto.h:100-108)
+NUMLOCPOWAVG = 20
+DELTAAVGBINS = 5
+NUMFINTBINS = 16
+
+LOWACC, HIGHACC = 0, 1
+
+
+def r_resp_halfwidth(accuracy: int = LOWACC) -> int:
+    """Kernel half width (bins) for plain Fourier interpolation."""
+    if accuracy == HIGHACC:
+        return NUMFINTBINS * 3 + (NUMLOCPOWAVG // 2) + DELTAAVGBINS
+    return NUMFINTBINS
+
+
+def z_resp_halfwidth(z: float, accuracy: int = LOWACC) -> int:
+    """Kernel half width (bins) for constant-fdot interpolation.
+
+    Parity: responses.c:29-66 including the large-z clamps.
+    """
+    z = abs(z)
+    if accuracy == HIGHACC:
+        m = int(z * (0.002057 * z + 0.0377) + NUMFINTBINS * 3)
+        m += (NUMLOCPOWAVG // 2) + DELTAAVGBINS
+        if z > 100 and m > 1.2 * z:
+            m = int(1.2 * z)
+    else:
+        m = int(z * (0.00089 * z + 0.3131) + NUMFINTBINS)
+        m = max(m, NUMFINTBINS)
+        if z > 100 and m > 0.6 * z:
+            m = int(0.6 * z)
+    return m
+
+
+def gen_r_response(roffset: float, numbetween: int,
+                   numkern: int) -> np.ndarray:
+    """Complex response for Fourier interpolation at fractional offset.
+
+    Bin-zero response sits at index numkern//2 (the NR convention that
+    place_complex_kernel expects).  Parity: responses.c:165-232.
+    """
+    assert 0.0 <= roffset < 1.0
+    assert numkern >= numbetween and numkern % (2 * numbetween) == 0
+    startr = np.pi * (numkern / (2.0 * numbetween) + roffset)
+    delta = -np.pi / numbetween
+    r = startr + np.arange(numkern, dtype=np.float64) * delta
+    s, c = np.sin(r), np.cos(r)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sinc = np.where(r == 0.0, 1.0, s / r)
+    resp = (c + 1j * s) * sinc
+    if roffset < 1e-3:
+        # series patch for the removable singularity at r = 0
+        tmp = roffset * roffset
+        resp[numkern // 2] = ((1.0 - 6.579736267392905746 * tmp)
+                              + 1j * roffset *
+                              (np.pi - 10.335425560099940058 * tmp))
+    return resp
+
+
+def gen_z_response(roffset: float, numbetween: int, z: float,
+                   numkern: int) -> np.ndarray:
+    """Complex response for constant-fdot (z bins of drift) interpolation.
+
+    Built from Fresnel integrals; parity: responses.c:234-322 including
+    the small-|z| series patch.  z ~ 0 falls back to gen_r_response.
+    """
+    assert 0.0 <= roffset < 1.0
+    assert numkern >= numbetween and numkern % (2 * numbetween) == 0
+    absz = abs(z)
+    if absz < 1e-4:
+        return gen_r_response(roffset, numbetween, numkern)
+
+    startr = roffset - 0.5 * z
+    startroffset = startr % 1.0 if startr >= 0 else 1.0 + (startr % -1.0)
+    signz = -1 if z < 0.0 else 1
+    zd = signz * np.sqrt(2.0) / np.sqrt(absz)
+    cons = zd / 2.0
+    pibyz = np.pi / z
+    startr += numkern / (2.0 * numbetween)
+    delta = -1.0 / numbetween
+
+    r = startr + np.arange(numkern, dtype=np.float64) * delta
+    yy = r * zd
+    zz = yy + z * zd
+    xx = pibyz * r * r
+    c, s = np.cos(xx), np.sin(xx)
+    fressy, frescy = _fresnel(yy)
+    fressz, frescz = _fresnel(zz)
+    tmprl = signz * (frescz - frescy)
+    tmpim = fressy - fressz
+    resp = ((tmprl * c - tmpim * s) - 1j * (tmprl * s + tmpim * c)) * cons
+
+    if startroffset < 1e-3 and absz < 1e-3:
+        zz2 = z * z
+        xx2 = startroffset * startroffset
+        m = numkern // 2
+        rr = 1.0 - 0.16449340668482264365 * zz2 \
+            + startroffset * 1.6449340668482264365 * z \
+            + xx2 * (-6.579736267392905746 + 0.9277056288952613070 * zz2)
+        ii = -0.5235987755982988731 * z \
+            + startroffset * (np.pi - 0.5167712780049970029 * zz2) \
+            + xx2 * (3.1006276680299820175 * z)
+        resp[m] = rr + 1j * ii
+    return resp
+
+
+def place_complex_kernel(kernel: np.ndarray, fftlen: int) -> np.ndarray:
+    """Zero-filled length-fftlen array with the kernel's bin-zero point
+    (index numkern/2) at index 0 and wrap-around halves (NR layout).
+    Parity: corr_prep.c:58-80."""
+    numkern = kernel.shape[0]
+    half = numkern // 2
+    out = np.zeros(fftlen, dtype=np.complex128)
+    out[:half] = kernel[half:]
+    out[fftlen - half:] = kernel[:half]
+    return out
+
+
+def spread_no_pad(data: np.ndarray, numbetween: int,
+                  numresult: int) -> np.ndarray:
+    """Interleave numbetween-1 zeros between complex samples.
+    Parity: corr_prep.c:28-40."""
+    out = np.zeros(numresult, dtype=data.dtype)
+    n = min(numresult // numbetween, data.shape[0])
+    out[:n * numbetween:numbetween] = data[:n]
+    return out

@@ -1,0 +1,1 @@
+"""pipeline layer of the PyTorch port (mirrors presto_tpu/pipeline)."""

@@ -1,0 +1,154 @@
+"""In-memory stage seam between the survey's stages (single device).
+
+PyTorch counterpart of ``presto_tpu/pipeline/fusion.py``: prepsubband
+deposits the dedispersed DM fan-out as a device tensor
+(:class:`SeamBlock`) in a :class:`StageSeam`, and the FFT + search
+stage reads it without a disk round trip.  The durable tier also
+writes each trial's ``.dat`` from the bit-identical host copy, so the
+artifacts equal a staged run's.  :class:`DoubleBufferedIngest` decodes
+and preprocesses block k+1 on a worker thread while block k is on the
+device.  Sharded seams, telemetry and the artifact journal come in
+later slices.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+from dataclasses import dataclass
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from presto_tpu_torch.io.datfft import write_dat
+from presto_tpu_torch.io.infodata import write_inf
+from presto_tpu_torch.ops import fftpack
+
+DEFAULT_INGEST_DEPTH = 2     # host blocks decoded ahead of the device
+
+
+def inf_float(x, digits: int = 15) -> float:
+    """The value a staged consumer reads back from a ``.inf`` sidecar
+    (the ``%.15g`` text round trip of io/infodata)."""
+    return float(("%%.%dg" % int(digits)) % float(x))
+
+
+class DoubleBufferedIngest:
+    """Iterate ``source`` on a worker thread, ``depth`` items ahead.
+    Items arrive in order; a producer exception is re-raised at the
+    consumer's next pull; close() always joins the thread."""
+
+    def __init__(self, source: Iterator,
+                 depth: int = DEFAULT_INGEST_DEPTH):
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(depth)))
+        self._stop = threading.Event()
+        self._done = object()
+        self._exc: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._run, args=(source,), daemon=True,
+            name="presto-ingest")
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _run(self, source) -> None:
+        try:
+            for item in source:
+                if not self._put(item):
+                    return
+        except BaseException as e:           # relay to the consumer
+            self._exc = e
+        finally:
+            self._put(self._done)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._done:
+            if self._exc is not None:
+                exc, self._exc = self._exc, None
+                raise exc
+            raise StopIteration
+        return item
+
+    def close(self) -> None:
+        self._stop.set()
+        try:                                 # unblock a full queue
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=10.0)
+
+
+@dataclass
+class SeamBlock:
+    """One prepsubband method's DM fan-out held at the seam: the padded
+    device series, its bit-identical host copy and per-trial metadata."""
+    names: List[str]            # per-trial base paths (no extension)
+    infos: List[object]         # per-trial InfoData
+    dms: List[float]
+    series_dev: Optional[torch.Tensor]   # [ntrials, numout] float32
+    series_host: np.ndarray     # same values, host side
+    valid: int                  # data samples before the pad
+    numout: int                 # padded length
+    dt: float                   # post-downsample sample time
+
+
+class StageSeam:
+    """In-memory seam between survey stages.  ``durable`` writes each
+    deposited block's ``.dat`` at once (the staged contract); ``.inf``
+    sidecars are written on every tier."""
+
+    def __init__(self, workdir: str, durable: bool = True):
+        self.workdir = os.path.abspath(workdir)
+        self.durable = bool(durable)
+        self.blocks: List[SeamBlock] = []
+
+    def add_block(self, block: SeamBlock) -> None:
+        self.blocks.append(block)
+        for row, name in enumerate(block.names):
+            write_inf(block.infos[row], name + ".inf")
+        if self.durable:
+            self.spill(block)
+
+    def __len__(self) -> int:
+        return sum(len(b.names) for b in self.blocks)
+
+    def dat_paths(self) -> List[str]:
+        return sorted(os.path.abspath(n + ".dat")
+                      for b in self.blocks for n in b.names)
+
+    def groups(self) -> Dict[int, List[SeamBlock]]:
+        """Blocks grouped by padded length (the FFT/search batch axis)."""
+        by_len: Dict[int, List[SeamBlock]] = {}
+        for b in self.blocks:
+            by_len.setdefault(b.numout, []).append(b)
+        return by_len
+
+    def spill(self, block: SeamBlock) -> int:
+        """Write one block's ``.dat`` + ``.inf`` from the host copy;
+        returns the bytes written."""
+        total = 0
+        for row, name in enumerate(block.names):
+            write_dat(name + ".dat", block.series_host[row],
+                      block.infos[row])
+            total += block.series_host[row].nbytes
+        return total
+
+
+def fused_rfft_batch(series_dev: torch.Tensor) -> torch.Tensor:
+    """Batched packed real FFT of a seam block [n, N] -> float32 pairs
+    [n, N/2, 2] on the same device."""
+    return fftpack.realfft_packed_pairs(series_dev)

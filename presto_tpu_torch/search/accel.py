@@ -1,0 +1,635 @@
+"""Fourier-domain F–Fdot acceleration search, on PyTorch and CUDA.
+
+PyTorch counterpart of ``presto_tpu/search/accel.py``.  The port has
+ONE geometry and ONE engine: the JAX package's TPU path, i.e. the
+aligned direct-plane geometry (uselen a multiple of 128 filling the
+FFT length beside a 128-aligned output offset) with
+
+  * the plane build as a CUDA kernel (search/build_cuda.py, the
+    counterpart of search/build_pallas.py), fed by forward spectra from
+    ``torch.fft`` (the JAX package computes those outside Pallas too);
+  * the staged harmonic sum as a CUDA kernel (search/accel_cuda.py, the
+    counterpart of search/accel_pallas.py);
+  * threshold + segment-max + top-k + per-trial compaction in torch,
+    with ties broken by lowest index like ``jax.lax.top_k``;
+  * candidate sigma math on the host in float64.
+
+Reference call stack (src/accelsearch.c:134-221, src/accel_utils.c):
+subharm_ffdot_plane builds the plane per r-block, inmem harmonic sums
+add subharmonic cells, search_ffdotpows thresholds at powcut[stage].
+
+Left for later slices: the jerk search (wmax), tuning-database lookups
+and telemetry.  Nothing here reads environment variables.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from presto_tpu_torch.ops import responses as resp
+from presto_tpu_torch.ops import stats as st
+from presto_tpu_torch.search import accel_cuda, build_cuda
+from presto_tpu_torch.utils.psr import next2_to_n
+
+# Search grid constants (include/accel.h:18-31)
+ACCEL_NUMBETWEEN = 2
+ACCEL_DR = 0.5
+ACCEL_RDR = 2
+ACCEL_DZ = 2
+ACCEL_RDZ = 0.5
+ACCEL_CLOSEST_R = 15.0
+ACCEL_USELEN = 7470
+DBLCORRECT = 1e-14
+
+ROW_PAD = 8          # plane rows pad to a multiple of this (the JAX
+BLOCK_PAD = 8        # plane kernel's ZT/BB), and blocks, with >= 1 zero block
+SLAB_TILES = (1024, 512, 256)   # the JAX stage reducer's column tiles
+SEARCH_SEG = 16      # columns per segment-max before top-k (8 r-bins <
+                     # ACCEL_CLOSEST_R: merged candidates are ones the
+                     # r-dedup collapses anyway)
+COMPACT_CANDS = 2048  # default top-m budget per trial
+_CMP_ZBITS = 12      # compact meta word: zrow | stage << 12 | slab << 15
+_CMP_SBITS = 3
+MEM_HEADROOM = 0.9   # share of free device memory one trial may use
+
+
+def _nearest_int(x: float) -> int:
+    """Round half away from zero (the reference's NEAREST_INT)."""
+    return int(np.ceil(x - 0.5)) if x < 0 else int(np.floor(x + 0.5))
+
+
+def calc_required_z(harm_fract: float, zfull: float) -> float:
+    """z of the subharmonic for fundamental z (accel_utils.c:53-59)."""
+    return _nearest_int(ACCEL_RDZ * zfull * harm_fract) * ACCEL_DZ
+
+
+def index_from_z(z: float, loz: float) -> int:
+    return int((z - loz) * ACCEL_RDZ + DBLCORRECT)
+
+
+def calc_fftlen(numharm: int, harmnum: int, max_zfull: int,
+                uselen: int = ACCEL_USELEN) -> int:
+    """FFT length for a subharmonic block (accel_utils.c:116-131)."""
+    harm_fract = harmnum / numharm
+    bins_needed = uselen * harmnum // numharm + 2
+    z_req = calc_required_z(harm_fract, max_zfull)
+    hw = resp.z_resp_halfwidth(z_req, resp.LOWACC)
+    return next2_to_n(bins_needed + 2 * ACCEL_NUMBETWEEN * hw)
+
+
+@dataclass
+class AccelConfig:
+    zmax: int = 200              # max |z| searched (fundamental)
+    wmax: int = 0                # jerk search: not in this slice
+    numharm: int = 8             # max harmonics summed (power of two)
+    sigma: float = 2.0           # candidate sigma cutoff
+    rlo: float = 0.0             # min Fourier freq searched (bins)
+    rhi: float = 0.0             # 0 -> numbins - 1
+    flo: float = 1.0             # min freq (Hz) if rlo not given
+    uselen: int = ACCEL_USELEN   # half-bins of fundamental per block
+    max_cands_per_stage: int = 2048   # top-k size per (slab, stage)
+    norm: str = "median"         # "median" or "prenorm"
+
+    @property
+    def numharmstages(self) -> int:
+        return int(np.log2(self.numharm)) + 1
+
+    @property
+    def numz(self) -> int:
+        return (self.zmax // ACCEL_DZ) * 2 + 1
+
+
+@dataclass
+class AccelKernels:
+    """The z-response kernel bank for the fundamental (host-built in
+    float64, stored time-domain, centered in a common kmax-tap window)."""
+    fftlen: int
+    halfwidth: int
+    numz: int
+    zlo: int
+    kmax: int
+    kern_pairs: np.ndarray       # [numz, kmax, 2] float32, centered
+
+    @classmethod
+    def build(cls, cfg: AccelConfig) -> "AccelKernels":
+        """Parity: init_kernel (accel_utils.c:133-151) for harm 1/1."""
+        fftlen = calc_fftlen(1, 1, cfg.zmax, cfg.uselen)
+        halfwidth = resp.z_resp_halfwidth(float(cfg.zmax), resp.LOWACC)
+        numz = cfg.numz
+        kmax = 2 * ACCEL_NUMBETWEEN * halfwidth
+        kerns = np.zeros((numz, kmax), dtype=np.complex128)
+        zs = -cfg.zmax + np.arange(numz, dtype=np.float64) * ACCEL_DZ
+        for i in range(numz):
+            hw = resp.z_resp_halfwidth(float(zs[i]), resp.LOWACC)
+            numkern = min(2 * ACCEL_NUMBETWEEN * hw, kmax)
+            k = resp.gen_z_response(0.0, ACCEL_NUMBETWEEN, float(zs[i]),
+                                    numkern)
+            start = kmax // 2 - numkern // 2
+            kerns[i, start:start + numkern] = k[:numkern]
+        pairs = np.stack([kerns.real, kerns.imag],
+                         axis=-1).astype(np.float32)
+        return cls(fftlen=fftlen, halfwidth=halfwidth, numz=numz,
+                   zlo=-cfg.zmax, kmax=kmax, kern_pairs=pairs)
+
+
+def _harm_fracs_and_zinds(cfg: AccelConfig, numz: int):
+    """Per stage s >= 1, per odd harm < 2^s: (harm, 2^s, z-row map)
+    (inmem_add_ffdotpows index math, accel_utils.c:1160-1207)."""
+    out = []
+    zlo = -cfg.zmax
+    zs = zlo + np.arange(numz) * ACCEL_DZ
+    for stage in range(1, cfg.numharmstages):
+        harmtosum = 1 << stage
+        stage_list = []
+        for harm in range(1, harmtosum, 2):
+            frac = harm / harmtosum
+            zinds = np.array([index_from_z(calc_required_z(frac, z), zlo)
+                              for z in zs], dtype=np.int32)
+            stage_list.append((harm, harmtosum, zinds))
+        out.append(stage_list)
+    return out
+
+
+def _powcuts(cfg: AccelConfig, rlo: float, rhi: float):
+    """numindep and powcut per stage (accel_utils.c:1629-1641)."""
+    numindep, powcut = [], []
+    for ii in range(cfg.numharmstages):
+        harmtosum = 1 << ii
+        if cfg.numz == 1:
+            ni = (rhi - rlo) / harmtosum
+        else:
+            ni = ((rhi - rlo) * (cfg.numz + 1) * (ACCEL_DZ / 6.95)
+                  / harmtosum)
+        numindep.append(ni)
+        powcut.append(float(st.power_for_sigma(cfg.sigma, harmtosum, ni)))
+    return numindep, powcut
+
+
+def fft_kernel_bank(kern_pairs: np.ndarray, fftlen: int,
+                    device) -> torch.Tensor:
+    """Compact time-domain bank -> conjugated FFT'd complex64 bank
+    [numz, fftlen] (NR wrap placement, corr_prep.c:58-80, then a
+    complex64 forward FFT as the JAX package's _fft_kernel_bank_c)."""
+    kp = torch.as_tensor(np.ascontiguousarray(kern_pairs), device=device)
+    kc = torch.view_as_complex(kp)
+    half = kc.shape[-1] // 2
+    placed = torch.zeros((kc.shape[0], fftlen), dtype=torch.complex64,
+                         device=device)
+    placed[:, :half] = kc[:, half:]
+    placed[:, fftlen - half:] = kc[:, :half]
+    return torch.fft.fft(placed, dim=-1).conj_physical()
+
+
+def block_median_norms(data: torch.Tensor) -> torch.Tensor:
+    """Per-block median power normalization, 1/sqrt(median(|a|^2)/ln2)
+    (accel_utils.c:952-967); [B, numdata] complex -> [B, 1] float32.
+    The median of an even count is the mean of the two middle order
+    statistics, (lo + hi) * 0.5, as jnp.median computes it."""
+    pows = data.real ** 2 + data.imag ** 2
+    n = pows.shape[-1]
+    srt = torch.sort(pows, dim=-1).values
+    lo, hi = (n - 1) // 2, n // 2
+    med = (srt[:, lo] + srt[:, hi]) * 0.5
+    med = torch.clamp(med, min=1e-30)
+    ln2 = torch.log(torch.tensor(2.0, dtype=torch.float32,
+                                 device=data.device))
+    return (1.0 / torch.sqrt(med / ln2))[:, None]
+
+
+def _topk_desc(x: torch.Tensor, k: int):
+    """Top-k along the last axis, descending, ties to the lowest index
+    (the jax.lax.top_k order; torch.topk promises no tie order)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def collect_from_reduced(colmax: torch.Tensor, colz: torch.Tensor,
+                         powcuts: torch.Tensor, k: int) -> torch.Tensor:
+    """Threshold + segment-max + top-k over the reducer's [nslabs,
+    stages, slab] arrays -> packed int32 [3, nslabs, stages, kk]
+    (power bits, within-slab column, z row)."""
+    nslabs, nstages, slab = colmax.shape
+    nseg = -(-slab // SEARCH_SEG)
+    kk = min(k, nseg)
+    masked = torch.where(colmax > powcuts[None, :, None], colmax,
+                         torch.zeros((), dtype=colmax.dtype,
+                                     device=colmax.device))
+    masked = torch.nn.functional.pad(masked, (0, nseg * SEARCH_SEG - slab))
+    segs = masked.reshape(nslabs, nstages, nseg, SEARCH_SEG)
+    segmax, segarg = segs.max(dim=-1)          # first max on a tie
+    v, si = _topk_desc(segmax, kk)
+    ci = si * SEARCH_SEG + torch.gather(segarg, -1, si)
+    zrow = torch.gather(colz, -1, ci.clamp(max=slab - 1))
+    return torch.stack([v.view(torch.int32), ci.int(), zrow.int()])
+
+
+def compact_scan_packed(packed: torch.Tensor,
+                        m: int = COMPACT_CANDS) -> torch.Tensor:
+    """Top-m of one trial's packed [3, nslabs, stages, k] cells by power
+    -> int32 [3, m]: power bits, column, meta = zrow | stage << 12 |
+    slab << 15.  Lossless while fewer than m cells are positive
+    (collect_compacted raises otherwise)."""
+    valbits, cidx, zrow = packed[0], packed[1], packed[2]
+    nslabs, stages, k = valbits.shape
+    assert stages < (1 << _CMP_SBITS) and nslabs < (1 << 16), \
+        (nslabs, stages)
+    m = min(m, nslabs * stages * k)
+    dev = packed.device
+    si = torch.arange(nslabs, dtype=torch.int32, device=dev)[:, None, None]
+    sg = torch.arange(stages, dtype=torch.int32, device=dev)[None, :, None]
+    meta = zrow | (sg << _CMP_ZBITS) | (si << (_CMP_ZBITS + _CMP_SBITS))
+    v, idx = _topk_desc(valbits.view(torch.float32).reshape(-1), m)
+    return torch.stack([v.view(torch.int32), cidx.reshape(-1)[idx],
+                        meta.reshape(-1)[idx]])
+
+
+def _unpack_scan(packed: np.ndarray):
+    arr = np.asarray(packed)
+    return arr[0].view(np.float32), arr[1], arr[2]
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks
+    for the CPU; no CUDA device raises (nothing falls back)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("presto_tpu_torch: no CUDA device is available; "
+                           "pass device='cpu' to run the plain versions")
+    return dev
+
+
+@dataclass
+class AccelCand:
+    """A raw search candidate (accelcand, accel.h:76-86, minus the
+    optimization fields)."""
+    power: float
+    sigma: float
+    numharm: int
+    r: float
+    z: float
+    w: float = 0.0
+
+    def freq(self, T: float) -> float:
+        return self.r / T
+
+
+class AccelSearch:
+    """In-memory accelsearch over packed spectra on one device.
+
+        s = AccelSearch(cfg, T=obs_seconds, numbins=n)   # device="cuda"
+        per_dm = s.search_many(pairs_batch)   # [nd, numbins, 2] float32
+    """
+
+    def __init__(self, cfg: AccelConfig, T: float, numbins: int,
+                 device="cuda"):
+        if cfg.wmax:
+            raise NotImplementedError("the jerk search (wmax) is not "
+                                      "ported yet")
+        self.device = resolve_device(device)
+        max_uselen = max(64, 2 * (numbins - 16))
+        if cfg.uselen > max_uselen or cfg.uselen % 2:
+            cfg = replace(cfg, uselen=min(cfg.uselen & ~1, max_uselen))
+        # the aligned direct-plane geometry (accel.py:768-806 of the
+        # JAX package): only the DEFAULT uselen is retuned
+        if cfg.uselen == ACCEL_USELEN:
+            fft0 = calc_fftlen(1, 1, cfg.zmax, cfg.uselen)
+            hw0 = resp.z_resp_halfwidth(float(cfg.zmax), resp.LOWACC)
+            u_al = (fft0 - 4 * (-(-hw0 // 64) * 64)) & ~127
+            if (1024 <= u_al <= max_uselen
+                    and calc_fftlen(1, 1, cfg.zmax, u_al) == fft0):
+                cfg = replace(cfg, uselen=u_al)
+        self.cfg = cfg
+        self.T = T
+        self.numbins = numbins
+        self.rlo = cfg.rlo if cfg.rlo > 0 else max(cfg.flo * T, 8.0)
+        self.rhi = cfg.rhi if cfg.rhi > 0 else numbins - 1
+        kern = AccelKernels.build(cfg)
+        self._set_state(kern, _harm_fracs_and_zinds(cfg, cfg.numz),
+                        *_powcuts(cfg, self.rlo, self.rhi))
+
+    def _set_state(self, kern: AccelKernels, fracs_zinds, numindep,
+                   powcut) -> None:
+        """Install the search state: kernel bank, z-row maps, powcuts."""
+        cfg = self.cfg
+        self.kern = kern
+        self.hw_eff = -(-kern.halfwidth // 64) * 64
+        if not (kern.fftlen % 256 == 0 and cfg.uselen % 128 == 0
+                and cfg.uselen + 4 * self.hw_eff <= kern.fftlen):
+            raise ValueError(
+                "accel: the aligned plane geometry does not hold "
+                "(fftlen=%d, uselen=%d, halfwidth=%d); the port has no "
+                "other engine" % (kern.fftlen, cfg.uselen, kern.halfwidth))
+        self.fracs_zinds = fracs_zinds
+        self.numindep = list(numindep)
+        self.powcut = list(powcut)
+        self.numz_pad = -(-cfg.numz // ROW_PAD) * ROW_PAD
+        zi = [np.concatenate([np.asarray(z, np.int32),
+                              np.arange(cfg.numz, self.numz_pad,
+                                        dtype=np.int32)])
+              for stage in fracs_zinds for (_h, _t, z) in stage]
+        self._zinds = torch.as_tensor(
+            np.stack(zi) if zi else np.zeros((0, self.numz_pad), np.int32),
+            device=self.device).contiguous()
+        self._powcut_dev = torch.tensor(self.powcut, dtype=torch.float32,
+                                        device=self.device)
+        self._kbank = fft_kernel_bank(kern.kern_pairs, kern.fftlen,
+                                      self.device)
+
+    # -- plane ---------------------------------------------------------
+
+    def _plan_blocks(self):
+        """r-block starts (whole bins) from r=0; only full blocks below
+        rhi (accelsearch.c:167)."""
+        blocks = []
+        startr = 0.0
+        step = self.cfg.uselen * ACCEL_DR
+        while startr + step < self.rhi:
+            blocks.append(startr)
+            startr += step
+        return blocks
+
+    def plane_geom(self):
+        """(nblocks, nb_pad, plane_numr), or None for a spectrum too
+        short for one block.  The plane carries >= 1 zero block on the
+        right, like the JAX direct-plane builder's."""
+        nblocks = len(self._plan_blocks())
+        if not nblocks:
+            return None
+        nb_pad = -(-(nblocks + 1) // BLOCK_PAD) * BLOCK_PAD
+        return nblocks, nb_pad, nb_pad * self.cfg.uselen
+
+    def forward_spectra(self, pairs: torch.Tensor) -> torch.Tensor:
+        """Block read windows -> median-normalized forward spectra
+        S [nblocks, fftlen/2] complex64.  Window j is bins
+        [j*hop - hw_eff, j*hop - hw_eff + fftlen/2) of the spectrum
+        (hop = uselen/2), zero outside it."""
+        nblocks, _nb_pad, _numr = self.plane_geom()
+        numdata = self.kern.fftlen // 2
+        hop = self.cfg.uselen // 2
+        pad_hi = max(0, (nblocks - 1) * hop + numdata
+                     - (self.numbins + self.hw_eff))
+        c = torch.view_as_complex(torch.nn.functional.pad(
+            pairs, (0, 0, self.hw_eff, pad_hi)).contiguous())
+        frames = c.unfold(0, numdata, hop)[:nblocks]
+        if self.cfg.norm == "median":
+            frames = frames * block_median_norms(frames)
+        return torch.fft.fft(frames, dim=-1).contiguous()
+
+    def build_plane(self, pairs: torch.Tensor) -> torch.Tensor:
+        """The fundamental F-Fdot plane [numz_pad, plane_numr] of one
+        spectrum ([numbins, 2] float32 on the searcher's device): plane
+        column c is absolute half-bin c."""
+        _nblocks, nb_pad, _numr = self.plane_geom()
+        return build_cuda.build_plane(
+            self.forward_spectra(pairs), self._kbank, self.numz_pad,
+            nb_pad, self.cfg.uselen, self.hw_eff * ACCEL_NUMBETWEEN)
+
+    # -- search --------------------------------------------------------
+
+    def slab_plan(self, plane_numr: int, slab: int = 1 << 20):
+        """(slab, k, start_cols) covering [rlo, rhi) in aligned slabs,
+        the last one overlapped backwards (accel.py:1467-1555)."""
+        cfg = self.cfg
+        r0 = int(self.rlo) * ACCEL_RDR
+        self._r0min = r0
+        numr = min(int(self.rhi) * ACCEL_RDR, plane_numr) - r0
+        if numr <= 0:
+            return None
+        top = r0 + numr
+        self._rtop = top
+        slab = min(slab, numr)
+        # the JAX package's choice: its stage reducer (tile-aligned
+        # slabs) when a reducer tile divides the slab, else its XLA
+        # scanner aligned to numharm.  The CUDA reducer takes any slab;
+        # the same choice keeps the segment grid, and so the candidate
+        # lists, equal to the JAX package's.
+        tile = None
+        if cfg.numharm <= 16 and plane_numr % SLAB_TILES[0] == 0:
+            tile = next((t for t in SLAB_TILES
+                         if t <= slab and slab % t == 0), None)
+        align = max(cfg.numharm, tile or 1)
+        aligned = (slab % align == 0 or slab > 4 * align) \
+            and plane_numr % align == 0
+        if aligned and slab % align:
+            slab -= slab % align
+        r0a = r0 - (r0 % align) if aligned else r0
+        top_a = min(top + ((-top) % align), plane_numr) if aligned \
+            else top
+        k = min(cfg.max_cands_per_stage, slab)
+        start_cols = []
+        off = r0a
+        while True:
+            if off + slab >= top_a:
+                start_cols.append(max(top_a - slab, 0))
+                break
+            start_cols.append(off)
+            off += slab
+        return slab, k, start_cols
+
+    def _check_memory(self, plane_numr: int, slab: int, nslabs: int):
+        """One trial's plane and reducer outputs must fit in the device
+        memory free now (torch.cuda.mem_get_info): the port holds one
+        plane at a time instead of the JAX package's TPU-sized groups."""
+        if self.device.type != "cuda":
+            return
+        free, _total = torch.cuda.mem_get_info(self.device)
+        cached = (torch.cuda.memory_reserved(self.device)
+                  - torch.cuda.memory_allocated(self.device))
+        need = (self.numz_pad * plane_numr * 4
+                + nslabs * self.cfg.numharmstages * slab * 8 * 3)
+        if need > MEM_HEADROOM * (free + cached):
+            raise MemoryError("accel: a %d-column plane needs %.2f GB, "
+                              "more than the device has free"
+                              % (plane_numr, need / 1e9))
+
+    def search(self, pairs, slab: int = 1 << 20) -> List[AccelCand]:
+        """The staged search of one spectrum ([numbins, 2] float32)."""
+        return self.search_many(torch.as_tensor(pairs)[None], slab=slab)[0]
+
+    def search_many(self, pairs_batch, slab: int = 1 << 20,
+                    compact_m: int = COMPACT_CANDS
+                    ) -> List[List[AccelCand]]:
+        """Search many same-length spectra ([nd, numbins, 2] float32,
+        numpy or a tensor) -> per-spectrum candidate lists, sorted by
+        (-sigma, r), at most one per ~8 r-bins (apply remove_duplicates /
+        eliminate_harmonics for the reference's final-list semantics)."""
+        batch = torch.as_tensor(pairs_batch, dtype=torch.float32,
+                                device=self.device)
+        nd = batch.shape[0]
+        geom = self.plane_geom()
+        if nd == 0 or geom is None:
+            return [[] for _ in range(nd)]
+        plan = self.slab_plan(geom[2], slab)
+        if plan is None:
+            return [[] for _ in range(nd)]
+        slab, k, start_cols = plan
+        scols = torch.tensor(start_cols, dtype=torch.int32,
+                             device=self.device)
+        self._check_memory(geom[2], slab, len(start_cols))
+        out = []
+        for d in range(nd):
+            plane = self.build_plane(batch[d])
+            colmax, colz = accel_cuda.reduce_stages(
+                plane, scols, self._zinds, slab, self.cfg.numharmstages)
+            del plane
+            packed = collect_from_reduced(colmax, colz, self._powcut_dev, k)
+            comp = compact_scan_packed(packed, compact_m).cpu().numpy()
+            try:
+                cands = self.collect_compacted(comp, start_cols,
+                                               requested_m=compact_m)
+            except ValueError:
+                # more positive cells than the compaction budget: the
+                # lossless dense decode
+                vals, cidx, zrow = _unpack_scan(packed.cpu().numpy())
+                cands = self._dedup_sort(
+                    self._collect_group(vals, cidx, zrow, start_cols))
+            out.append(cands)
+        return out
+
+    @staticmethod
+    def _dedup_sort(cands: List[AccelCand]) -> List[AccelCand]:
+        # the overlapped last slab duplicates candidates on purpose:
+        # dedup on exact (numharm, r, z)
+        seen = set()
+        uniq = []
+        for c in cands:
+            key = (c.numharm, c.r, c.z)
+            if key not in seen:
+                seen.add(key)
+                uniq.append(c)
+        return sorted(uniq, key=lambda c: (-c.sigma, c.r))
+
+    def _collect_group(self, vals: np.ndarray, cidx: np.ndarray,
+                       zrow: np.ndarray, start_cols) -> List[AccelCand]:
+        """Host collection over dense [nslabs, stages, k] output
+        (search_ffdotpows, accel_utils.c:1259-1298)."""
+        cfg = self.cfg
+        sc = np.asarray(start_cols, dtype=np.int64)[:, None, None]
+        absc = sc + cidx
+        good = (vals > 0.0) & (zrow < cfg.numz)   # pad rows are zeros
+        good &= absc >= self._r0min
+        good &= absc < self._rtop
+        stg = np.broadcast_to(
+            np.arange(vals.shape[1], dtype=np.int32)[None, :, None],
+            vals.shape)
+        g = good.ravel()
+        return self._cands_from_flat(
+            vals.ravel()[g], absc.ravel()[g], zrow.ravel()[g],
+            stg.ravel()[g])
+
+    def collect_compacted(self, comp: np.ndarray, start_cols,
+                          requested_m: Optional[int] = None
+                          ) -> List[AccelCand]:
+        """Host decode of compact_scan_packed output [3, m]; raises
+        ValueError when all m slots are positive (possible truncation)."""
+        cfg = self.cfg
+        assert cfg.numz < (1 << _CMP_ZBITS), cfg.numz
+        comp = np.asarray(comp)
+        v = comp[0].view(np.float32)
+        if (v.size and v[-1] > 0.0
+                and (requested_m is None or v.size >= requested_m)):
+            raise ValueError(
+                "compact_scan_packed budget exhausted (m=%d slots all "
+                "positive): candidates may have been dropped — raise m"
+                % v.size)
+        cidx = comp[1]
+        zrow = comp[2] & ((1 << _CMP_ZBITS) - 1)
+        stg = (comp[2] >> _CMP_ZBITS) & ((1 << _CMP_SBITS) - 1)
+        si = comp[2] >> (_CMP_ZBITS + _CMP_SBITS)
+        absc = np.asarray(start_cols, dtype=np.int64)[si] + cidx
+        good = ((v > 0.0) & (zrow < cfg.numz) & (absc >= self._r0min)
+                & (absc < self._rtop))
+        return self._dedup_sort(self._cands_from_flat(
+            v[good], absc[good], zrow[good], stg[good]))
+
+    def _cands_from_flat(self, v: np.ndarray, absc: np.ndarray,
+                         zrow: np.ndarray,
+                         stg: np.ndarray) -> List[AccelCand]:
+        """Filtered hits -> AccelCands, sigma batched per stage; float64
+        (col * DR) / numharm and (-zmax + z * DZ) / numharm."""
+        cfg = self.cfg
+        out: List[AccelCand] = []
+        for stage in np.unique(stg).tolist():
+            m = stg == stage
+            numharm = 1 << int(stage)
+            sigmas = np.atleast_1d(st.candidate_sigma(
+                v[m], numharm, self.numindep[stage]))
+            rr = (absc[m] * ACCEL_DR) / numharm
+            zz = (-cfg.zmax + zrow[m] * ACCEL_DZ) / numharm
+            for p, s, r_, z_ in zip(v[m].tolist(), sigmas.tolist(),
+                                    rr.tolist(), zz.tolist()):
+                out.append(AccelCand(power=p, sigma=s, numharm=numharm,
+                                     r=r_, z=z_))
+        return out
+
+
+def from_reference_arrays(cfg: AccelConfig, T: float, numbins: int,
+                          kern_pairs: np.ndarray, fracs_zinds,
+                          numindep, powcut, device="cuda") -> AccelSearch:
+    """A searcher whose state comes from arrays built elsewhere (the JAX
+    package's kernel bank, z-row maps and powcuts, as numpy): ``cfg`` is
+    the final configuration (after the uselen choice)."""
+    s = AccelSearch(cfg, T, numbins, device=device)
+    if s.cfg != cfg:
+        raise ValueError("from_reference_arrays: cfg %r resolves to %r"
+                         % (cfg, s.cfg))
+    kern = replace(s.kern, kern_pairs=np.asarray(kern_pairs, np.float32))
+    if kern.kern_pairs.shape != (kern.numz, kern.kmax, 2):
+        raise ValueError("from_reference_arrays: kernel bank shape %s"
+                         % (kern.kern_pairs.shape,))
+    s._set_state(kern, fracs_zinds, numindep, powcut)
+    return s
+
+
+# ----------------------------------------------------------------------
+# Candidate post-processing (host)
+# ----------------------------------------------------------------------
+
+# The reference's "other common harmonic ratios" (accel_utils.c:415-439)
+_HARM_RATIOS = [3 / 2, 5 / 2, 2 / 3, 4 / 3, 5 / 3, 3 / 4, 5 / 4, 2 / 5,
+                3 / 5, 4 / 5, 5 / 6, 2 / 7, 3 / 7, 4 / 7, 3 / 8, 5 / 8,
+                2 / 9, 3 / 10, 2 / 11, 3 / 11, 2 / 13, 3 / 13, 2 / 15]
+
+
+def eliminate_harmonics(cands: List[AccelCand], tooclose: float = 1.5,
+                        maxharm: int = 16) -> List[AccelCand]:
+    """Drop less-significant harmonically related candidates
+    (accel_utils.c:384-460): walking the (-sigma, r)-sorted list, a
+    candidate goes when its r lies within ``tooclose`` of r_k*ii,
+    r_k/ii (ii <= maxharm) or r_k*ratio for a kept r_k.  Each test runs
+    over all kept candidates at once in numpy, with the float64
+    products and quotients of the JAX package's loop, so the kept list
+    is the same."""
+    if not cands:
+        return []
+    cands = sorted(cands, key=lambda c: (-c.sigma, c.r))
+    ii = np.arange(1, maxharm + 1, dtype=np.float64)
+    ratios = np.asarray(_HARM_RATIOS, dtype=np.float64)
+    kept: List[AccelCand] = []
+    rk = np.empty(len(cands), dtype=np.float64)
+    for c in cands:
+        r = rk[:len(kept), None]
+        rc = c.r
+        if not kept or not (
+                (np.abs(r / ii - rc) < tooclose).any()
+                or (np.abs(r * ii - rc) < tooclose).any()
+                or (np.abs(r * ratios - rc) < tooclose).any()):
+            rk[len(kept)] = c.r
+            kept.append(c)
+    return kept
+
+
+def remove_duplicates(cands: List[AccelCand]) -> List[AccelCand]:
+    """Collapse candidates within ACCEL_CLOSEST_R bins of a stronger one
+    (insert_new_accelcand, accel_utils.c:294-382), keyed on r alone."""
+    kept: List[AccelCand] = []
+    rk = np.empty(len(cands), dtype=np.float64)
+    for c in sorted(cands, key=lambda c: (-c.sigma, c.r)):
+        if not (np.abs(c.r - rk[:len(kept)]) < ACCEL_CLOSEST_R).any():
+            rk[len(kept)] = c.r
+            kept.append(c)
+    return kept

@@ -1,0 +1,113 @@
+"""Staged harmonic-sum reducer: the CUDA kernel and its plain version.
+
+Counterpart of ``presto_tpu/search/accel_pallas.py`` (the Pallas kernel
+``make_stage_reducer`` -> ``reduce_stages``).  The kernel source is
+``presto_tpu_torch/csrc/stage_reduce.cu``.
+
+reduce_stages(P, start_cols, zinds, slab, nstages) -> (colmax, colz):
+P float32 [nrows, plane_numr]; start_cols int32 [nslabs]; zinds int32
+[nterms, nrows], the per-term z-row maps in stage order (stage 1's
+harm 1/2, stage 2's 1/4 and 3/4, ...), pad rows mapped to themselves.
+For column j = start_cols[s] + t, acc starts at P[:, j] and each term
+adds P[zinds[term], round_half_up(j * harm / htot)]; after each stage
+colmax[s, stage, t] is the max over rows and colz its lowest row.
+The slab layout needs no alignment here: reads stay inside the plane,
+since every subharmonic column is <= j.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from presto_tpu_torch import cuda_build
+
+#: kernel launches made by reduce_stages (reset by callers that count)
+launches = 0
+
+
+def stage_terms(nstages: int):
+    """(harm, htot) per term, in the order the sums are taken."""
+    return [(harm, 1 << st) for st in range(1, nstages)
+            for harm in range(1, 1 << st, 2)]
+
+
+def reduce_stages_plain(P: torch.Tensor, start_cols: torch.Tensor,
+                        zinds: torch.Tensor, slab: int, nstages: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: the staged gather-add-max loop, one slab at a
+    time, adding terms in the kernel's order."""
+    nslabs = start_cols.shape[0]
+    terms = stage_terms(nstages)
+    zl = zinds.long()
+    colmax = torch.empty((nslabs, nstages, slab), dtype=torch.float32,
+                         device=P.device)
+    colz = torch.empty((nslabs, nstages, slab), dtype=torch.int32,
+                       device=P.device)
+    for s, s0 in enumerate(start_cols.tolist()):
+        cols = s0 + torch.arange(slab, device=P.device, dtype=torch.int64)
+        acc = P[:, cols].clone()
+        m, z = acc.max(dim=0)
+        colmax[s, 0], colz[s, 0] = m, z.int()
+        ti = 0
+        for stage in range(1, nstages):
+            for _ in range(1 << (stage - 1)):
+                harm, htot = terms[ti]
+                rind = ((cols // htot) * harm
+                        + ((cols % htot) * harm + (htot >> 1)) // htot)
+                acc += P[zl[ti][:, None], rind[None, :]]
+                ti += 1
+            m, z = acc.max(dim=0)
+            colmax[s, stage], colz[s, stage] = m, z.int()
+        del acc
+    return colmax, colz
+
+
+def reduce_stages(P: torch.Tensor, start_cols: torch.Tensor,
+                  zinds: torch.Tensor, slab: int, nstages: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """See the module docstring.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    if P.device.type == "cpu":
+        return reduce_stages_plain(P, start_cols, zinds, slab, nstages)
+    if P.device.type != "cuda" or any(
+            t.device != P.device for t in (start_cols, zinds)):
+        raise ValueError("reduce_stages: tensors must share one CUDA "
+                         "device")
+    if (P.dtype != torch.float32 or start_cols.dtype != torch.int32
+            or zinds.dtype != torch.int32):
+        raise TypeError("reduce_stages: P float32, start_cols and zinds "
+                        "int32")
+    if not all(t.is_contiguous() for t in (P, start_cols, zinds)):
+        raise ValueError("reduce_stages: inputs must be contiguous")
+    nrows, numr = P.shape
+    nterms = (1 << (nstages - 1)) - 1
+    if not 1 <= nstages <= 5 or tuple(zinds.shape) != (nterms, nrows):
+        raise ValueError("reduce_stages: nstages=%d with zinds %s for "
+                         "%d rows" % (nstages, tuple(zinds.shape), nrows))
+    nslabs = start_cols.shape[0]
+    if nslabs and (int(start_cols.min()) < 0
+                   or int(start_cols.max()) + slab > numr):
+        raise ValueError("reduce_stages: a slab runs off the plane")
+    if nterms and (int(zinds.min()) < 0 or int(zinds.max()) >= nrows):
+        raise ValueError("reduce_stages: z-row map out of range")
+    lib = cuda_build.load("stage_reduce")
+    fn = lib.stage_reduce
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    colmax = torch.empty((nslabs, nstages, slab), dtype=torch.float32,
+                         device=P.device)
+    colz = torch.empty((nslabs, nstages, slab), dtype=torch.int32,
+                       device=P.device)
+    global launches
+    launches += 1
+    rc = fn(P.data_ptr(), numr, nrows, start_cols.data_ptr(),
+            zinds.data_ptr(), colmax.data_ptr(), colz.data_ptr(), nslabs,
+            slab, nstages, torch.cuda.current_stream(P.device).cuda_stream)
+    cuda_build.check(rc, "stage_reduce")
+    return colmax, colz

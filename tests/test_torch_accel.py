@@ -1,0 +1,169 @@
+"""The port's acceleration search against the JAX package's TPU path.
+
+The JAX side runs its TPU engine on the CPU: inside the test only,
+``accel_pallas.pallas_available`` answers True, ``_use_mxu_engine``
+becomes its fftlen check, and both Pallas factories build in interpret
+mode.  That puts it on the aligned direct-plane geometry the port
+implements.  The port runs its plain versions on the CPU.
+
+Candidates more than 1% above their stage's powcut must have equal keys
+(numharm, round(2r), round(2z)) in both lists, powers within rtol 1e-4
+(the forward and inverse FFTs round differently in the two engines).
+"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from presto_tpu.search import accel as jaccel
+from presto_tpu.search import accel_pallas, build_pallas
+from presto_tpu_torch.search import accel as taccel
+
+N = 1 << 16
+DT = 1e-3
+
+
+@pytest.fixture
+def jax_tpu_path(monkeypatch):
+    """The JAX package's TPU engine, on the CPU, for this test only."""
+    monkeypatch.setattr(accel_pallas, "pallas_available", lambda: True)
+    monkeypatch.setattr(jaccel, "_use_mxu_engine",
+                        lambda fftlen: fftlen % 256 == 0)
+    monkeypatch.setattr(build_pallas, "make_plane_builder",
+                        functools.partial(build_pallas.make_plane_builder,
+                                          interpret=True))
+    monkeypatch.setattr(accel_pallas, "make_stage_reducer",
+                        functools.partial(accel_pallas.make_stage_reducer,
+                                          interpret=True))
+
+
+def spectra(nd, seed=11):
+    """[nd, N/2, 2] packed spectra: noise plus an accelerating pulsar
+    (different strength per trial)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(N) * DT
+    out = []
+    for d in range(nd):
+        f0, fd = 37.3 + 3.1 * d, 0.004
+        ph = f0 * t + 0.5 * fd * t * t
+        x = rng.normal(size=N) + (0.08 + 0.03 * d) * (
+            np.cos(2 * np.pi * ph) + 0.5 * np.cos(4 * np.pi * ph))
+        full = np.fft.rfft(x.astype(np.float32).astype(np.float64))
+        packed = full[:-1].copy()
+        packed[0] = full[0].real + 1j * full[-1].real
+        out.append(np.stack([packed.real, packed.imag], -1))
+    return np.asarray(out, np.float32)
+
+
+def strong_keys(cands, powcut):
+    return {(c.numharm, round(2 * c.r), round(2 * c.z)): c.power
+            for c in cands
+            if c.power > 1.01 * powcut[int(np.log2(c.numharm))]}
+
+
+def assert_lists_agree(want, got, powcut):
+    kw, kg = strong_keys(want, powcut), strong_keys(got, powcut)
+    assert kw, "no strong candidates to compare"
+    assert set(kw) <= {(c.numharm, round(2 * c.r), round(2 * c.z))
+                       for c in got}
+    assert set(kg) <= {(c.numharm, round(2 * c.r), round(2 * c.z))
+                       for c in want}
+    pw = {(c.numharm, round(2 * c.r), round(2 * c.z)): c.power
+          for c in got}
+    for k, p in kw.items():
+        np.testing.assert_allclose(pw[k], p, rtol=1e-4)
+
+
+@pytest.mark.parametrize("slab,nd", [(1 << 20, 2), (1 << 14, 1)])
+def test_search_many_matches_jax_tpu_path(jax_tpu_path, slab, nd):
+    """slab 2^20 exceeds the spectrum: the JAX side scans numharm-
+    aligned slabs; 2^14 engages its Pallas stage reducer's tiles."""
+    batch = spectra(nd)
+    cfg = jaccel.AccelConfig(zmax=20, numharm=8, sigma=3.0)
+    T = N * DT
+    js = jaccel.AccelSearch(cfg, T=T, numbins=N // 2)
+    assert js._plb_hw_eff, "the JAX side must be on the TPU geometry"
+    want = js.search_many(batch, slab=slab)
+
+    tcfg = taccel.AccelConfig(**dataclasses.asdict(js.cfg))
+    fz = jaccel._harm_fracs_and_zinds(js.cfg, js.cfg.numz)
+    ts = taccel.from_reference_arrays(tcfg, T, N // 2,
+                                      js.kern.kern_pairs, fz, js.numindep,
+                                      js.powcut, device="cpu")
+    got = ts.search_many(torch.from_numpy(batch), slab=slab)
+
+    # the port's own host builders reproduce the reference state
+    own = taccel.AccelSearch(taccel.AccelConfig(zmax=20, numharm=8,
+                                                sigma=3.0),
+                             T=T, numbins=N // 2, device="cpu")
+    assert own.cfg == tcfg
+    np.testing.assert_array_equal(own.kern.kern_pairs, js.kern.kern_pairs)
+    for a, b in zip(own.fracs_zinds, fz):
+        for (h, t, z), (h2, t2, z2) in zip(a, b):
+            assert (h, t) == (h2, t2)
+            np.testing.assert_array_equal(z, z2)
+    assert own.powcut == js.powcut and own.numindep == js.numindep
+
+    for w, g in zip(want, got):
+        assert_lists_agree(w, g, js.powcut)
+    # the injected pulsar tops each trial's cleaned list
+    for d, g in enumerate(got):
+        top = taccel.remove_duplicates(taccel.eliminate_harmonics(g))[0]
+        f = top.r / T
+        assert abs(f - (37.3 + 3.1 * d)) < 0.2 or \
+            abs(f / 2 - (37.3 + 3.1 * d)) < 0.2
+
+
+def test_median_norm_matches_jnp_median():
+    """Even-count medians average the two middle order statistics."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(5)
+    data = (rng.normal(size=(3, 4096))
+            + 1j * rng.normal(size=(3, 4096))).astype(np.complex64)
+    want = np.asarray(jaccel._block_median_norms_c(jnp.asarray(data)))
+    got = taccel.block_median_norms(torch.from_numpy(data)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_topk_ties_break_by_lowest_index():
+    x = torch.tensor([[1.0, 3.0, 3.0, 0.0, 3.0, 2.0]])
+    v, i = taccel._topk_desc(x, 4)
+    assert i.tolist() == [[1, 2, 4, 5]]
+    assert v.tolist() == [[3.0, 3.0, 3.0, 2.0]]
+
+
+def test_entry_points_need_cuda_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        taccel.AccelSearch(taccel.AccelConfig(zmax=20), T=65.0,
+                           numbins=N // 2)
+
+
+def test_candidate_postprocessing_matches_jax():
+    """eliminate_harmonics + remove_duplicates keep the same candidates
+    as the JAX package's loops, on a list with harmonic families."""
+    rng = np.random.default_rng(9)
+    base = rng.uniform(50, 5000, 60)
+    rs = np.concatenate([base, base[:20] * 2, base[:10] / 3,
+                         base[:10] * 1.5 + 0.7, rng.uniform(50, 20000, 300)])
+    sig = rng.uniform(2, 30, rs.size)
+    nh = rng.choice([1, 2, 4, 8], rs.size)
+    zs = rng.uniform(-20, 20, rs.size)
+    jc = [jaccel.AccelCand(power=float(s * 3), sigma=float(s), numharm=int(h),
+                           r=float(r), z=float(z))
+          for r, s, h, z in zip(rs, sig, nh, zs)]
+    tc = [taccel.AccelCand(power=c.power, sigma=c.sigma, numharm=c.numharm,
+                           r=c.r, z=c.z) for c in jc]
+    as_t = lambda cs: [(c.sigma, c.r, c.numharm, c.z) for c in cs]  # noqa
+    want = jaccel.eliminate_harmonics(jc)
+    assert as_t(taccel.eliminate_harmonics(tc)) == as_t(want)
+    assert len(want) < len(jc)
+    assert as_t(taccel.remove_duplicates(tc)) == \
+        as_t(jaccel.remove_duplicates(jc))
+    assert as_t(taccel.remove_duplicates(
+        taccel.eliminate_harmonics(tc))) == as_t(
+            jaccel.remove_duplicates(want))

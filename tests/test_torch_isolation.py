@@ -1,0 +1,50 @@
+"""The port stands alone: importing every module of presto_tpu_torch
+loads neither jax nor any presto_tpu module, and an entry point called
+without device= needs a CUDA device."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, os, pkgutil, sys
+import torch
+import presto_tpu_torch
+mods = []
+for m in pkgutil.walk_packages(presto_tpu_torch.__path__, "presto_tpu_torch."):
+    importlib.import_module(m.name)
+    mods.append(m.name)
+assert len(mods) >= 20, mods
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "presto_tpu" or m.startswith("presto_tpu."))
+assert not bad, bad
+if not torch.cuda.is_available():
+    from presto_tpu_torch.pipeline import survey
+    from presto_tpu_torch.search import accel
+    for call in (lambda: accel.AccelSearch(accel.AccelConfig(zmax=20),
+                                           T=10.0, numbins=1 << 15),
+                 lambda: survey.survey_head(
+                     "missing.fil", survey.SurveyConfig(
+                         skip_rfifind=True, singlepulse=False,
+                         fold_top=0))):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError("an entry point ran without CUDA")
+print("ISOLATED", len(mods))
+"""
+
+
+def test_port_imports_no_jax_and_needs_cuda():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED" in out.stdout
