@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -44,7 +45,7 @@ def _target(name: str) -> str:
 def _start(name: str):
     """Start nvcc for one source (None when the library is current)."""
     out = _target(name)
-    if os.path.exists(out):
+    if os.path.exists(out) and os.path.exists(out + ".txt"):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (out, os.getpid())
@@ -57,12 +58,16 @@ def _start(name: str):
 
 
 def _finish(name: str, job) -> str:
+    """Wait for nvcc; returns its output, kept beside the library."""
     if job is None:
-        return ""
+        with open(_target(name) + ".txt") as f:
+            return f.read()
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed for %s.cu:\n%s" % (name, log))
+    with open(out + ".txt", "w") as f:
+        f.write(log)
     os.replace(tmp, out)
     return log
 
@@ -72,6 +77,35 @@ def build_all(names: Sequence[str]) -> Dict[str, str]:
     (register and shared-memory use from ``-Xptxas -v``) per name."""
     jobs = {n: _start(n) for n in names}
     return {n: _finish(n, j) for n, j in jobs.items()}
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (mangled name) in nvcc's ``-Xptxas -v`` output: its
+    registers, stack frame and spill store / load bytes."""
+    out: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                cur["static_smem"] = int(m.group(1))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

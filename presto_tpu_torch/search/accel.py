@@ -48,6 +48,7 @@ DBLCORRECT = 1e-14
 ROW_PAD = 8          # plane rows pad to a multiple of this (the JAX
 BLOCK_PAD = 8        # plane kernel's ZT/BB), and blocks, with >= 1 zero block
 SLAB_TILES = (1024, 512, 256)   # the JAX stage reducer's column tiles
+REF_VMEM_BUDGET = 14 * 2 ** 20  # its scratch budget (accel_pallas.py)
 SEARCH_SEG = 16      # columns per segment-max before top-k (8 r-bins <
                      # ACCEL_CLOSEST_R: merged candidates are ones the
                      # r-dedup collapses anyway)
@@ -55,6 +56,35 @@ COMPACT_CANDS = 2048  # default top-m budget per trial
 _CMP_ZBITS = 12      # compact meta word: zrow | stage << 12 | slab << 15
 _CMP_SBITS = 3
 MEM_HEADROOM = 0.9   # share of free device memory one trial may use
+
+
+def _ref_scratch_bytes(fracs_zinds, numz: int, tile: int) -> int:
+    """The JAX stage reducer's VMEM scratch estimate at one column tile
+    (accel_pallas.scratch_bytes with its _stage_terms/_term_geom)."""
+    numz_pad = -(-numz // 8) * 8
+    total = 3 * numz_pad * tile * 4      # accumulator + fundamental banks
+    for stage in fracs_zinds:
+        for harm, htot, zinds in stage:
+            rows = -(-(int(np.max(zinds)) + 1) // 8) * 8
+            cspan = ((tile - 1) * harm + (htot >> 1)) // htot + 2
+            win = -(-(112 + cspan) // 128) * 128
+            total += 2 * rows * win * 4 + numz_pad * 3 * rows * 2
+    return total
+
+
+def reference_tile(fracs_zinds, numz: int, slab: int) -> Optional[int]:
+    """The JAX package's rule for its segment grid (accel_pallas.
+    pick_tile with tuning off): the first of SLAB_TILES that divides
+    the slab and whose scratch estimate fits REF_VMEM_BUDGET, else None
+    (the JAX package then scans numharm-aligned slabs).  Kept so that
+    the slab starts, and so the candidate lists, match the JAX
+    package's."""
+    for t in SLAB_TILES:
+        if (128 <= t <= slab and t % 128 == 0 and slab % t == 0
+                and _ref_scratch_bytes(fracs_zinds, numz, t)
+                <= REF_VMEM_BUDGET):
+            return t
+    return None
 
 
 def _nearest_int(x: float) -> int:
@@ -402,15 +432,9 @@ class AccelSearch:
         top = r0 + numr
         self._rtop = top
         slab = min(slab, numr)
-        # the JAX package's choice: its stage reducer (tile-aligned
-        # slabs) when a reducer tile divides the slab, else its XLA
-        # scanner aligned to numharm.  The CUDA reducer takes any slab;
-        # the same choice keeps the segment grid, and so the candidate
-        # lists, equal to the JAX package's.
         tile = None
         if cfg.numharm <= 16 and plane_numr % SLAB_TILES[0] == 0:
-            tile = next((t for t in SLAB_TILES
-                         if t <= slab and slab % t == 0), None)
+            tile = reference_tile(self.fracs_zinds, cfg.numz, slab)
         align = max(cfg.numharm, tile or 1)
         aligned = (slab % align == 0 or slab > 4 * align) \
             and plane_numr % align == 0

@@ -16,6 +16,10 @@ and the output is the plane layout of the JAX package's direct-plane
 builder: float32 [numz_pad, nb_pad * uselen], block b's good window
 [off, off + uselen) of |IFFT(S_b * Kc_z)|^2 (1/n inside the IFFT) in
 columns [b*uselen, (b+1)*uselen).  Pad rows and pad blocks are 0.
+
+The kernel is instantiated for n = 2^10 .. 2^14 (a register-resident
+radix-16 Stockham FFT, one template per log2 n); any other n raises.
+It takes the twiddle bases of its passes from ``_twiddle_table``.
 """
 
 from __future__ import annotations
@@ -30,17 +34,32 @@ from presto_tpu_torch import cuda_build
 #: kernel launches made by build_plane (reset by callers that count)
 launches = 0
 
+#: the FFT lengths the kernel is instantiated for: 2^10 .. 2^14
+LOG2N_MIN, LOG2N_MAX = 10, 14
+
 _twiddles: dict = {}
 
 
+def _radices(log2n: int) -> list:
+    """The kernel's passes: radix 16, then the remaining 2, 4 or 8."""
+    return [16] * (log2n // 4) + ([1 << (log2n % 4)] if log2n % 4 else [])
+
+
 def _twiddle_table(n: int, device) -> torch.Tensor:
-    """exp(+2 pi i k / n), k < n/2, from float64, as complex64."""
+    """The kernel's twiddle bases, from float64, as complex64: for each
+    pass p >= 1 (radix R_p, Ns = 16^p), exp(+2 pi i m / (Ns R_p)) for
+    m < Ns, the passes one after another."""
     key = (n, str(device))
     tw = _twiddles.get(key)
     if tw is None:
-        k = torch.arange(n // 2, dtype=torch.float64)
-        tw = torch.polar(torch.ones_like(k), 2.0 * math.pi * k / n).to(
-            torch.complex64).to(device)
+        rad = _radices(n.bit_length() - 1)
+        parts = []
+        for p in range(1, len(rad)):
+            ns = 16 ** p
+            m = torch.arange(ns, dtype=torch.float64)
+            parts.append(torch.polar(torch.ones_like(m),
+                                     2.0 * math.pi * m / (ns * rad[p])))
+        tw = torch.cat(parts).to(torch.complex64).to(device)
         _twiddles[key] = tw
     return tw
 
@@ -83,7 +102,8 @@ def build_plane(S: torch.Tensor, Kc: torch.Tensor, numz_pad: int,
         raise ValueError("build_plane: inputs must be contiguous, with "
                          "no lazy conjugate bit")
     log2n = n.bit_length() - 1
-    if (n != 1 << log2n or half_n * 2 != n or n * 8 > 227 * 1024
+    if (n != 1 << log2n or half_n * 2 != n
+            or not LOG2N_MIN <= log2n <= LOG2N_MAX
             or numz > numz_pad or nblocks > nb_pad
             or off < 0 or off + uselen > n):
         raise ValueError("build_plane: unsupported geometry (n=%d, "

@@ -167,3 +167,50 @@ def test_candidate_postprocessing_matches_jax():
     assert as_t(taccel.remove_duplicates(
         taccel.eliminate_harmonics(tc))) == as_t(
             jaccel.remove_duplicates(want))
+
+
+SLAB_T = (1 << 22) * 1.28e-4
+SLAB_NUMBINS = 1 << 21
+
+
+@pytest.mark.parametrize("slab", [1 << 20, (1 << 16) + 512])
+@pytest.mark.parametrize("zmax,numharm,rlo", [
+    (200, 8, 0.0), (200, 16, 0.0), (200, 16, 300.0), (300, 8, 0.0),
+    (300, 16, 0.0), (400, 8, 0.0), (600, 8, 0.0)])
+def test_slab_plan_matches_jax_tpu_path(jax_tpu_path, zmax, numharm, rlo,
+                                        slab):
+    """The port's slab plan picks the JAX package's reducer tile (which
+    steps down, or gives way to the numharm-aligned scanner, when its
+    scratch estimate exceeds the TPU budget), so the slab starts agree.
+    rlo 300 puts r0 mod 1024 at 600, where tiles 512 and 1024 differ."""
+    cfg = jaccel.AccelConfig(zmax=zmax, numharm=numharm, rlo=rlo)
+    js = jaccel.AccelSearch(cfg, T=SLAB_T, numbins=SLAB_NUMBINS)
+    assert js._plb_hw_eff, "the JAX side must be on the TPU geometry"
+    ts = taccel.AccelSearch(taccel.AccelConfig(zmax=zmax, numharm=numharm,
+                                               rlo=rlo),
+                            T=SLAB_T, numbins=SLAB_NUMBINS, device="cpu")
+    assert ts.cfg == taccel.AccelConfig(**dataclasses.asdict(js.cfg))
+    plane_numr = ts.plane_geom()[2]
+    assert plane_numr == js._plane_geom().plane_numr
+    w_slab, w_k, _scan, w_cols = js._slab_plan(plane_numr, slab)
+    assert ts.slab_plan(plane_numr, slab) == (w_slab, w_k, w_cols)
+    assert (ts._r0min, ts._rtop) == (js._r0min, js._rtop)
+
+
+def test_search_matches_jax_where_no_reducer_tile_fits(jax_tpu_path):
+    """zmax 300, numharm 16: the JAX package's scratch estimate fits no
+    reducer tile, so it scans numharm-aligned slabs; the port follows
+    and the candidate lists agree."""
+    batch = spectra(1)
+    cfg = jaccel.AccelConfig(zmax=300, numharm=16, sigma=3.0)
+    T = N * DT
+    js = jaccel.AccelSearch(cfg, T=T, numbins=N // 2)
+    assert js._plb_hw_eff, "the JAX side must be on the TPU geometry"
+    want = js.search_many(batch)[0]
+    ts = taccel.AccelSearch(taccel.AccelConfig(**dataclasses.asdict(js.cfg)),
+                            T=T, numbins=N // 2, device="cpu")
+    numr = ts.plane_geom()[2]
+    assert taccel.reference_tile(ts.fracs_zinds, ts.cfg.numz,
+                                 min(1 << 20, numr)) is None
+    got = ts.search_many(torch.from_numpy(batch))[0]
+    assert_lists_agree(want, got, js.powcut)

@@ -75,3 +75,46 @@ def test_kernel_bank_matches_jax():
     want = np.conj(np.asarray(kc))
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+
+
+def _kernel_passes(x, log2n):
+    """The CUDA kernel's Stockham passes, in numpy: pass p (radix R,
+    Ns = 16^p) takes butterfly j's inputs x[j + r n/R], multiplies input
+    r by w^r (w from the kernel's twiddle table at j mod Ns, powers by
+    repeated complex64 products), takes the inverse DFT-R and writes
+    output s at (j // Ns) Ns R + j mod Ns + s Ns."""
+    n = 1 << log2n
+    rad = build_cuda._radices(log2n)
+    tw = build_cuda._twiddle_table(n, "cpu").numpy()
+    toff, ns = 0, 1
+    for p, R in enumerate(rad):
+        j = np.arange(n // R)
+        v = x[j[:, None] + np.arange(R)[None, :] * (n // R)]
+        if p:
+            w = tw[toff + j % ns]
+            wr = w.copy()
+            for r in range(1, R):
+                v[:, r] *= wr
+                wr = (wr * w).astype(np.complex64)
+            toff += ns
+        dftm = np.exp(2j * np.pi * np.outer(np.arange(R), np.arange(R)) / R)
+        y = (v @ dftm.astype(np.complex64)).astype(np.complex64)
+        out = np.empty(n, np.complex64)
+        base = (j // ns) * ns * R + j % ns
+        out[base[:, None] + np.arange(R)[None, :] * ns] = y
+        x, ns = out, ns * R
+    return x / n
+
+
+@pytest.mark.parametrize("log2n", range(build_cuda.LOG2N_MIN,
+                                        build_cuda.LOG2N_MAX + 1))
+def test_kernel_fft_decomposition_matches_ifft(log2n):
+    """The radices and twiddle table the kernel is built on give the
+    inverse FFT (1/n inside) to float32 rounding."""
+    rng = np.random.default_rng(log2n)
+    n = 1 << log2n
+    x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
+    assert np.prod(build_cuda._radices(log2n)) == n
+    got = _kernel_passes(x, log2n)
+    want = np.fft.ifft(x.astype(np.complex128))
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
