@@ -5,12 +5,16 @@
 Phases (any failure exits non-zero before the final line):
   1. build   every CUDA kernel of the slice from presto_tpu_torch/csrc,
              one nvcc per source, all started together; registers and
-             spills per kernel from -Xptxas -v (a plane_build
-             instantiation that spills fails the phase);
+             spills per kernel from -Xptxas -v, and each stage_reduce
+             instantiation's shared memory and CTAs an SM (an
+             instantiation of either kernel that spills fails the phase);
   2. kernels each kernel against its plain PyTorch version on the card,
              at the main path's shapes (the plane builder also at the
-             zmax-400 geometry, n = 16384) and at a ragged shape, with
-             kernel / plain / library times and the card's bound;
+             zmax-400 geometry, n = 16384; the stage reducer also at
+             numharm 16 on the same plane) and at a ragged shape, with
+             kernel / plain / library times, the card's bound, the
+             reducer's own byte count, and the time of the collect step
+             that follows the reducer;
   3. main    a 128-channel 8-bit filterbank of 2^22 samples (2^21-bin
              spectra) with a strong accelerated pulsar, through
              survey_head + seam_fft_search (nsub 32, zmax 200, numharm 8)
@@ -63,9 +67,22 @@ def bound_ms(nbytes, flops):
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
+def reducer_geometry(nstages):
+    """(threads, rows a chunk, chunk buffers, dynamic shared memory bytes,
+    CTAs an SM) of one stage_reduce instantiation, from the library."""
+    import ctypes
+    from presto_tpu_torch import cuda_build
+    out = (ctypes.c_int * 5)()
+    fn = cuda_build.load("stage_reduce").stage_reduce_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    cuda_build.check(fn(nstages, out), "stage_reduce_info")
+    return list(out)
+
+
 def phase_build():
-    """Build both kernels; the plane builder's register and spill counts
-    per instantiation from nvcc's -Xptxas -v (any spill fails)."""
+    """Build both kernels; register and spill counts per instantiation
+    from nvcc's -Xptxas -v (any spill fails), and each stage_reduce
+    instantiation's shared memory and CTAs an SM."""
     from presto_tpu_torch import cuda_build
     t0 = time.time()
     logs = cuda_build.build_all(["plane_build", "stage_reduce"])
@@ -74,16 +91,26 @@ def phase_build():
     usage = {}
     for name, text in logs.items():
         for fn, u in cuda_build.ptxas_usage(text).items():
-            m = re.search(r"plane_build_kernelILi(\d+)E", fn)
-            key = "plane_build<log2n=%s>" % m.group(1) if m else fn
+            m = re.search(r"(plane_build|stage_reduce)_kernelILi(\d+)E", fn)
+            key = ("%s<%s=%s>" % (m.group(1), "log2n" if m.group(1)
+                                  == "plane_build" else "nst", m.group(2))
+                   if m else fn)
+            if m and m.group(1) == "stage_reduce":
+                threads, zc, stages, smem, ctas = reducer_geometry(
+                    int(m.group(2)))
+                u.update(threads=threads, chunk_rows=zc, buffers=stages,
+                         dynamic_smem=smem, ctas_per_sm=ctas)
             usage[key] = u
             log("  %s: %s: %s" % (name, key, json.dumps(u)))
-    pb = {k: u for k, u in usage.items() if k.startswith("plane_build<")}
-    spills = sorted(k for k, u in pb.items()
-                    if u.get("spill_stores", 1) or u.get("spill_loads", 1))
-    ok = len(pb) == 5 and not spills
-    log("build: plane_build instantiations %s, spilling %s %s"
-        % (sorted(pb), spills, "ok" if ok else "FAIL"))
+    ok = True
+    for kernel in ("plane_build", "stage_reduce"):
+        inst = {k: u for k, u in usage.items() if k.startswith(kernel + "<")}
+        spills = sorted(k for k, u in inst.items()
+                        if u.get("spill_stores", 1) or u.get("spill_loads", 1))
+        kok = len(inst) == 5 and not spills
+        ok = ok and kok
+        log("build: %s instantiations %s, spilling %s %s"
+            % (kernel, sorted(inst), spills, "ok" if kok else "FAIL"))
     return dict(ok=ok, seconds=secs, ptxas=usage)
 
 
@@ -181,13 +208,41 @@ def check_plane_build(s, nbins, gen):
     return out, S
 
 
+def reducer_design_bytes(zinds, nrows, slab, nslabs, nstages):
+    """Bytes the stage reducer reads from device memory for these inputs,
+    from its geometry (stage_reduce.cu: Geo<NST>, term_cap, term_width):
+    each column's own rows, and per tile and chunk each term's staged
+    window rows in 16-byte units, or, in a chunk over a window's row
+    capacity, the 32-byte sectors of its direct reads; plus the z maps
+    and the outputs."""
+    threads, zc, _stages, _smem, _ctas = reducer_geometry(nstages)
+    z = zinds.cpu().numpy()
+    terms = [(h, 1 << st) for st in range(1, nstages)
+             for h in range(1, 1 << st, 2)]
+    caps = [-(-(zc - 1) * h // t) + 2 for h, t in terms]
+    wide = [-(-(threads - 1) * h // t) + 1 for h, t in terms]
+    per_tile = nrows * threads * 4
+    for z0 in range(0, nrows, zc):
+        rows = min(zc, nrows - z0)
+        n = [int(zi[z0 + rows - 1] - zi[z0]) + 1 for zi in z]
+        if any(ni > c for ni, c in zip(n, caps)):
+            per_tile += sum(rows * (w // 8 + 2) * 32 for w in wide)
+        else:
+            per_tile += sum(ni * 16 * -(-(w + 3) // 4)
+                            for ni, w in zip(n, wide))
+    tiles = nslabs * -(-slab // threads)
+    return tiles * per_tile + z.nbytes + 2 * nslabs * nstages * slab * 4
+
+
 def check_stage_reduce(s, S, gen):
-    """Kernel 2 on a real bench plane, and at a ragged 5-stage shape."""
+    """Kernel 2 on a real bench plane (numharm 8, and numharm 16 on the same
+    plane), and at a ragged 5-stage shape; then the collect step that
+    follows it on the main path."""
     from presto_tpu_torch.search import accel, accel_cuda, build_cuda
     nblocks, nb_pad, numr = s.plane_geom()
     plane = build_cuda.build_plane(S, s._kbank, s.numz_pad, nb_pad,
                                    s.cfg.uselen, s.hw_eff * 2)
-    slab, _k, start_cols = s.slab_plan(numr)
+    slab, k, start_cols = s.slab_plan(numr)
     scols = torch.tensor(start_cols, dtype=torch.int32, device="cuda")
     nst = s.cfg.numharmstages
     args = (plane, scols, s._zinds, slab, nst)
@@ -196,11 +251,42 @@ def check_stage_reduce(s, S, gen):
     torch.cuda.synchronize()
     err = float((gm - wm).abs().max())
     zeq = bool((gz == wz).all())
+    del wm, wz
     log("stage_reduce bench: plane %s, %d slabs of %d, %d stages; "
         "max_abs_err %.3g, colz equal %s" % (tuple(plane.shape),
                                              len(start_cols), slab, nst,
                                              err, zeq))
     ok = err == 0.0 and zeq
+    # the collect step on the main path's reducer outputs: threshold,
+    # segment max, top-k, compaction (search/accel.py)
+    collect_ms = cuda_time_ms(lambda: accel.compact_scan_packed(
+        accel.collect_from_reduced(gm, gz, s._powcut_dev, k)), 10)
+    log("collect (collect_from_reduced + compact_scan_packed) on the "
+        "reducer's outputs: %.3f ms" % collect_ms)
+    del gm, gz
+    # numharm 16 on the same plane: 5 stages, 15 terms, the largest
+    # shared-memory footprint
+    c16 = accel.AccelConfig(zmax=s.cfg.zmax, numharm=16)
+    z16 = torch.tensor(np.stack([
+        np.concatenate([z, np.arange(c16.numz, s.numz_pad)])
+        for st in accel._harm_fracs_and_zinds(c16, c16.numz)
+        for (_h, _t, z) in st]), dtype=torch.int32, device="cuda")
+    args16 = (plane, scols, z16, slab, 5)
+    hm, hz = accel_cuda.reduce_stages(*args16)
+    pm, pz = accel_cuda.reduce_stages_plain(*args16)
+    torch.cuda.synchronize()
+    err16 = float((hm - pm).abs().max())
+    ok16 = err16 == 0.0 and bool((hz == pz).all())
+    del hm, hz, pm, pz
+    ms16 = cuda_time_ms(lambda: accel_cuda.reduce_stages(*args16), 10)
+    bytes16 = reducer_design_bytes(z16, plane.shape[0], slab,
+                                   len(start_cols), 5)
+    log("stage_reduce numharm 16 (5 stages) on the bench plane: "
+        "max_abs_err %.3g, colz equal %s; kernel %.3f ms, design bytes "
+        "%.3f GB (%.1f%% of 3.35 TB/s) %s"
+        % (err16, ok16, ms16, bytes16 / 1e9,
+           100 * bytes16 / (ms16 * 1e-3) / PEAK_BYTES_PER_S,
+           "ok" if ok16 else "FAIL"))
     # ragged: 16 harmonics (5 stages), 29 rows, unaligned slabs
     cfg = accel.AccelConfig(zmax=28, numharm=16)
     fz = accel._harm_fracs_and_zinds(cfg, cfg.numz)
@@ -221,16 +307,25 @@ def check_stage_reduce(s, S, gen):
         + 2 * len(start_cols) * nst * slab * 4
     flops = ncols * plane.shape[0] * (nterms + nst)
     bms, by = bound_ms(nbytes, flops)
-    ms = cuda_time_ms(lambda: accel_cuda.reduce_stages(*args))
+    design = reducer_design_bytes(s._zinds, plane.shape[0], slab,
+                                  len(start_cols), nst)
+    ms = cuda_time_ms(lambda: accel_cuda.reduce_stages(*args), 10)
     plain_ms = cuda_time_ms(lambda: accel_cuda.reduce_stages_plain(*args),
                             1)
     del plane
     torch.cuda.empty_cache()
-    log("stage_reduce: kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s)"
-        % (ms, plain_ms, bms, by))
-    return dict(ok=ok and rok, max_abs_err=err, ragged_err=rerr, ms=ms,
-                plain_ms=plain_ms, library_ms=None, bound_ms=bms,
-                bound_by=by, tolerance="exact (same float32 add order)")
+    share = design / (ms * 1e-3) / PEAK_BYTES_PER_S
+    log("stage_reduce: kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s); "
+        "design bytes %.3f GB (%.2fx the bound's), %.1f%% of 3.35 TB/s"
+        % (ms, plain_ms, bms, by, design / 1e9, design / nbytes,
+           100 * share))
+    return dict(ok=ok and ok16 and rok, max_abs_err=err, ragged_err=rerr,
+                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                bound_by=by, design_bytes=design, design_share=share,
+                numharm16=dict(ok=ok16, max_abs_err=err16, ms=ms16,
+                               design_bytes=bytes16),
+                collect_ms=collect_ms,
+                tolerance="exact (same float32 add order)")
 
 
 def synth_filterbank(path, gen, N, nchan, dt, lofreq, cw, f0, fdot, dm,

@@ -12,7 +12,9 @@ For column j = start_cols[s] + t, acc starts at P[:, j] and each term
 adds P[zinds[term], round_half_up(j * harm / htot)]; after each stage
 colmax[s, stage, t] is the max over rows and colz its lowest row.
 The slab layout needs no alignment here: reads stay inside the plane,
-since every subharmonic column is <= j.
+since every subharmonic column is <= j.  The kernel needs each z map
+nondecreasing (its chunks stage a row range per term); the wrapper checks
+that, and the slab bounds, once per input tensor, not per launch.
 """
 
 from __future__ import annotations
@@ -21,11 +23,15 @@ import ctypes
 from typing import Tuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from presto_tpu_torch import cuda_build
 
 #: kernel launches made by reduce_stages (reset by callers that count)
 launches = 0
+
+#: per checked input tensor: (its version counter, what it was checked for)
+_checked = WeakIdKeyDictionary()
 
 
 def stage_terms(nstages: int):
@@ -65,6 +71,37 @@ def reduce_stages_plain(P: torch.Tensor, start_cols: torch.Tensor,
     return colmax, colz
 
 
+def _check_once(t: torch.Tensor, key, check) -> None:
+    """check(t on the host) unless this tensor, unchanged since, passed
+    it for the same key: one device-to-host copy per tensor, not per
+    launch."""
+    if _checked.get(t) == (t._version, key):
+        return
+    check(t.cpu())
+    _checked[t] = (t._version, key)
+
+
+def check_zmaps(zinds: torch.Tensor, nrows: int) -> None:
+    """Each z map's rows lie in [0, nrows) and never decrease (the pad
+    rows map to themselves, above every real row's target)."""
+    def check(z):
+        if z.numel() and (int(z.min()) < 0 or int(z.max()) >= nrows):
+            raise ValueError("reduce_stages: z-row map out of range")
+        if bool((z[:, 1:] < z[:, :-1]).any()):
+            raise ValueError("reduce_stages: a z-row map decreases")
+    _check_once(zinds, ("zinds", nrows), check)
+
+
+def check_start_cols(start_cols: torch.Tensor, slab: int,
+                     numr: int) -> None:
+    """Every slab [start, start + slab) lies inside the plane's columns."""
+    def check(sc):
+        if sc.numel() and (int(sc.min()) < 0
+                           or int(sc.max()) + slab > numr):
+            raise ValueError("reduce_stages: a slab runs off the plane")
+    _check_once(start_cols, ("start_cols", slab, numr), check)
+
+
 def reduce_stages(P: torch.Tensor, start_cols: torch.Tensor,
                   zinds: torch.Tensor, slab: int, nstages: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -88,11 +125,14 @@ def reduce_stages(P: torch.Tensor, start_cols: torch.Tensor,
         raise ValueError("reduce_stages: nstages=%d with zinds %s for "
                          "%d rows" % (nstages, tuple(zinds.shape), nrows))
     nslabs = start_cols.shape[0]
-    if nslabs and (int(start_cols.min()) < 0
-                   or int(start_cols.max()) + slab > numr):
-        raise ValueError("reduce_stages: a slab runs off the plane")
-    if nterms and (int(zinds.min()) < 0 or int(zinds.max()) >= nrows):
-        raise ValueError("reduce_stages: z-row map out of range")
+    # the kernel's columns are int32 (a tile may run 255 past the slab),
+    # its grid holds the slabs in y, and it copies 16-byte units
+    if numr >= 2 ** 31 - 256 or nslabs >= 65536 or P.data_ptr() % 16:
+        raise ValueError("reduce_stages: %d slabs over %d columns (plane "
+                         "at %#x) out of the kernel's range"
+                         % (nslabs, numr, P.data_ptr()))
+    check_start_cols(start_cols, slab, numr)
+    check_zmaps(zinds, nrows)
     lib = cuda_build.load("stage_reduce")
     fn = lib.stage_reduce
     fn.restype = ctypes.c_int

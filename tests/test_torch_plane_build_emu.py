@@ -25,10 +25,13 @@ from presto_tpu_torch.search import build_cuda
 
 EMU_H = r"""
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cstring>
 #include <thread>
 #include <vector>
+using std::max;
+using std::min;
 #define __global__
 #define __device__
 #define __host__
@@ -36,6 +39,8 @@ EMU_H = r"""
 #define __launch_bounds__(...)
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+struct int4 { int x, y, z, w; };
+#define CUDART_INF_F __builtin_huge_valf()
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
@@ -47,12 +52,28 @@ struct dim3 {
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+       cudaFuncAttributePreferredSharedMemoryCarveout = 9,
+       cudaSharedmemCarveoutMaxShared = 100 };
 template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) {
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F,
+                                                                 int, int) {
+  *n = 1;
+  return 0;
+}
 template <class T> inline T __ldg(const T* p) { return *p; }
+// cp.async as a plain copy (zero-filling past nbytes); its groups need no
+// commit or wait, since the copy has landed when the call returns
+inline void cp_async16(float* dst, const float* src, int nbytes) {
+  std::memset(dst, 0, 16);
+  std::memcpy(dst, src, nbytes);
+}
+inline void cp_async_commit() {}
+template <int N> inline void cp_async_wait() {}
 struct Idx { unsigned x, y, z; };
 thread_local Idx threadIdx, blockIdx;
 thread_local char* emu_smem;
