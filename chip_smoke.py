@@ -15,17 +15,26 @@ Phases (any failure exits non-zero before the final line):
              kernel / plain / library times, the card's bound, the
              reducer's own byte count, and the time of the collect step
              that follows the reducer;
-  3. main    a 128-channel 8-bit filterbank of 2^22 samples (2^21-bin
-             spectra) with a strong accelerated pulsar, through
-             survey_head + seam_fft_search (nsub 32, zmax 200, numharm 8)
-             over a DDplan fan-out, launch counters read around it; and
-             a small spectrum searched on the card and on the CPU;
-  4. summary the kernels line, the card, and the final ok line.
+  3. polish  a 128-channel 8-bit filterbank of 2^22 samples (2^21-bin
+             spectra) with a strong accelerated pulsar; its DM-22 trial
+             dedispersed, searched (zmax 200, numharm 8) and its
+             deduplicated candidate list polished on the card (CUDA-event
+             time, pairs, window taps, quadrature points) and on the CPU:
+             r, z, power and sigma agree within the stated tolerances;
+  4. main    the same filterbank through survey.run_survey (DDplan over
+             DM 20-24: 24 trials, nsub 32, zmax 200, numharm 8): launch
+             counters read around it, an ACCEL file and .cand per DM,
+             stage times (head, FFT + search, polish, ACCEL writes,
+             sift), the pulsar on top of the sifted list, and the DM
+             curve at its polished (r, z) peaking at the injected DM;
+             and a small spectrum searched on the card and on the CPU;
+  5. summary the kernels line, the card, and the final ok line.
 
 Prints the full results as one JSON line (``results: {...}``).  Imports
 no JAX and nothing of the JAX package.
 """
 
+import glob
 import json
 import os
 import re
@@ -234,6 +243,19 @@ def reducer_design_bytes(zinds, nrows, slab, nslabs, nstages):
     return tiles * per_tile + z.nbytes + 2 * nslabs * nstages * slab * 4
 
 
+def reducer_bound(plane, scols, zinds, slab, nst):
+    """The stage reducer's bound on these inputs: the plane, start
+    columns and z maps read once, colmax and colz written once; one add
+    a term and one compare a stage per plane element of the slabs.
+    Returns (ms, "bytes" or "operations", bytes)."""
+    nterms = (1 << (nst - 1)) - 1
+    ncols = scols.numel() * slab
+    nbytes = (plane.numel() + scols.numel() + zinds.numel()) * 4 \
+        + 2 * scols.numel() * nst * slab * 4
+    ms, by = bound_ms(nbytes, ncols * plane.shape[0] * (nterms + nst))
+    return ms, by, nbytes
+
+
 def check_stage_reduce(s, S, gen):
     """Kernel 2 on a real bench plane (numharm 8, and numharm 16 on the same
     plane), and at a ragged 5-stage shape; then the collect step that
@@ -281,10 +303,11 @@ def check_stage_reduce(s, S, gen):
     ms16 = cuda_time_ms(lambda: accel_cuda.reduce_stages(*args16), 10)
     bytes16 = reducer_design_bytes(z16, plane.shape[0], slab,
                                    len(start_cols), 5)
+    bms16, by16, _ = reducer_bound(plane, scols, z16, slab, 5)
     log("stage_reduce numharm 16 (5 stages) on the bench plane: "
-        "max_abs_err %.3g, colz equal %s; kernel %.3f ms, design bytes "
-        "%.3f GB (%.1f%% of 3.35 TB/s) %s"
-        % (err16, ok16, ms16, bytes16 / 1e9,
+        "max_abs_err %.3g, colz equal %s; kernel %.3f ms, bound %.3f ms "
+        "(%s), design bytes %.3f GB (%.1f%% of 3.35 TB/s) %s"
+        % (err16, ok16, ms16, bms16, by16, bytes16 / 1e9,
            100 * bytes16 / (ms16 * 1e-3) / PEAK_BYTES_PER_S,
            "ok" if ok16 else "FAIL"))
     # ragged: 16 harmonics (5 stages), 29 rows, unaligned slabs
@@ -301,12 +324,7 @@ def check_stage_reduce(s, S, gen):
     rok = rerr == 0.0 and bool((rz == pz).all())
     log("stage_reduce ragged (5 stages, 32 rows, slabs of 1000): "
         "max_abs_err %.3g %s" % (rerr, "ok" if rok else "FAIL"))
-    nterms = (1 << (nst - 1)) - 1
-    ncols = len(start_cols) * slab
-    nbytes = plane.numel() * 4 + scols.numel() * 4 + s._zinds.numel() * 4 \
-        + 2 * len(start_cols) * nst * slab * 4
-    flops = ncols * plane.shape[0] * (nterms + nst)
-    bms, by = bound_ms(nbytes, flops)
+    bms, by, nbytes = reducer_bound(plane, scols, s._zinds, slab, nst)
     design = reducer_design_bytes(s._zinds, plane.shape[0], slab,
                                   len(start_cols), nst)
     ms = cuda_time_ms(lambda: accel_cuda.reduce_stages(*args), 10)
@@ -323,6 +341,7 @@ def check_stage_reduce(s, S, gen):
                 ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
                 bound_by=by, design_bytes=design, design_share=share,
                 numharm16=dict(ok=ok16, max_abs_err=err16, ms=ms16,
+                               bound_ms=bms16, bound_by=by16,
                                design_bytes=bytes16),
                 collect_ms=collect_ms,
                 tolerance="exact (same float32 add order)")
@@ -360,62 +379,202 @@ def synth_filterbank(path, gen, N, nchan, dt, lofreq, cw, f0, fdot, dm,
     write_filterbank(path, hdr, out.cpu().numpy())
 
 
-def phase_main(workdir, seed=22):
-    """The main path on a synthetic beam made from its own seed, so the
-    data do not depend on what the kernel phases drew."""
-    from presto_tpu_torch.pipeline import fusion, survey
-    from presto_tpu_torch.search import accel_cuda, build_cuda
+# the beam of the polish and main phases: 537 s of 128 channels x 3 MHz
+# at 1214-1595 MHz; 0.5 ms pulses of a 40.3 Hz pulsar at DM 22 with
+# fdot 1.4e-4 Hz/s.  One DM step (0.2) smears 0.24 ms across the band, so
+# the sigma curve is flat to noise within ~0.4 of the true DM and the
+# best single trial may sit two steps off; the DM is read from the
+# curve's parabola peak, within one step
+BEAM = dict(N=1 << 22, nchan=128, dt=1.28e-4, lofreq=1214.0, cw=3.0,
+            f0=40.3, fdot=1.4e-4, dm=22.0, width=0.02)
+BEAM_SEED = 22
+
+
+def make_beam(workdir):
+    """The seeded beam, made on the card from its own seed, so the data
+    do not depend on what the kernel phases drew."""
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    N, nchan, dt, lofreq, cw = 1 << 22, 128, 1.28e-4, 1214.0, 3.0
-    # 0.5 ms pulses: one DM step (0.2) smears 0.24 ms across the band, so
-    # the sigma curve is flat to noise within ~0.4 of the true DM and the
-    # best single trial may sit two steps off; the DM is read from the
-    # curve's parabola peak, within one step
-    f0, fdot, dm, width = 40.3, 1.4e-4, 22.0, 0.02
-    stages = {}
-    t0 = time.time()
+    gen.manual_seed(BEAM_SEED)
     raw = os.path.join(workdir, "psr.fil")
-    synth_filterbank(raw, gen, N, nchan, dt, lofreq, cw, f0, fdot, dm,
-                     width)
-    stages["synth_s"] = time.time() - t0
+    b = BEAM
+    synth_filterbank(raw, gen, b["N"], b["nchan"], b["dt"], b["lofreq"],
+                     b["cw"], b["f0"], b["fdot"], b["dm"], b["width"])
+    return raw
+
+
+def polish_agreement(card, cpu):
+    """Card against CPU, per candidate: r within 2e-3 bins, z within
+    1e-2; power rtol 1e-4 and sigma within 1e-3 where both picked the
+    same grid point, rtol 1e-3 and 1e-2 where an argmax near-tie moved
+    one of them by a final-stage step.  Returns (ok, moved, worst)."""
+    ok, moved = len(card) == len(cpu), 0
+    worst = dict(r=0.0, z=0.0, power_rel=0.0, sigma=0.0)
+    for a, b in zip(cpu, card):
+        dr, dz = abs(a.r - b.r), abs(a.z - b.z)
+        same = dr < 1e-9 and dz < 1e-9
+        moved += not same
+        dp = abs(a.power - b.power) / abs(a.power)
+        ds = abs(a.sigma - b.sigma)
+        ok = (ok and a.numharm == b.numharm and dr <= 2e-3 and dz <= 1e-2
+              and dp <= (1e-4 if same else 1e-3)
+              and ds <= (1e-3 if same else 1e-2))
+        for k, v in (("r", dr), ("z", dz), ("power_rel", dp), ("sigma", ds)):
+            worst[k] = max(worst[k], v)
+    return ok, moved, worst
+
+
+def phase_polish(raw, workdir):
+    """One DM's deduplicated candidate list (the injected DM's trial,
+    dedispersed, FFT'd and searched on the card) polished on the card,
+    timed with CUDA events after a warm-up call, and on the CPU with the
+    plain PyTorch path; the two agree within polish_agreement's
+    tolerances."""
+    from presto_tpu_torch.apps import prepsubband
+    from presto_tpu_torch.pipeline import fusion, survey
+    from presto_tpu_torch.search import accel, polish
+    os.makedirs(workdir)
+    seam = fusion.StageSeam(workdir, durable=False)
+    prepsubband.run(prepsubband.build_parser().parse_args(
+        ["-lodm", str(BEAM["dm"]), "-dmstep", "0.2", "-numdms", "1",
+         "-nsub", "32", "-nobary", "-o", os.path.join(workdir, "probe"),
+         raw]), device="cuda", seam=seam)
+    block = seam.blocks[0]
+    n = block.numout & ~1
+    T = block.numout * fusion.inf_float(block.dt)
+    pairs = fusion.fused_rfft_batch(block.series_dev[:, :n])[0]
+    del seam, block
+    cfg = survey.SurveyConfig(zmax=200, numharm=8)
+    searcher = survey.searcher_for(cfg, T, n // 2, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    raw_c = searcher.search(pairs)
+    search_s = time.time() - t0
+    cands = accel.remove_duplicates(accel.eliminate_harmonics(raw_c))
+    nh = np.array([c.numharm for c in cands])
+    zh = max(abs(c.z) * c.numharm for c in cands)
+    W, npts = polish._geometry(zh + polish.STEP0_Z * polish.GRID_G + 1.0)
+
+    def run(spec, dev):
+        return polish.optimize_accelcands(spec, cands, T, searcher.numindep,
+                                          with_props=False, device=dev)
+    run(pairs, "cuda")                                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.time()
+    e0.record()
+    card = run(pairs, "cuda")
+    e1.record()
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    card_ms = e0.elapsed_time(e1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.time()
+    cpu = run(pairs.cpu(), "cpu")
+    cpu_s = time.time() - t0
+    ok, moved, worst = polish_agreement(card, cpu)
+    # evaluations of A per pair: 2 re-centre + 4 shrinking stages of a
+    # 7x7 grid, and two 23-point measures (seed locpow, final)
+    evals = (2 + polish.N_STAGES - 1) * (2 * polish.GRID_G + 1) ** 2 + 2 * 23
+    res = dict(ok=ok, dm=BEAM["dm"], raw_cands=len(raw_c),
+               cands=len(cands), pairs=int(nh.sum()),
+               numharm_counts={int(h): int((nh == h).sum())
+                               for h in np.unique(nh)},
+               W=W, npts=npts, evals_per_pair=evals,
+               cexp_per_pair=evals * npts, search_s=search_s,
+               card_ms=card_ms, card_host_s=card_s, cpu_s=cpu_s,
+               peak_gb=peak_gb, moved=moved, worst=worst,
+               tolerance="r 2e-3 bins, z 1e-2; power rtol 1e-4, sigma "
+                         "1e-3 (same grid point), 1e-3 / 1e-2 (moved)")
+    log("polish (DM %.1f): %d raw -> %d candidates, %d pairs %s, W %d, "
+        "npts %d, %d complex exponentials a pair; card %.3f ms (CUDA "
+        "events; host %.3f s, peak %.2f GB), CPU %.2f s; %d candidates "
+        "moved by a near-tie, worst %s %s"
+        % (BEAM["dm"], len(raw_c), len(cands), res["pairs"],
+           res["numharm_counts"], W, npts, res["cexp_per_pair"], card_ms,
+           card_s, peak_gb, cpu_s, moved, json.dumps(worst),
+           "ok" if ok else "FAIL"))
+    return res
+
+
+def dm_of(path):
+    return float(os.path.basename(path).rsplit("_DM", 1)[1].split("_")[0])
+
+
+def parabola_peak(curve):
+    """Peak of the least-squares parabola through (DM, value) points."""
+    pa, pb, _pc = np.polyfit([c[0] for c in curve], [c[1] for c in curve],
+                             2)
+    return float(-pb / (2 * pa)) if pa < 0 else float("nan")
+
+
+def dm_curve(top, accs):
+    """The DM curve at one candidate: on each DM trial's .fft, the power
+    summed over the candidate's harmonics at its polished (r, z)
+    (optimize.power_at_rz), in units of that spectrum's median power /
+    ln 2 (the noise level, estimated over every bin)."""
+    from presto_tpu_torch.io import datfft
+    from presto_tpu_torch.search.optimize import power_at_rz
+    out = []
+    for a in accs:
+        amps = datfft.read_fft(a.rsplit("_ACCEL_", 1)[0] + ".fft")
+        noise = float(np.median(np.abs(amps[1:]) ** 2)) / np.log(2.0)
+        tot = sum(power_at_rz(amps, top.r * h, top.z * h)
+                  for h in range(1, top.numharm + 1))
+        out.append((dm_of(a), round(float(tot / noise), 1)))
+    return out
+
+
+def phase_main(raw, workdir):
+    """The main path: survey.run_survey on the beam, launch counters
+    read around it; stage times from its StageTimer (host seconds; every
+    stage ends in a device-to-host copy)."""
+    from presto_tpu_torch.apps.accelsearch import read_cand_file
+    from presto_tpu_torch.io.infodata import read_inf
+    from presto_tpu_torch.pipeline import survey
+    from presto_tpu_torch.search import accel_cuda, build_cuda
+    from presto_tpu_torch.utils.timing import StageTimer
+    b = BEAM
     cfg = survey.SurveyConfig(lodm=20.0, hidm=24.0, nsub=32, zmax=200,
                               numharm=8, skip_rfifind=True,
                               singlepulse=False, fold_top=0,
                               durable_stages=True)
+    timer = StageTimer()
     build_cuda.launches = 0
     accel_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
-    seam = survey.survey_head(raw, cfg, workdir, device="cuda")
+    res = survey.run_survey([raw], cfg, workdir, timer=timer, device="cuda")
     torch.cuda.synchronize()
-    stages["survey_head_s"] = time.time() - t0
-    t0 = time.time()
-    cands = survey.seam_fft_search(seam, cfg, device="cuda")
-    torch.cuda.synchronize()
-    stages["fft_search_s"] = time.time() - t0
+    total_s = time.time() - t0
     launches = {"plane_build": build_cuda.launches,
                 "stage_reduce": accel_cuda.launches}
-    ndms = len(cands)
-    block = seam.blocks[0]
-    nbins = (block.numout & ~1) // 2
-    T = block.numout * dt
+    ndms = len(res.datfiles)
+    st = timer.stages
+    fused = st["realfft+accelsearch (fused)"]
+    stages = dict(run_survey_s=total_s, survey_head_s=st["prepsubband"],
+                  fused_s=fused, polish_s=st["polish"],
+                  polish_per_dm_s=timer.samples["polish"],
+                  accel_writes_s=st["accel writes"], sift_s=st["sift"],
+                  fft_search_s=fused - st["polish"] - st["accel writes"])
     stages["fft_search_per_dm_s"] = stages["fft_search_s"] / max(ndms, 1)
-    # one DM's breakdown: searcher set-up (host kernel bank), search_many
-    # (device + collect), eliminate_harmonics + remove_duplicates (host)
-    n = block.numout & ~1
-    pairs = fusion.fused_rfft_batch(block.series_dev[:1, :n])
-    t0 = time.time()
-    searcher = survey.searcher_for(cfg, T, nbins, device="cuda")
-    torch.cuda.synchronize()
-    stages["one_dm_setup_s"] = time.time() - t0
-    t0 = time.time()
-    raw1 = searcher.search_many(pairs)[0]
-    stages["one_dm_search_s"] = time.time() - t0
-    t0 = time.time()
-    survey.remove_duplicates(survey.eliminate_harmonics(raw1))
-    stages["one_dm_post_s"] = time.time() - t0
-    stages["one_dm_raw_cands"] = len(raw1)
+    info = read_inf(res.datfiles[0][:-4])
+    T = info.N * info.dt
+    nbins = int(info.N) // 2
+    accs = sorted(glob.glob(os.path.join(workdir, "psr_DM*_ACCEL_%d"
+                                         % cfg.zmax)))
+    files_ok = (len(accs) == ndms > 0
+                and all(os.path.exists(a + ".cand") for a in accs))
+    # per DM: the polished candidates (count; best sigma above flo)
+    counts, sig_curve = [], []
+    for a in accs:
+        cs = read_cand_file(a + ".cand")
+        counts.append(len(cs))
+        sig_curve.append((dm_of(a), round(float(max(
+            (c.sigma for c in cs if c.r / T > cfg.flo), default=0.0)), 2)))
+    stages["polished_per_dm"] = counts
+    top = res.sifted[0] if len(res.sifted) else None
+    curve = dm_curve(top, accs) if top is not None else []
     # the device share of the survey head: one streamed dedispersion
     # step at the main path's block shape and delay plan, times blocks
     from presto_tpu_torch.apps import common, prepsubband
@@ -425,51 +584,54 @@ def phase_main(workdir, seed=22):
         ["-lodm", "20", "-dmstep", "0.2", "-numdms", str(ndms), "-nsub",
          "32", "-nobary", raw])
     _dms, chan_bins, dm_bins = prepsubband.plan_delays(fb.header, args)
-    blocklen = common.stream_blocklen(nchan, int(max(chan_bins.max(),
-                                                     dm_bins.max())), N)
+    blocklen = common.stream_blocklen(
+        b["nchan"], int(max(chan_bins.max(), dm_bins.max())), b["N"])
     fb.close()
     step = dd.make_block_step(chan_bins, dm_bins, 32)
-    blk = [torch.rand((nchan, blocklen), generator=gen, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(BEAM_SEED)
+    blk = [torch.rand((b["nchan"], blocklen), generator=gen, device="cuda")
            for _ in range(2)]
     sub0 = dd.dedisp_subbands_block(blk[0], blk[1], chan_bins, 32)
     stages["dedisp_step_ms"] = cuda_time_ms(
         lambda: step(blk[0], blk[1], sub0))
-    stages["dedisp_blocks"] = -(-N // blocklen) + 2
-    log("main: %d DMs (DDplan %g-%g, nsub 32), numout %d (%d bins), "
-        "zmax 200, numharm 8" % (ndms, cfg.lodm, cfg.hidm, block.numout,
-                                 nbins))
+    stages["dedisp_blocks"] = -(-b["N"] // blocklen) + 2
+    log("main: %d DMs (DDplan %g-%g, nsub %d), numout %d (%d bins), "
+        "zmax %d, numharm %d" % (ndms, cfg.lodm, cfg.hidm, cfg.nsub,
+                                 int(info.N), nbins, cfg.zmax, cfg.numharm))
     log("main: stage times %s" % json.dumps(
-        {k: round(v, 3) for k, v in stages.items()}))
-    log("main: launches %s" % json.dumps(launches))
-    best_name, best = max(((k, c) for k, cs in cands.items() for c in cs
-                           if c.r / T > cfg.flo),
-                          key=lambda kc: kc[1].sigma)
-    bdm = float(best_name.rsplit("_DM", 1)[1])
-    curve = sorted((float(k.rsplit("_DM", 1)[1]),
-                    round(max((c.sigma for c in cs if c.r / T > cfg.flo),
-                              default=0.0), 1),
-                    max((c.numharm for c in cs if c.r / T > cfg.flo
-                         and abs(c.r / T - f0) < 0.5), default=0))
-                   for k, cs in cands.items())
-    log("main: per DM (DM, best sigma, numharm near f0) %s" % curve)
-    # the DM curve's peak from a least-squares parabola over all trials
-    pa, pb, _pc = np.polyfit([c[0] for c in curve], [c[1] for c in curve],
-                             2)
-    peak_dm = float(-pb / (2 * pa)) if pa < 0 else float("nan")
-    log("main: DM-curve parabola peak %.3f (injected %.2f)" % (peak_dm, dm))
-    f = best.r / T
-    h = max(1, round(f / f0))
-    log("main: best candidate DM %.2f, f %.6f Hz (harmonic %d of %.2f), "
-        "z %.1f, sigma %.1f, numharm %d" % (bdm, f, h, f0, best.z,
-                                           best.sigma, best.numharm))
-    ok = (abs(peak_dm - dm) <= 0.21
-          and abs(f / h - f0) < 0.1
+        {k: ([round(x, 4) for x in v] if isinstance(v, list)
+             else round(v, 4)) for k, v in stages.items()}))
+    log("main: launches %s; ACCEL + .cand for %d of %d DMs"
+        % (json.dumps(launches), len(accs), ndms))
+    log("main: per DM best polished sigma %s; its parabola peak %.3f "
+        "(the 20-bin local power of each polished harmonic carries the "
+        "noise of its DM trial, so this curve is not held to the DM)"
+        % (sig_curve, parabola_peak(sig_curve)))
+    peak_dm = parabola_peak(curve)
+    log("main: DM curve at the top candidate's (r, z): %s; parabola peak "
+        "%.3f (injected %.2f)" % (curve, peak_dm, b["dm"]))
+    f = top.f if top is not None else 0.0
+    h = max(1, round(f / b["f0"]))
+    top_ok = (top is not None and f > cfg.flo
+              and abs(f / h - b["f0"]) < 0.1
+              and len(top.hits) >= cfg.min_dm_hits)
+    log("main: %d sifted; top %s: DM %.2f, f %.6f Hz (harmonic %d of %.2f),"
+        " z %.2f, sigma %.2f, numharm %d, %d DM hits %s"
+        % (len(res.sifted), top.filename if top else None,
+           top.DM if top else 0, f, h, b["f0"], top.z if top else 0,
+           top.sigma if top else 0, top.numharm if top else 0,
+           len(top.hits) if top else 0, "ok" if top_ok else "FAIL"))
+    ok = (abs(peak_dm - b["dm"]) <= 0.21 and top_ok and files_ok
           and nbins == 1 << 21
           and all(v == ndms > 0 for v in launches.values()))
     return dict(ok=ok, ndms=ndms, nbins=nbins, stages=stages,
-                launches=launches, best_dm=bdm, dm_curve_peak=peak_dm,
-                best_freq=f,
-                best_sigma=best.sigma, best_z=best.z)
+                launches=launches, dm_curve=curve, dm_curve_peak=peak_dm,
+                polished_sigma_curve=sig_curve,
+                sifted=len(res.sifted), top_freq=f,
+                top_sigma=top.sigma if top else None,
+                top_dm=top.DM if top else None,
+                top_hits=len(top.hits) if top else 0)
 
 
 def phase_small_reference(gen):
@@ -526,12 +688,17 @@ def main():
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        main_res = phase_main(work)
+        t0 = time.time()
+        raw = make_beam(work)
+        results["synth_s"] = time.time() - t0
+        pol = phase_polish(raw, os.path.join(work, "polish"))
+        torch.cuda.empty_cache()
+        main_res = phase_main(raw, os.path.join(work, "main"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     small_ok = phase_small_reference(gen)
-    results.update(plane_build=k1, stage_reduce=k2, main=main_res,
-                   small_reference_ok=small_ok,
+    results.update(plane_build=k1, stage_reduce=k2, polish=pol,
+                   main=main_res, small_reference_ok=small_ok,
                    total_s=time.time() - t_start)
     kernels = []
     for name, src, rep, k in (
@@ -551,6 +718,7 @@ def main():
     failed = [n for n, ok in (("build", build["ok"]),
                               ("plane_build", k1["ok"]),
                               ("stage_reduce", k2["ok"]),
+                              ("polish", pol["ok"]),
                               ("main", main_res["ok"]),
                               ("small_reference", small_ok)) if not ok]
     if failed:

@@ -1,9 +1,10 @@
 """Shared app plumbing the slice needs (host copy, trimmed).
 
 Copy of the parts of ``presto_tpu/apps/common.py`` that the
-prepsubband streaming loop uses: the raw-data flags, BlockPrep (per-
-block clipping, on by default), stream_blocklen, pad_to_good_N,
-set_onoff and fil_to_inf.  The port reads SIGPROC filterbanks only;
+prepsubband streaming loop and accelsearch use: the raw-data flags,
+BlockPrep (per-block clipping, on by default), stream_blocklen,
+pad_to_good_N, set_onoff, fil_to_inf, load_timeseries and
+load_spectrum.  The port reads SIGPROC filterbanks only;
 PSRFITS input and barycentring are left for later slices.
 """
 
@@ -14,7 +15,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from presto_tpu_torch.io.infodata import InfoData
+from presto_tpu_torch.io import datfft
+from presto_tpu_torch.io.infodata import InfoData, read_inf
 from presto_tpu_torch.io.sigproc import FilterbankFile
 from presto_tpu_torch.ops.clipping import clip_times, remove_zerodm
 from presto_tpu_torch.utils.psr import choose_N, good_fft_size
@@ -72,6 +74,23 @@ def start_skip_spectra(args, N: int) -> int:
     if frac > 0.0:
         skip = max(skip, int(frac * N))
     return min(skip, N)
+
+
+def load_timeseries(path: str) -> Tuple[np.ndarray, InfoData]:
+    """Load a .dat (+ .inf sidecar) time series."""
+    base = path[:-4] if path.endswith(".dat") else path
+    data = datfft.read_dat(base + ".dat")
+    info = read_inf(base)
+    return data, info
+
+
+def load_spectrum(path: str) -> Tuple[np.ndarray, InfoData]:
+    """Load a packed .fft (+ .inf) as float32 [n,2] pairs."""
+    base = path[:-4] if path.endswith(".fft") else path
+    amps = datfft.read_fft(base + ".fft")
+    info = read_inf(base)
+    pairs = np.stack([amps.real, amps.imag], -1).astype(np.float32)
+    return pairs, info
 
 
 class BlockPrep:

@@ -31,3 +31,8 @@ def np_pairs_to_complex64(p: np.ndarray) -> np.ndarray:
     """Host-side: [..., n, 2] float32 -> complex64 (for .fft files)."""
     return np.ascontiguousarray(p[..., 0] + 1j * p[..., 1]).astype(
         np.complex64)
+
+
+def np_complex64_to_pairs(z: np.ndarray) -> np.ndarray:
+    """Host-side inverse of np_pairs_to_complex64."""
+    return np.stack([z.real, z.imag], axis=-1).astype(np.float32)

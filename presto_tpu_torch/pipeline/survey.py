@@ -1,38 +1,49 @@
-"""The survey's device path: DDplan -> prepsubband -> rFFT -> search.
+"""One-command search pipeline: filterbank -> sifted candidate list.
 
-PyTorch counterpart of the head and the fused FFT + search stage of
-``presto_tpu/pipeline/survey.py`` (``_survey_head`` and
-``_seam_fft_search``).  ``survey_head`` plans the DM fan-out, streams
-the filterbank through prepsubband into an in-memory seam (writing the
-durable tier's ``.dat``/``.inf``), and ``seam_fft_search`` runs the
-batched packed rFFT and ``AccelSearch.search_many`` over each seam
-block, returning per-trial candidate lists after eliminate_harmonics
-and remove_duplicates — the point where the JAX package's
-refine_and_write starts polishing.
+PyTorch counterpart of ``presto_tpu/pipeline/survey.py``: ``run_survey``
+runs DDplan -> prepsubband (the DM fan-out deposited at an in-memory
+stage seam) -> batched packed rFFT -> accelsearch on the device spectra
+-> polish -> ACCEL/.cand files -> ACCEL_sift, with the JAX package's
+artifacts (.dat/.inf/.fft/_ACCEL_<zmax>/.cand/cands_sifted.txt) and its
+journal: every artifact is written atomically and recorded with size
+and CRC-32 in the workdir's manifest.json, and a stage is skipped on a
+rerun only when its outputs verify.
 
 Not in this slice (a config that asks for them raises
-NotImplementedError): rfifind, zapbirds, extra accel passes, single
-pulse, polish and ACCEL files, sifting, folding, barycentring, elastic
-runs and the serving hooks.
+NotImplementedError): rfifind, zapbirds, single pulse, folding,
+barycentring, triage, elastic runs and the serving and telemetry hooks.
+The JAX package's cross-stage in-flight window (the FFT of one chunk
+queued while the previous one is collected) only overlaps dispatch and
+is not ported yet.
 """
 
 from __future__ import annotations
 
+import glob
 import os
-from dataclasses import dataclass
-from typing import Dict, List, Optional
+from dataclasses import dataclass, field, replace
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
 
 from presto_tpu_torch.apps import prepsubband
+from presto_tpu_torch.apps.accelsearch import refine_and_write
 from presto_tpu_torch.apps.common import open_raw
 from presto_tpu_torch.io import datfft
+from presto_tpu_torch.io.atomic import cleanup_stale_tmp
+from presto_tpu_torch.io.infodata import read_inf
 from presto_tpu_torch.ops import fftpack
 from presto_tpu_torch.pipeline import fusion
 from presto_tpu_torch.pipeline.ddplan import Observation, plan_dedispersion
+from presto_tpu_torch.pipeline.manifest import SurveyManifest
+from presto_tpu_torch.pipeline.sifting import (select_fold_candidates,
+                                               sift_candidates)
 from presto_tpu_torch.search.accel import (AccelCand, AccelConfig,
-                                           AccelSearch,
-                                           eliminate_harmonics,
-                                           remove_duplicates,
-                                           resolve_device)
+                                           AccelSearch, resolve_device)
+from presto_tpu_torch.utils.timing import StageTimer
+
+FFT_CHUNK_BYTES = 1 << 30    # series bytes per batched rFFT + search
 
 
 @dataclass
@@ -47,11 +58,13 @@ class SurveyConfig:
     sigma: float = 4.0
     flo: float = 1.0
     zaplist: Optional[str] = None
+    # extra accelsearch passes beyond (zmax, numharm, sigma[, flo]):
+    # (zmax, numharm, sigma) or (zmax, numharm, sigma, flo) each
     accel_passes: Optional[tuple] = None
     min_dm_hits: int = 2
     low_dm_cutoff: float = 2.0
     fold_top: int = 3
-    sift_policy: Optional[object] = None
+    sift_policy: Optional[object] = None   # sifting.SiftPolicy
     fold_sigma: Optional[float] = None
     max_folds: int = 150
     max_folds_per_pass: Optional[tuple] = None
@@ -70,15 +83,33 @@ class SurveyConfig:
     inflight_depth: Optional[int] = None
     triage: Optional[object] = None
 
+    @property
+    def all_passes(self):
+        """Normalized 4-tuples (zmax, numharm, sigma, flo)."""
+        raw = ((self.zmax, self.numharm, self.sigma, self.flo),) + \
+            tuple(self.accel_passes or ())
+        return tuple(p if len(p) == 4 else tuple(p) + (self.flo,)
+                     for p in raw)
+
+
+@dataclass
+class SurveyResult:
+    workdir: str
+    maskfile: Optional[str] = None
+    datfiles: List[str] = field(default_factory=list)
+    candfile: str = ""
+    folded: List[str] = field(default_factory=list)
+    sp_events: int = 0
+    sifted: Optional[object] = None      # sifting.Candlist
+
 
 def _refuse_unported(cfg: SurveyConfig) -> None:
     asks = {
         "rfifind (set skip_rfifind=True)": not cfg.skip_rfifind,
         "zapbirds": cfg.zaplist,
-        "extra accel passes": cfg.accel_passes,
         "single pulse (set singlepulse=False)": cfg.singlepulse,
         "folding (set fold_top=0)": cfg.fold_top or cfg.fold_sigma,
-        "sifting policies": cfg.sift_policy or cfg.triage,
+        "triage": cfg.triage,
         "barycentring": cfg.bary,
         "elastic runs": cfg.elastic,
         "serving and telemetry hooks": (cfg.plan_provider or cfg.obs
@@ -90,18 +121,53 @@ def _refuse_unported(cfg: SurveyConfig) -> None:
                 "survey: %s comes in a later slice of the port" % what)
 
 
-def survey_head(rawfile: str, cfg: SurveyConfig, workdir: str = ".",
-                device="cuda") -> fusion.StageSeam:
+def _stage(done_glob: str, workdir: str) -> List[str]:
+    return sorted(glob.glob(os.path.join(workdir, done_glob)))
+
+
+def _valid(manifest, path: str) -> bool:
+    """Trustworthy for resume: with a manifest, exists and matches its
+    journaled size + checksum; without (verify_resume=False), exists."""
+    if manifest is None:
+        return os.path.exists(path)
+    return manifest.valid(path)
+
+
+def _record(manifest, paths, stage: str) -> None:
+    if manifest is not None:
+        manifest.record_many([p for p in paths if os.path.exists(p)],
+                             stage)
+
+
+def _drop_stale(manifest, paths) -> List[str]:
+    """Delete + forget artifacts that fail verification; returns the
+    surviving (valid) subset."""
+    if manifest is None:
+        return [p for p in paths if os.path.exists(p)]
+    stale = set(manifest.invalidate_stale(paths))
+    return [p for p in paths if p not in stale]
+
+
+def _base(rawfiles, workdir: str) -> str:
+    return os.path.join(workdir, os.path.splitext(
+        os.path.basename(rawfiles[0]))[0])
+
+
+def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
+                device="cuda", manifest=None) -> fusion.StageSeam:
     """DDplan -> prepsubband per method, the fan-out deposited at an
     in-memory seam.  ``durable_stages`` (None -> True) also writes each
-    trial's .dat; the .inf sidecars are always written."""
+    trial's .dat; the .inf sidecars are always written.  A method whose
+    .dat files all verify (a resumed run) is skipped: its trials are
+    left on disk, outside the seam."""
     _refuse_unported(cfg)
     resolve_device(device)
     os.makedirs(workdir, exist_ok=True)
-    rawfile = os.path.abspath(rawfile)
-    base = os.path.join(workdir,
-                        os.path.splitext(os.path.basename(rawfile))[0])
-    fb = open_raw(rawfile)
+    if isinstance(rawfiles, str):
+        rawfiles = [rawfiles]
+    rawfiles = [os.path.abspath(f) for f in rawfiles]
+    base = _base(rawfiles, workdir)
+    fb = open_raw(rawfiles)
     hdr = fb.header
     fb.close()
     observation = Observation(dt=hdr.tsamp, f_ctr=hdr.lofreq
@@ -110,15 +176,26 @@ def survey_head(rawfile: str, cfg: SurveyConfig, workdir: str = ".",
                               numchan=hdr.nchans)
     plan = plan_dedispersion(observation, cfg.lodm, cfg.hidm,
                              numsub=cfg.nsub)
+    print("survey: DDplan -> %d methods, %d total DMs"
+          % (len(plan.methods), plan.total_numdms))
     seam = fusion.StageSeam(workdir, durable=cfg.durable_stages
                             is not False)
+    dat_glob = os.path.basename(base) + "_DM*.dat"
+    # verify a previous run's survivors once, before the loop: this
+    # run's own outputs are journaled as each method lands
+    _drop_stale(manifest, _stage(dat_glob, workdir))
     for m in plan.methods:
+        have = _stage(dat_glob, workdir)
+        if all(any("_DM%.2f.dat" % dm in f for f in have) for dm in m.dms):
+            continue
         argv = ["-lodm", str(m.lodm), "-dmstep", str(m.ddm),
                 "-numdms", str(m.numdms), "-nsub", str(cfg.nsub),
-                "-downsamp", str(m.downsamp), "-o", base, "-nobary",
-                rawfile]
-        prepsubband.run(prepsubband.build_parser().parse_args(argv),
-                        device=device, seam=seam)
+                "-downsamp", str(m.downsamp), "-o", base, "-nobary"]
+        prepsubband.run(prepsubband.build_parser().parse_args(
+            argv + rawfiles), device=device, seam=seam)
+        done = _stage(dat_glob, workdir)
+        _record(manifest, done + [f[:-4] + ".inf" for f in done],
+                "prepsubband")
     return seam
 
 
@@ -129,27 +206,222 @@ def searcher_for(cfg: SurveyConfig, T: float, nbins: int,
                        T=T, numbins=nbins, device=device)
 
 
+def _pass_configs(cfg: SurveyConfig) -> List[SurveyConfig]:
+    """One single-pass config per accel pass."""
+    return [replace(cfg, zmax=z, numharm=nh, sigma=sg, flo=flo,
+                    accel_passes=None)
+            for (z, nh, sg, flo) in cfg.all_passes]
+
+
+def _accel_names(name: str, cfg: SurveyConfig) -> List[str]:
+    """A trial's ACCEL table and .cand companion for every pass."""
+    out = []
+    for (zmax, _nh, _sg, _flo) in cfg.all_passes:
+        acc = name + "_ACCEL_%d" % zmax
+        out += [acc, acc + ".cand"]
+    return out
+
+
+def _search_and_write(pairs, names, T, cfg, device, manifest, timer,
+                      out, stage) -> None:
+    """Every accel pass over one batch of device spectra: search_many,
+    then refine_and_write per trial (the polish on the device, ACCEL and
+    .cand files), journaled under ``stage``."""
+    n = pairs.shape[1]
+    for pcfg in _pass_configs(cfg):
+        searcher = searcher_for(pcfg, T, n, device=device)
+        results = searcher.search_many(pairs)
+        arts = []
+        for name, pr, raw in zip(names, pairs, results):
+            cands, acc = refine_and_write(raw, pr, T, searcher, name,
+                                          pcfg.zmax, quiet=True,
+                                          timer=timer)
+            out[acc] = cands
+            arts += [acc, acc + ".cand"]
+        _record(manifest, arts, stage)
+
+
+def _write_ffts(pairs, names, manifest, stage) -> None:
+    host = pairs.cpu().numpy()
+    for name, pr in zip(names, host):
+        datfft.write_fft(name + ".fft", fftpack.np_pairs_to_complex64(pr))
+    _record(manifest, [name + ".fft" for name in names], stage)
+
+
 def seam_fft_search(seam: fusion.StageSeam, cfg: SurveyConfig,
-                    device="cuda") -> Dict[str, List[AccelCand]]:
-    """Batched rFFT straight off each seam block, search_many on the
-    device spectra, then eliminate_harmonics + remove_duplicates per
-    trial.  Returns {trial base path: candidates}.  The durable tier
-    also writes each trial's .fft."""
+                    device="cuda", manifest=None, timer=None
+                    ) -> Dict[str, List[AccelCand]]:
+    """Every accel pass over the seam-resident series: batched rFFT
+    straight off each seam block, search_many on the device spectra,
+    then per trial refine_and_write (eliminate_harmonics,
+    remove_duplicates, the polish, ACCEL + .cand).  The durable tier
+    also writes each trial's .fft.  Trials whose ACCEL files (and, on
+    the durable tier, .fft) all verify are skipped.  Returns
+    {ACCEL path: final candidates} for the trials searched."""
     _refuse_unported(cfg)
     resolve_device(device)
     out: Dict[str, List[AccelCand]] = {}
     for numout, blocks in sorted(seam.groups().items()):
         n = numout & ~1
+        per = max(1, FFT_CHUNK_BYTES // (n * 4))
         for block in blocks:
-            pairs = fusion.fused_rfft_batch(block.series_dev[:, :n])
+            arts = [a for name in block.names
+                    for a in _accel_names(name, cfg)]
+            _drop_stale(manifest, arts)
+            rows = [row for row, name in enumerate(block.names)
+                    if not all(_valid(manifest, a)
+                               for a in _accel_names(name, cfg))
+                    or (seam.durable
+                        and not _valid(manifest, name + ".fft"))]
             T = block.numout * fusion.inf_float(block.dt)
-            searcher = searcher_for(cfg, T, n // 2, device=device)
-            results = searcher.search_many(pairs)
-            for name, raw in zip(block.names, results):
-                out[name] = remove_duplicates(eliminate_harmonics(raw))
-            if seam.durable:
-                host = pairs.cpu().numpy()
-                for name, pr in zip(block.names, host):
-                    datfft.write_fft(name + ".fft",
-                                     fftpack.np_pairs_to_complex64(pr))
+            for g0 in range(0, len(rows), per):
+                chunk = rows[g0:g0 + per]
+                series = (block.series_dev[:, :n]
+                          if chunk == list(range(len(block.names)))
+                          else block.series_dev[chunk, :n])
+                pairs = fusion.fused_rfft_batch(series)
+                names = [block.names[r] for r in chunk]
+                _search_and_write(pairs, names, T, cfg, device, manifest,
+                                  timer, out, "fft+accel")
+                if seam.durable:
+                    _write_ffts(pairs, names, manifest, "fft+accel")
     return out
+
+
+def _length_groups(files, item_bytes):
+    """Group files by payload length (dict length -> file list)."""
+    by_len: Dict[int, List[str]] = {}
+    for f in files:
+        by_len.setdefault(item_bytes(os.path.getsize(f)), []).append(f)
+    return by_len
+
+
+def _trial_T(first_file: str) -> float:
+    info = read_inf(first_file[:-4] + ".inf")
+    return info.N * info.dt
+
+
+def _fused_fft_search(datfiles, cfg, device, manifest, timer) -> None:
+    """Disk trials (outside the seam) with no verified .fft: batched
+    rFFT on the device, search, .fft + ACCEL files for the first pass.
+    Trials with a verified .fft are left to _batched_accelsearch."""
+    _drop_stale(manifest, [f[:-4] + ".fft" for f in datfiles])
+    todo = [f for f in datfiles if not _valid(manifest, f[:-4] + ".fft")]
+    if not todo:
+        return
+    dev = resolve_device(device)
+    first = _pass_configs(cfg)[0]
+    for n, files in _length_groups(todo, lambda sz: (sz // 4) & ~1).items():
+        T = _trial_T(files[0])
+        per = max(1, FFT_CHUNK_BYTES // max(n * 4, 1))
+        for g0 in range(0, len(files), per):
+            chunk = files[g0:g0 + per]
+            arr = np.stack([datfft.read_dat(f)[:n] for f in chunk])
+            pairs = fftpack.realfft_packed_pairs(
+                torch.as_tensor(arr, device=dev))
+            names = [f[:-4] for f in chunk]
+            _write_ffts(pairs, names, manifest, "fft+accel")
+            _search_and_write(pairs, names, T, first, device, manifest,
+                              timer, {}, "fft+accel")
+    print("survey: fused realfft+accelsearch over %d disk trials"
+          % len(todo))
+
+
+def _batched_accelsearch(fftfiles, cfg, device, manifest, timer) -> None:
+    """One accel pass (``cfg`` from _pass_configs) over .fft files
+    already on disk whose ACCEL table or .cand companion (one logical
+    artifact) does not verify."""
+    accs = [f[:-4] + "_ACCEL_%d" % cfg.zmax for f in fftfiles]
+    _drop_stale(manifest, accs + [a + ".cand" for a in accs])
+    todo = [f for f, a in zip(fftfiles, accs)
+            if not (_valid(manifest, a) and _valid(manifest, a + ".cand"))]
+    if not todo:
+        return
+    dev = resolve_device(device)
+    for nbins, files in _length_groups(todo, lambda sz: sz // 8).items():
+        T = _trial_T(files[0])
+        per = max(1, FFT_CHUNK_BYTES // max(nbins * 8, 1))
+        for g0 in range(0, len(files), per):
+            chunk = files[g0:g0 + per]
+            batch = np.stack([fftpack.np_complex64_to_pairs(
+                datfft.read_fft(f)) for f in chunk])
+            _search_and_write(torch.as_tensor(batch, device=dev),
+                              [f[:-4] for f in chunk], T, cfg, device,
+                              manifest, timer, {}, "accel")
+    print("survey: accelsearch over %d trials (batched)" % len(todo))
+
+
+def run_survey(rawfiles: Sequence[str], cfg: SurveyConfig,
+               workdir: str = ".", timer=None,
+               device="cuda") -> SurveyResult:
+    """The survey from filterbank to cands_sifted.txt (see the module
+    docstring).  ``timer`` (utils/timing.StageTimer, made here when
+    None) receives the stages; it is reported on exit."""
+    _refuse_unported(cfg)
+    resolve_device(device)
+    os.makedirs(workdir, exist_ok=True)
+    rawfiles = [os.path.abspath(f) for f in rawfiles]
+    res = SurveyResult(workdir=workdir)
+    # crash-safe resume: sweep a killed run's in-flight temp files, then
+    # load the artifact journal this run verifies against and appends to
+    cleanup_stale_tmp(workdir)
+    manifest = SurveyManifest.load(workdir) if cfg.verify_resume else None
+    if timer is None:
+        timer = StageTimer()
+    try:
+        return _run_survey_stages(rawfiles, cfg, workdir, res, timer,
+                                  manifest, device)
+    finally:
+        timer.mark(None)
+        timer.report()
+
+
+def _run_survey_stages(rawfiles, cfg, workdir, res, timer, manifest,
+                       device):
+    base = _base(rawfiles, workdir)
+    timer.mark("prepsubband")
+    seam = survey_head(rawfiles, cfg, workdir, device=device,
+                       manifest=manifest)
+    seam_set = set(seam.dat_paths())
+    res.datfiles = sorted(set(_stage(os.path.basename(base) + "_DM*.dat",
+                                     workdir))
+                          | {os.path.join(workdir, os.path.basename(p))
+                             for p in seam_set})
+    # trials the seam does not hold (a previous run's verified
+    # survivors) flow through the disk consumers
+    disk_only = [f for f in res.datfiles
+                 if os.path.abspath(f) not in seam_set]
+    print("survey: %d dedispersed time series (%d seam-resident)"
+          % (len(res.datfiles), len(seam)))
+
+    timer.mark("realfft+accelsearch (fused)")
+    if len(seam):
+        seam_fft_search(seam, cfg, device=device, manifest=manifest,
+                        timer=timer)
+    _fused_fft_search(disk_only, cfg, device, manifest, timer)
+    for pcfg in _pass_configs(cfg):
+        # the resume case for the first pass; the extra passes of
+        # trials whose .fft was already on disk
+        _batched_accelsearch([f[:-4] + ".fft" for f in disk_only], pcfg,
+                             device, manifest, timer)
+
+    timer.mark("sift")
+    accfiles = []
+    for (zmax, _nh, _sg, _flo) in cfg.all_passes:
+        accfiles += _stage(os.path.basename(base) + "_DM*_ACCEL_%d" % zmax,
+                           workdir)
+    res.candfile = os.path.join(workdir, "cands_sifted.txt")
+    cl = sift_candidates(sorted(set(accfiles)), numdms_min=cfg.min_dm_hits,
+                         low_DM_cutoff=cfg.low_dm_cutoff,
+                         policy=cfg.sift_policy)
+    cl.to_file(res.candfile)
+    _record(manifest, [res.candfile], "sift")
+    res.sifted = cl
+    print("survey: %d sifted candidates -> %s" % (len(cl), res.candfile))
+    # the fold selection; folding itself comes in a later slice, so
+    # _refuse_unported has required fold_top=0 and nothing is selected
+    select_fold_candidates(
+        cl, fold_top=cfg.fold_top, fold_sigma=cfg.fold_sigma,
+        max_folds=cfg.max_folds, max_folds_per_pass=cfg.max_folds_per_pass,
+        pass_zmaxes=[z for (z, _nh, _sg, _flo) in cfg.all_passes])
+    return res

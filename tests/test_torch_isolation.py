@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of presto_tpu_torch
 loads neither jax nor any presto_tpu module, and an entry point called
-without device= needs a CUDA device."""
+without device= (the search, the survey, the accelsearch CLI, the polish)
+needs a CUDA device."""
 
 import os
 import subprocess
@@ -22,14 +23,21 @@ bad = sorted(m for m in sys.modules
              or m == "presto_tpu" or m.startswith("presto_tpu."))
 assert not bad, bad
 if not torch.cuda.is_available():
+    import numpy as np
+    from presto_tpu_torch.apps import accelsearch
     from presto_tpu_torch.pipeline import survey
-    from presto_tpu_torch.search import accel
+    from presto_tpu_torch.search import accel, polish
+    cfg = survey.SurveyConfig(skip_rfifind=True, singlepulse=False,
+                              fold_top=0)
     for call in (lambda: accel.AccelSearch(accel.AccelConfig(zmax=20),
                                            T=10.0, numbins=1 << 15),
-                 lambda: survey.survey_head(
-                     "missing.fil", survey.SurveyConfig(
-                         skip_rfifind=True, singlepulse=False,
-                         fold_top=0))):
+                 lambda: survey.survey_head("missing.fil", cfg),
+                 lambda: survey.run_survey(["missing.fil"], cfg, "."),
+                 lambda: accelsearch.main(["missing.fft"]),
+                 lambda: polish.optimize_accelcands(
+                     np.ones(64, np.complex64),
+                     [accel.AccelCand(1.0, 1.0, 1, 10.0, 0.0)], 10.0,
+                     [1.0])):
         try:
             call()
         except RuntimeError as e:

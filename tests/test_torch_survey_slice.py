@@ -1,37 +1,76 @@
-"""Slice 1 of the port end to end against the JAX package.
+"""The port's survey end to end against the JAX package's.
 
 A seeded synthetic pulsar filterbank goes through the JAX package's
-survey head (DDplan -> prepsubband -> stage seam) and the port's
-survey_head: the .dat files must be byte-equal.  Then the port's
-seam_fft_search runs, and the JAX package's TPU search path (on the CPU,
-as in test_torch_accel) runs on the JAX seam's spectra: the per-trial
-candidate lists after eliminate_harmonics + remove_duplicates agree as
-in test_torch_accel, and the pulsar is found at its DM and frequency.
+run_survey (its TPU search path on the CPU, as in test_torch_accel, and
+one device: the DM-sharded mesh is off) and the port's run_survey on the
+CPU.  The .dat files are byte-equal; every ACCEL file's strong
+candidates agree within the polish tolerances (tests/test_torch_polish
+.py); the sifted lists agree in DM, numharm and r within 2e-3 bins, with
+the pulsar on top.  A rerun on the same workdir rewrites nothing; a
+second accel pass runs over the .fft files on disk when added on a
+rerun, and over the seam-resident spectra from a fresh workdir.
 """
 
+import functools
 import glob
 import os
+import shutil
 
 import numpy as np
+import pytest
 
 from presto_tpu.models.synth import FakeSignal, fake_filterbank_file
-from presto_tpu.ops import fftpack as jfft
 from presto_tpu.pipeline import survey as jsurvey
 from presto_tpu.search import accel as jaccel
-from presto_tpu.utils.timing import StageTimer
+from presto_tpu.search import accel_pallas, build_pallas
+from presto_tpu_torch.apps.accelsearch import read_cand_file
 from presto_tpu_torch.models import synth as tsynth
 from presto_tpu_torch.pipeline import survey as tsurvey
-from test_torch_accel import assert_lists_agree, jax_tpu_path  # noqa: F401
+from test_torch_polish import assert_polish_agrees
 
 N, NCHAN, DT, LOFREQ, CW = 1 << 16, 32, 5e-4, 1338.0, 4.0
 F0, DM, WIDTH = 41.3, 49.0, 0.04
+DMS = ["%.2f" % (40.0 + 3.0 * i) for i in range(8)]
 
 
-def _config(mod):
+def _config(mod, **kw):
     return mod.SurveyConfig(lodm=40.0, hidm=60.0, nsub=8, zmax=20,
                             numharm=8, skip_rfifind=True,
                             singlepulse=False, fold_top=0,
-                            durable_stages=True)
+                            durable_stages=True, **kw)
+
+
+def _jax_tpu_path(mp):
+    """The JAX package's TPU search engine on the CPU, on one device
+    (see test_torch_accel.jax_tpu_path)."""
+    mp.setattr(accel_pallas, "pallas_available", lambda: True)
+    mp.setattr(jaccel, "_use_mxu_engine", lambda fftlen: fftlen % 256 == 0)
+    mp.setattr(build_pallas, "make_plane_builder",
+               functools.partial(build_pallas.make_plane_builder,
+                                 interpret=True))
+    mp.setattr(accel_pallas, "make_stage_reducer",
+               functools.partial(accel_pallas.make_stage_reducer,
+                                 interpret=True))
+    mp.setenv("PRESTO_TPU_DISABLE_MESH", "1")
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(raw filterbank, JAX workdir, port workdir, the two sifted
+    Candlists) after one run_survey of each package."""
+    d = tmp_path_factory.mktemp("survey")
+    raw = str(d / "psr.fil")
+    fake_filterbank_file(raw, N, DT, NCHAN, LOFREQ, CW,
+                         FakeSignal(f=F0, dm=DM, shape="gauss",
+                                    width=WIDTH, amp=1.0),
+                         noise_sigma=6.0, seed=21)
+    jwork, twork = str(d / "jax"), str(d / "torch")
+    with pytest.MonkeyPatch.context() as mp:
+        _jax_tpu_path(mp)
+        jres = jsurvey.run_survey([raw], _config(jsurvey), jwork)
+    res = tsurvey.run_survey([raw], _config(tsurvey), twork, device="cpu")
+    assert res.candfile == os.path.join(twork, "cands_sifted.txt")
+    return raw, jwork, twork, jres.sifted, res.sifted
 
 
 def test_synth_filterbank_bytes_equal(tmp_path):
@@ -49,22 +88,25 @@ def test_synth_filterbank_bytes_equal(tmp_path):
     assert open(a, "rb").read() == open(b, "rb").read()
 
 
-def test_survey_slice_matches_jax(tmp_path, jax_tpu_path):  # noqa: F811
-    raw = str(tmp_path / "psr.fil")
-    fake_filterbank_file(raw, N, DT, NCHAN, LOFREQ, CW,
-                         FakeSignal(f=F0, dm=DM, shape="gauss",
-                                    width=WIDTH, amp=1.0),
-                         noise_sigma=6.0, seed=21)
-    jwork, twork = str(tmp_path / "jax"), str(tmp_path / "torch")
-    os.makedirs(jwork)
-    jcfg = _config(jsurvey)
-    jseam, disk_only = jsurvey._survey_head(
-        [raw], jcfg, jwork, os.path.join(jwork, "psr"),
-        jsurvey.SurveyResult(workdir=jwork), StageTimer())
-    assert not disk_only
-    tcfg = _config(tsurvey)
-    tseam = tsurvey.survey_head(raw, tcfg, twork, device="cpu")
+def _accel_agree(want_path, got_path):
+    """Strong candidates (sigma above 5) of two ACCEL .cand files agree
+    in order, numharm and the polish tolerances."""
+    want = [c for c in read_cand_file(want_path) if c.sigma > 5.0]
+    got = [c for c in read_cand_file(got_path) if c.sigma > 5.0]
+    assert want, want_path
+    assert [c.numharm for c in got] == [c.numharm for c in want]
+    assert_polish_agrees(want, got)
 
+
+def test_survey_slice_matches_jax(tmp_path, runs):
+    """The lower-level entry points, survey_head + seam_fft_search with
+    no journal: .dat byte-equal to the JAX run's, and the final lists
+    they return are the ones the JAX run wrote, within tolerance; the
+    strongest candidate above flo is the pulsar, at its DM."""
+    raw, jwork, _twork, _js, _ts = runs
+    tcfg = _config(tsurvey)
+    twork = str(tmp_path / "torch")
+    seam = tsurvey.survey_head(raw, tcfg, twork, device="cpu")
     jdats = sorted(glob.glob(os.path.join(jwork, "psr_DM*.dat")))
     tdats = sorted(glob.glob(os.path.join(twork, "psr_DM*.dat")))
     assert len(jdats) == 8
@@ -72,32 +114,155 @@ def test_survey_slice_matches_jax(tmp_path, jax_tpu_path):  # noqa: F811
         [os.path.basename(p) for p in tdats]
     for a, b in zip(jdats, tdats):
         assert open(a, "rb").read() == open(b, "rb").read(), a
-
-    got = tsurvey.seam_fft_search(tseam, tcfg, device="cpu")
-    assert len(got) == 8
-    for block in jseam.blocks:
-        n = block.numout & ~1
-        series = np.asarray(block.series_host[:, :n])
-        pairs = np.asarray(jfft.realfft_packed_pairs(series))
-        T = block.numout * 5e-4
-        js = jaccel.AccelSearch(jaccel.AccelConfig(zmax=20, numharm=8,
-                                                   sigma=jcfg.sigma,
-                                                   flo=jcfg.flo),
-                                T=T, numbins=n // 2)
-        for name, raw_c in zip(block.names, js.search_many(pairs)):
-            want = jaccel.remove_duplicates(
-                jaccel.eliminate_harmonics(raw_c))
-            key = os.path.join(twork, os.path.basename(name))
-            assert_lists_agree(want, got[key], js.powcut)
-
-    # the strongest candidate above flo (harmonic sums reaching down
-    # to the DC bin report r below it) sits at the pulsar's DM trial
-    # and on a harmonic of its frequency
+    got = tsurvey.seam_fft_search(seam, tcfg, device="cpu")
+    assert sorted(os.path.basename(k) for k in got) == \
+        ["psr_DM%s_ACCEL_20" % d for d in DMS]
+    for acc, cands in got.items():
+        back = read_cand_file(acc + ".cand")
+        assert [(c.r, c.z, c.numharm) for c in back] == \
+            [(c.r, c.z, c.numharm) for c in cands]
+        assert os.path.exists(acc[:-len("_ACCEL_20")] + ".fft")
+        _accel_agree(os.path.join(jwork, os.path.basename(acc)) + ".cand",
+                     acc + ".cand")
     T = N * DT
     best_name, best = max(((k, c) for k, cs in got.items() for c in cs
                            if c.r / T > tcfg.flo),
                           key=lambda kc: kc[1].sigma)
-    assert float(best_name.rsplit("_DM", 1)[1]) == DM
+    assert os.path.basename(best_name) == "psr_DM49.00_ACCEL_20"
     f = best.r / T
     assert abs(f / F0 - round(f / F0)) < 0.01 and round(f / F0) >= 1
-    assert os.path.exists(best_name + ".fft")
+
+
+def test_run_survey_artifacts_match_jax(runs):
+    """The same artifact set; .dat byte-equal."""
+    _raw, jwork, twork, _js, _ts = runs
+    names = sorted(os.listdir(jwork))
+    assert names == sorted(os.listdir(twork))
+    assert len([n for n in names if n.endswith("_ACCEL_20")]) == 8
+    for n in names:
+        if n.endswith(".dat"):
+            assert open(os.path.join(jwork, n), "rb").read() == \
+                open(os.path.join(twork, n), "rb").read(), n
+
+
+@pytest.mark.parametrize("dm", DMS)
+def test_run_survey_accel_files_match_jax(runs, dm):
+    _raw, jwork, twork, _js, _ts = runs
+    name = "psr_DM%s_ACCEL_20.cand" % dm
+    _accel_agree(os.path.join(jwork, name), os.path.join(twork, name))
+
+
+def assert_sifted_agree(want, got):
+    """Sifted lists: the same candidates (file, DM, numharm) in the same
+    order, r within 2e-3 bins, the same DM hits."""
+    assert len(got) == len(want) > 0
+    for w, g in zip(want, got):
+        assert (g.filename, g.DM, g.numharm) == (w.filename, w.DM,
+                                                 w.numharm)
+        assert abs(g.r - w.r) <= 2e-3
+        assert sorted(h[0] for h in g.hits) == sorted(h[0] for h in w.hits)
+
+
+def test_run_survey_sifted_list_matches_jax(runs):
+    _raw, _jwork, _twork, want, got = runs
+    assert_sifted_agree(want, got)
+    top = got[0]
+    assert top.DM == DM
+    f = top.r / (N * DT)
+    assert abs(f / F0 - round(f / F0)) < 0.01 and round(f / F0) >= 1
+    assert len(top.hits) >= 2
+
+
+def _stamps(d):
+    return {n: (os.stat(os.path.join(d, n)).st_mtime_ns,
+                open(os.path.join(d, n), "rb").read())
+            for n in sorted(os.listdir(d))}
+
+
+def test_run_survey_resume_rewrites_nothing(tmp_path, runs):
+    """A second run_survey on a finished workdir verifies every artifact
+    against the journal and rewrites none; only the sift reruns (as in
+    the JAX package), to the same bytes."""
+    raw, _jwork, twork, _js, _ts = runs
+    work = str(tmp_path / "again")
+    shutil.copytree(twork, work)
+    before = _stamps(work)
+    tsurvey.run_survey([raw], _config(tsurvey), work, device="cpu")
+    after = _stamps(work)
+    assert sorted(after) == sorted(before)
+    for n, (mtime, data) in before.items():
+        assert after[n][1] == data, n
+        if n not in ("cands_sifted.txt", "manifest.json"):
+            assert after[n][0] == mtime, n
+
+
+def test_run_survey_resume_redoes_lost_spectra(tmp_path, runs):
+    """A rerun on a workdir whose .fft and ACCEL files of some trials
+    are gone (a run killed after prepsubband): those trials' .dat files
+    verify, so they go through the disk path (batched rFFT of the .dat,
+    search, polish).  The rFFT of a different batch may differ in the
+    last float32 bits (within 1e-6 of the spectrum's peak), so the new
+    ACCEL files agree with the first run's within the polish tolerances,
+    and the sifted list as the JAX comparison does."""
+    raw, _jwork, twork, _js, first = runs
+    work = str(tmp_path / "again")
+    shutil.copytree(twork, work)
+    lost = ["psr_DM%s" % d for d in DMS[2:5]]
+    for name in lost:
+        for ext in (".fft", "_ACCEL_20", "_ACCEL_20.cand"):
+            os.remove(os.path.join(work, name + ext))
+    res = tsurvey.run_survey([raw], _config(tsurvey), work, device="cpu")
+    for name in lost:
+        a = np.fromfile(os.path.join(twork, name + ".fft"), np.complex64)
+        b = np.fromfile(os.path.join(work, name + ".fft"), np.complex64)
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-6 * abs(a).max())
+        _accel_agree(os.path.join(twork, name + "_ACCEL_20.cand"),
+                     os.path.join(work, name + "_ACCEL_20.cand"))
+    assert_sifted_agree(first, res.sifted)
+
+
+@pytest.mark.parametrize("start", ["rerun", "fresh"])
+def test_run_survey_second_pass_matches_jax(tmp_path, runs, start):
+    """accel_passes adds a zmax-0, numharm-4 pass.  On a rerun of both
+    finished workdirs each package searches its .fft files on disk; from
+    a fresh workdir both passes run over the seam-resident spectra.
+    Either way each writes _ACCEL_0 files and sifts both passes; the new
+    files and the sifted lists agree."""
+    raw, jwork, twork, _js, _ts = runs
+    j2, t2 = str(tmp_path / "jax"), str(tmp_path / "torch")
+    if start == "rerun":
+        shutil.copytree(jwork, j2)
+        shutil.copytree(twork, t2)
+    passes = ((0, 4, 4.0),)
+    with pytest.MonkeyPatch.context() as mp:
+        _jax_tpu_path(mp)
+        jres = jsurvey.run_survey([raw],
+                                  _config(jsurvey, accel_passes=passes), j2)
+    res = tsurvey.run_survey([raw], _config(tsurvey, accel_passes=passes),
+                             t2, device="cpu")
+    for dm in DMS:
+        for zmax in (20, 0):
+            name = "psr_DM%s_ACCEL_%d.cand" % (dm, zmax)
+            _accel_agree(os.path.join(j2, name), os.path.join(t2, name))
+    assert any(c.filename.endswith("_ACCEL_0") for c in res.sifted)
+    assert_sifted_agree(jres.sifted, res.sifted)
+
+
+def test_run_survey_times_its_stages(tmp_path, runs):
+    """The StageTimer run_survey reports: the marked stages in order, the
+    polish and the ACCEL writes timed once per trial inside the FFT +
+    search stage and reported under it."""
+    from presto_tpu_torch.utils.timing import StageTimer
+    raw = runs[0]
+    timer = StageTimer()
+    tsurvey.run_survey([raw], _config(tsurvey), str(tmp_path / "t"),
+                       timer=timer, device="cpu")
+    assert list(timer.stages)[:2] == ["prepsubband", "polish"]
+    assert len(timer.samples["polish"]) == len(DMS)
+    assert len(timer.samples["accel writes"]) == len(DMS)
+    lines = [ln.split()[0:3] for ln in timer.report().splitlines()[1:]]
+    fused = lines.index(["realfft+accelsearch", "(fused)", "%.2f"
+                         % timer.stages["realfft+accelsearch (fused)"]])
+    assert lines[fused + 1][:3] == ["of", "which", "polish"]
+    assert lines[fused + 2][:3] == ["of", "which", "accel"]
+    assert lines[fused + 3][0] == "sift"
