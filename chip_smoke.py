@@ -21,19 +21,33 @@ Phases (any failure exits non-zero before the final line):
              deduplicated candidate list polished on the card (CUDA-event
              time, pairs, window taps, quadrature points) and on the CPU:
              r, z, power and sigma agree within the stated tolerances;
-  4. main    the same filterbank through survey.run_survey (DDplan over
-             DM 20-24: 24 trials, nsub 32, zmax 200, numharm 8): launch
-             counters read around it, an ACCEL file and .cand per DM,
-             stage times (head, FFT + search, polish, ACCEL writes,
-             sift), the pulsar on top of the sifted list, and the DM
-             curve at its polished (r, z) peaking at the injected DM;
-             and a small spectrum searched on the card and on the CPU;
-  5. summary the kernels line, the card, and the final ok line.
+  4. main    the same filterbank with two weaker pulsars added (the same
+             noise) through survey.run_survey (DDplan over
+             DM 20-24: 24 trials, nsub 32, zmax 200, numharm 8, and the
+             JAX package's default fold_top=3): launch counters read
+             around it, an ACCEL file and .cand per DM, stage times
+             (head, FFT + search, polish, ACCEL writes, sift, prepfold),
+             the pulsar on top of the sifted list, the DM curve at its
+             polished (r, z) peaking at the injected DM, three
+             fold_candN.pfd/.bestprof with the first at the injected
+             pulsar, each fold's drizzle and search device ms, and each
+             fold's .pfd byte-equal to a refold on the CPU;
+  5. fold    prepfold of the filterbank at the top sifted candidate with
+             the default (DM, p, pd) search on the card: the best DM
+             within two grid steps of the injected, and the same cube
+             searched on the CPU (chi2 surfaces and best trial);
+  6. toas    get_TOAs (-n 8 -d <best DM>) on that fold, on the card and
+             on the CPU: 8 TOAs whose phases under the injected (f0,
+             fdot) agree within their errors, and the two agree;
+  7. small   spectra of 2^15 and 3000 bins searched on the card and on
+             the CPU (the second on the non-aligned plane geometry);
+  8. summary the kernels line, the card, and the final ok line.
 
 Prints the full results as one JSON line (``results: {...}``).  Imports
 no JAX and nothing of the JAX package.
 """
 
+import copy
 import glob
 import json
 import os
@@ -116,7 +130,8 @@ def phase_build():
         inst = {k: u for k, u in usage.items() if k.startswith(kernel + "<")}
         spills = sorted(k for k, u in inst.items()
                         if u.get("spill_stores", 1) or u.get("spill_loads", 1))
-        kok = len(inst) == 5 and not spills
+        want = 7 if kernel == "plane_build" else 5
+        kok = len(inst) == want and not spills
         ok = ok and kok
         log("build: %s instantiations %s, spilling %s %s"
             % (kernel, sorted(inst), spills, "ok" if kok else "FAIL"))
@@ -211,6 +226,24 @@ def check_plane_build(s, nbins, gen):
            and bool((rg[51:] == 0).all() and (rg[:, 13 * 3000:] == 0).all()))
     log("plane_build ragged (13 blocks of 4096, 51 rows, uselen 3000, "
         "off 300): max_abs_err %.3g %s" % (rerr, "ok" if rok else "FAIL"))
+    # the short-spectrum templates, n = 256 and 512 (zmax 0 and 20 on a
+    # few hundred bins), at ragged shapes
+    for n, nb, nz, use, off in ((256, 5, 3, 97, 63), (512, 6, 21, 201, 55)):
+        Ss = torch.randn((nb, n // 2), dtype=torch.complex64, generator=gen,
+                         device="cuda")
+        Ks = torch.randn((nz, n), dtype=torch.complex64, generator=gen,
+                         device="cuda")
+        sg = build_cuda.build_plane(Ss, Ks, -(-nz // 8) * 8, nb + 1, use, off)
+        sw = build_cuda.build_plane_plain(Ss, Ks, -(-nz // 8) * 8, nb + 1,
+                                          use, off)
+        serr = float((sg - sw).abs().max())
+        sok = (serr <= 1e-4 * float(sw.abs().max())
+               and bool((sg[nz:] == 0).all())
+               and bool((sg[:, nb * use:] == 0).all()))
+        rok = rok and sok
+        log("plane_build n = %d (%d blocks, %d rows, uselen %d, off %d): "
+            "max_abs_err %.3g %s" % (n, nb, nz, use, off, serr,
+                                     "ok" if sok else "FAIL"))
     out.update(ok=out["ok"] and out["zmax400"]["ok"] and rok,
                ragged_err=rerr,
                tolerance="max|kernel-plain| <= 1e-4 * max|plain|")
@@ -347,28 +380,34 @@ def check_stage_reduce(s, S, gen):
                 tolerance="exact (same float32 add order)")
 
 
-def synth_filterbank(path, gen, N, nchan, dt, lofreq, cw, f0, fdot, dm,
-                     width):
-    """Seeded 8-bit filterbank made on the card: gaussian pulses (fwhm
-    ``width`` turns) dispersed by the cold-plasma delay, baseline 32, noise
-    sigma 6, quantized x4 like models/synth.fake_filterbank_file."""
+def synth_filterbank(path, gen, N, nchan, dt, lofreq, cw, pulsars,
+                     device="cuda"):
+    """Seeded 8-bit filterbank made on the card: for each pulsar (f0 Hz,
+    fdot Hz/s, DM, fwhm in turns, amplitude), gaussian pulses dispersed
+    by the cold-plasma delay; baseline 32, noise sigma 6, quantized x4
+    like models/synth.fake_filterbank_file."""
     from presto_tpu_torch.io.sigproc import FilterbankHeader, write_filterbank
     from presto_tpu_torch.ops.dedispersion import delay_from_dm
     freqs = lofreq + np.arange(nchan) * cw
-    delays = delay_from_dm(dm, freqs)
-    delays = torch.tensor(delays - delays.min(), dtype=torch.float64,
-                          device="cuda")
-    out = torch.empty((N, nchan), dtype=torch.uint8, device="cuda")
-    sig = width / 2.35482
+    delays = []
+    for (_f0, _fdot, dm, _width, _amp) in pulsars:
+        d = delay_from_dm(dm, freqs)
+        delays.append(torch.tensor(d - d.min(), dtype=torch.float64,
+                                   device=device))
+    out = torch.empty((N, nchan), dtype=torch.uint8, device=device)
     step = 1 << 20
     for t0 in range(0, N, step):
-        t = (torch.arange(t0, min(N, t0 + step), device="cuda",
+        t = (torch.arange(t0, min(N, t0 + step), device=device,
                           dtype=torch.float64) + 0.5) * dt
-        tc = t[:, None] - delays[None, :]
-        ph = torch.remainder(f0 * tc + 0.5 * fdot * tc * tc, 1.0)
-        pulse = torch.exp(-0.5 * ((ph - 0.5) / sig) ** 2).float()
-        x = 32.0 + 1.0 * pulse + 6.0 * torch.randn(
-            pulse.shape, generator=gen, device="cuda")
+        x = None
+        for (f0, fdot, _dm, width, amp), dl in zip(pulsars, delays):
+            tc = t[:, None] - dl[None, :]
+            ph = torch.remainder(f0 * tc + 0.5 * fdot * tc * tc, 1.0)
+            pulse = amp * torch.exp(
+                -0.5 * ((ph - 0.5) / (width / 2.35482)) ** 2).float()
+            x = pulse if x is None else x + pulse
+        x = 32.0 + x + 6.0 * torch.randn(x.shape, generator=gen,
+                                         device=device)
         out[t0:t0 + t.shape[0]] = torch.clamp(torch.round(x * 4.0),
                                               0, 255).to(torch.uint8)
     hdr = FilterbankHeader(source_name="FAKEPSR", machine_id=10,
@@ -379,26 +418,35 @@ def synth_filterbank(path, gen, N, nchan, dt, lofreq, cw, f0, fdot, dm,
     write_filterbank(path, hdr, out.cpu().numpy())
 
 
-# the beam of the polish and main phases: 537 s of 128 channels x 3 MHz
+# the beam of the main, fold and toas phases: 537 s of 128 channels x 3 MHz
 # at 1214-1595 MHz; 0.5 ms pulses of a 40.3 Hz pulsar at DM 22 with
 # fdot 1.4e-4 Hz/s.  One DM step (0.2) smears 0.24 ms across the band, so
 # the sigma curve is flat to noise within ~0.4 of the true DM and the
 # best single trial may sit two steps off; the DM is read from the
-# curve's parabola peak, within one step
+# curve's parabola peak, within one step.  Two weaker pulsars (7.13 Hz
+# at DM 21, 113.7 Hz at DM 23.3, no fdot, frequencies in no simple ratio
+# with each other or 40.3) give the sift three candidates to fold, as
+# the JAX package's default fold_top=3 asks.  The polish phase takes the
+# 40.3 Hz pulsar alone, on the same noise.
 BEAM = dict(N=1 << 22, nchan=128, dt=1.28e-4, lofreq=1214.0, cw=3.0,
-            f0=40.3, fdot=1.4e-4, dm=22.0, width=0.02)
+            f0=40.3, fdot=1.4e-4, dm=22.0, width=0.02,
+            others=((7.13, 0.0, 21.0, 0.03, 0.3),
+                    (113.7, 0.0, 23.3, 0.05, 0.2)))
 BEAM_SEED = 22
 
 
-def make_beam(workdir):
+def make_beam(workdir, name="psr.fil", others=True):
     """The seeded beam, made on the card from its own seed, so the data
-    do not depend on what the kernel phases drew."""
+    do not depend on what the kernel phases drew; ``others`` adds the
+    two weaker pulsars (the same noise either way)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(BEAM_SEED)
-    raw = os.path.join(workdir, "psr.fil")
+    raw = os.path.join(workdir, name)
     b = BEAM
+    pulsars = ((b["f0"], b["fdot"], b["dm"], b["width"], 1.0),) \
+        + (b["others"] if others else ())
     synth_filterbank(raw, gen, b["N"], b["nchan"], b["dt"], b["lofreq"],
-                     b["cw"], b["f0"], b["fdot"], b["dm"], b["width"])
+                     b["cw"], pulsars)
     return raw
 
 
@@ -537,14 +585,16 @@ def phase_main(raw, workdir):
     b = BEAM
     cfg = survey.SurveyConfig(lodm=20.0, hidm=24.0, nsub=32, zmax=200,
                               numharm=8, skip_rfifind=True,
-                              singlepulse=False, fold_top=0,
+                              singlepulse=False, fold_top=3,
                               durable_stages=True)
     timer = StageTimer()
     build_cuda.launches = 0
     accel_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
-    res = survey.run_survey([raw], cfg, workdir, timer=timer, device="cuda")
+    with FoldClock("cuda") as clock:
+        res = survey.run_survey([raw], cfg, workdir, timer=timer,
+                                device="cuda")
     torch.cuda.synchronize()
     total_s = time.time() - t0
     launches = {"plane_build": build_cuda.launches,
@@ -556,6 +606,7 @@ def phase_main(raw, workdir):
                   fused_s=fused, polish_s=st["polish"],
                   polish_per_dm_s=timer.samples["polish"],
                   accel_writes_s=st["accel writes"], sift_s=st["sift"],
+                  prepfold_s=st["prepfold"],
                   fft_search_s=fused - st["polish"] - st["accel writes"])
     stages["fft_search_per_dm_s"] = stages["fft_search_s"] / max(ndms, 1)
     info = read_inf(res.datfiles[0][:-4])
@@ -622,8 +673,9 @@ def phase_main(raw, workdir):
            top.DM if top else 0, f, h, b["f0"], top.z if top else 0,
            top.sigma if top else 0, top.numharm if top else 0,
            len(top.hits) if top else 0, "ok" if top_ok else "FAIL"))
+    folds = check_main_folds(res, workdir, clock, T)
     ok = (abs(peak_dm - b["dm"]) <= 0.21 and top_ok and files_ok
-          and nbins == 1 << 21
+          and nbins == 1 << 21 and folds["ok"]
           and all(v == ndms > 0 for v in launches.values()))
     return dict(ok=ok, ndms=ndms, nbins=nbins, stages=stages,
                 launches=launches, dm_curve=curve, dm_curve_peak=peak_dm,
@@ -631,36 +683,354 @@ def phase_main(raw, workdir):
                 sifted=len(res.sifted), top_freq=f,
                 top_sigma=top.sigma if top else None,
                 top_dm=top.DM if top else None,
-                top_hits=len(top.hits) if top else 0)
+                top_hits=len(top.hits) if top else 0, folds=folds,
+                top=top)
+
+
+class FoldClock:
+    """Device spans of the fold's torch work while installed, grouped per
+    prepfold run: the drizzles (ops/fold.fold_data, fold_data_batch),
+    the trial searches (search/prepfold._trial_chi2, with their trial
+    counts) and the subband realignments (combine_subbands).  CUDA
+    events on the card (each call ends in a copy to the host, so a span
+    is its device work and the gaps between its launches), the host
+    clock on the CPU."""
+
+    def __init__(self, device):
+        self.device = device
+        self.folds = []
+        self._saved = []
+
+    def _group(self):
+        if not self.folds:
+            self.folds.append({})
+        return self.folds[-1]
+
+    def _timed(self, name, fn, trials=None):
+        def wrapper(*a, **k):
+            if self.device == "cuda":
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                torch.cuda.synchronize()
+                ms = e0.elapsed_time(e1)
+            else:
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                ms = (time.perf_counter() - t0) * 1e3
+            g = self._group()
+            g[name + "_ms"] = g.get(name + "_ms", 0.0) + ms
+            if trials is not None:
+                g["trials"] = g.get("trials", 0) + trials(*a)
+            return out
+        return wrapper
+
+    def __enter__(self):
+        from presto_tpu_torch.apps import prepfold as app
+        from presto_tpu_torch.ops import fold as fo
+        from presto_tpu_torch.search import prepfold as spf
+        from presto_tpu_torch.timing import toas
+
+        def run(*a, **k):
+            self.folds.append({})
+            return orig_run(*a, **k)
+        orig_run = app.run
+        for mod, name, fn in (
+                (app, "run", run),
+                (fo, "fold_data", self._timed("drizzle", fo.fold_data)),
+                (fo, "fold_data_batch",
+                 self._timed("drizzle", fo.fold_data_batch)),
+                (spf, "_trial_chi2",
+                 self._timed("search", spf._trial_chi2,
+                             lambda p, t, *r: len(t))),
+                (fo, "combine_subbands",
+                 self._timed("combine_subbands", fo.combine_subbands)),
+                (toas, "combine_subbands",
+                 self._timed("combine_subbands", toas.combine_subbands))):
+            self._saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved = []
+
+
+# the first fold's reduced chi2 must exceed this (a pulsar at sigma ~ 30
+# folds to thousands; noise to ~1)
+FOLD_REDCHI_MIN = 100.0
+
+
+def check_main_folds(res, workdir, clock, T):
+    """The main path's folds: three fold_candN.pfd + .bestprof; the first
+    at the injected pulsar (f0 within 0.01 Hz and fdot within 1e-5 Hz/s
+    of a harmonic's, reduced chi2 above FOLD_REDCHI_MIN); each fold's
+    drizzle and search device ms; and each candidate refolded from its
+    .dat and .cand on the CPU (plain versions), whose .pfd bytes must
+    equal the card's: the drizzle adds in the JAX package's order."""
+    from presto_tpu_torch.apps import prepfold as app
+    from presto_tpu_torch.io.bestprof import read_bestprof
+    from presto_tpu_torch.io.pfd import read_pfd
+    from presto_tpu_torch.pipeline import survey
+    from presto_tpu_torch.pipeline.sifting import select_fold_candidates
+    b = BEAM
+    per_fold = [{k: round(v, 3) if isinstance(v, float) else v
+                 for k, v in g.items()} for g in clock.folds]
+    log("main: per fold on the card (CUDA-event ms): %s" % json.dumps(
+        per_fold))
+    files_ok = len(res.folded) == 3 and all(
+        os.path.exists(q) and os.path.exists(q + ".bestprof")
+        for q in res.folded)
+    if not files_ok:
+        log("main: folds %s FAIL" % res.folded)
+        return dict(ok=False, folded=len(res.folded), per_fold=per_fold)
+    p1 = read_pfd(res.folded[0])
+    bp = read_bestprof(res.folded[0] + ".bestprof")
+    h = max(1, round(p1.fold_p1 / b["f0"]))
+    pulsar_ok = (abs(p1.fold_p1 / h - b["f0"]) < 0.01
+                 and abs(p1.fold_p2 / h - b["fdot"]) < 1e-5
+                 and bp.chi_sqr > FOLD_REDCHI_MIN)
+    top = select_fold_candidates(res.sifted, fold_top=3)
+    same, cpu_s = [], []
+    for i, c in enumerate(top):
+        argv, _dat, outbase = survey.fold_argv(c, i + 1, workdir)
+        card = open(outbase + ".pfd", "rb").read()
+        for ext in (".pfd", ".pfd.bestprof"):
+            os.replace(outbase + ext, outbase + ".card" + ext)
+        t0 = time.time()
+        app.main(argv, device="cpu")
+        cpu_s.append(time.time() - t0)
+        same.append(open(outbase + ".pfd", "rb").read() == card)
+    ok = pulsar_ok and all(same) and len(per_fold) == 3
+    log("main: folds %s; fold_cand1 f %.9f Hz fdot %.4g Hz/s (harmonic %d "
+        "of %.2f Hz, %.2g Hz/s), reduced chi2 %.1f (threshold %.0f) %s"
+        % ([os.path.basename(q) for q in res.folded], p1.fold_p1,
+           p1.fold_p2, h, b["f0"], b["fdot"], bp.chi_sqr, FOLD_REDCHI_MIN,
+           "ok" if pulsar_ok else "FAIL"))
+    log("main: CPU refolds %s s; .pfd bytes equal to the card's %s %s"
+        % ([round(x, 2) for x in cpu_s], same, "ok" if all(same)
+           else "FAIL"))
+    return dict(ok=ok, folded=len(res.folded), fold1_f=p1.fold_p1,
+                fold1_fdot=p1.fold_p2, fold1_redchi=bp.chi_sqr,
+                redchi_threshold=FOLD_REDCHI_MIN, per_fold=per_fold,
+                cpu_refold_s=cpu_s, pfd_equal_cpu=same)
+
+
+# chi2 surfaces, card against CPU: within this share of the surface's
+# maximum (float32 sums of ~5e8 per profile bin in two orders)
+CHI2_ATOL = 1e-3
+
+
+def _argmax_agree(card, cpu, what, atol):
+    """The card's and the CPU's best index are equal, or the CPU surface
+    at the card's best is within atol of its own best (a near-tie,
+    logged).  Returns (ok, note)."""
+    ic, iu = int(np.argmax(card)), int(np.argmax(cpu))
+    if ic == iu:
+        return True, "equal"
+    gap = float(cpu.flat[iu] - cpu.flat[ic])
+    note = ("near-tie: card %d, CPU %d, CPU chi2 gap %.4g <= %.4g"
+            % (ic, iu, gap, atol))
+    log("fold: %s best index %s" % (what, note))
+    return gap <= atol, note
+
+
+def phase_fold(raw, workdir, top, device="cuda"):
+    """prepfold on the filterbank at the top sifted candidate
+    (-accelfile -accelcand -dm, the default DM, p and pd search) on
+    ``device``: the best DM within two grid steps of the injected; the
+    same pre-search cube searched again on the CPU, chi2 surfaces within
+    CHI2_ATOL of their maximum and the same best (DM, f, fd) indices
+    unless a near-tie is logged."""
+    from presto_tpu_torch.apps import prepfold as app
+    from presto_tpu_torch.search import prepfold as spf
+    acc = os.path.join(top.path or workdir, top.filename)
+    out = os.path.join(workdir, "fold_fil")
+    argv = ["-accelfile", acc + ".cand", "-accelcand", str(top.candnum),
+            "-dm", "%.2f" % top.DM, "-noplot", "-o", out, raw]
+    captured = {}
+    orig = app.search_fold
+
+    def capture(res, cfg, dev):
+        captured.update(res=copy.deepcopy(res), cfg=cfg)
+        return orig(res, cfg, dev)
+    app.search_fold = capture
+    try:
+        with FoldClock(device) as clock:
+            t0 = time.time()
+            res = app.run(app.build_parser().parse_args(argv),
+                          device=device)
+            card_s = time.time() - t0
+    finally:
+        app.search_fold = orig
+    pre, cfg = captured["res"], captured["cfg"]
+    step = cfg.dmstep * spf.dm_per_bin(pre.fold_f, pre.proflen,
+                                       pre.subfreqs.min(),
+                                       pre.subfreqs.max())
+    dm_ok = abs(res.best_dm - BEAM["dm"]) <= 2 * step
+    t0 = time.time()
+    cpu = spf.search_fold(copy.deepcopy(pre), cfg, device="cpu")
+    cpu_s = time.time() - t0
+    ok = dm_ok
+    errs, notes = {}, {}
+    for what in ("dm_chi2", "ppd_chi2"):
+        a, c = np.asarray(getattr(res, what)), np.asarray(getattr(cpu,
+                                                                  what))
+        atol = CHI2_ATOL * float(np.abs(c).max())
+        errs[what] = float(np.abs(a - c).max()) / float(np.abs(c).max())
+        agree, notes[what] = _argmax_agree(a, c, what, atol)
+        ok = ok and a.shape == c.shape and errs[what] <= CHI2_ATOL \
+            and agree
+    g = clock.folds[-1]
+    log("fold: %s at DM %.2f (cand %d, f %.6f Hz): %d subbands x %d "
+        "samples, %d parts x %d bins; search %d DMs x %d x %d (f, fd) = "
+        "%d trials" % (os.path.basename(raw), top.DM, top.candnum,
+                       pre.fold_f, pre.nsub, int(pre.T / pre.dt + 0.5),
+                       pre.npart, pre.proflen, len(res.dms),
+                       res.ppd_chi2.shape[0], res.ppd_chi2.shape[1],
+                       g.get("trials", 0)))
+    log("fold: best DM %.4f (injected %.2f, grid step %.4f, within 2 "
+        "steps: %s); best f %.9f Hz, fd %.4g Hz/s, reduced chi2 %.1f"
+        % (res.best_dm, BEAM["dm"], step, dm_ok, res.best_f, res.best_fd,
+           res.best_redchi))
+    log("fold: card %.2f s (host clock, with the .fil read and "
+        "dedispersion); device ms: drizzle %.3f, trial search %.3f, "
+        "combine_subbands %.3f; CPU search of the same cube %.2f s; "
+        "chi2 surfaces card vs CPU max |diff| / max %s (tolerance %g), "
+        "best indices %s %s"
+        % (card_s, g.get("drizzle_ms", 0.0), g.get("search_ms", 0.0),
+           g.get("combine_subbands_ms", 0.0), cpu_s,
+           json.dumps({k: float("%.3g" % v) for k, v in errs.items()}),
+           CHI2_ATOL, json.dumps(notes), "ok" if ok else "FAIL"))
+    return dict(ok=ok, pfd=out + ".pfd", best_dm=res.best_dm, dm_step=step,
+                best_f=res.best_f, best_fd=res.best_fd,
+                redchi=res.best_redchi, trials=g.get("trials", 0),
+                numdms=len(res.dms), card_s=card_s, cpu_search_s=cpu_s,
+                drizzle_ms=g.get("drizzle_ms"), search_ms=g.get("search_ms"),
+                combine_subbands_ms=g.get("combine_subbands_ms"),
+                chi2_rel_err=errs, best_index=notes,
+                tolerance="chi2 within %g of the surface max" % CHI2_ATOL)
+
+
+# TOA residuals against the injected model must lie within this many
+# of their own error bars
+TOA_SIGMAS = 5.0
+
+
+def phase_toas(pfd, best_dm, workdir, device="cuda"):
+    """get_TOAs -n 8 -d <best DM> on the fold of phase_fold, on
+    ``device`` (combine_subbands there) and on the CPU: 8 TOAs with
+    finite positive errors; their phases under the injected (f0, fdot),
+    less their error-weighted circular mean, within TOA_SIGMAS of their
+    errors; the CPU's .tim lines equal the card's, or each TOA within
+    0.01 of its error bar and each error within rtol 1e-3."""
+    from presto_tpu_torch.apps import get_toas
+    b = BEAM
+    argv = ["-n", "8", "-d", "%.6f" % best_dm, pfd]
+    lines = {}
+    with FoldClock(device) as clock:
+        t0 = time.time()
+        rc = get_toas.main(argv + ["-o", os.path.join(workdir, "card.tim")],
+                           device=device)
+        card_s = time.time() - t0
+    rc = rc or get_toas.main(argv + ["-o", os.path.join(workdir,
+                                                         "cpu.tim")],
+                             device="cpu")
+    if rc:
+        raise RuntimeError("get_TOAs exited %d" % rc)
+    for side in ("card", "cpu"):
+        with open(os.path.join(workdir, side + ".tim")) as f:
+            lines[side] = f.read().splitlines()
+
+    def parse(line):
+        mjd = line[24:44]
+        day, frac = mjd.split(".")
+        return int(day), float("0." + frac), float(line.split()[-1])
+    toas = [parse(x) for x in lines["card"]]
+    cpu = [parse(x) for x in lines["cpu"]]
+    t = np.array([((d - 59000) + fr) * 86400.0 for d, fr, _e in toas])
+    err = np.array([e for _d, _f, e in toas]) * 1e-6
+    ph = b["f0"] * t + 0.5 * b["fdot"] * t * t
+    w = 1.0 / np.maximum(err, 1e-12) ** 2
+    c = np.angle(np.sum(w * np.exp(2j * np.pi * ph))) / (2 * np.pi)
+    resid = ((ph - c + 0.5) % 1.0 - 0.5) / b["f0"]
+    ok = (len(toas) == 8 and bool(np.all(np.isfinite(err)))
+          and bool(np.all(err > 0))
+          and bool(np.all(np.abs(resid) <= TOA_SIGMAS * err)))
+    same = lines["card"] == lines["cpu"]
+    dt_sig = [abs(a[1] - b_[1]) * 86400.0 / max(a[2] * 1e-6, 1e-12)
+              for a, b_ in zip(toas, cpu)]
+    close = len(cpu) == len(toas) and all(
+        a[0] == b_[0] and d <= 0.01 and abs(a[2] - b_[2]) <= 1e-3 * a[2]
+        for a, b_, d in zip(toas, cpu, dt_sig))
+    ok = ok and (same or close)
+    g = clock.folds[-1] if clock.folds else {}
+    log("toas: %d TOAs at %.3f MHz, errors %s us; residuals against the "
+        "injected (f0, fdot) %s us (limit %g sigma) %s"
+        % (len(toas), float(lines["card"][0][16:24]) if toas else 0.0,
+           [round(float(e) * 1e6, 3) for e in err],
+           [round(float(r) * 1e6, 3) for r in resid], TOA_SIGMAS,
+           "ok" if ok else "FAIL"))
+    log("toas: mean (residual / error)^2 %.4g" % float(np.mean(
+        (resid / err) ** 2)))
+    log("toas: card %.2f s (host clock), combine_subbands %.3f device ms; "
+        ".tim lines equal to the CPU's: %s (worst TOA difference %.3g "
+        "sigma)" % (card_s, g.get("combine_subbands_ms", 0.0), same,
+                    max(dt_sig) if dt_sig else 0.0))
+    return dict(ok=ok, ntoa=len(toas), err_us=[float(e) * 1e6 for e in err],
+                resid_us=[float(r) * 1e6 for r in resid],
+                resid_chi2=float(np.mean((resid / err) ** 2)), cpu_equal=same,
+                worst_cpu_diff_sigma=max(dt_sig) if dt_sig else None,
+                combine_subbands_ms=g.get("combine_subbands_ms"),
+                card_s=card_s,
+                tolerance="residuals within %g sigma; CPU equal or within "
+                          "0.01 sigma" % TOA_SIGMAS)
 
 
 def phase_small_reference(gen):
-    """A small spectrum searched on the card and by the plain versions
-    on the CPU: the strong candidates' keys agree, powers within 1e-4."""
+    """Small spectra searched on the card and by the plain versions on
+    the CPU: 2^15 bins (zmax 20, the aligned plane geometry) and 3000
+    bins (zmax 200, numharm 8, sigma 2: the non-aligned geometry of a
+    short spectrum).  The strong candidates' keys agree, powers within
+    1e-4."""
     from presto_tpu_torch.search import accel
-    n = 1 << 16
-    t = np.arange(n) * 1e-3
-    rng = np.random.default_rng(5)
-    x = rng.normal(size=n) + 0.1 * np.cos(2 * np.pi * (37.3 * t
-                                                       + 0.002 * t * t))
-    full = np.fft.rfft(x)
-    packed = full[:-1].copy()
-    packed[0] = full[0].real + 1j * full[-1].real
-    pairs = np.stack([packed.real, packed.imag], -1).astype(np.float32)
-    cfg = accel.AccelConfig(zmax=20, numharm=8, sigma=3.0)
-    res = {}
-    for dev in ("cuda", "cpu"):
-        s = accel.AccelSearch(cfg, T=n * 1e-3, numbins=n // 2, device=dev)
-        res[dev] = s.search(pairs)
-    key = lambda c: (c.numharm, round(2 * c.r), round(2 * c.z))  # noqa
-    strong = {key(c): c.power for c in res["cpu"]
-              if c.power > 1.01 * s.powcut[int(np.log2(c.numharm))]}
-    got = {key(c): c.power for c in res["cuda"]}
-    ok = bool(strong) and all(
-        k in got and abs(got[k] - p) <= 1e-4 * p for k, p in strong.items())
-    log("small reference: %d strong CPU candidates, card list %d, agree %s"
-        % (len(strong), len(got), ok))
-    return ok
+    cases = (("2^15 bins", 1 << 16, 1e-3, 37.3, 0.002, 0.1,
+              accel.AccelConfig(zmax=20, numharm=8, sigma=3.0)),
+             ("3000 bins", 6000, 1e-3, 37.3, 0.4, 0.3,
+              accel.AccelConfig(zmax=200, numharm=8, sigma=2.0)))
+    out = {}
+    for label, n, dt, f0, fd2, amp, cfg in cases:
+        t = np.arange(n) * dt
+        rng = np.random.default_rng(5)
+        x = rng.normal(size=n) + amp * np.cos(2 * np.pi * (f0 * t
+                                                           + fd2 * t * t))
+        full = np.fft.rfft(x)
+        packed = full[:-1].copy()
+        packed[0] = full[0].real + 1j * full[-1].real
+        pairs = np.stack([packed.real, packed.imag], -1).astype(np.float32)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            s = accel.AccelSearch(cfg, T=n * dt, numbins=n // 2, device=dev)
+            res[dev] = s.search(pairs)
+        key = lambda c: (c.numharm, round(2 * c.r), round(2 * c.z))  # noqa
+        strong = {key(c): c.power for c in res["cpu"]
+                  if c.power > 1.01 * s.powcut[int(np.log2(c.numharm))]}
+        got = {key(c): c.power for c in res["cuda"]}
+        ok = bool(strong) and all(
+            k in got and abs(got[k] - p) <= 1e-4 * p
+            for k, p in strong.items())
+        geom = dict(uselen=s.cfg.uselen, fftlen=s.kern.fftlen,
+                    halfwidth=s.kern.halfwidth, hw_eff=s.hw_eff,
+                    aligned=s.aligned, plane=list(s.plane_geom()))
+        log("small reference %s: geometry %s; %d strong CPU candidates, "
+            "card list %d, agree %s" % (label, json.dumps(geom),
+                                        len(strong), len(got), ok))
+        out[label] = dict(ok=ok, geometry=geom, strong=len(strong),
+                          card=len(got))
+    return out
 
 
 def main():
@@ -689,17 +1059,31 @@ def main():
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         t0 = time.time()
+        # the polish phase keeps the one-pulsar beam its tolerances were
+        # set on; on the three-pulsar beam's DM-22 trial a weak
+        # candidate moves two final-stage z steps, card against CPU
+        # (PERF.md), an open item of ROADMAP.md queue 3
+        raw1 = make_beam(work, "psr1.fil", others=False)
         raw = make_beam(work)
         results["synth_s"] = time.time() - t0
-        pol = phase_polish(raw, os.path.join(work, "polish"))
+        pol = phase_polish(raw1, os.path.join(work, "polish"))
+        os.remove(raw1)
         torch.cuda.empty_cache()
-        main_res = phase_main(raw, os.path.join(work, "main"))
+        mwork = os.path.join(work, "main")
+        main_res = phase_main(raw, mwork)
+        top = main_res.pop("top")
+        torch.cuda.empty_cache()
+        fold = (phase_fold(raw, mwork, top) if top is not None
+                else dict(ok=False))
+        toas = (phase_toas(fold["pfd"], fold["best_dm"], mwork)
+                if "pfd" in fold else dict(ok=False))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    small_ok = phase_small_reference(gen)
+    small = phase_small_reference(gen)
+    small_ok = all(v["ok"] for v in small.values())
     results.update(plane_build=k1, stage_reduce=k2, polish=pol,
-                   main=main_res, small_reference_ok=small_ok,
-                   total_s=time.time() - t_start)
+                   main=main_res, fold=fold, toas=toas,
+                   small_reference=small, total_s=time.time() - t_start)
     kernels = []
     for name, src, rep, k in (
             ("plane_build", "presto_tpu_torch/csrc/plane_build.cu",
@@ -720,6 +1104,7 @@ def main():
                               ("stage_reduce", k2["ok"]),
                               ("polish", pol["ok"]),
                               ("main", main_res["ok"]),
+                              ("fold", fold["ok"]), ("toas", toas["ok"]),
                               ("small_reference", small_ok)) if not ok]
     if failed:
         print("chip_smoke: FAILED phases: %s" % failed, file=sys.stderr)

@@ -1,10 +1,10 @@
 """Shared app plumbing the slice needs (host copy, trimmed).
 
 Copy of the parts of ``presto_tpu/apps/common.py`` that the
-prepsubband streaming loop and accelsearch use: the raw-data flags,
-BlockPrep (per-block clipping, on by default), stream_blocklen,
-pad_to_good_N, set_onoff, fil_to_inf, load_timeseries and
-load_spectrum.  The port reads SIGPROC filterbanks only;
+prepsubband streaming loop, accelsearch and prepfold use: the raw-data
+flags, open_raw_args, obs_metadata, BlockPrep (per-block clipping, on
+by default), stream_blocklen, pad_to_good_N, set_onoff, fil_to_inf,
+load_timeseries and load_spectrum.  The port reads SIGPROC filterbanks only;
 PSRFITS input and barycentring are left for later slices.
 """
 
@@ -29,8 +29,10 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="Accepted for parity")
 
 
-def add_raw_flags(p: argparse.ArgumentParser) -> None:
-    """The raw-data input flags of the prep family."""
+def add_raw_flags(p: argparse.ArgumentParser,
+                  start_flags: bool = True) -> None:
+    """The raw-data input flags of the prep family (prepfold has its own
+    -start and -offset: start_flags=False)."""
     p.add_argument("-filterbank", action="store_true",
                    help="Raw data in SIGPROC filterbank format")
     p.add_argument("-psrfits", action="store_true",
@@ -39,12 +41,13 @@ def add_raw_flags(p: argparse.ArgumentParser) -> None:
                    help="For rawdata, flip (or invert) the band")
     p.add_argument("-noclip", action="store_true",
                    help="Do not clip the data (default is to clip)")
-    p.add_argument("-offset", type=int, default=0,
-                   help="Number of spectra to offset into as starting "
-                        "data point")
-    p.add_argument("-start", type=float, default=0.0,
-                   help="Starting point of the processing as a fraction "
-                        "of the full obs")
+    if start_flags:
+        p.add_argument("-offset", type=int, default=0,
+                       help="Number of spectra to offset into as starting "
+                            "data point")
+        p.add_argument("-start", type=float, default=0.0,
+                       help="Starting point of the processing as a "
+                            "fraction of the full obs")
 
 
 def open_raw(paths) -> FilterbankFile:
@@ -58,6 +61,25 @@ def open_raw(paths) -> FilterbankFile:
         raise NotImplementedError("PSRFITS input comes in a later slice "
                                   "of the port")
     return FilterbankFile(paths[0])
+
+
+def open_raw_args(paths, args) -> FilterbankFile:
+    """open_raw honoring the shared raw flags: -psrfits (not in the port
+    yet) is refused, -filterbank and the suffix both mean SIGPROC."""
+    if getattr(args, "psrfits", False):
+        raise NotImplementedError("PSRFITS input comes in a later slice "
+                                  "of the port")
+    return open_raw(paths)
+
+
+def obs_metadata(fb) -> Tuple[str, str, str]:
+    """(telescope name, ra 'hh:mm:ss', dec 'dd:mm:ss') of a filterbank."""
+    hdr = fb.header
+    tel = SIGPROC_TELESCOPES.get(getattr(hdr, "telescope_id", -1),
+                                 "Unknown")
+    return (tel,
+            sigproc_coord_to_str(getattr(hdr, "src_raj", 0.0)),
+            sigproc_coord_to_str(getattr(hdr, "src_dej", 0.0)))
 
 
 def clip_sigma_from(args) -> float:
@@ -120,14 +142,19 @@ class BlockPrep:
         return block
 
 
+def good_numout(valid: int, numout: int = 0) -> int:
+    """The output length pad_to_good_N gives ``valid`` samples: numout
+    when set, else choose_N(valid) (a highly factorable length)."""
+    return numout or choose_N(valid) or good_fft_size(valid, multiple_of=2)
+
+
 def pad_to_good_N(series: np.ndarray, numout: int = 0
                   ) -> Tuple[np.ndarray, int, int]:
     """Pad (with the per-series mean) or truncate the LAST axis to a
     highly factorable length (choose_N(valid) when numout is 0).
     Returns (padded, valid, numout)."""
     valid = series.shape[-1]
-    if not numout:
-        numout = choose_N(valid) or good_fft_size(valid, multiple_of=2)
+    numout = good_numout(valid, numout)
     if numout > valid:
         pad_shape = series.shape[:-1] + (numout - valid,)
         mean = series.mean(axis=-1, keepdims=True)
@@ -170,12 +197,10 @@ def sigproc_coord_to_str(coord: float) -> str:
 def fil_to_inf(fb: FilterbankFile, outbase: str, N: int,
                dm: float = 0.0, bary: int = 0) -> InfoData:
     hdr = fb.header
-    tel = SIGPROC_TELESCOPES.get(getattr(hdr, "telescope_id", -1),
-                                 "Unknown")
+    tel, ra_str, dec_str = obs_metadata(fb)
     return InfoData(
         name=outbase, telescope=tel, instrument="Unknown",
-        ra_str=sigproc_coord_to_str(getattr(hdr, "src_raj", 0.0)),
-        dec_str=sigproc_coord_to_str(getattr(hdr, "src_dej", 0.0)),
+        ra_str=ra_str, dec_str=dec_str,
         object=hdr.source_name or "Unknown",
         mjd_i=int(hdr.tstart), mjd_f=hdr.tstart % 1.0, bary=bary,
         N=float(N), dt=hdr.tsamp, band="Radio", dm=dm,

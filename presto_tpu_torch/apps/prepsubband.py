@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.apps.common import (add_common_flags, add_raw_flags,
-                                          BlockPrep, fil_to_inf, open_raw,
+                                          BlockPrep, fil_to_inf,
+                                          good_numout, open_raw,
                                           pad_to_good_N, set_onoff,
                                           start_skip_spectra,
                                           stream_blocklen)
@@ -119,8 +120,15 @@ def run(args, device="cuda", seam: fusion.StageSeam = None):
             yield np.ascontiguousarray(block.T)
             nread += blocklen
 
+    # each block's series goes straight into its columns of one output
+    # tensor, [numdms, valid] plus room for the seam's pad: no list of
+    # blocks and no concatenation held beside it
+    valid = max((Neff - maxd) // args.downsamp, 0)
+    width = max(valid, good_numout(valid, args.numout)) if seam is not None \
+        else valid
+    out = torch.empty((len(dms), width), dtype=torch.float32, device=dev)
+    pos = 0
     prev_raw = prev_sub = None
-    outs = []
     ingest = fusion.DoubleBufferedIngest(_produce_blocks())
     try:
         for blockT in ingest:
@@ -131,19 +139,20 @@ def run(args, device="cuda", seam: fusion.StageSeam = None):
                                                    chan_bins, args.nsub)
                 else:
                     sub, series = block_step(prev_raw, cur, prev_sub)
-                    outs.append(series)
+                    take = min(series.shape[1], valid - pos)
+                    if take > 0:
+                        out[:, pos:pos + take] = series[:, :take]
+                        pos += take
                 prev_sub = sub
             prev_raw = cur
     finally:
         ingest.close()
-    cat = torch.cat(outs, dim=1)                       # [numdms, T]
-    valid = (Neff - maxd) // args.downsamp
+    del prev_raw, prev_sub
     outbase = args.outfile or "prepsubband_out"
     if seam is not None:
-        return _seam_handoff(args, fb, seam, cat, dms, dt, valid, skip,
+        return _seam_handoff(args, fb, seam, out, dms, dt, valid, skip,
                              outbase)
-    result, valid, numout = pad_to_good_N(cat[:, :valid].cpu().numpy(),
-                                          args.numout)
+    result, valid, numout = pad_to_good_N(out.cpu().numpy(), args.numout)
     for i, dmval in enumerate(dms):
         name = "%s_DM%.*f" % (outbase, args.dmprec, dmval)
         write_dat(name + ".dat", result[i],
@@ -166,20 +175,19 @@ def _trial_inf(args, fb, name, numout, valid, dmval, dt, skip):
     return info
 
 
-def _seam_handoff(args, fb, seam, cat, dms, dt, valid, skip, outbase):
+def _seam_handoff(args, fb, seam, out, dms, dt, valid, skip, outbase):
     """Deposit the DM fan-out at the seam: ONE download gives the host
     copy; the pad tail is computed on the host with pad_to_good_N's
-    NumPy semantics and uploaded, so the device series equal the .dat
-    bytes bit for bit."""
-    trimmed = cat[:, :max(valid, 0)]
-    host, valid, numout = pad_to_good_N(trimmed.cpu().numpy(),
+    NumPy semantics and written into ``out``'s spare columns, so the
+    device series equal the .dat bytes bit for bit.  ``out`` is
+    [numdms, >= max(valid, numout)] with the data in [:, :valid]."""
+    nvalid = valid
+    host, valid, numout = pad_to_good_N(out[:, :nvalid].cpu().numpy(),
                                         args.numout)
-    if numout > trimmed.shape[1]:
-        tail = torch.from_numpy(
-            np.ascontiguousarray(host[:, trimmed.shape[1]:])).to(cat.device)
-        dev = torch.cat([trimmed, tail], dim=1)
-    else:
-        dev = trimmed[:, :numout].contiguous()
+    if numout > nvalid:
+        out[:, nvalid:numout] = torch.from_numpy(
+            np.ascontiguousarray(host[:, nvalid:]))
+    dev = out if out.shape[1] == numout else out[:, :numout].contiguous()
     names, infos = [], []
     for dmval in dms:
         name = "%s_DM%.*f" % (outbase, args.dmprec, dmval)

@@ -21,7 +21,8 @@
 //  * Register-resident Stockham FFT.  Each thread holds G groups of 16
 //    complex values (T = n / (16 G) threads a CTA) and does radix-16
 //    butterflies in registers: n = 16 * 16 * 16 * {2, 4} or
-//    16 * 16 * {4, 8, 16}.  At n = 8192 and 16384 (FUSE) a thread holds
+//    16 * 16 * {1, 2, 4, 8, 16} (n = 256 and 512 are for short spectra
+//    at small zmax).  At n = 8192 and 16384 (FUSE) a thread holds
 //    as many groups as the last radix (2 or 4), so the last radix runs
 //    across its groups in registers right after the last radix-16 pass:
 //    2 shared-memory exchanges a row, where the radix-2 FFT took 13
@@ -398,6 +399,10 @@ extern "C" int plane_build(const void* S, const void* Kc, const void* tw,
                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (log2n) {
+    case 8: return launch<8>(S, Kc, tw, plane, nblocks, nb_pad, numz,
+                             numz_pad, uselen, off, st);
+    case 9: return launch<9>(S, Kc, tw, plane, nblocks, nb_pad, numz,
+                             numz_pad, uselen, off, st);
     case 10: return launch<10>(S, Kc, tw, plane, nblocks, nb_pad, numz,
                                numz_pad, uselen, off, st);
     case 11: return launch<11>(S, Kc, tw, plane, nblocks, nb_pad, numz,

@@ -3,12 +3,13 @@
 PyTorch counterpart of ``presto_tpu/pipeline/fusion.py``: prepsubband
 deposits the dedispersed DM fan-out as a device tensor
 (:class:`SeamBlock`) in a :class:`StageSeam`, and the FFT + search
-stage reads it without a disk round trip.  The durable tier also
-writes each trial's ``.dat`` from the bit-identical host copy, so the
-artifacts equal a staged run's.  :class:`DoubleBufferedIngest` decodes
-and preprocesses block k+1 on a worker thread while block k is on the
-device.  Sharded seams, telemetry and the artifact journal come in
-later slices.
+stage reads it without a disk round trip, then releases the block's
+device series.  The durable tier also writes each trial's ``.dat`` from
+the bit-identical host copy, so the artifacts equal a staged run's; a
+non-durable seam writes one trial's ``.dat`` when the fold asks for it.
+:class:`DoubleBufferedIngest` decodes and preprocesses block k+1 on a
+worker thread while block k is on the device.  Sharded seams and
+telemetry come in later slices.
 """
 
 from __future__ import annotations
@@ -109,17 +110,22 @@ class SeamBlock:
 class StageSeam:
     """In-memory seam between survey stages.  ``durable`` writes each
     deposited block's ``.dat`` at once (the staged contract); ``.inf``
-    sidecars are written on every tier."""
+    sidecars are written on every tier.  A non-durable seam spills one
+    trial's ``.dat`` on demand (ensure_dat), journaled in ``manifest``
+    (pipeline/manifest.SurveyManifest) when one is given."""
 
-    def __init__(self, workdir: str, durable: bool = True):
+    def __init__(self, workdir: str, durable: bool = True, manifest=None):
         self.workdir = os.path.abspath(workdir)
         self.durable = bool(durable)
+        self.manifest = manifest
         self.blocks: List[SeamBlock] = []
+        self._by_dat: Dict[str, tuple] = {}    # abs .dat -> (block, row)
 
     def add_block(self, block: SeamBlock) -> None:
         self.blocks.append(block)
         for row, name in enumerate(block.names):
             write_inf(block.infos[row], name + ".inf")
+            self._by_dat[os.path.abspath(name + ".dat")] = (block, row)
         if self.durable:
             self.spill(block)
 
@@ -127,8 +133,7 @@ class StageSeam:
         return sum(len(b.names) for b in self.blocks)
 
     def dat_paths(self) -> List[str]:
-        return sorted(os.path.abspath(n + ".dat")
-                      for b in self.blocks for n in b.names)
+        return sorted(self._by_dat)
 
     def groups(self) -> Dict[int, List[SeamBlock]]:
         """Blocks grouped by padded length (the FFT/search batch axis)."""
@@ -146,6 +151,29 @@ class StageSeam:
                       block.infos[row])
             total += block.series_host[row].nbytes
         return total
+
+    def ensure_dat(self, datpath: str) -> bool:
+        """Spill ONE trial's ``.dat`` from the host copy on demand (the
+        fold reads its candidate's series from disk); nothing to do when
+        the durable tier, or an earlier call, already wrote it.  Returns
+        True when the path is on disk (or was never seam-held and
+        exists)."""
+        ent = self._by_dat.get(os.path.abspath(datpath))
+        if ent is None or os.path.exists(datpath):
+            return os.path.exists(datpath)
+        block, row = ent
+        write_dat(datpath, block.series_host[row], block.infos[row])
+        if self.manifest is not None:
+            self.manifest.record_many(
+                [p for p in (datpath, block.names[row] + ".inf")
+                 if os.path.exists(p)], "prepsubband")
+        return True
+
+    def release(self, block: SeamBlock) -> None:
+        """Drop the seam's reference to a block's device series once its
+        last FFT chunk has consumed it (the host copy stays for
+        spills)."""
+        block.series_dev = None
 
 
 def fused_rfft_batch(series_dev: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,19 @@
-"""One-command search pipeline: filterbank -> sifted candidate list.
+"""One-command search pipeline: filterbank -> folded candidates.
 
 PyTorch counterpart of ``presto_tpu/pipeline/survey.py``: ``run_survey``
 runs DDplan -> prepsubband (the DM fan-out deposited at an in-memory
 stage seam) -> batched packed rFFT -> accelsearch on the device spectra
--> polish -> ACCEL/.cand files -> ACCEL_sift, with the JAX package's
-artifacts (.dat/.inf/.fft/_ACCEL_<zmax>/.cand/cands_sifted.txt) and its
-journal: every artifact is written atomically and recorded with size
-and CRC-32 in the workdir's manifest.json, and a stage is skipped on a
-rerun only when its outputs verify.
+-> polish -> ACCEL/.cand files -> ACCEL_sift -> prepfold of the top
+candidates, with the JAX package's artifacts
+(.dat/.inf/.fft/_ACCEL_<zmax>/.cand/cands_sifted.txt/fold_candN.pfd and
+.pfd.bestprof) and its journal: artifacts are recorded with size and
+CRC-32 in the workdir's manifest.json, and a stage is skipped on a
+rerun only when its outputs verify.  The folds run with -noplot: the
+JAX package's fold_candN.pfd.png is not written.
 
 Not in this slice (a config that asks for them raises
-NotImplementedError): rfifind, zapbirds, single pulse, folding,
-barycentring, triage, elastic runs and the serving and telemetry hooks.
+NotImplementedError): rfifind, zapbirds, single pulse, barycentring,
+triage, elastic runs and the serving and telemetry hooks.
 The JAX package's cross-stage in-flight window (the FFT of one chunk
 queued while the previous one is collected) only overlaps dispatch and
 is not ported yet.
@@ -27,7 +29,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from presto_tpu_torch.apps import prepsubband
+from presto_tpu_torch.apps import prepfold, prepsubband
 from presto_tpu_torch.apps.accelsearch import refine_and_write
 from presto_tpu_torch.apps.common import open_raw
 from presto_tpu_torch.io import datfft
@@ -108,7 +110,6 @@ def _refuse_unported(cfg: SurveyConfig) -> None:
         "rfifind (set skip_rfifind=True)": not cfg.skip_rfifind,
         "zapbirds": cfg.zaplist,
         "single pulse (set singlepulse=False)": cfg.singlepulse,
-        "folding (set fold_top=0)": cfg.fold_top or cfg.fold_sigma,
         "triage": cfg.triage,
         "barycentring": cfg.bary,
         "elastic runs": cfg.elastic,
@@ -179,7 +180,7 @@ def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
     print("survey: DDplan -> %d methods, %d total DMs"
           % (len(plan.methods), plan.total_numdms))
     seam = fusion.StageSeam(workdir, durable=cfg.durable_stages
-                            is not False)
+                            is not False, manifest=manifest)
     dat_glob = os.path.basename(base) + "_DM*.dat"
     # verify a previous run's survivors once, before the loop: this
     # run's own outputs are journaled as each method lands
@@ -273,6 +274,9 @@ def seam_fft_search(seam: fusion.StageSeam, cfg: SurveyConfig,
                                for a in _accel_names(name, cfg))
                     or (seam.durable
                         and not _valid(manifest, name + ".fft"))]
+            if not rows:
+                seam.release(block)
+                continue
             T = block.numout * fusion.inf_float(block.dt)
             for g0 in range(0, len(rows), per):
                 chunk = rows[g0:g0 + per]
@@ -280,6 +284,11 @@ def seam_fft_search(seam: fusion.StageSeam, cfg: SurveyConfig,
                           if chunk == list(range(len(block.names)))
                           else block.series_dev[chunk, :n])
                 pairs = fusion.fused_rfft_batch(series)
+                del series
+                if g0 + per >= len(rows):
+                    # the block's last FFT chunk has consumed its series:
+                    # its memory goes back before the chunk's search
+                    seam.release(block)
                 names = [block.names[r] for r in chunk]
                 _search_and_write(pairs, names, T, cfg, device, manifest,
                                   timer, out, "fft+accel")
@@ -354,9 +363,9 @@ def _batched_accelsearch(fftfiles, cfg, device, manifest, timer) -> None:
 def run_survey(rawfiles: Sequence[str], cfg: SurveyConfig,
                workdir: str = ".", timer=None,
                device="cuda") -> SurveyResult:
-    """The survey from filterbank to cands_sifted.txt (see the module
-    docstring).  ``timer`` (utils/timing.StageTimer, made here when
-    None) receives the stages; it is reported on exit."""
+    """The survey from filterbank to the folds of its top candidates
+    (see the module docstring).  ``timer`` (utils/timing.StageTimer,
+    made here when None) receives the stages; it is reported on exit."""
     _refuse_unported(cfg)
     resolve_device(device)
     os.makedirs(workdir, exist_ok=True)
@@ -418,10 +427,46 @@ def _run_survey_stages(rawfiles, cfg, workdir, res, timer, manifest,
     _record(manifest, [res.candfile], "sift")
     res.sifted = cl
     print("survey: %d sifted candidates -> %s" % (len(cl), res.candfile))
-    # the fold selection; folding itself comes in a later slice, so
-    # _refuse_unported has required fold_top=0 and nothing is selected
-    select_fold_candidates(
+
+    timer.mark("prepfold")
+    fold_candidates(cl, cfg, workdir, seam, res, manifest, device)
+    return res
+
+
+def fold_argv(c, num: int, workdir: str):
+    """(prepfold argv, .dat path, output base) of the survey's fold
+    number ``num`` of sifted candidate ``c``."""
+    accpath = (os.path.join(c.path, c.filename) if c.path
+               else os.path.join(workdir, c.filename))
+    datfile = accpath.split("_ACCEL_")[0] + ".dat"
+    outbase = os.path.join(workdir, "fold_cand%d" % num)
+    return (["-accelfile", accpath + ".cand", "-accelcand", str(c.candnum),
+             "-dm", "%.2f" % c.DM, "-nosearch", "-noplot", "-o", outbase,
+             datfile], datfile, outbase)
+
+
+def fold_candidates(cl, cfg: SurveyConfig, workdir: str, seam, res,
+                    manifest, device) -> None:
+    """Stage 8: prepfold (-nosearch, on ``device``) of the candidates
+    select_fold_candidates picks, each from its trial's .dat (spilled
+    from the seam on demand) and its ACCEL .cand, into
+    fold_candN.pfd/.bestprof; a journaled .pfd is not folded again.  A
+    fold that exits (SystemExit) is reported and skipped, as in the JAX
+    package."""
+    top = select_fold_candidates(
         cl, fold_top=cfg.fold_top, fold_sigma=cfg.fold_sigma,
         max_folds=cfg.max_folds, max_folds_per_pass=cfg.max_folds_per_pass,
         pass_zmaxes=[z for (z, _nh, _sg, _flo) in cfg.all_passes])
-    return res
+    for i, c in enumerate(top):
+        argv, datfile, outbase = fold_argv(c, i + 1, workdir)
+        seam.ensure_dat(datfile)
+        if _valid(manifest, outbase + ".pfd"):
+            res.folded.append(outbase + ".pfd")
+            continue
+        try:
+            prepfold.main(argv, device=device)
+            res.folded.append(outbase + ".pfd")
+            _record(manifest, [outbase + ".pfd"], "prepfold")
+        except SystemExit as e:
+            print("survey: fold of cand %d failed: %s" % (i + 1, e))
+    print("survey: folded %d candidates" % len(res.folded))

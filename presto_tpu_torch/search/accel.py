@@ -1,9 +1,12 @@
 """Fourier-domain F–Fdot acceleration search, on PyTorch and CUDA.
 
 PyTorch counterpart of ``presto_tpu/search/accel.py``.  The port has
-ONE geometry and ONE engine: the JAX package's TPU path, i.e. the
-aligned direct-plane geometry (uselen a multiple of 128 filling the
-FFT length beside a 128-aligned output offset) with
+ONE engine and the two geometries of the JAX package's TPU path: the
+aligned direct-plane geometry (uselen a multiple of 128 filling the FFT
+length beside a 128-aligned output offset) where it holds, else the
+geometry of its non-Pallas engines (exact halfwidth, any even uselen,
+the plane padded to the reducer tile), which short spectra and an
+explicit uselen take.  Both run on
 
   * the plane build as a CUDA kernel (search/build_cuda.py, the
     counterpart of search/build_pallas.py), fed by forward spectra from
@@ -346,13 +349,20 @@ class AccelSearch:
         """Install the search state: kernel bank, z-row maps, powcuts."""
         cfg = self.cfg
         self.kern = kern
-        self.hw_eff = -(-kern.halfwidth // 64) * 64
-        if not (kern.fftlen % 256 == 0 and cfg.uselen % 128 == 0
-                and cfg.uselen + 4 * self.hw_eff <= kern.fftlen):
+        log2n = kern.fftlen.bit_length() - 1
+        if not (build_cuda.LOG2N_MIN <= log2n <= build_cuda.LOG2N_MAX):
             raise ValueError(
-                "accel: the aligned plane geometry does not hold "
-                "(fftlen=%d, uselen=%d, halfwidth=%d); the port has no "
-                "other engine" % (kern.fftlen, cfg.uselen, kern.halfwidth))
+                "accel: fftlen %d (zmax %d, uselen %d) is outside the plane "
+                "builder's templates (2^%d .. 2^%d)"
+                % (kern.fftlen, cfg.zmax, cfg.uselen, build_cuda.LOG2N_MIN,
+                   build_cuda.LOG2N_MAX))
+        # the read windows start hw_eff bins below each block and the
+        # good window sits at 2 * hw_eff: the halfwidth rounded up to 64
+        # on the aligned geometry, the exact halfwidth on the other
+        hw_al = -(-kern.halfwidth // 64) * 64
+        self.aligned = (kern.fftlen % 256 == 0 and cfg.uselen % 128 == 0
+                        and cfg.uselen + 4 * hw_al <= kern.fftlen)
+        self.hw_eff = hw_al if self.aligned else kern.halfwidth
         self.fracs_zinds = fracs_zinds
         self.numindep = list(numindep)
         self.powcut = list(powcut)
@@ -384,13 +394,22 @@ class AccelSearch:
 
     def plane_geom(self):
         """(nblocks, nb_pad, plane_numr), or None for a spectrum too
-        short for one block.  The plane carries >= 1 zero block on the
-        right, like the JAX direct-plane builder's."""
+        short for one block.  On the aligned geometry the plane carries
+        >= 1 zero block on the right, like the JAX direct-plane
+        builder's.  Otherwise plane_numr is the JAX package's plane
+        width there (the blocks' columns padded to the reducer tile) and
+        the built plane has nb_pad * uselen >= plane_numr columns, zero
+        past the blocks: the slab plan reads plane_numr."""
         nblocks = len(self._plan_blocks())
         if not nblocks:
             return None
-        nb_pad = -(-(nblocks + 1) // BLOCK_PAD) * BLOCK_PAD
-        return nblocks, nb_pad, nb_pad * self.cfg.uselen
+        uselen = self.cfg.uselen
+        if self.aligned:
+            nb_pad = -(-(nblocks + 1) // BLOCK_PAD) * BLOCK_PAD
+            return nblocks, nb_pad, nb_pad * uselen
+        numr = nblocks * uselen
+        numr += (-numr) % max(16, self.cfg.numharm, SLAB_TILES[0])
+        return nblocks, -(-numr // uselen), numr
 
     def forward_spectra(self, pairs: torch.Tensor) -> torch.Tensor:
         """Block read windows -> median-normalized forward spectra
@@ -493,7 +512,8 @@ class AccelSearch:
         slab, k, start_cols = plan
         scols = torch.tensor(start_cols, dtype=torch.int32,
                              device=self.device)
-        self._check_memory(geom[2], slab, len(start_cols))
+        self._check_memory(geom[1] * self.cfg.uselen, slab,
+                           len(start_cols))
         out = []
         for d in range(nd):
             plane = self.build_plane(batch[d])

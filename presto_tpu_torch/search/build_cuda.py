@@ -17,7 +17,7 @@ builder: float32 [numz_pad, nb_pad * uselen], block b's good window
 [off, off + uselen) of |IFFT(S_b * Kc_z)|^2 (1/n inside the IFFT) in
 columns [b*uselen, (b+1)*uselen).  Pad rows and pad blocks are 0.
 
-The kernel is instantiated for n = 2^10 .. 2^14 (a register-resident
+The kernel is instantiated for n = 2^8 .. 2^14 (a register-resident
 radix-16 Stockham FFT, one template per log2 n); any other n raises.
 It takes the twiddle bases of its passes from ``_twiddle_table``.
 """
@@ -34,8 +34,8 @@ from presto_tpu_torch import cuda_build
 #: kernel launches made by build_plane (reset by callers that count)
 launches = 0
 
-#: the FFT lengths the kernel is instantiated for: 2^10 .. 2^14
-LOG2N_MIN, LOG2N_MAX = 10, 14
+#: the FFT lengths the kernel is instantiated for: 2^8 .. 2^14
+LOG2N_MIN, LOG2N_MAX = 8, 14
 
 _twiddles: dict = {}
 

@@ -214,3 +214,56 @@ def test_search_matches_jax_where_no_reducer_tile_fits(jax_tpu_path):
                                  min(1 << 20, numr)) is None
     got = ts.search_many(torch.from_numpy(batch))[0]
     assert_lists_agree(want, got, js.powcut)
+
+
+def short_spectrum(numbins, seed=3, dt=1e-3):
+    """[numbins, 2] packed spectrum of 2 * numbins samples: noise plus an
+    accelerating 37.3 Hz pulsar; returns (pairs, T)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(2 * numbins) * dt
+    x = rng.normal(size=t.size) + 0.3 * np.cos(
+        2 * np.pi * (37.3 * t + 0.4 * t * t))
+    full = np.fft.rfft(x.astype(np.float32).astype(np.float64))
+    packed = full[:-1].copy()
+    packed[0] = full[0].real + 1j * full[-1].real
+    return (np.stack([packed.real, packed.imag], -1).astype(np.float32),
+            t.size * dt)
+
+
+@pytest.mark.parametrize("numbins,fftlen", [(512, 2048), (3000, 8192)])
+def test_short_spectra_match_jax_tpu_path(jax_tpu_path, numbins, fftlen):
+    """Spectra too short for the aligned geometry (uselen cut to
+    2 * (numbins - 16), no multiple of 128): the JAX package's TPU path
+    builds the plane with a non-Pallas engine at the exact halfwidth and
+    pads it to the reducer tile; the port takes the same geometry, the
+    same slab plan and the same candidates (zmax 200, numharm 8,
+    sigma 2)."""
+    pairs, T = short_spectrum(numbins)
+    cfg = jaccel.AccelConfig(zmax=200, numharm=8, sigma=2.0)
+    js = jaccel.AccelSearch(cfg, T=T, numbins=numbins)
+    assert not js._plb_hw_eff and js.kern.fftlen == fftlen
+    want = js.search_many(pairs[None])[0]
+    ts = taccel.AccelSearch(taccel.AccelConfig(zmax=200, numharm=8,
+                                               sigma=2.0),
+                            T=T, numbins=numbins, device="cpu")
+    assert ts.cfg == taccel.AccelConfig(**dataclasses.asdict(js.cfg))
+    assert not ts.aligned and ts.hw_eff == js.kern.halfwidth
+    assert ts.plane_geom()[2] == js._plane_geom().plane_numr
+    got = ts.search_many(torch.from_numpy(pairs[None]))[0]
+    assert len(got) == len(want) > 100
+    assert_lists_agree(want, got, js.powcut)
+
+
+@pytest.mark.parametrize("numbins,zmax,log2n", [(100, 0, 8), (200, 20, 9)])
+def test_short_spectra_use_the_small_templates(numbins, zmax, log2n):
+    """At small zmax a short spectrum's fftlen falls to 256 or 512, which
+    the plane builder has templates for; nothing below 256 is planned."""
+    pairs, T = short_spectrum(numbins)
+    s = taccel.AccelSearch(taccel.AccelConfig(zmax=zmax, numharm=4,
+                                              sigma=2.0),
+                           T=T, numbins=numbins, device="cpu")
+    assert s.kern.fftlen == 1 << log2n
+    assert s.search(pairs)
+    with pytest.raises(ValueError, match="templates"):
+        taccel.AccelSearch(taccel.AccelConfig(zmax=0, uselen=40),
+                           T=T, numbins=numbins, device="cpu")

@@ -48,6 +48,47 @@ print("ISOLATED", len(mods))
 """
 
 
+FOLD_SCRIPT = r"""
+import sys
+import torch
+from presto_tpu_torch.apps import get_toas, prepfold
+from presto_tpu_torch.ops import fold
+from presto_tpu_torch.search import prepfold as spf
+import presto_tpu_torch.astro.observatory, presto_tpu_torch.io.bestprof
+import presto_tpu_torch.timing
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "presto_tpu" or m.startswith("presto_tpu."))
+assert not bad, bad
+if not torch.cuda.is_available():
+    for call in (lambda: prepfold.main(["-f", "10", "-noplot", "x.dat"]),
+                 lambda: get_toas.main(["x.pfd"]),
+                 lambda: get_toas.toa_lines(["x.pfd"]),
+                 lambda: prepfold.fold_dat_cands(
+                     [prepfold.DatFoldSpec("x.dat", "x.cand", 1, "o")])):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError("an entry point ran without CUDA")
+print("FOLD ISOLATED")
+"""
+
+
+def test_fold_and_toa_modules_stand_alone_and_need_cuda():
+    """The fold and TOA modules import neither jax nor presto_tpu, and
+    prepfold.main, get_toas.main / toa_lines and fold_dat_cands called
+    without device= raise without a card (before touching any file)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", FOLD_SCRIPT], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOLD ISOLATED" in out.stdout
+
+
 def test_port_imports_no_jax_and_needs_cuda():
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT

@@ -104,7 +104,9 @@ void emu_launch(K kernel, dim3 grid, int nthreads, int smem, cudaStream_t,
 # (log2n, nblocks, nb_pad, numz, numz_pad, uselen, off): every
 # instantiated n, with pad blocks that are and are not a multiple of the
 # blocks a CTA builds, and windows with and without 16-byte stores
-CASES = [(10, 3, 8, 5, 8, 768, 128), (10, 5, 6, 2, 3, 999, 5),
+CASES = [(8, 5, 8, 3, 8, 96, 64), (8, 6, 7, 2, 3, 97, 63),
+         (9, 3, 8, 2, 8, 168, 88), (9, 5, 6, 3, 5, 201, 55),
+         (10, 3, 8, 5, 8, 768, 128), (10, 5, 6, 2, 3, 999, 5),
          (11, 5, 8, 3, 8, 1500, 200), (11, 7, 9, 1, 2, 2047, 0),
          (12, 13, 16, 2, 3, 3000, 300), (12, 13, 14, 3, 5, 3001, 301),
          (13, 3, 5, 2, 3, 7680, 256), (13, 2, 3, 2, 3, 7001, 700),
@@ -162,8 +164,8 @@ def test_kernel_source_matches_plain_under_emulation(emulated, case):
 
 
 def test_uninstantiated_length_is_refused(emulated):
-    """log2 n outside 10..14 has no template: the C entry refuses it."""
+    """log2 n outside 8..14 has no template: the C entry refuses it."""
     tw = torch.zeros(1, dtype=torch.complex64)
-    for log2n in (9, 15):
+    for log2n in (7, 15):
         assert emulated(0, 0, tw.data_ptr(), 0, 1, 8, 1, 8, log2n, 128, 0,
                         None) != 0

@@ -34,10 +34,10 @@ DMS = ["%.2f" % (40.0 + 3.0 * i) for i in range(8)]
 
 
 def _config(mod, **kw):
+    kw = {"fold_top": 0, "durable_stages": True, **kw}
     return mod.SurveyConfig(lodm=40.0, hidm=60.0, nsub=8, zmax=20,
                             numharm=8, skip_rfifind=True,
-                            singlepulse=False, fold_top=0,
-                            durable_stages=True, **kw)
+                            singlepulse=False, **kw)
 
 
 def _jax_tpu_path(mp):
@@ -266,3 +266,127 @@ def test_run_survey_times_its_stages(tmp_path, runs):
     assert lines[fused + 1][:3] == ["of", "which", "polish"]
     assert lines[fused + 2][:3] == ["of", "which", "accel"]
     assert lines[fused + 3][0] == "sift"
+
+
+def _pfd_bytes(d):
+    return {n: open(os.path.join(d, n), "rb").read()
+            for n in sorted(os.listdir(d)) if ".pfd" in n}
+
+
+def test_run_survey_folds_byte_equal_to_jax(tmp_path, runs):
+    """fold_top=2 on the JAX run's finished workdir, by each package in
+    turn at the same path (so the embedded paths are equal): the same
+    two candidates folded from the same .dat and .cand files, .pfd
+    byte-equal and .bestprof within the rule of test_torch_prepfold.
+    The JAX survey also writes a .png of each fold; the port's runs with
+    -noplot."""
+    from test_torch_prepfold import assert_bestprof_agree
+    raw, jwork, _twork, _js, _ts = runs
+    work = str(tmp_path / "fold")
+    shutil.copytree(jwork, work)
+    with pytest.MonkeyPatch.context() as mp:
+        _jax_tpu_path(mp)
+        jres = jsurvey.run_survey([raw], _config(jsurvey, fold_top=2), work)
+    want = _pfd_bytes(work)
+    shutil.rmtree(work)
+    shutil.copytree(jwork, work)
+    res = tsurvey.run_survey([raw], _config(tsurvey, fold_top=2), work,
+                             device="cpu")
+    got = _pfd_bytes(work)
+    assert res.folded == jres.folded == [
+        os.path.join(work, "fold_cand%d.pfd" % i) for i in (1, 2)]
+    assert sorted(want) == sorted(list(got) + ["fold_cand1.pfd.png",
+                                               "fold_cand2.pfd.png"])
+    for n in got:
+        if n.endswith(".pfd"):
+            assert got[n] == want[n], n
+        else:
+            assert_bestprof_agree(want[n], got[n])
+
+
+def test_run_survey_own_folds_agree_with_jax(tmp_path, runs):
+    """The port's own finished run, rerun with fold_top=2, folds only:
+    the same candidates as the JAX run's folds, at fold frequencies
+    within the polish's 2e-3 bins, the pulsar first with a strong
+    profile; a third rerun verifies the journaled .pfd files and
+    rewrites none."""
+    from presto_tpu_torch.io.pfd import read_pfd
+    raw, jwork, twork, _js, _ts = runs
+    j2, t2 = str(tmp_path / "jax"), str(tmp_path / "torch")
+    shutil.copytree(jwork, j2)
+    shutil.copytree(twork, t2)
+    with pytest.MonkeyPatch.context() as mp:
+        _jax_tpu_path(mp)
+        jsurvey.run_survey([raw], _config(jsurvey, fold_top=2), j2)
+    res = tsurvey.run_survey([raw], _config(tsurvey, fold_top=2), t2,
+                             device="cpu")
+    assert len(res.folded) == 2
+    T = N * DT
+    for i in (1, 2):
+        w = read_pfd(os.path.join(j2, "fold_cand%d.pfd" % i))
+        g = read_pfd(os.path.join(t2, "fold_cand%d.pfd" % i))
+        assert (g.candnm, g.proflen, g.npart, g.bestdm) == \
+            (w.candnm, w.proflen, w.npart, w.bestdm)
+        assert os.path.basename(g.filenm) == os.path.basename(w.filenm)
+        assert abs(g.fold_p1 - w.fold_p1) * T <= 2e-3
+    top = read_pfd(res.folded[0])
+    h = round(top.fold_p1 / F0)
+    assert h >= 1 and abs(top.fold_p1 / h - F0) < 0.01
+    before = _stamps(t2)
+    tsurvey.run_survey([raw], _config(tsurvey, fold_top=2), t2,
+                       device="cpu")
+    after = _stamps(t2)
+    for n in ("fold_cand1.pfd", "fold_cand2.pfd"):
+        assert after[n] == before[n]
+
+
+def test_non_durable_survey_folds_through_ensure_dat(tmp_path, runs):
+    """With durable_stages=False no .dat is written by prepsubband; the
+    fold stage spills each folded trial's .dat from the seam's host
+    copy on demand (journaled), byte-equal to the durable run's, and
+    the folds equal the durable run's but for the paths they embed."""
+    from presto_tpu_torch.io.pfd import read_pfd
+    raw, _jwork, twork, _js, _ts = runs
+    dur = str(tmp_path / "durable")
+    shutil.copytree(twork, dur)
+    tsurvey.run_survey([raw], _config(tsurvey, fold_top=2), dur,
+                       device="cpu")
+    work = str(tmp_path / "lazy")
+    res = tsurvey.run_survey(
+        [raw], _config(tsurvey, fold_top=2, durable_stages=False), work,
+        device="cpu")
+    dats = sorted(n for n in os.listdir(work) if n.endswith(".dat"))
+    folded_dats = sorted({os.path.basename(read_pfd(p).filenm)
+                          for p in res.folded})
+    assert dats == folded_dats and 1 <= len(dats) < len(DMS)
+    from presto_tpu_torch.pipeline.manifest import SurveyManifest
+    man = SurveyManifest.load(work)
+    for n in dats:
+        assert open(os.path.join(work, n), "rb").read() == \
+            open(os.path.join(twork, n), "rb").read()
+        assert man.valid(os.path.join(work, n))
+    for i in (1, 2):
+        w = read_pfd(os.path.join(dur, "fold_cand%d.pfd" % i))
+        g = read_pfd(os.path.join(work, "fold_cand%d.pfd" % i))
+        np.testing.assert_array_equal(g.profs, w.profs)
+        np.testing.assert_array_equal(g.stats, w.stats)
+        assert (g.fold_p1, g.fold_p2, g.bestdm) == \
+            (w.fold_p1, w.fold_p2, w.bestdm)
+
+
+def test_seam_releases_device_series(tmp_path, runs):
+    """After seam_fft_search no block holds its device series, and the
+    ACCEL .cand files equal the journaled durable run's."""
+    raw, _jwork, twork, _js, _ts = runs
+    cfg = _config(tsurvey)
+    work = str(tmp_path / "seam")
+    seam = tsurvey.survey_head(raw, cfg, work, device="cpu")
+    assert seam.blocks and all(b.series_dev is not None
+                               for b in seam.blocks)
+    got = tsurvey.seam_fft_search(seam, cfg, device="cpu")
+    assert all(b.series_dev is None for b in seam.blocks)
+    assert len(got) == len(DMS)
+    for acc in got:
+        name = os.path.basename(acc) + ".cand"
+        assert open(acc + ".cand", "rb").read() == \
+            open(os.path.join(twork, name), "rb").read()
