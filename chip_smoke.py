@@ -4,7 +4,8 @@
 
 Phases (any failure exits non-zero before the final line):
   1. build   every CUDA kernel of the slice from presto_tpu_torch/csrc,
-             one nvcc per source, all started together; registers and
+             one nvcc per source, and the native IO library (g++), all
+             started together; registers and
              spills per kernel from -Xptxas -v, and each stage_reduce
              instantiation's shared memory and CTAs an SM (an
              instantiation of either kernel that spills fails the phase);
@@ -15,23 +16,41 @@ Phases (any failure exits non-zero before the final line):
              kernel / plain / library times, the card's bound, the
              reducer's own byte count, and the time of the collect step
              that follows the reducer;
-  3. polish  a 128-channel 8-bit filterbank of 2^22 samples (2^21-bin
-             spectra) with a strong accelerated pulsar; its DM-22 trial
+  3. polish  the beam: a 128-channel 8-bit filterbank of 2^22 samples
+             (2^21-bin spectra) with three pulsars (the strongest
+             accelerated, 40.3 Hz at DM 22) and RFI (a channel with a
+             persistent offset, a channel with a 60 Hz sinusoid, a burst
+             over 80 channels for one rfifind interval); its DM-22 trial
              dedispersed, searched (zmax 200, numharm 8) and its
              deduplicated candidate list polished on the card (CUDA-event
-             time, pairs, window taps, quadrature points) and on the CPU:
-             r, z, power and sigma agree within the stated tolerances;
-  4. main    the same filterbank with two weaker pulsars added (the same
-             noise) through survey.run_survey (DDplan over
-             DM 20-24: 24 trials, nsub 32, zmax 200, numharm 8, and the
-             JAX package's default fold_top=3): launch counters read
-             around it, an ACCEL file and .cand per DM, stage times
-             (head, FFT + search, polish, ACCEL writes, sift, prepfold),
-             the pulsar on top of the sifted list, the DM curve at its
-             polished (r, z) peaking at the injected DM, three
-             fold_candN.pfd/.bestprof with the first at the injected
-             pulsar, each fold's drizzle and search device ms, and each
-             fold's .pfd byte-equal to a refold on the CPU;
+             time, pairs, window taps, quadrature points) and on the CPU,
+             every candidate held by polish.agreement: each candidate
+             that breaks its curvature bound is printed with its
+             numbers, and each must be a tie path (the open near-tie
+             fault of ROADMAP queue 3), none unexplained;
+  4. main    the beam through survey.run_survey with the JAX package's
+             defaults (rfifind -time 2 as stage 1, its mask applied by
+             prepsubband; fold_top=3) over DM 20-24 (24 trials, nsub
+             32, zmax 200, numharm 8): launch counters read around it,
+             the mask holding the RFI and equal to a CPU rfifind's (or
+             each flipped cell printed with its margin), the DM-22 .dat
+             byte-equal to a CPU prepsubband's with that mask, an ACCEL
+             file and .cand per DM, stage times (rfifind, head, FFT +
+             search, polish, ACCEL writes, sift, prepfold), the pulsar on
+             top of the sifted list, the DM curve at its polished (r, z)
+             peaking at the injected DM, three fold_candN.pfd/.bestprof
+             with the first at the injected pulsar, each fold's drizzle
+             and search device ms, and each fold's .pfd byte-equal to a
+             refold on the CPU;
+  4b. ingest the survey head's host ingest: per-block read, decode,
+             scrub, mask, clip, transpose and host->device times, on the
+             first INGEST_BLOCKS blocks, before (seek-and-read, NumPy
+             decode, clip into a copy, host transpose, pageable copy)
+             and after this design; the feeder's overlap counts; the
+             whole head (24 DMs, with its seam handoff, without and with
+             the survey's mask); medians of 3 repeats; the device times
+             of the uploads, the transpose and one rfifind interval's
+             statistics;
   5. fold    prepfold of the filterbank at the top sifted candidate with
              the default (DM, p, pd) search on the card: the best DM
              within two grid steps of the injected, and the same cube
@@ -47,6 +66,7 @@ Prints the full results as one JSON line (``results: {...}``).  Imports
 no JAX and nothing of the JAX package.
 """
 
+import argparse
 import copy
 import glob
 import json
@@ -108,9 +128,11 @@ def phase_build():
     instantiation's shared memory and CTAs an SM."""
     from presto_tpu_torch import cuda_build
     t0 = time.time()
-    logs = cuda_build.build_all(["plane_build", "stage_reduce"])
+    logs = cuda_build.build_all(["plane_build", "stage_reduce",
+                                 "native_io"])
     secs = time.time() - t0
-    log("build: %.1f s (parallel nvcc, sm_90a)" % secs)
+    log("build: %.1f s (parallel nvcc, sm_90a; g++ for the native IO "
+        "library)" % secs)
     usage = {}
     for name, text in logs.items():
         for fn, u in cuda_build.ptxas_usage(text).items():
@@ -381,11 +403,13 @@ def check_stage_reduce(s, S, gen):
 
 
 def synth_filterbank(path, gen, N, nchan, dt, lofreq, cw, pulsars,
-                     device="cuda"):
+                     rfi=None, device="cuda"):
     """Seeded 8-bit filterbank made on the card: for each pulsar (f0 Hz,
     fdot Hz/s, DM, fwhm in turns, amplitude), gaussian pulses dispersed
     by the cold-plasma delay; baseline 32, noise sigma 6, quantized x4
-    like models/synth.fake_filterbank_file."""
+    like models/synth.fake_filterbank_file.  ``rfi`` (a dict like
+    BEAM_RFI) adds a channel with a persistent offset, a channel with a
+    sinusoid and a broadband burst over a span of spectra."""
     from presto_tpu_torch.io.sigproc import FilterbankHeader, write_filterbank
     from presto_tpu_torch.ops.dedispersion import delay_from_dm
     freqs = lofreq + np.arange(nchan) * cw
@@ -408,6 +432,15 @@ def synth_filterbank(path, gen, N, nchan, dt, lofreq, cw, pulsars,
             x = pulse if x is None else x + pulse
         x = 32.0 + x + 6.0 * torch.randn(x.shape, generator=gen,
                                          device=device)
+        if rfi is not None:
+            x[:, rfi["narrow_chan"]] += rfi["narrow_amp"]
+            x[:, rfi["periodic_chan"]] += (rfi["periodic_amp"] * torch.sin(
+                2 * np.pi * rfi["periodic_hz"] * t)).float()
+            b0, b1 = rfi["burst"]
+            c0, c1 = rfi["burst_chans"]
+            lo, hi = max(b0 - t0, 0), min(b1 - t0, x.shape[0])
+            if lo < hi:
+                x[lo:hi, c0:c1] += rfi["burst_amp"]
         out[t0:t0 + t.shape[0]] = torch.clamp(torch.round(x * 4.0),
                                               0, 255).to(torch.uint8)
     hdr = FilterbankHeader(source_name="FAKEPSR", machine_id=10,
@@ -433,50 +466,47 @@ BEAM = dict(N=1 << 22, nchan=128, dt=1.28e-4, lofreq=1214.0, cw=3.0,
             others=((7.13, 0.0, 21.0, 0.03, 0.3),
                     (113.7, 0.0, 23.3, 0.05, 0.2)))
 BEAM_SEED = 22
+# RFI in the beam, so that the survey's rfifind stage (-time 2: intervals
+# of 15625 spectra, 268 of them) has something to mask: channel 40 with a
+# persistent +7.5 (1.25 noise sigma), channel 90 with a 60 Hz sinusoid of
+# amplitude 2.5, and rfifind interval 96 with a +2 burst over channels
+# 32-111 (160 on the band sum, 2.4 of its sigma: under the clipper's 6).
+# The burst covers 80 of 128 channels, under rfifind's -chanfrac 0.7, so
+# the interval's cells are masked channel by channel and the interval is
+# not zapped whole.
+BEAM_RFI = dict(narrow_chan=40, narrow_amp=7.5, periodic_chan=90,
+                periodic_amp=2.5, periodic_hz=60.0,
+                burst=(96 * 15625, 97 * 15625), burst_chans=(32, 112),
+                burst_amp=2.0)
 
 
-def make_beam(workdir, name="psr.fil", others=True):
-    """The seeded beam, made on the card from its own seed, so the data
-    do not depend on what the kernel phases drew; ``others`` adds the
-    two weaker pulsars (the same noise either way)."""
+def make_beam(workdir, name="psr.fil"):
+    """The seeded beam with its three pulsars and RFI, made on the card
+    from its own seed, so the data do not depend on what the kernel
+    phases drew."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(BEAM_SEED)
     raw = os.path.join(workdir, name)
     b = BEAM
     pulsars = ((b["f0"], b["fdot"], b["dm"], b["width"], 1.0),) \
-        + (b["others"] if others else ())
+        + b["others"]
     synth_filterbank(raw, gen, b["N"], b["nchan"], b["dt"], b["lofreq"],
-                     b["cw"], pulsars)
+                     b["cw"], pulsars, rfi=BEAM_RFI)
     return raw
 
 
-def polish_agreement(card, cpu):
-    """Card against CPU, per candidate: r within 2e-3 bins, z within
-    1e-2; power rtol 1e-4 and sigma within 1e-3 where both picked the
-    same grid point, rtol 1e-3 and 1e-2 where an argmax near-tie moved
-    one of them by a final-stage step.  Returns (ok, moved, worst)."""
-    ok, moved = len(card) == len(cpu), 0
-    worst = dict(r=0.0, z=0.0, power_rel=0.0, sigma=0.0)
-    for a, b in zip(cpu, card):
-        dr, dz = abs(a.r - b.r), abs(a.z - b.z)
-        same = dr < 1e-9 and dz < 1e-9
-        moved += not same
-        dp = abs(a.power - b.power) / abs(a.power)
-        ds = abs(a.sigma - b.sigma)
-        ok = (ok and a.numharm == b.numharm and dr <= 2e-3 and dz <= 1e-2
-              and dp <= (1e-4 if same else 1e-3)
-              and ds <= (1e-3 if same else 1e-2))
-        for k, v in (("r", dr), ("z", dz), ("power_rel", dp), ("sigma", ds)):
-            worst[k] = max(worst[k], v)
-    return ok, moved, worst
-
-
 def phase_polish(raw, workdir):
-    """One DM's deduplicated candidate list (the injected DM's trial,
-    dedispersed, FFT'd and searched on the card) polished on the card,
-    timed with CUDA events after a warm-up call, and on the CPU with the
-    plain PyTorch path; the two agree within polish_agreement's
-    tolerances."""
+    """One DM's deduplicated candidate list (the injected DM's trial of
+    the main beam, dedispersed, FFT'd and searched on the card) polished
+    on the card, timed with CUDA events after a warm-up call, and on the
+    CPU with the plain PyTorch path, every candidate held by
+    polish.agreement (the same grid point, or a near-tie move of at most
+    AGREE_STEPS final-stage steps whose two points' powers, evaluated
+    on the CPU, differ by no more than the grid's curvature bound).  The
+    phase fails on any candidate that breaks the rule unexplained; one
+    that the descent replay names a tie path (an earlier stage's
+    near-tie: ROADMAP queue 3's open fault) is printed with its numbers
+    and counted."""
     from presto_tpu_torch.apps import prepsubband
     from presto_tpu_torch.pipeline import fusion, survey
     from presto_tpu_torch.search import accel, polish
@@ -520,7 +550,12 @@ def phase_polish(raw, workdir):
     t0 = time.time()
     cpu = run(pairs.cpu(), "cpu")
     cpu_s = time.time() - t0
-    ok, moved, worst = polish_agreement(card, cpu)
+    rep = polish.agreement(pairs.cpu(), cpu, card, seeds=cands)
+    ok, moved, worst = rep["unexplained"] == 0, rep["moved"], rep["worst"]
+    for f in rep["flags"]:
+        log("polish: candidate %d breaks the agreement rule (%s): %s"
+            % (f["i"], "tie path, open fault" if f.get("tie_path")
+               else "unexplained", json.dumps(f, default=float)))
     # evaluations of A per pair: 2 re-centre + 4 shrinking stages of a
     # 7x7 grid, and two 23-point measures (seed locpow, final)
     evals = (2 + polish.N_STAGES - 1) * (2 * polish.GRID_G + 1) ** 2 + 2 * 23
@@ -531,16 +566,33 @@ def phase_polish(raw, workdir):
                W=W, npts=npts, evals_per_pair=evals,
                cexp_per_pair=evals * npts, search_s=search_s,
                card_ms=card_ms, card_host_s=card_s, cpu_s=cpu_s,
-               peak_gb=peak_gb, moved=moved, worst=worst,
-               tolerance="r 2e-3 bins, z 1e-2; power rtol 1e-4, sigma "
-                         "1e-3 (same grid point), 1e-3 / 1e-2 (moved)")
+               peak_gb=peak_gb, moved=moved, tie_paths=rep["tie_paths"],
+               unexplained=rep["unexplained"], worst=worst,
+               flags=rep["flags"],
+               tolerance="same grid point: power rtol %g, sigma %g; moved: "
+                         "<= %d final-stage steps, |P(a) - P(b)| and the "
+                         "reported powers within (curvature loss + %g P), "
+                         "sigma %g; a move past that is a tie path when "
+                         "the descent with stage ties within %g reaches "
+                         "both points, the reported powers are its final "
+                         "measurements within %g, the move and sigma "
+                         "within the limits above, else unexplained "
+                         "(fails)" % (
+                             polish.SAME_POWER_RTOL, polish.SAME_SIGMA,
+                             polish.AGREE_STEPS, 2 * polish.EVAL_RTOL,
+                             polish.MOVED_SIGMA, polish.TIE_RTOL,
+                             2 * polish.EVAL_RTOL))
     log("polish (DM %.1f): %d raw -> %d candidates, %d pairs %s, W %d, "
         "npts %d, %d complex exponentials a pair; card %.3f ms (CUDA "
         "events; host %.3f s, peak %.2f GB), CPU %.2f s; %d candidates "
-        "moved by a near-tie, worst %s %s"
+        "moved by a near-tie, %d of them past the curvature bound on a "
+        "tie path (open fault), %d unexplained; worst (power and sigma on "
+        "the same point, steps and gap / bound of the moved) %s %s"
         % (BEAM["dm"], len(raw_c), len(cands), res["pairs"],
            res["numharm_counts"], W, npts, res["cexp_per_pair"], card_ms,
-           card_s, peak_gb, cpu_s, moved, json.dumps(worst),
+           card_s, peak_gb, cpu_s, moved, rep["tie_paths"],
+           rep["unexplained"],
+           json.dumps(worst, default=float),
            "ok" if ok else "FAIL"))
     return res
 
@@ -583,10 +635,7 @@ def phase_main(raw, workdir):
     from presto_tpu_torch.search import accel_cuda, build_cuda
     from presto_tpu_torch.utils.timing import StageTimer
     b = BEAM
-    cfg = survey.SurveyConfig(lodm=20.0, hidm=24.0, nsub=32, zmax=200,
-                              numharm=8, skip_rfifind=True,
-                              singlepulse=False, fold_top=3,
-                              durable_stages=True)
+    cfg = main_cfg()
     timer = StageTimer()
     build_cuda.launches = 0
     accel_cuda.launches = 0
@@ -602,7 +651,8 @@ def phase_main(raw, workdir):
     ndms = len(res.datfiles)
     st = timer.stages
     fused = st["realfft+accelsearch (fused)"]
-    stages = dict(run_survey_s=total_s, survey_head_s=st["prepsubband"],
+    stages = dict(run_survey_s=total_s, rfifind_s=st["rfifind"],
+                  survey_head_s=st["prepsubband"],
                   fused_s=fused, polish_s=st["polish"],
                   polish_per_dm_s=timer.samples["polish"],
                   accel_writes_s=st["accel writes"], sift_s=st["sift"],
@@ -674,10 +724,12 @@ def phase_main(raw, workdir):
            top.sigma if top else 0, top.numharm if top else 0,
            len(top.hits) if top else 0, "ok" if top_ok else "FAIL"))
     folds = check_main_folds(res, workdir, clock, T)
+    masks = check_main_mask(raw, res, workdir, cfg)
     ok = (abs(peak_dm - b["dm"]) <= 0.21 and top_ok and files_ok
-          and nbins == 1 << 21 and folds["ok"]
+          and nbins == 1 << 21 and folds["ok"] and masks["ok"]
           and all(v == ndms > 0 for v in launches.values()))
-    return dict(ok=ok, ndms=ndms, nbins=nbins, stages=stages,
+    return dict(ok=ok, ndms=ndms, nbins=nbins, stages=stages, masks=masks,
+                maskfile=res.maskfile,
                 launches=launches, dm_curve=curve, dm_curve_peak=peak_dm,
                 polished_sigma_curve=sig_curve,
                 sifted=len(res.sifted), top_freq=f,
@@ -685,6 +737,364 @@ def phase_main(raw, workdir):
                 top_dm=top.DM if top else None,
                 top_hits=len(top.hits) if top else 0, folds=folds,
                 top=top)
+
+
+# a bytemask cell may flip between the card and the CPU only this close
+# to its threshold (relative): the statistics differ by ~1e-6
+FLIP_MARGIN = 1e-4
+
+
+def check_main_mask(raw, res, workdir, cfg):
+    """The survey's stage 1 against the CPU: rfifind of the same file on
+    the CPU (plain versions) writes the same .mask bytes, or each cell
+    whose bytemask flipped is printed with its margin to its threshold,
+    which must be under FLIP_MARGIN; the smallest margin of any cell is
+    printed either way (cuFFT and the CPU's FFT differ in the last
+    bits).  The mask holds the injected
+    RFI.  Then prepsubband of the survey's DDplan method with that mask
+    on the CPU: the injected DM's .dat equal to the survey's bytes."""
+    from presto_tpu_torch.apps import prepsubband, rfifind
+    from presto_tpu_torch.io.maskfile import read_mask, read_statsfile
+    from presto_tpu_torch.search import rfifind as srfi
+    b = BEAM
+    cpu = os.path.join(workdir, "cpu")
+    os.makedirs(cpu)
+    t0 = time.time()
+    rfifind.main(["-time", str(cfg.rfi_time), "-noplot", "-o",
+                  os.path.join(cpu, "psr"), raw], device="cpu")
+    rfi_cpu_s = time.time() - t0
+    card_base = res.maskfile[:-len(".mask")]
+    cpu_base = os.path.join(cpu, "psr_rfifind")
+    same = (open(res.maskfile, "rb").read()
+            == open(cpu_base + ".mask", "rb").read())
+    stc, stu = (read_statsfile(p + ".stats") for p in (card_base, cpu_base))
+    geo = dict(dt=b["dt"], lofreq=b["lofreq"], chanwidth=b["cw"])
+    bmc = srfi.rfifind_from_stats(stc, **geo).bytemask
+    bmu = srfi.rfifind_from_stats(stu, **geo).bytemask
+    margins = srfi.cell_margins(stu["dataavg"], stu["datastd"],
+                                stu["datapow"], stu["ptsperint"])
+    flips = [dict(interval=int(i), chan=int(c), card=int(bmc[i, c]),
+                  cpu=int(bmu[i, c]), margin=float(margins[i, c]))
+             for i, c in zip(*np.nonzero(bmc != bmu))]
+    stat_err = {k: float(np.max(np.abs(stc[k] - stu[k])
+                                / np.maximum(np.abs(stu[k]), 1e-30)))
+                for k in ("dataavg", "datastd", "datapow")}
+    m = read_mask(res.maskfile)
+    rfi = BEAM_RFI
+    burst_int = rfi["burst"][0] // stc["ptsperint"]
+    burst_chans = set(m.chans_per_int[burst_int].tolist())
+    rfi_ok = ({rfi["narrow_chan"], rfi["periodic_chan"]}
+              <= set(m.zap_chans.tolist())
+              and set(range(*rfi["burst_chans"])) <= burst_chans)
+    log("main: rfifind %d ints x %d chans, zapped channels %s, intervals "
+        "%s, %d channels masked in interval %d; mask holds the injected "
+        "RFI %s" % (m.numint, m.numchan, m.zap_chans.tolist(),
+                    m.zap_ints.tolist(), len(burst_chans), burst_int,
+                    "ok" if rfi_ok else "FAIL"))
+    log("main: .mask bytes equal to a CPU rfifind (%.2f s) %s; stats card "
+        "vs CPU max relative diff %s; smallest cell margin to a threshold "
+        "%.3g at %s; flipped cells %s"
+        % (rfi_cpu_s, same, json.dumps(stat_err), float(margins.min()),
+           list(np.unravel_index(int(np.argmin(margins)), margins.shape)),
+           json.dumps(flips)))
+    # prepsubband with the mask on the CPU, the survey's method
+    t0 = time.time()
+    prepsubband.main(method_argv(raw, cfg, os.path.join(cpu, "psr"))
+                     + ["-mask", res.maskfile, raw], device="cpu")
+    prep_cpu_s = time.time() - t0
+    name = "psr_DM%.2f.dat" % b["dm"]
+    dat_same = (open(os.path.join(workdir, name), "rb").read()
+                == open(os.path.join(cpu, name), "rb").read())
+    log("main: %s with the mask equal to a CPU prepsubband's (%.1f s) %s"
+        % (name, prep_cpu_s, "ok" if dat_same else "FAIL"))
+    for f in glob.glob(os.path.join(cpu, "psr_DM*")):
+        os.remove(f)
+    flips_ok = all(f["margin"] <= FLIP_MARGIN for f in flips)
+    return dict(ok=rfi_ok and (same or (flips and flips_ok)) and dat_same,
+                mask_equal_cpu=same, flips=flips,
+                min_margin=float(margins.min()), stats_rel_err=stat_err,
+                zap_chans=m.zap_chans.tolist(),
+                zap_ints=m.zap_ints.tolist(), dat_equal_cpu=dat_same,
+                rfifind_cpu_s=rfi_cpu_s, prepsubband_cpu_s=prep_cpu_s)
+
+
+def main_cfg():
+    """The main path's survey configuration: the JAX package's defaults
+    (rfifind on, -time 2; fold_top 3) over DM 20-24, zmax 200."""
+    from presto_tpu_torch.pipeline import survey
+    return survey.SurveyConfig(lodm=20.0, hidm=24.0, nsub=32, zmax=200,
+                               numharm=8, singlepulse=False, fold_top=3,
+                               durable_stages=True)
+
+
+def method_argv(raw, cfg, outbase):
+    """prepsubband's argv for the survey's (single) DDplan method."""
+    from presto_tpu_torch.apps.common import open_raw
+    from presto_tpu_torch.pipeline.ddplan import (Observation,
+                                                  plan_dedispersion)
+    fb = open_raw([raw])
+    hdr = fb.header
+    fb.close()
+    plan = plan_dedispersion(Observation(
+        dt=hdr.tsamp, f_ctr=hdr.lofreq + 0.5 * (hdr.nchans - 1)
+        * abs(hdr.foff), bw=hdr.nchans * abs(hdr.foff),
+        numchan=hdr.nchans), cfg.lodm, cfg.hidm, numsub=cfg.nsub)
+    if len(plan.methods) != 1:
+        raise RuntimeError("the main path's DDplan has %d methods"
+                           % len(plan.methods))
+    m = plan.methods[0]
+    return ["-lodm", str(m.lodm), "-dmstep", str(m.ddm), "-numdms",
+            str(m.numdms), "-nsub", str(cfg.nsub), "-downsamp",
+            str(m.downsamp), "-o", outbase, "-nobary"]
+
+
+class Steps:
+    """Host seconds per ingest step, one sample a block."""
+
+    def __init__(self):
+        self.samples = {}
+        self._t = time.perf_counter()
+
+    def lap(self, name, sync=False):
+        if sync:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        self.samples.setdefault(name, []).append(t - self._t)
+        self._t = t
+
+    def summary(self):
+        return {k: dict(mean_ms=1e3 * float(np.mean(v)),
+                        max_ms=1e3 * float(np.max(v)),
+                        sum_s=float(np.sum(v))) for k, v in
+                self.samples.items()}
+
+
+def split_before(raw, blocklen, nblocks):
+    """The ingest as it was before this design, one block at a time with
+    every step timed: a plain read, the NumPy decode, the clip into a
+    copy, the host transpose and a pageable copy to the card."""
+    from presto_tpu_torch.io import sigproc
+    from presto_tpu_torch.ops.clipping import clip_times
+    fb = sigproc.FilterbankFile(raw)
+    hdr = fb.header
+    bps = hdr.bytes_per_spectrum
+    state = None
+    st = Steps()
+    for k in range(nblocks):
+        nread = k * blocklen
+        if nread < hdr.N:
+            n = min(blocklen, hdr.N - nread)
+            fb.f.seek(hdr.headerlen + nread * bps)
+            rawb = np.frombuffer(fb.f.read(n * bps), np.uint8)
+            st.lap("read")
+            block = sigproc.decode_spectra_numpy(hdr, rawb, n)
+            if n < blocklen:
+                block = np.concatenate([block, np.zeros(
+                    (blocklen - n, hdr.nchans), np.float32)])
+            st.lap("decode")
+            block, _, state = clip_times(block, 6.0, state)
+            st.lap("clip")
+        else:
+            block = np.zeros((blocklen, hdr.nchans), np.float32)
+            st._t = time.perf_counter()
+        blockT = np.ascontiguousarray(block.T)
+        st.lap("transpose")
+        torch.from_numpy(blockT).to("cuda")
+        st.lap("h2d", sync=True)
+    fb.close()
+    return st.summary()
+
+
+def split_after(raw, blocklen, nblocks, prep):
+    """This design's ingest, one block at a time with every step timed:
+    the prefetching feeder's read, the native decode into a pinned
+    buffer, the quality scrub, the mask substitution and the clip in
+    place, the asynchronous upload, the transpose on the card."""
+    from presto_tpu_torch.io import native, sigproc
+    from presto_tpu_torch.ops.clipping import clip_times, mask_block
+    fb = sigproc.FilterbankFile(raw)
+    hdr = fb.header
+    bps = hdr.bytes_per_spectrum
+    pin = torch.empty((blocklen, hdr.nchans), dtype=torch.float32,
+                      pin_memory=True)
+    buf = pin.numpy()
+    state = None
+    st = Steps()
+    with native.BlockFeeder(raw, hdr.headerlen, blocklen * bps) as feeder:
+        it = iter(feeder)
+        st._t = time.perf_counter()
+        for k in range(nblocks):
+            nread = k * blocklen
+            if nread < hdr.N:
+                rawb = next(it)
+                st.lap("read")
+                n = min(len(rawb) // bps, hdr.N - nread)
+                sigproc.decode_spectra_block(hdr, rawb[:n * bps], n, out=buf)
+                buf[n:] = 0.0
+                st.lap("decode")
+                fb._scrub(buf[:n], nread, n)
+                st.lap("scrub")
+                nm, chans = prep.mask.check_mask(nread * prep.dt,
+                                                 blocklen * prep.dt)
+                if nm == -1:
+                    buf[:] = prep.padvals[None, :]
+                elif nm > 0:
+                    mask_block(buf, chans, prep.padvals, out=buf)
+                st.lap("mask")
+                _b, _n, state = clip_times(buf, 6.0, state, out=buf)
+                st.lap("clip")
+            else:
+                buf[:] = 0.0
+                st._t = time.perf_counter()
+            tm = pin.to("cuda", non_blocking=True)
+            st.lap("h2d", sync=True)
+            tm.t().contiguous()
+            st.lap("transpose", sync=True)
+        stats = feeder.stats()
+    fb.close()
+    return st.summary(), stats
+
+
+def head_after(raw, argv):
+    """prepsubband.run into a non-durable seam, as the survey runs it:
+    the seconds of the whole head, its seam handoff, pad_to_good_N
+    inside it, and the feeder's overlap counts."""
+    from presto_tpu_torch.apps import prepsubband
+    from presto_tpu_torch.io import sigproc
+    from presto_tpu_torch.pipeline import fusion
+    times = {}
+    saved = (prepsubband._seam_handoff, prepsubband.pad_to_good_N,
+             sigproc.FilterbankFile.close)
+    feeder = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def close(fb):
+        feeder.update(fb.feeder_stats or {})
+        return saved[2](fb)
+    prepsubband._seam_handoff = timed("handoff_s", saved[0])
+    prepsubband.pad_to_good_N = timed("pad_to_good_N_s", saved[1])
+    sigproc.FilterbankFile.close = close
+    try:
+        seam = fusion.StageSeam(os.path.dirname(argv[argv.index("-o") + 1]),
+                                durable=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prepsubband.run(prepsubband.build_parser().parse_args(argv + [raw]),
+                        device="cuda", seam=seam)
+        torch.cuda.synchronize()
+        times["head_s"] = time.perf_counter() - t0
+    finally:
+        (prepsubband._seam_handoff, prepsubband.pad_to_good_N,
+         sigproc.FilterbankFile.close) = saved
+    block = seam.blocks[0]
+    n = block.series_host.shape
+    dl = torch.empty(n, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dl.cpu()
+    times["download_s"] = time.perf_counter() - t0
+    times["loop_s"] = times["head_s"] - times["handoff_s"]
+    times["feeder"] = feeder
+    return times
+
+
+def _median_of(runs):
+    """Per key, the median over repeats (nested dicts key by key)."""
+    out = {}
+    for k, v in runs[0].items():
+        if isinstance(v, dict):
+            out[k] = _median_of([r[k] for r in runs])
+        elif isinstance(v, (int, float)):
+            out[k] = float(np.median([r[k] for r in runs]))
+    return out
+
+
+INGEST_REPEATS = 3
+# the per-block splits read the first INGEST_BLOCKS blocks of the beam's
+# 34 (32 of data, 2 flush): the design before this one spends ~0.6 s a
+# block on the card's host, and the whole head's seconds come from
+# head_after over every block
+INGEST_BLOCKS = 8
+
+
+def phase_ingest(raw, workdir, maskfile):
+    """The survey head's host ingest on the card's host, in one process:
+    per block (mean and max over the first INGEST_BLOCKS blocks) the
+    read, decode, scrub, mask, clip, transpose and host->device steps,
+    taken one block at a time, before and after this design; then the
+    whole head (prepsubband.run's loop of 24 DMs and its seam handoff:
+    the download, pad_to_good_N and the pad upload) with the worker
+    thread's overlap, without and with the survey's mask, in turns.
+    Medians of INGEST_REPEATS."""
+    from presto_tpu_torch.apps import common
+    os.makedirs(workdir)
+    cfg = main_cfg()
+    argv = method_argv(raw, cfg, os.path.join(workdir, "ing"))
+    b = BEAM
+    blocklen = 1 << 17
+    nblocks = INGEST_BLOCKS
+    ns = argparse.Namespace(mask=maskfile)
+    split_b, split_a, heads = [], [], {"after": [], "after_mask": []}
+    feeder = None
+    for rep in range(INGEST_REPEATS):
+        split_b.append(split_before(raw, blocklen, nblocks))
+        sa, feeder = split_after(raw, blocklen, nblocks,
+                                 common.block_prep(ns, b["nchan"], b["dt"]))
+        split_a.append(sa)
+        order = (("after", []), ("after_mask", ["-mask", maskfile]))
+        for name, extra in (order if rep % 2 == 0 else order[::-1]):
+            heads[name].append(head_after(raw, argv + extra))
+            torch.cuda.empty_cache()
+    # device times (CUDA events, 20 launches after a warm-up) of the
+    # ingest's device steps: the pinned and a pageable upload of one
+    # block, the transpose on the card, and one rfifind interval's
+    # statistics (128 channels x 15625 samples)
+    from presto_tpu_torch.search import rfifind as srfi
+    pin = torch.empty((blocklen, b["nchan"]), dtype=torch.float32,
+                      pin_memory=True)
+    pageable = np.zeros((blocklen, b["nchan"]), np.float32)
+    tm = torch.randn((blocklen, b["nchan"]), device="cuda")
+    cells = torch.randn((b["nchan"], 15625), device="cuda")
+    device_ms = dict(
+        h2d_pinned=cuda_time_ms(lambda: pin.to("cuda", non_blocking=True),
+                                20),
+        h2d_pageable=cuda_time_ms(
+            lambda: torch.from_numpy(pageable).to("cuda"), 20),
+        transpose=cuda_time_ms(lambda: tm.t().contiguous(), 20),
+        rfifind_interval_stats=cuda_time_ms(
+            lambda: srfi._interval_stats(cells), 20))
+    del pin, tm, cells
+    log("ingest device ms (CUDA events): %s" % json.dumps(device_ms))
+    res = dict(blocks=nblocks, blocklen=blocklen, device_ms=device_ms,
+               repeats=INGEST_REPEATS,
+               split_before=_median_of(split_b),
+               split_after=_median_of(split_a),
+               split_after_feeder=feeder,
+               heads={k: _median_of(v) for k, v in heads.items()},
+               head_samples={k: [round(r["head_s"], 4) for r in v]
+                             for k, v in heads.items()})
+    for name in ("split_before", "split_after"):
+        log("ingest %s (per block, ms, median of %d): %s"
+            % (name, INGEST_REPEATS, json.dumps(
+                {k: [round(v["mean_ms"], 3), round(v["max_ms"], 3)]
+                 for k, v in res[name].items()})))
+    log("ingest feeder (after): %s" % json.dumps(feeder))
+    log("ingest heads (s, median of %d): %s; samples %s"
+        % (INGEST_REPEATS, json.dumps({k: {kk: vv for kk, vv in v.items()
+                                            if not isinstance(vv, dict)}
+                                       for k, v in res["heads"].items()},
+                                      default=float),
+           json.dumps(res["head_samples"])))
+    return res
 
 
 class FoldClock:
@@ -1059,19 +1469,16 @@ def main():
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         t0 = time.time()
-        # the polish phase keeps the one-pulsar beam its tolerances were
-        # set on; on the three-pulsar beam's DM-22 trial a weak
-        # candidate moves two final-stage z steps, card against CPU
-        # (PERF.md), an open item of ROADMAP.md queue 3
-        raw1 = make_beam(work, "psr1.fil", others=False)
         raw = make_beam(work)
         results["synth_s"] = time.time() - t0
-        pol = phase_polish(raw1, os.path.join(work, "polish"))
-        os.remove(raw1)
+        pol = phase_polish(raw, os.path.join(work, "polish"))
         torch.cuda.empty_cache()
         mwork = os.path.join(work, "main")
         main_res = phase_main(raw, mwork)
         top = main_res.pop("top")
+        torch.cuda.empty_cache()
+        ingest = phase_ingest(raw, os.path.join(work, "ingest"),
+                              main_res["maskfile"])
         torch.cuda.empty_cache()
         fold = (phase_fold(raw, mwork, top) if top is not None
                 else dict(ok=False))
@@ -1082,7 +1489,8 @@ def main():
     small = phase_small_reference(gen)
     small_ok = all(v["ok"] for v in small.values())
     results.update(plane_build=k1, stage_reduce=k2, polish=pol,
-                   main=main_res, fold=fold, toas=toas,
+                   main=main_res, ingest=ingest, fold=fold,
+                   toas=toas,
                    small_reference=small, total_s=time.time() - t_start)
     kernels = []
     for name, src, rep, k in (

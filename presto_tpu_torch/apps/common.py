@@ -1,10 +1,11 @@
 """Shared app plumbing the slice needs (host copy, trimmed).
 
 Copy of the parts of ``presto_tpu/apps/common.py`` that the
-prepsubband streaming loop, accelsearch and prepfold use: the raw-data
-flags, open_raw_args, obs_metadata, BlockPrep (per-block clipping, on
-by default), stream_blocklen, pad_to_good_N, set_onoff, fil_to_inf,
-load_timeseries and load_spectrum.  The port reads SIGPROC filterbanks only;
+prepsubband streaming loop, rfifind, accelsearch and prepfold use: the
+raw-data flags, open_raw_args, obs_metadata, BlockPrep (mask
+substitution, clipping on by default, zero-DM, running average,
+ignorechan) and block_prep, stream_blocklen, pad_to_good_N, set_onoff,
+fil_to_inf, load_timeseries and load_spectrum.  The port reads SIGPROC filterbanks only;
 PSRFITS input and barycentring are left for later slices.
 """
 
@@ -17,9 +18,12 @@ import numpy as np
 
 from presto_tpu_torch.io import datfft
 from presto_tpu_torch.io.infodata import InfoData, read_inf
+from presto_tpu_torch.io.maskfile import determine_padvals, read_mask
 from presto_tpu_torch.io.sigproc import FilterbankFile
-from presto_tpu_torch.ops.clipping import clip_times, remove_zerodm
+from presto_tpu_torch.ops.clipping import (clip_times, mask_block,
+                                           remove_zerodm)
 from presto_tpu_torch.utils.psr import choose_N, good_fft_size
+from presto_tpu_torch.utils.ranges import parse_ranges
 
 
 def add_common_flags(p: argparse.ArgumentParser) -> None:
@@ -116,30 +120,75 @@ def load_spectrum(path: str) -> Tuple[np.ndarray, InfoData]:
 
 
 class BlockPrep:
-    """Per-block preprocessing: band invert, clipping (with carry
-    state), zero-DM removal, running-average subtraction
-    (read_psrdata/prep_subbands, backend_common.c:505-738).  Masks
-    come with rfifind in a later slice."""
+    """Per-block preprocessing shared by the prep family: band invert,
+    mask substitution, clipping (with carry state), zero-DM removal,
+    running-average subtraction, and ignorechan zeroing — the
+    read->transform stack of read_psrdata/prep_subbands
+    (backend_common.c:505-738).  The JAX package's BlockPrep, except
+    that the mask substitution and the clip write into the block they
+    are given (the same values as the JAX package's copies): the
+    caller hands it a block it owns, such as a pinned upload buffer."""
 
-    def __init__(self, args):
+    def __init__(self, nchan, dt, args, mask=None, padvals=None,
+                 ignore=None):
+        self.nchan = nchan
+        self.dt = dt
         self.invert = bool(getattr(args, "invert", False))
         self.clip = clip_sigma_from(args)
         self.zerodm = bool(getattr(args, "zerodm", False))
         self.runavg = bool(getattr(args, "runavg", False))
+        self.mask = mask
+        self.have_mask = mask is not None
+        self.padvals = (padvals if padvals is not None
+                        else np.zeros(nchan, np.float32))
+        self.ignore = ignore
         self._clip_state = None
 
-    def __call__(self, block):
-        """block: [T, C] float32 (ascending freq); returns same shape."""
+    def __call__(self, block, start_spectra):
+        """block: [T, C] float32 (ascending freq), the first spectrum
+        at ``start_spectra`` (the mask is looked up in seconds from
+        there); returns the same shape."""
         if self.invert:
             block = block[:, ::-1]
+        if self.have_mask:
+            n, chans = self.mask.check_mask(start_spectra * self.dt,
+                                            block.shape[0] * self.dt)
+            if n == -1:
+                block[:] = self.padvals[None, :]
+            elif n > 0:
+                block = mask_block(block, chans, self.padvals, out=block)
         if self.clip > 0:
             block, _, self._clip_state = clip_times(
-                block, self.clip, self._clip_state)
+                block, self.clip, self._clip_state, out=block)
         if self.zerodm:
-            block = remove_zerodm(block)
+            block = remove_zerodm(
+                block, self.padvals if self.have_mask else None)
         if self.runavg:
+            # per-channel block-mean subtraction (the reference's
+            # run_avg in read_PRESTO_subbands, prepsubband.c:838-846)
             block = block - block.mean(axis=0, keepdims=True)
+        if self.ignore is not None:
+            block[:, self.ignore] = 0.0
         return block
+
+
+def block_prep(args, nchan: int, dt: float) -> BlockPrep:
+    """A fresh BlockPrep (the clipper carries state across blocks, so
+    each pass over the file needs its own) from the shared flags: the
+    -mask file with its padding values from the .stats beside it (zeros
+    when there is none), and -ignorechan."""
+    mask = read_mask(args.mask) if getattr(args, "mask", None) else None
+    padvals = None
+    if mask is not None:
+        try:
+            padvals = determine_padvals(args.mask.replace(".mask",
+                                                          ".stats"))
+        except OSError:
+            padvals = np.zeros(nchan, np.float32)
+    ignore = (np.asarray(parse_ranges(args.ignorechan), np.int64)
+              if getattr(args, "ignorechan", None) else None)
+    return BlockPrep(nchan, dt, args, mask=mask, padvals=padvals,
+                     ignore=ignore)
 
 
 def good_numout(valid: int, numout: int = 0) -> int:

@@ -13,7 +13,8 @@ of a fold with no search is byte-equal to the JAX package's.
 Not in the port yet (they raise NotImplementedError): ephemeris folds
 (-par, -timing, -polycos, -absphase, -barypolycos, -psr), binary orbits
 (-bin), -mask, -ignorechan, PSRFITS input and the diagnostic plot (give
--noplot).
+-noplot).  A raw fold streams through pipeline/fusion.feed_blocks (the
+native feeder and decoder, the clip, the transpose on the device).
 
 The stacked .dat candidate fold (fold_dat_cands) writes the bytes of
 ``prepfold -accelfile <acc>.cand -accelcand K -dm D -nosearch -noplot
@@ -23,6 +24,7 @@ The stacked .dat candidate fold (fold_dat_cands) writes the bytes of
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 from dataclasses import dataclass
@@ -31,13 +33,14 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.apps.common import (add_common_flags, add_raw_flags,
-                                          BlockPrep, load_timeseries,
+                                          block_prep, load_timeseries,
                                           obs_metadata, open_raw,
                                           open_raw_args, stream_blocklen)
 from presto_tpu_torch.io.infodata import read_inf
 from presto_tpu_torch.io.pfd import Pfd, write_bestprof, write_pfd
 from presto_tpu_torch.ops import dedispersion as dd
 from presto_tpu_torch.ops.fold import shift_prof, subband_fold_shifts
+from presto_tpu_torch.pipeline import fusion
 from presto_tpu_torch.search.accel import resolve_device
 from presto_tpu_torch.search.prepfold import (FoldConfig, fold_errors,
                                               fold_events,
@@ -341,28 +344,27 @@ def fold_raw(args, f, fd, fdd, device):
     chan_bins = dd.delays_to_bins(chan_del - chan_del.min(), dt)
     maxd = int(chan_bins.max())
     blocklen = stream_blocklen(nchan, maxd, nspec=int(hdr.N))
-    prep = BlockPrep(args)
+    prep = block_prep(args, nchan, dt)
     chan_bins_d = torch.as_tensor(chan_bins.astype(np.int64),
                                   device=device)
     nout = max(int(hdr.N) - maxd, 0)
     # each block's subbands go straight into their columns of one
     # device tensor, downloaded once at the end
     out = torch.empty((nsub, nout), dtype=torch.float32, device=device)
-    pos, prev, nread = 0, None, 0
-    while nread < hdr.N + blocklen:
-        if nread < hdr.N:
-            block = prep(fb.read_spectra(nread, blocklen))
-        else:
-            block = np.zeros((blocklen, nchan), dtype=np.float32)
-        cur = torch.from_numpy(np.ascontiguousarray(block.T)).to(device)
-        if prev is not None:
-            sub = dd.dedisp_subbands_block(prev, cur, chan_bins_d, nsub)
-            take = min(sub.shape[1], nout - pos)
-            if take > 0:
-                out[:, pos:pos + take] = sub[:, :take]
-                pos += take
-        prev = cur
-        nread += blocklen
+    pos, prev = 0, None
+    # the data blocks, then one zero flush block
+    nblocks = -(-int(hdr.N) // blocklen) + 1
+    with contextlib.closing(fusion.feed_blocks(
+            fb, prep, blocklen, nblocks, device)) as feed:
+        for _nread, cur in feed:
+            if prev is not None:
+                sub = dd.dedisp_subbands_block(prev, cur, chan_bins_d,
+                                               nsub)
+                take = min(sub.shape[1], nout - pos)
+                if take > 0:
+                    out[:, pos:pos + take] = sub[:, :take]
+                    pos += take
+            prev = cur
     series = out.cpu().numpy()
     del out, prev
     lo, hi = _slice_fractions(args, series.shape[1])

@@ -6,20 +6,28 @@ dispersion.c:103-162), the single-device streamed block loop, and the
 hand-off of the DM fan-out to an in-memory stage seam.  Output bytes
 equal the JAX package's.
 
-Not in this slice (they raise NotImplementedError): -mask, -sub,
-barycentring (run with -nobary), -ignorechan, multi-host and elastic
-runs, and PSRFITS input.
+The filterbank streams through the native prefetching feeder and
+decoder into pinned staging buffers (pipeline/fusion.feed_blocks): the
+mask substitution, clip and -ignorechan run there on the host, in NumPy
+(the clip's reduction order fixes the .dat bytes), the upload is
+asynchronous and the time-major -> channel-major transpose runs on the
+device.  -mask takes its padding values from the .stats beside the
+mask, as the JAX package does.
+
+Not in this slice (they raise NotImplementedError): -sub, barycentring
+(run with -nobary), multi-host and elastic runs, and PSRFITS input.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 import numpy as np
 import torch
 
 from presto_tpu_torch.apps.common import (add_common_flags, add_raw_flags,
-                                          BlockPrep, fil_to_inf,
+                                          block_prep, fil_to_inf,
                                           good_numout, open_raw,
                                           pad_to_good_N, set_onoff,
                                           start_skip_spectra,
@@ -75,9 +83,8 @@ def plan_delays(hdr, args):
 
 
 def _refuse_unported(args) -> None:
-    for flag, on in (("-mask", args.mask), ("-sub", args.sub),
+    for flag, on in (("-sub", args.sub),
                      ("barycentring (pass -nobary)", not args.nobary),
-                     ("-ignorechan", args.ignorechan),
                      ("-psrfits", args.psrfits)):
         if on:
             raise NotImplementedError(
@@ -100,26 +107,13 @@ def run(args, device="cuda", seam: fusion.StageSeam = None):
     Neff = int(hdr.N) - skip
     dms, chan_bins, dm_bins = plan_delays(hdr, args)
     maxd = int(chan_bins.max()) + int(dm_bins.max())
-    prep = BlockPrep(args)
+    prep = block_prep(args, nchan, dt)
     blocklen = stream_blocklen(nchan, max(int(chan_bins.max()),
                                           int(dm_bins.max())), nspec=Neff)
     if blocklen % args.downsamp:
         blocklen += args.downsamp - blocklen % args.downsamp
     block_step = dd.make_block_step(chan_bins, dm_bins, args.nsub,
                                     args.downsamp)
-
-    def _produce_blocks():
-        """Decoded + preprocessed channel-major blocks in stream order
-        (on the ingest thread), then two zero flush blocks."""
-        nread = skip
-        while nread < hdr.N + 2 * blocklen:
-            if nread < hdr.N:
-                block = prep(fb.read_spectra(nread, blocklen))
-            else:
-                block = np.zeros((blocklen, nchan), dtype=np.float32)
-            yield np.ascontiguousarray(block.T)
-            nread += blocklen
-
     # each block's series goes straight into its columns of one output
     # tensor, [numdms, valid] plus room for the seam's pad: no list of
     # blocks and no concatenation held beside it
@@ -129,14 +123,15 @@ def run(args, device="cuda", seam: fusion.StageSeam = None):
     out = torch.empty((len(dms), width), dtype=torch.float32, device=dev)
     pos = 0
     prev_raw = prev_sub = None
-    ingest = fusion.DoubleBufferedIngest(_produce_blocks())
-    try:
-        for blockT in ingest:
-            cur = torch.from_numpy(blockT).to(dev)
+    # the data blocks, then two zero flush blocks
+    nblocks = -(-Neff // blocklen) + 2
+    with contextlib.closing(fusion.feed_blocks(
+            fb, prep, blocklen, nblocks, dev, skip=skip)) as feed:
+        for _nread, cur in feed:
             if prev_raw is not None:
                 if prev_sub is None:
-                    sub = dd.dedisp_subbands_block(prev_raw, cur,
-                                                   chan_bins, args.nsub)
+                    sub = dd.dedisp_subbands_block(prev_raw, cur, chan_bins,
+                                                   args.nsub)
                 else:
                     sub, series = block_step(prev_raw, cur, prev_sub)
                     take = min(series.shape[1], valid - pos)
@@ -145,8 +140,6 @@ def run(args, device="cuda", seam: fusion.StageSeam = None):
                         pos += take
                 prev_sub = sub
             prev_raw = cur
-    finally:
-        ingest.close()
     del prev_raw, prev_sub
     outbase = args.outfile or "prepsubband_out"
     if seam is not None:
@@ -204,3 +197,7 @@ def _seam_handoff(args, fb, seam, out, dms, dt, valid, skip, outbase):
 
 def main(argv=None, device="cuda"):
     run(build_parser().parse_args(argv), device=device)
+
+
+if __name__ == "__main__":
+    main()

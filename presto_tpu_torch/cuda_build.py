@@ -1,10 +1,13 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's native libraries.
 
-Each ``csrc/<name>.cu`` carries a plain C entry point and is compiled
-with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
+Each ``csrc/<name>.cu`` (a hand-written CUDA kernel) carries a plain C
+entry point and is compiled with ``nvcc -gencode
+arch=compute_90a,code=sm_90a -O3 -shared``; each ``csrc/<name>.cpp``
+(host C++: the ingest's decoder and prefetching feeder) with ``g++ -O3
+-fPIC -shared -pthread``.  Either goes into
 ``_build/lib<name>-<source hash>.so`` inside this package (listed in
-``.gitignore``), then loaded with ``ctypes``.  The build runs at first
-use; ``build_all`` starts one nvcc per source at once.  A missing
+``.gitignore``) and is loaded with ``ctypes``.  The build runs at first
+use; ``build_all`` starts one compiler per source at once.  A missing
 toolchain raises: nothing falls back to another implementation.
 """
 
@@ -16,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Sequence
 
@@ -25,6 +29,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -35,37 +40,65 @@ def nvcc() -> str:
     return path
 
 
+HOST_FLAGS = ["-std=c++17", "-O3", "-fPIC", "-shared", "-pthread"]
+
+
+def gxx() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found: the native IO library of "
+                           "presto_tpu_torch needs a C++ compiler")
+    return path
+
+
+def _source(name: str) -> str:
+    for ext in (".cu", ".cpp"):
+        src = os.path.join(CSRC, name + ext)
+        if os.path.exists(src):
+            return src
+    raise FileNotFoundError("no csrc/%s.cu or .cpp" % name)
+
+
+def _command(src: str, out: str):
+    if src.endswith(".cu"):
+        return [nvcc(), ARCH, "-std=c++17", "-O3", "-shared",
+                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", out, src]
+    return [gxx()] + HOST_FLAGS + ["-o", out, src]
+
+
 def _target(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
+    src = _source(name)
+    flags = ARCH if src.endswith(".cu") else " ".join(HOST_FLAGS)
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + ARCH.encode()).hexdigest()
+        digest = hashlib.sha256(f.read() + flags.encode()).hexdigest()
     return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, digest[:12]))
 
 
 def _start(name: str):
-    """Start nvcc for one source (None when the library is current)."""
+    """Start the compiler for one source (None when the library is
+    current)."""
     out = _target(name)
     if os.path.exists(out) and os.path.exists(out + ".txt"):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.%d.tmp" % (out, os.getpid())
-    cmd = [nvcc(), ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-           os.path.join(CSRC, name + ".cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+    tmp = "%s.%d.%d.tmp" % (out, os.getpid(), threading.get_ident())
+    proc = subprocess.Popen(_command(_source(name), tmp),
+                            stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
 def _finish(name: str, job) -> str:
-    """Wait for nvcc; returns its output, kept beside the library."""
+    """Wait for the compiler; returns its output, kept beside the
+    library."""
     if job is None:
         with open(_target(name) + ".txt") as f:
             return f.read()
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError("nvcc failed for %s.cu:\n%s" % (name, log))
+        raise RuntimeError("build failed for %s:\n%s"
+                           % (os.path.basename(_source(name)), log))
     with open(out + ".txt", "w") as f:
         f.write(log)
     os.replace(tmp, out)
@@ -73,8 +106,9 @@ def _finish(name: str, job) -> str:
 
 
 def build_all(names: Sequence[str]) -> Dict[str, str]:
-    """Compile every named source in parallel; returns nvcc's output
-    (register and shared-memory use from ``-Xptxas -v``) per name."""
+    """Compile every named source in parallel; returns the compiler's
+    output (for a kernel, register and shared-memory use from
+    ``-Xptxas -v``) per name."""
     jobs = {n: _start(n) for n in names}
     return {n: _finish(n, j) for n, j in jobs.items()}
 
@@ -109,14 +143,16 @@ def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` (built if needed)."""
-    lib = _libs.get(name)
-    if lib is None:
-        t0 = time.time()
-        _finish(name, _start(name))
-        lib = ctypes.CDLL(_target(name))
-        lib.build_seconds = time.time() - t0
-        _libs[name] = lib
+    """The loaded library for ``csrc/<name>.cu`` or ``.cpp`` (built if
+    needed; one build at a time in a process)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            t0 = time.time()
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(_target(name))
+            lib.build_seconds = time.time() - t0
+            _libs[name] = lib
     return lib
 
 

@@ -9,9 +9,12 @@ strings between HEADER_START/HEADER_END, little-endian binary values
 sigproc_fb.c:229-336).  Data: nsamples × nifs × nchans samples of
 nbits each, time-major, typically descending frequency (foff < 0).
 
-This module is pure Python/NumPy host code.  Trimmed for the port: the
-ctypes feeder of ``presto_tpu/io/native`` and the ingest quality report
-of ``presto_tpu/io/quality`` are left out; decoding is the NumPy path.
+Host code: the native decoder and prefetching feeder of io/native
+(built from csrc/native_io.cpp) for 1/2/4/8-bit data, NumPy for 16 and
+32 bits; the ingest quality report of io/quality.  The NumPy decoder
+(decode_spectra_numpy) is the plain version the tests hold the native
+one against.  Multi-file observations (FilterbankSet) come with a later
+slice.
 """
 
 from __future__ import annotations
@@ -20,11 +23,14 @@ import io
 import os
 import struct
 from dataclasses import dataclass
-from typing import BinaryIO, Iterator
+from typing import BinaryIO, Callable, Iterator, Optional
 
 import numpy as np
 
+from presto_tpu_torch.io import native
 from presto_tpu_torch.io.errors import PrestoIOError, read_exact
+from presto_tpu_torch.io.quality import (DataQualityReport,
+                                         record_zero_runs, scrub_nonfinite)
 
 _TELESCOPES = {0: "Fake", 1: "Arecibo", 2: "Ooty", 3: "Nancay", 4: "Parkes",
                5: "Jodrell", 6: "GBT", 7: "GMRT", 8: "Effelsberg"}
@@ -230,17 +236,34 @@ def pack_bits(data: np.ndarray, nbits: int) -> np.ndarray:
     raise ValueError("unsupported nbits=%d" % nbits)
 
 
-def decode_spectra_block(hdr: FilterbankHeader, raw: np.ndarray,
+def decode_spectra_numpy(hdr: FilterbankHeader, raw: np.ndarray,
                          nspec: int) -> np.ndarray:
     """Packed filterbank bytes -> [nspec, nchans] float32, channels in
     ASCENDING frequency order: numpy unpack + IF-sum + descending-band
-    flip."""
+    flip (the plain version of the native decoder)."""
     vals = unpack_bits(raw, hdr.nbits)
     arr = vals.astype(np.float32).reshape(nspec, hdr.nifs, hdr.nchans)
     arr = arr.sum(axis=1) if hdr.nifs > 1 else arr[:, 0, :]
     if hdr.foff < 0:
         arr = np.ascontiguousarray(arr[:, ::-1])
     return arr
+
+
+def decode_spectra_block(hdr: FilterbankHeader, raw: np.ndarray,
+                         nspec: int,
+                         out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Packed filterbank bytes -> [nspec, nchans] float32, channels in
+    ASCENDING frequency order, written into ``out`` ([>= nspec, nchans],
+    C-contiguous float32) when given.  The native decoder for 1/2/4/8-bit
+    byte-aligned spectra, NumPy for the other widths."""
+    if native.supports(hdr.nbits, hdr.nifs, hdr.nchans):
+        return native.decode_spectra(raw, nspec, hdr.nifs, hdr.nchans,
+                                     hdr.nbits, hdr.foff < 0, out=out)
+    arr = decode_spectra_numpy(hdr, raw, nspec)
+    if out is None:
+        return arr
+    out[:nspec] = arr
+    return out[:nspec]
 
 
 class FilterbankFile:
@@ -265,6 +288,12 @@ class FilterbankFile:
             self.f.close()
             raise ValueError("%s is not a SIGPROC filterbank file (%s)"
                              % (path, e)) from None
+        self.quality = DataQualityReport(path=path,
+                                         nspectra=self.header.N,
+                                         nchan=self.header.nchans)
+        # the prefetching feeder's overlap counts of the last
+        # stream_blocks pass (native.BlockFeeder.stats)
+        self.feeder_stats = None
 
     def close(self):
         self.f.close()
@@ -290,19 +319,41 @@ class FilterbankFile:
         return 2400
 
     def read_spectra(self, start: int, count: int) -> np.ndarray:
-        """Read `count` spectra starting at `start`; zero-pad past EOF
-        (a short read is zero-filled too)."""
+        """Read `count` spectra starting at `start`; zero-pad past EOF.
+
+        Short reads (the file shrank after open — a writer died or the
+        volume went away) are quarantined: the missing tail is recorded
+        in self.quality and zero-filled rather than crashing in the
+        decoder's reshape.
+        """
         hdr = self.header
         bps = hdr.bytes_per_spectrum
         self.f.seek(hdr.headerlen + start * bps)
         navail = max(0, min(count, hdr.N - start))
         raw = np.frombuffer(self.f.read(navail * bps), dtype=np.uint8)
         got = len(raw) // bps
-        arr = decode_spectra_block(hdr, raw[:got * bps], got)
+        if got < navail:
+            raw = raw[:got * bps]
+            self.quality.add(start + got, start + navail, "short-read")
+        arr = decode_spectra_block(hdr, raw, got)
+        arr = self._scrub(arr, start, got)
         if got < count:
             pad = np.zeros((count - got, hdr.nchans), dtype=np.float32)
             arr = np.concatenate([arr, pad], axis=0)
         return np.ascontiguousarray(arr)
+
+    def _scrub(self, arr: np.ndarray, start: int,
+               nspec: int) -> np.ndarray:
+        """Ingest quarantine on a decoded block: NaN/Inf samples are
+        scrubbed to 0 (only 32-bit data can hold them) and long
+        zero-fill runs recorded; both land in self.quality for the
+        mask integration downstream."""
+        if nspec == 0:
+            return arr
+        if self.header.nbits == 32:
+            arr = scrub_nonfinite(arr, start, self.quality)
+        record_zero_runs(arr[:nspec], start, self.quality)
+        return arr
 
     def iter_blocks(self, block_size: int,
                     start: int = 0) -> Iterator[np.ndarray]:
@@ -310,6 +361,51 @@ class FilterbankFile:
         while pos < self.header.N:
             yield self.read_spectra(pos, block_size)
             pos += block_size
+
+    def stream_blocks(self, block_size: int, start: int = 0,
+                      out: Optional[Callable[[], np.ndarray]] = None
+                      ) -> Iterator[np.ndarray]:
+        """Sequential [block_size, nchans] float32 blocks (zero-padded
+        final block), read through the native prefetching feeder so disk
+        IO overlaps the consumer's compute (the INSTRUMENTOBJS
+        double-buffer role, csrc/native_io.cpp); blocks of the widths
+        the native decoder does not take come from read_spectra.
+
+        ``out``, when given, is called once per block for the writable
+        C-contiguous float32 [block_size, nchans] array to decode into
+        (a pinned host buffer of the device feed); the block yielded is
+        that array."""
+        hdr = self.header
+        bps = hdr.bytes_per_spectrum
+        if not native.supports(hdr.nbits, hdr.nifs, hdr.nchans):
+            for blk in self.iter_blocks(block_size, start):
+                if out is not None:
+                    buf = out()
+                    buf[:] = blk
+                    blk = buf
+                yield blk
+            return
+        feeder = native.BlockFeeder(self.path,
+                                    hdr.headerlen + start * bps,
+                                    block_size * bps, nbuf=4)
+        try:
+            delivered = 0
+            total = hdr.N - start
+            for raw in feeder:
+                nspec = min(len(raw) // bps, total - delivered)
+                if nspec <= 0:
+                    break
+                buf = (out() if out is not None
+                       else np.empty((block_size, hdr.nchans), np.float32))
+                decode_spectra_block(hdr, raw[:nspec * bps], nspec,
+                                     out=buf)
+                self._scrub(buf[:nspec], start + delivered, nspec)
+                buf[nspec:] = 0.0
+                delivered += nspec
+                yield buf
+        finally:
+            self.feeder_stats = feeder.stats()
+            feeder.close()
 
 
 def write_filterbank(path: str, hdr: FilterbankHeader,

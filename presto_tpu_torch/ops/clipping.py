@@ -6,6 +6,7 @@ nothing from the JAX package.
 Parity targets:
   clip_times      src/clipping.c:48-...  (running-average block clipper)
   remove_zerodm   src/zerodm.c           (per-sample band-mean subtract)
+  mask_block      backend_common.c:557-572 (masked channels -> padvals)
 
 The reference keeps the clipper's running state in function statics
 (clipping.c:56-61) — single-stream only.  Here the state is an explicit
@@ -32,7 +33,8 @@ class ClipState:
 
 
 def clip_times(block: np.ndarray, clip_sigma: float,
-               state: Optional[ClipState] = None
+               state: Optional[ClipState] = None,
+               out: Optional[np.ndarray] = None
                ) -> Tuple[np.ndarray, int, ClipState]:
     """Clip RFI-contaminated time samples in one raw block.
 
@@ -40,6 +42,9 @@ def clip_times(block: np.ndarray, clip_sigma: float,
     Samples whose zero-DM (band-summed) value deviates more than
     clip_sigma from the running mean are replaced by the per-channel
     running averages.  Returns (clipped_block, nclipped, new_state).
+    The clipped block is written into ``out`` when given (``out`` may be
+    ``block`` itself: every statistic is taken before the write), else
+    into a copy; the values are the same either way.
 
     Algorithm parity with clipping.c:48-:
       1. zero-DM series; median + std
@@ -80,7 +85,10 @@ def clip_times(block: np.ndarray, clip_sigma: float,
 
     trigger = clip_sigma * running_std
     bad = np.abs(zero_dm - running_avg) > trigger
-    out = block.copy()
+    if out is None:
+        out = block.copy()
+    elif out is not block:
+        np.copyto(out, block)
     if bad.any():
         out[bad] = chan_running.astype(np.float32)
     new_state = ClipState(chan_running_avg=chan_running,
@@ -112,3 +120,19 @@ def remove_zerodm(block: np.ndarray,
     zerodm = block.sum(axis=1, keepdims=True)        # [T, 1]
     return (block - wts[None, :] * zerodm
             + bandpass[None, :]).astype(np.float32)
+
+
+def mask_block(block: np.ndarray, maskchans: np.ndarray,
+               padvals: np.ndarray,
+               out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Replace masked channels with their padding values, into ``out``
+    when given (``block`` itself for in place), else into a copy.
+    Parity: the mask substitution in read_psrdata
+    (backend_common.c:557-572)."""
+    if out is None:
+        out = block.copy()
+    elif out is not block:
+        np.copyto(out, block)
+    if len(maskchans):
+        out[:, maskchans] = padvals[maskchans]
+    return out

@@ -7,8 +7,9 @@ stage reads it without a disk round trip, then releases the block's
 device series.  The durable tier also writes each trial's ``.dat`` from
 the bit-identical host copy, so the artifacts equal a staged run's; a
 non-durable seam writes one trial's ``.dat`` when the fold asks for it.
-:class:`DoubleBufferedIngest` decodes and preprocesses block k+1 on a
-worker thread while block k is on the device.  Sharded seams and
+:func:`feed_blocks` decodes and preprocesses block k+1 on a worker
+thread (:class:`DoubleBufferedIngest`) into a pinned staging buffer
+(:class:`UploadRing`) while block k is on the device.  Sharded seams and
 telemetry come in later slices.
 """
 
@@ -91,6 +92,118 @@ class DoubleBufferedIngest:
         except queue.Empty:
             pass
         self._thread.join(timeout=10.0)
+
+
+class UploadRing:
+    """Host staging buffers of the device feed: ``nbuf`` time-major
+    [blocklen, nchan] float32 buffers (pinned when ``device`` is a CUDA
+    device, so the upload is an asynchronous DMA) that the ingest
+    worker decodes and preprocesses into and the consumer uploads.  A
+    buffer returns to the worker's free list with the CUDA event
+    recorded after its upload, and acquire() waits on that event before
+    handing the buffer out again: an upload in flight is never
+    overwritten."""
+
+    def __init__(self, nbuf: int, blocklen: int, nchan: int, device):
+        self.device = torch.device(device)
+        pin = self.device.type == "cuda"
+        self._bufs = [torch.empty((blocklen, nchan), dtype=torch.float32,
+                                  pin_memory=pin) for _ in range(nbuf)]
+        self._arrays = [b.numpy() for b in self._bufs]
+        self._free: "queue.Queue" = queue.Queue()
+        for i in range(nbuf):
+            self._free.put((i, None))
+        self._closed = threading.Event()
+
+    def acquire(self) -> int:
+        """A free buffer's index, its last upload complete."""
+        while not self._closed.is_set():
+            try:
+                i, done = self._free.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            if done is not None:
+                done.synchronize()
+            return i
+        raise RuntimeError("upload ring closed")
+
+    def array(self, i: int) -> np.ndarray:
+        return self._arrays[i]
+
+    def upload(self, i: int) -> torch.Tensor:
+        """Buffer i on the device, channel-major [nchan, blocklen]: a
+        non-blocking copy of the time-major buffer, transposed on the
+        device (a copy, so bit-exact); the buffer then goes back to the
+        free list."""
+        tm = self._bufs[i].to(self.device, non_blocking=True, copy=True)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        self._free.put((i, done))
+        return tm.t().contiguous()
+
+    def close(self) -> None:
+        self._closed.set()
+
+
+def _host_blocks(fb, prep, ring: UploadRing, blocklen: int, nblocks: int,
+                 skip: int) -> Iterator[tuple]:
+    """The ingest worker: ``nblocks`` blocks of ``blocklen`` spectra from
+    spectrum ``skip`` (zeros past the data), each decoded and
+    preprocessed (``prep(block, start)``) into a ring buffer; yields
+    (start spectrum, buffer index).  Reads sequentially through the
+    reader's prefetching feeder when starting at spectrum 0."""
+    N = fb.header.N
+    slots = []
+
+    def take():
+        slots.append(ring.acquire())
+        return ring.array(slots[-1])
+    blocks = fb.stream_blocks(blocklen, out=take) if skip == 0 else None
+    try:
+        for k in range(nblocks):
+            nread = skip + k * blocklen
+            if nread < N:
+                if blocks is not None:
+                    block = next(blocks)
+                    i = slots.pop()
+                else:
+                    i = ring.acquire()
+                    block = fb.read_spectra(nread, blocklen)
+                block = prep(block, nread)
+                buf = ring.array(i)
+                if block is not buf:
+                    np.copyto(buf, block)
+            else:
+                i = ring.acquire()
+                ring.array(i)[:] = 0.0
+            yield nread, i
+    finally:
+        if blocks is not None:
+            blocks.close()
+
+
+def feed_blocks(fb, prep, blocklen: int, nblocks: int, device,
+                skip: int = 0) -> Iterator[tuple]:
+    """The device feed of a streamed pass over a filterbank: yields
+    (start spectrum, channel-major [nchan, blocklen] float32 block on
+    ``device``) for ``nblocks`` blocks from spectrum ``skip`` (zeros
+    past the data).  The decode, preprocessing (``prep``) and upload
+    staging of block k+1 run on a worker thread (DoubleBufferedIngest)
+    while block k is on the device."""
+    # a buffer for each block queued, the one being filled and the one
+    # being uploaded
+    depth = DEFAULT_INGEST_DEPTH
+    ring = UploadRing(depth + 2, blocklen, fb.header.nchans, device)
+    ingest = DoubleBufferedIngest(
+        _host_blocks(fb, prep, ring, blocklen, nblocks, skip), depth)
+    try:
+        for nread, i in ingest:
+            yield nread, ring.upload(i)
+    finally:
+        ring.close()
+        ingest.close()
 
 
 @dataclass

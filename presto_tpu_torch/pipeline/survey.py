@@ -1,19 +1,21 @@
 """One-command search pipeline: filterbank -> folded candidates.
 
 PyTorch counterpart of ``presto_tpu/pipeline/survey.py``: ``run_survey``
-runs DDplan -> prepsubband (the DM fan-out deposited at an in-memory
-stage seam) -> batched packed rFFT -> accelsearch on the device spectra
--> polish -> ACCEL/.cand files -> ACCEL_sift -> prepfold of the top
-candidates, with the JAX package's artifacts
-(.dat/.inf/.fft/_ACCEL_<zmax>/.cand/cands_sifted.txt/fold_candN.pfd and
-.pfd.bestprof) and its journal: artifacts are recorded with size and
-CRC-32 in the workdir's manifest.json, and a stage is skipped on a
-rerun only when its outputs verify.  The folds run with -noplot: the
-JAX package's fold_candN.pfd.png is not written.
+runs rfifind (unless ``skip_rfifind``) -> DDplan -> prepsubband with
+the rfifind mask (the DM fan-out deposited at an in-memory stage seam)
+-> batched packed rFFT -> accelsearch on the device spectra -> polish
+-> ACCEL/.cand files -> ACCEL_sift -> prepfold of the top candidates,
+with the JAX package's artifacts (_rfifind.mask/.stats/.inf and
+_rfifind_quality.json, .dat/.inf/.fft/_ACCEL_<zmax>/.cand/
+cands_sifted.txt/fold_candN.pfd and .pfd.bestprof) and its journal:
+artifacts are recorded with size and CRC-32 in the workdir's
+manifest.json, and a stage is skipped on a rerun only when its outputs
+verify.  rfifind and the folds run with -noplot: the JAX package's
+_rfifind.png and fold_candN.pfd.png are not written.
 
 Not in this slice (a config that asks for them raises
-NotImplementedError): rfifind, zapbirds, single pulse, barycentring,
-triage, elastic runs and the serving and telemetry hooks.
+NotImplementedError): zapbirds, single pulse, barycentring, triage,
+elastic runs and the serving and telemetry hooks.
 The JAX package's cross-stage in-flight window (the FFT of one chunk
 queued while the previous one is collected) only overlaps dispatch and
 is not ported yet.
@@ -29,12 +31,13 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from presto_tpu_torch.apps import prepfold, prepsubband
+from presto_tpu_torch.apps import prepfold, prepsubband, rfifind
 from presto_tpu_torch.apps.accelsearch import refine_and_write
 from presto_tpu_torch.apps.common import open_raw
 from presto_tpu_torch.io import datfft
 from presto_tpu_torch.io.atomic import cleanup_stale_tmp
 from presto_tpu_torch.io.infodata import read_inf
+from presto_tpu_torch.io.quality import DataQualityReport
 from presto_tpu_torch.ops import fftpack
 from presto_tpu_torch.pipeline import fusion
 from presto_tpu_torch.pipeline.ddplan import Observation, plan_dedispersion
@@ -103,11 +106,11 @@ class SurveyResult:
     folded: List[str] = field(default_factory=list)
     sp_events: int = 0
     sifted: Optional[object] = None      # sifting.Candlist
+    quality: Optional[DataQualityReport] = None   # rfifind's ingest report
 
 
 def _refuse_unported(cfg: SurveyConfig) -> None:
     asks = {
-        "rfifind (set skip_rfifind=True)": not cfg.skip_rfifind,
         "zapbirds": cfg.zaplist,
         "single pulse (set singlepulse=False)": cfg.singlepulse,
         "triage": cfg.triage,
@@ -154,13 +157,39 @@ def _base(rawfiles, workdir: str) -> str:
         os.path.basename(rawfiles[0]))[0])
 
 
+def rfifind_stage(rawfiles, cfg: SurveyConfig, base: str, device="cuda",
+                  manifest=None):
+    """Stage 1: rfifind -time cfg.rfi_time -noplot into base_rfifind.*
+    and base_rfifind_quality.json, journaled; skipped when the mask
+    verifies (a stale set is dropped first).  Returns (mask path, the
+    ingest quality report or None)."""
+    mask = base + "_rfifind.mask"
+    qpath = base + "_rfifind_quality.json"
+    if not _valid(manifest, mask):
+        _drop_stale(manifest, glob.glob(base + "_rfifind.*") + [qpath])
+        rfifind.main(["-time", str(cfg.rfi_time), "-noplot", "-o", base]
+                     + list(rawfiles), device=device)
+        _record(manifest, glob.glob(base + "_rfifind.*") + [qpath],
+                "rfifind")
+    quality = None
+    if os.path.exists(qpath):
+        try:
+            quality = DataQualityReport.read(qpath)
+        except (OSError, ValueError):
+            pass
+    return mask, quality
+
+
 def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
-                device="cuda", manifest=None) -> fusion.StageSeam:
-    """DDplan -> prepsubband per method, the fan-out deposited at an
-    in-memory seam.  ``durable_stages`` (None -> True) also writes each
-    trial's .dat; the .inf sidecars are always written.  A method whose
-    .dat files all verify (a resumed run) is skipped: its trials are
-    left on disk, outside the seam."""
+                device="cuda", manifest=None, res: SurveyResult = None,
+                timer=None) -> fusion.StageSeam:
+    """rfifind (unless cfg.skip_rfifind) -> DDplan -> prepsubband per
+    method with the rfifind mask, the fan-out deposited at an in-memory
+    seam.  ``durable_stages`` (None -> True) also writes each trial's
+    .dat; the .inf sidecars are always written.  A method whose .dat
+    files all verify (a resumed run) is skipped: its trials are left on
+    disk, outside the seam.  ``res`` receives the mask path and the
+    quality report; ``timer`` the rfifind and prepsubband stages."""
     _refuse_unported(cfg)
     resolve_device(device)
     os.makedirs(workdir, exist_ok=True)
@@ -168,6 +197,16 @@ def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
         rawfiles = [rawfiles]
     rawfiles = [os.path.abspath(f) for f in rawfiles]
     base = _base(rawfiles, workdir)
+    maskfile = None
+    if not cfg.skip_rfifind:
+        if timer is not None:
+            timer.mark("rfifind")
+        maskfile, quality = rfifind_stage(rawfiles, cfg, base, device,
+                                          manifest)
+        if res is not None:
+            res.maskfile, res.quality = maskfile, quality
+    if timer is not None:
+        timer.mark("prepsubband")
     fb = open_raw(rawfiles)
     hdr = fb.header
     fb.close()
@@ -192,6 +231,8 @@ def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
         argv = ["-lodm", str(m.lodm), "-dmstep", str(m.ddm),
                 "-numdms", str(m.numdms), "-nsub", str(cfg.nsub),
                 "-downsamp", str(m.downsamp), "-o", base, "-nobary"]
+        if maskfile and os.path.exists(maskfile):
+            argv += ["-mask", maskfile]
         prepsubband.run(prepsubband.build_parser().parse_args(
             argv + rawfiles), device=device, seam=seam)
         done = _stage(dat_glob, workdir)
@@ -388,9 +429,8 @@ def run_survey(rawfiles: Sequence[str], cfg: SurveyConfig,
 def _run_survey_stages(rawfiles, cfg, workdir, res, timer, manifest,
                        device):
     base = _base(rawfiles, workdir)
-    timer.mark("prepsubband")
     seam = survey_head(rawfiles, cfg, workdir, device=device,
-                       manifest=manifest)
+                       manifest=manifest, res=res, timer=timer)
     seam_set = set(seam.dat_paths())
     res.datfiles = sorted(set(_stage(os.path.basename(base) + "_DM*.dat",
                                      workdir))

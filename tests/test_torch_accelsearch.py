@@ -22,6 +22,7 @@ from presto_tpu.search import accel as jaccel
 from presto_tpu_torch.apps import accelsearch as tapp
 from presto_tpu_torch.io.errors import PrestoIOError
 from presto_tpu_torch.search import accel as taccel
+from presto_tpu_torch.search import polish as tpolish
 from test_torch_accel import jax_tpu_path, spectra  # noqa: F401
 from test_torch_polish import assert_polish_agrees
 
@@ -238,10 +239,10 @@ def test_accelsearch_cli_dat_input(tmp_path, jax_tpu_path):  # noqa: F811
 def test_accelsearch_cli_short_fft(tmp_path, jax_tpu_path):  # noqa: F811
     """A 3000-bin .fft (zmax 200, numharm 8): too short for the aligned
     plane geometry, searched on the JAX package's other geometry by
-    both CLIs.  The same candidate count and harmonics; the candidates
-    above the search's sigma 2 agree within the polish tolerances (the
-    rest include sigma-0 noise whose flat power surface lets a near-tie
-    move the polish two final-stage z steps)."""
+    both CLIs.  The same candidate count and harmonics; every candidate,
+    whatever its sigma, agrees by polish.agreement (sigma-0 noise has a
+    flat power surface on which a near-tie moves the polish up to two
+    final-stage z steps: the powers at both points must then tie)."""
     from test_torch_accel import short_spectrum
     pairs, T = short_spectrum(3000)
     paths = []
@@ -261,6 +262,17 @@ def test_accelsearch_cli_short_fft(tmp_path, jax_tpu_path):  # noqa: F811
     got = tapp.read_cand_file(paths[1][:-4] + "_ACCEL_200.cand")
     assert len(got) == len(want) > 0
     assert [c.numharm for c in got] == [c.numharm for c in want]
-    strong = [i for i, c in enumerate(want) if c.sigma > 2.0]
-    assert len(strong) >= 3
-    assert_polish_agrees([want[i] for i in strong], [got[i] for i in strong])
+    assert sum(c.sigma > 2.0 for c in want) >= 3
+    # the seeds both CLIs polished (the port's search, on the CPU), in
+    # the order of the polished lists
+    searcher = taccel.AccelSearch(taccel.AccelConfig(zmax=200, numharm=8,
+                                                     sigma=2.0),
+                                  T=T, numbins=len(pairs), device="cpu")
+    seeds = taccel.remove_duplicates(taccel.eliminate_harmonics(
+        searcher.search(pairs)))
+    ocs = tpolish.optimize_accelcands(pairs, seeds, T, searcher.numindep,
+                                      device="cpu")
+    seed_of = {(o.r, o.z): s for s, o in zip(seeds, ocs)}
+    rep = tpolish.agreement(pairs, want, got,
+                            seeds=[seed_of[(c.r, c.z)] for c in got])
+    assert rep["unexplained"] == 0, rep["flags"]

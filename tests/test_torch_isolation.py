@@ -89,6 +89,54 @@ def test_fold_and_toa_modules_stand_alone_and_need_cuda():
     assert "FOLD ISOLATED" in out.stdout
 
 
+INGEST_SCRIPT = r"""
+import sys
+import torch
+from presto_tpu_torch.apps import rfifind
+from presto_tpu_torch.io import maskfile, native, quality, sigproc
+from presto_tpu_torch.pipeline import fusion, survey
+from presto_tpu_torch.search import rfifind as srfi
+from presto_tpu_torch.utils import ranges
+from presto_tpu_torch import cuda_build
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "presto_tpu" or m.startswith("presto_tpu."))
+assert not bad, bad
+assert not cuda_build._libs, "a library was built at import"
+if not torch.cuda.is_available():
+    import numpy as np
+    cfg = survey.SurveyConfig(singlepulse=False, fold_top=0)
+    assert cfg.skip_rfifind is False
+    for call in (lambda: rfifind.main(["-noplot", "missing.fil"]),
+                 lambda: srfi.rfifind(np.zeros((64, 4), np.float32), 1e-3,
+                                      1400.0, 1.0, ptsperint=16),
+                 lambda: survey.run_survey(["missing.fil"], cfg, "."),
+                 lambda: fusion.UploadRing(2, 8, 4, "cuda")):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e) or "accelerator" in str(e), e
+        else:
+            raise AssertionError("an entry point ran without CUDA")
+print("INGEST ISOLATED")
+"""
+
+
+def test_ingest_and_rfifind_modules_stand_alone_and_need_cuda():
+    """The ingest and rfifind modules (io/native, quality, maskfile,
+    sigproc, pipeline/fusion, search and apps rfifind, utils/ranges)
+    import neither jax nor presto_tpu and build nothing at import; the
+    rfifind entry points, the default survey (stage 1 on) and the pinned
+    upload ring called without device= raise without a card."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", INGEST_SCRIPT], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "INGEST ISOLATED" in out.stdout
+
+
 def test_port_imports_no_jax_and_needs_cuda():
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT

@@ -258,3 +258,104 @@ def test_batched_matches_per_trial_and_jax():
         for oa, ob in zip(a, b):
             assert (oa.r, oa.z, oa.sigma) == (ob.r, ob.z, ob.sigma)
         assert_polish_agrees(w, b)
+
+
+def flat_top_spectrum(delta=0.26, r0=3000.5, n=1 << 14):
+    """Two equal tones at r0 -+ delta bins (no noise): the polish's power
+    surface is mirror-symmetric about r0 and, at this separation, flat
+    to a few 1e-6 over three final-stage steps on either side."""
+    t = np.arange(2 * n) / (2 * n)
+    x = (np.cos(2 * np.pi * (r0 - delta) * t)
+         + np.cos(2 * np.pi * (r0 + delta) * t))
+    return np.fft.rfft(x)[:n].astype(np.complex64), r0
+
+
+def _cand(r, z, power, sigma=5.0, numharm=1):
+    return taccel.AccelCand(power=float(power), sigma=sigma, numharm=numharm,
+                            r=float(r), z=float(z))
+
+
+def test_agreement_accepts_a_tie_on_a_flat_top():
+    """Two grid points mirrored about the flat top's centre tie (one
+    evaluator gives them the same power); the agreement rule accepts the
+    move, which is two and four final-stage r steps (past the old rule's
+    2e-3 bins), and it holds the port's polish against the JAX package's
+    on the same spectrum."""
+    amps, r0 = flat_top_spectrum()
+    hr, _hz = tpolish.final_steps(1)
+    for k in (1, 2):
+        ra, rb = r0 + k * hr, r0 - k * hr
+        pa, pb = tpolish.joint_powers(amps, [ra, rb], [0.0, 0.0], [1, 1])
+        assert abs(pa - pb) <= 1e-5 * pa
+        rep = tpolish.agreement(amps, [_cand(ra, 0.0, pa)],
+                                [_cand(rb, 0.0, pb)])
+        assert rep["ok"] and rep["moved"] == 1, rep
+        assert abs(rep["worst"]["steps"] - 2 * k) < 1e-6
+    seeds = [jaccel.AccelCand(power=10.0, sigma=5.0, numharm=1, r=r0 + dr,
+                              z=z) for dr, z in ((0.07, 0.4), (-0.05, -0.3))]
+    numindep = [1e4]
+    want = jpolish.optimize_accelcands(amps, seeds, 1.0, numindep)
+    got = tpolish.optimize_accelcands(amps, as_torch(seeds), 1.0, numindep,
+                                      device="cpu")
+    rep = tpolish.agreement(amps, want, got)
+    assert rep["ok"], rep
+
+
+def test_agreement_flags_real_disagreements():
+    """A move past AGREE_STEPS final-stage steps, a reported power off by
+    1e-3 of itself and a numharm mismatch are each flagged."""
+    amps, r0 = flat_top_spectrum()
+    hr, _hz = tpolish.final_steps(1)
+    far = r0 - (tpolish.AGREE_STEPS + 1) * hr
+    pa, pf = tpolish.joint_powers(amps, [r0, far], [0.0, 0.0], [1, 1])
+    a = _cand(r0, 0.0, pa)
+    for b, why in ((_cand(far, 0.0, pf), "moved"),
+                   (_cand(r0 - hr, 0.0, pa * (1 + 1e-3)), "moved"),
+                   (_cand(r0, 0.0, pa, numharm=2), "numharm")):
+        rep = tpolish.agreement(amps, [a], [b])
+        assert not rep["ok"] and rep["flags"][0]["why"] == why, rep
+
+
+def test_descent_replay_reproduces_the_polish(corpus):
+    """The replay (one candidate at a time) follows optimize_accelcands'
+    path (a batch): the polished point is reachable, and its final
+    measurement is the polished power within float32 rounding (the CPU
+    reduces and multiplies a batch in another order than one
+    candidate)."""
+    amps, cands, numindep = corpus
+    seeds = as_torch(cands[:12])
+    got = tpolish.optimize_accelcands(amps, seeds, T_OBS, numindep,
+                                      device="cpu")
+    reps = tpolish.descent_replay(amps, seeds, tpolish.TIE_RTOL,
+                                  points=[[(o.r, o.z)] for o in got])
+    for o, (reach, pw) in zip(got, reps):
+        assert tpolish._in_reach(reach, o)
+        assert pw[0] == pytest.approx(o.power, rel=1e-6)
+
+
+def test_agreement_on_the_descent_tie_paths():
+    """On the flat top the descent's stage ties within TIE_RTOL reach
+    points several final-stage steps apart; a result at the farthest of
+    them (at its measured power) ties with the polish's own within the
+    curvature bound.  A point the descent cannot reach, past
+    AGREE_STEPS, is flagged, and the replay leaves it unexplained.  (A
+    tie path past the bound, which the replay explains, is held in
+    test_accelsearch_cli_short_fft.)"""
+    amps, r0 = flat_top_spectrum()
+    seed = taccel.AccelCand(10.0, 5.0, 1, r0 - 0.05, -0.3)
+    a, = tpolish.optimize_accelcands(amps, [seed], 1.0, [1e4], device="cpu")
+    (reach, _), = tpolish.descent_replay(amps, [seed], tpolish.TIE_RTOL)
+    assert len(reach) > 1 and tpolish._in_reach(reach, a)
+    hr, hz = tpolish.final_steps(1)
+    far = reach[np.argmax(np.abs(reach[:, 1] - a.z) / hz
+                          + np.abs(reach[:, 0] - a.r) / hr)]
+    assert max(abs(far[0] - a.r) / hr, abs(far[1] - a.z) / hz) > 2.9
+    (_, pw), = tpolish.descent_replay(amps, [seed], 0.0,
+                                      points=[[tuple(far)]])
+    b = _cand(far[0], far[1], pw[0], sigma=a.sigma)
+    rep = tpolish.agreement(amps, [a], [b], seeds=[seed])
+    assert rep["ok"] and rep["moved"] == 1, rep
+    off = _cand(a.r, a.z + 7.5 * hz, a.power, sigma=a.sigma)
+    rep = tpolish.agreement(amps, [a], [off], seeds=[seed])
+    assert not rep["ok"] and rep["unexplained"] == 1, rep
+    assert rep["flags"][0]["b_reached"] is False, rep

@@ -34,10 +34,10 @@ DMS = ["%.2f" % (40.0 + 3.0 * i) for i in range(8)]
 
 
 def _config(mod, **kw):
-    kw = {"fold_top": 0, "durable_stages": True, **kw}
+    kw = {"fold_top": 0, "durable_stages": True, "skip_rfifind": True,
+          **kw}
     return mod.SurveyConfig(lodm=40.0, hidm=60.0, nsub=8, zmax=20,
-                            numharm=8, skip_rfifind=True,
-                            singlepulse=False, **kw)
+                            numharm=8, singlepulse=False, **kw)
 
 
 def _jax_tpu_path(mp):
@@ -390,3 +390,123 @@ def test_seam_releases_device_series(tmp_path, runs):
         name = os.path.basename(acc) + ".cand"
         assert open(acc + ".cand", "rb").read() == \
             open(os.path.join(twork, name), "rb").read()
+
+
+# ---- stage 1: rfifind and the mask (skip_rfifind=False) ----------------
+
+RFI_NARROW, RFI_PERIODIC = 5, 20
+
+
+def _rfi_beam(path):
+    """The slice's pulsar beam with narrowband RFI (the kinds of
+    test_torch_rfifind at this beam's 8-bit scale: baseline 128, noise
+    24): channel RFI_NARROW +60, channel RFI_PERIODIC a 50 Hz sinusoid
+    of amplitude 16.  No broadband burst: the beam is one prepsubband
+    block, and check_mask blanks a whole block that overlaps a zapped
+    interval."""
+    from presto_tpu.io import sigproc as jsig
+    fake_filterbank_file(path, N, DT, NCHAN, LOFREQ, CW,
+                         FakeSignal(f=F0, dm=DM, shape="gauss",
+                                    width=WIDTH, amp=1.0),
+                         noise_sigma=6.0, seed=21)
+    with jsig.FilterbankFile(path) as fb:
+        hdr = fb.header
+        data = fb.read_spectra(0, hdr.N).astype(np.float64)
+    t = np.arange(hdr.N) * DT
+    data[:, RFI_NARROW] += 60.0
+    data[:, RFI_PERIODIC] += 16.0 * np.sin(2 * np.pi * 50.0 * t)
+    jsig.write_filterbank(path, hdr, np.clip(np.round(data), 0, 255))
+    return path
+
+
+@pytest.fixture(scope="module")
+def rfi_runs(tmp_path_factory):
+    """(raw, JAX workdir, port workdir, JAX result, port result) of one
+    run_survey of each package with stage 1 on (skip_rfifind=False, the
+    JAX default) over the RFI beam."""
+    d = tmp_path_factory.mktemp("rfisurvey")
+    raw = _rfi_beam(str(d / "psr.fil"))
+    jwork, twork = str(d / "jax"), str(d / "torch")
+    with pytest.MonkeyPatch.context() as mp:
+        _jax_tpu_path(mp)
+        jres = jsurvey.run_survey([raw], _config(jsurvey,
+                                                 skip_rfifind=False), jwork)
+    res = tsurvey.run_survey([raw], _config(tsurvey, skip_rfifind=False),
+                             twork, device="cpu")
+    return raw, jwork, twork, jres, res
+
+
+def test_prepsubband_mask_dat_matches_jax(tmp_path, rfi_runs, monkeypatch):
+    """prepsubband -mask (padding values from the .stats beside it) and
+    -ignorechan: .dat bytes equal to the JAX CLI's."""
+    from presto_tpu.apps import prepsubband as jprep
+    from presto_tpu_torch.apps import prepsubband as tprep
+    raw, jwork, _twork, _jr, _tr = rfi_runs
+    monkeypatch.setenv("PRESTO_TPU_DISABLE_MESH", "1")
+    mask = os.path.join(jwork, "psr_rfifind.mask")
+    for extra in (["-mask", mask], ["-mask", mask, "-ignorechan", "0:1,17"]):
+        argv = ["-lodm", "45", "-dmstep", "2", "-numdms", "4", "-nsub", "8",
+                "-nobary"] + extra
+        jprep.main(argv + ["-o", str(tmp_path / "j"), raw])
+        tprep.main(argv + ["-o", str(tmp_path / "t"), raw], device="cpu")
+        for dm in ("45.00", "47.00", "49.00", "51.00"):
+            a = open(str(tmp_path / ("j_DM%s.dat" % dm)), "rb").read()
+            b = open(str(tmp_path / ("t_DM%s.dat" % dm)), "rb").read()
+            assert a == b, (extra, dm)
+
+
+def test_run_survey_with_rfifind_matches_jax(rfi_runs):
+    """Stage 1 on: the same _rfifind.mask and quality report bytes (the
+    mask holds the RFI), the masked .dat byte-equal, every ACCEL file's
+    strong candidates (as _accel_agree) and the sifted list within
+    tolerance, the pulsar on top; the result carries the mask path and
+    the quality report."""
+    raw, jwork, twork, jres, res = rfi_runs
+    for n in ("psr_rfifind.mask", "psr_rfifind_quality.json"):
+        assert open(os.path.join(jwork, n), "rb").read() == \
+            open(os.path.join(twork, n), "rb").read(), n
+    from presto_tpu_torch.io.maskfile import read_mask
+    m = read_mask(res.maskfile)
+    assert res.maskfile == os.path.join(twork, "psr_rfifind.mask")
+    assert {RFI_NARROW, RFI_PERIODIC} <= set(m.zap_chans.tolist())
+    assert res.quality is not None and res.quality.clean
+    jdats = sorted(glob.glob(os.path.join(jwork, "psr_DM*.dat")))
+    assert len(jdats) == len(DMS)
+    for a in jdats:
+        b = os.path.join(twork, os.path.basename(a))
+        assert open(a, "rb").read() == open(b, "rb").read(), a
+    strong = 0
+    for dm in DMS:
+        name = "psr_DM%s_ACCEL_20.cand" % dm
+        if any(c.sigma > 5.0 for c in read_cand_file(os.path.join(jwork,
+                                                                  name))):
+            _accel_agree(os.path.join(jwork, name), os.path.join(twork, name))
+            strong += 1
+        else:
+            assert all(c.sigma <= 5.0 for c in read_cand_file(
+                os.path.join(twork, name))), name
+    assert strong >= 3
+    assert_sifted_agree(jres.sifted, res.sifted)
+    top = res.sifted[0]
+    f = top.r / (N * DT)
+    assert top.DM == DM and abs(f / F0 - round(f / F0)) < 0.01
+
+
+def test_run_survey_with_rfifind_resume_rewrites_nothing(tmp_path, rfi_runs):
+    """A rerun verifies the rfifind products with the rest and rewrites
+    none of them."""
+    from presto_tpu_torch.utils.timing import StageTimer
+    raw, _jwork, twork, _jr, _tr = rfi_runs
+    work = str(tmp_path / "again")
+    shutil.copytree(twork, work)
+    before = _stamps(work)
+    timer = StageTimer()
+    tsurvey.run_survey([raw], _config(tsurvey, skip_rfifind=False), work,
+                       timer=timer, device="cpu")
+    assert list(timer.stages)[:2] == ["rfifind", "prepsubband"]
+    after = _stamps(work)
+    assert sorted(after) == sorted(before)
+    for n, (mtime, data) in before.items():
+        assert after[n][1] == data, n
+        if n not in ("cands_sifted.txt", "manifest.json"):
+            assert after[n][0] == mtime, n
