@@ -18,9 +18,10 @@ Phases (any failure exits non-zero before the final line):
              that follows the reducer;
   3. polish  the beam: a 128-channel 8-bit filterbank of 2^22 samples
              (2^21-bin spectra) with three pulsars (the strongest
-             accelerated, 40.3 Hz at DM 22) and RFI (a channel with a
+             accelerated, 40.3 Hz at DM 22), RFI (a channel with a
              persistent offset, a channel with a 60 Hz sinusoid, a burst
-             over 80 channels for one rfifind interval); its DM-22 trial
+             over 80 channels for one rfifind interval) and three
+             dispersed single pulses at DM 21.6; its DM-22 trial
              dedispersed, searched (zmax 200, numharm 8) and its
              deduplicated candidate list polished on the card (CUDA-event
              time, pairs, window taps, quadrature points) and on the CPU,
@@ -30,8 +31,9 @@ Phases (any failure exits non-zero before the final line):
              fault of ROADMAP queue 3), none unexplained;
   4. main    the beam through survey.run_survey with the JAX package's
              defaults (rfifind -time 2 as stage 1, its mask applied by
-             prepsubband; fold_top=3) over DM 20-24 (24 trials, nsub
-             32, zmax 200, numharm 8): launch counters read around it,
+             prepsubband; single pulse on; fold_top=3) over DM 20-24
+             (24 trials, nsub 32, zmax 200, numharm 8): launch counters
+             read around it,
              the mask holding the RFI and equal to a CPU rfifind's (or
              each flipped cell printed with its margin), the DM-22 .dat
              byte-equal to a CPU prepsubband's with that mask, an ACCEL
@@ -41,7 +43,11 @@ Phases (any failure exits non-zero before the final line):
              peaking at the injected DM, three fold_candN.pfd/.bestprof
              with the first at the injected pulsar, each fold's drizzle
              and search device ms, and each fold's .pfd byte-equal to a
-             refold on the CPU;
+             refold on the CPU; a .singlepulse per DM (stage 9a on the
+             seam), the beam's three injected single pulses found at
+             their bins and DM, single_pulse_search on the CPU over four
+             trials beside DM 21.6 agreeing with the card's files, and
+             the stage's steps timed one by one on the survey's series;
   4b. ingest the survey head's host ingest: per-block read, decode,
              scrub, mask, clip, transpose and host->device times, on the
              first INGEST_BLOCKS blocks, before (seek-and-read, NumPy
@@ -60,7 +66,13 @@ Phases (any failure exits non-zero before the final line):
              fdot) agree within their errors, and the two agree;
   7. small   spectra of 2^15 and 3000 bins searched on the card and on
              the CPU (the second on the non-aligned plane geometry);
-  8. summary the kernels line, the card, and the final ok line.
+  8. singlepulse  the JAX package's single-pulse bench shape (bench.py's
+             128 series x 2^20 samples, seed 7): search_many_resident on
+             the card, the warm call and the best of 2, its steps timed
+             one by one (detrend, convolve + top-k, compaction, host
+             prune), and 8 of the series by the plain versions on the CPU
+             held to the card's events by singlepulse.agreement;
+  9. summary the kernels line, the card, and the final ok line.
 
 Prints the full results as one JSON line (``results: {...}``).  Imports
 no JAX and nothing of the JAX package.
@@ -403,13 +415,15 @@ def check_stage_reduce(s, S, gen):
 
 
 def synth_filterbank(path, gen, N, nchan, dt, lofreq, cw, pulsars,
-                     rfi=None, device="cuda"):
+                     rfi=None, bursts=(), device="cuda"):
     """Seeded 8-bit filterbank made on the card: for each pulsar (f0 Hz,
     fdot Hz/s, DM, fwhm in turns, amplitude), gaussian pulses dispersed
     by the cold-plasma delay; baseline 32, noise sigma 6, quantized x4
     like models/synth.fake_filterbank_file.  ``rfi`` (a dict like
     BEAM_RFI) adds a channel with a persistent offset, a channel with a
-    sinusoid and a broadband burst over a span of spectra."""
+    sinusoid and a broadband burst over a span of spectra.  Each of
+    ``bursts`` (arrival time at the top of the band s, DM, width s,
+    amplitude) adds one dispersed boxcar pulse (burst_spans)."""
     from presto_tpu_torch.io.sigproc import FilterbankHeader, write_filterbank
     from presto_tpu_torch.ops.dedispersion import delay_from_dm
     freqs = lofreq + np.arange(nchan) * cw
@@ -418,6 +432,7 @@ def synth_filterbank(path, gen, N, nchan, dt, lofreq, cw, pulsars,
         d = delay_from_dm(dm, freqs)
         delays.append(torch.tensor(d - d.min(), dtype=torch.float64,
                                    device=device))
+    spans = [(burst_spans(b, freqs, dt), b[3]) for b in bursts]
     out = torch.empty((N, nchan), dtype=torch.uint8, device=device)
     step = 1 << 20
     for t0 in range(0, N, step):
@@ -441,6 +456,11 @@ def synth_filterbank(path, gen, N, nchan, dt, lofreq, cw, pulsars,
             lo, hi = max(b0 - t0, 0), min(b1 - t0, x.shape[0])
             if lo < hi:
                 x[lo:hi, c0:c1] += rfi["burst_amp"]
+        for span, amp in spans:
+            for c, (s0, s1) in enumerate(span):
+                lo, hi = max(s0 - t0, 0), min(s1 - t0, x.shape[0])
+                if lo < hi:
+                    x[lo:hi, c] += amp
         out[t0:t0 + t.shape[0]] = torch.clamp(torch.round(x * 4.0),
                                               0, 255).to(torch.uint8)
     hdr = FilterbankHeader(source_name="FAKEPSR", machine_id=10,
@@ -449,6 +469,17 @@ def synth_filterbank(path, gen, N, nchan, dt, lofreq, cw, pulsars,
                            tstart=59000.0, tsamp=dt, nifs=1,
                            rawdatafile=os.path.basename(path))
     write_filterbank(path, hdr, out.cpu().numpy())
+
+
+def burst_spans(burst, freqs, dt):
+    """Per channel, the [start, end) spectra of a dispersed boxcar pulse
+    (arrival time at the top of the band s, DM, width s, amplitude)."""
+    from presto_tpu_torch.ops.dedispersion import delay_from_dm
+    t0, dm, width, _amp = burst
+    d = delay_from_dm(dm, freqs)
+    w = int(round(width / dt))
+    starts = np.round((t0 + d - d.min()) / dt).astype(np.int64)
+    return [(int(a), int(a) + w) for a in starts]
 
 
 # the beam of the main, fold and toas phases: 537 s of 128 channels x 3 MHz
@@ -478,12 +509,27 @@ BEAM_RFI = dict(narrow_chan=40, narrow_amp=7.5, periodic_chan=90,
                 periodic_amp=2.5, periodic_hz=60.0,
                 burst=(96 * 15625, 97 * 15625), burst_chans=(32, 112),
                 burst_amp=2.0)
+# three dispersed single pulses at DM 21.6 for the survey's single-pulse
+# stages: (arrival at the top of the band s, DM, width s, amplitude per
+# channel), 4, 12 and 27 samples wide (under MAX_DOWNFACT 30).  A boxcar
+# of w samples and amplitude A over 128 channels of noise sigma 6 has a
+# matched S/N of A sqrt(128 w) / 6: 22.6, 22.9 and 34.3.  None lies in
+# the prepsubband block (184.5-201.3 s) that rfifind interval 96's mask
+# blanks in 80 channels.  The two wider ones are centred on a boundary of
+# the search's 1000-sample detrend blocks in the DM-21.6 series
+# (prepsubband puts that trial's output 20 samples before the top
+# channel's arrival): a block that holds a whole 27-sample pulse of 6.6
+# sigma a sample has a robust std some 6% high, and the search's
+# bad-block cut (the reference's rule) zaps it.
+BEAM_PULSES = ((60.3, 21.6, 0.5e-3, 6.0),
+               ((1959000 - 6 + 20) * 1.28e-4, 21.6, 1.5e-3, 3.5),
+               ((3126000 - 13 + 20) * 1.28e-4, 21.6, 3.5e-3, 3.5))
 
 
 def make_beam(workdir, name="psr.fil"):
-    """The seeded beam with its three pulsars and RFI, made on the card
-    from its own seed, so the data do not depend on what the kernel
-    phases drew."""
+    """The seeded beam with its three pulsars, RFI and single pulses, made
+    on the card from its own seed, so the data do not depend on what the
+    kernel phases drew."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(BEAM_SEED)
     raw = os.path.join(workdir, name)
@@ -491,7 +537,7 @@ def make_beam(workdir, name="psr.fil"):
     pulsars = ((b["f0"], b["fdot"], b["dm"], b["width"], 1.0),) \
         + b["others"]
     synth_filterbank(raw, gen, b["N"], b["nchan"], b["dt"], b["lofreq"],
-                     b["cw"], pulsars, rfi=BEAM_RFI)
+                     b["cw"], pulsars, rfi=BEAM_RFI, bursts=BEAM_PULSES)
     return raw
 
 
@@ -653,6 +699,7 @@ def phase_main(raw, workdir):
     fused = st["realfft+accelsearch (fused)"]
     stages = dict(run_survey_s=total_s, rfifind_s=st["rfifind"],
                   survey_head_s=st["prepsubband"],
+                  single_pulse_s=st["single_pulse"],
                   fused_s=fused, polish_s=st["polish"],
                   polish_per_dm_s=timer.samples["polish"],
                   accel_writes_s=st["accel writes"], sift_s=st["sift"],
@@ -725,10 +772,12 @@ def phase_main(raw, workdir):
            len(top.hits) if top else 0, "ok" if top_ok else "FAIL"))
     folds = check_main_folds(res, workdir, clock, T)
     masks = check_main_mask(raw, res, workdir, cfg)
+    sp = check_main_singlepulse(raw, res, workdir, timer)
     ok = (abs(peak_dm - b["dm"]) <= 0.21 and top_ok and files_ok
-          and nbins == 1 << 21 and folds["ok"] and masks["ok"]
+          and nbins == 1 << 21 and folds["ok"] and masks["ok"] and sp["ok"]
           and all(v == ndms > 0 for v in launches.values()))
     return dict(ok=ok, ndms=ndms, nbins=nbins, stages=stages, masks=masks,
+                singlepulse=sp,
                 maskfile=res.maskfile,
                 launches=launches, dm_curve=curve, dm_curve_peak=peak_dm,
                 polished_sigma_curve=sig_curve,
@@ -820,11 +869,378 @@ def check_main_mask(raw, res, workdir, cfg):
 
 def main_cfg():
     """The main path's survey configuration: the JAX package's defaults
-    (rfifind on, -time 2; fold_top 3) over DM 20-24, zmax 200."""
+    (rfifind on, -time 2; single pulse on; fold_top 3) over DM 20-24,
+    zmax 200."""
     from presto_tpu_torch.pipeline import survey
     return survey.SurveyConfig(lodm=20.0, hidm=24.0, nsub=32, zmax=200,
-                               numharm=8, singlepulse=False, fold_top=3,
-                               durable_stages=True)
+                               numharm=8, fold_top=3, durable_stages=True)
+
+
+def cuda_event():
+    return torch.cuda.Event(enable_timing=True)
+
+
+def sp_split(sp, series, dt, dms, offregions_list=None, G=2048):
+    """search_many_resident's steps on [nf, N] device series, one by one:
+    CUDA-event ms of the detrend, the convolve + top-k (with the
+    normalization and framing before it) and the compaction (summed over
+    the sub-batches), host ms of the block scales, of the decode and
+    prune, and of the files with more than G hits, which go through
+    search_many (the overflow path, as in search_many_resident); each
+    step's calls and the bytes it must move (each input read once, each
+    output written once) and float32 operations (the FFTs at 2.5 n log2 n
+    each way, 6 a complex product), for its bound.  Returns (split,
+    per-file results as search_many_resident's)."""
+    from presto_tpu_torch.search import singlepulse as spm
+    nf, N = series.shape
+    dlen = sp.detrendlen
+    nblk = N // dlen
+    roundN = nblk * dlen
+    widths, chunklen, fftlen, overlap, kern_f = sp._chunk_geometry(
+        [1] + list(sp.downfacts_for(dt)))
+    W, k = len(widths), min(sp.topk, chunklen)
+    thr = float(np.float32(sp.threshold))
+    e = [cuda_event() for _ in range(2)]
+    e[0].record()
+    resid, stds = spm._detrend_blocks(
+        series[:, :roundN].reshape(nf * nblk, dlen), dlen, sp.fast_detrend)
+    e[1].record()
+    stds = stds.cpu().numpy().reshape(nf, nblk)
+    ms = dict(detrend=e[0].elapsed_time(e[1]), convolve_topk=0.0,
+              compaction=0.0)
+    h0 = time.perf_counter()
+    scales, masks, bads = sp.block_scales(stds)
+    ms["scales_host"] = (time.perf_counter() - h0) * 1e3
+    e = [cuda_event() for _ in range(2)]
+    e[0].record()
+    frames = spm.resident_frames(
+        resid, torch.as_tensor(scales, device=resid.device),
+        torch.as_tensor(masks, device=resid.device), dlen, nblk, chunklen,
+        fftlen, overlap)
+    e[1].record()
+    torch.cuda.synchronize()
+    ms["convolve_topk"] += e[0].elapsed_time(e[1])
+    F = frames.shape[1]
+    per = max(1, spm.SMOOTH_BYTES // (F * W * fftlen * 4))
+    host = []
+    for f0 in range(0, nf, per):
+        fr = frames[f0:f0 + per]
+        nb = fr.shape[0]
+        e = [cuda_event() for _ in range(3)]
+        e[0].record()
+        vals, idx, counts = spm._convolve_topk(
+            fr.reshape(nb * F, fftlen), kern_f, thr, fftlen, overlap, k)
+        e[1].record()
+        tv, ti, tb = spm.compact_hits(vals.reshape(nb, F, W, k),
+                                      idx.reshape(nb, F, W, k), thr, G)
+        e[2].record()
+        host.append([a.cpu().numpy() for a in
+                     (tv, ti, tb, counts.reshape(nb, F, W))])
+        ms["convolve_topk"] += e[0].elapsed_time(e[1])
+        ms["compaction"] += e[1].elapsed_time(e[2])
+    del resid, frames
+    tv, ti, tb, counts = (np.concatenate([h[i] for h in host])
+                          for i in range(4))
+    out, overflow = [], []
+    ms["prune_host"] = ms["overflow_host"] = 0.0
+    for fi in range(nf):
+        offs = offregions_list[fi] if offregions_list else ()
+        h0 = time.perf_counter()
+        if np.minimum(counts[fi], k).sum() > G:
+            # more than G hits: the file goes through search_many (the
+            # reference's own path, on the same device)
+            overflow.append(fi)
+            out.append(sp.search_many([series[fi].cpu().numpy()], dt,
+                                      [dms[fi]], [offs])[0])
+            ms["overflow_host"] += (time.perf_counter() - h0) * 1e3
+            continue
+        cands = sp.decode_hits(tv[fi], ti[fi], tb[fi], widths, chunklen, k,
+                               roundN, dt, dms[fi])
+        out.append((sp._post_filter(cands, bads[fi], offs),
+                    1.0 / scales[fi], bads[fi]))
+        ms["prune_host"] += (time.perf_counter() - h0) * 1e3
+    nsub = -(-nf // per)
+    fft_ops = 2.5 * fftlen * np.log2(fftlen) * (1 + W) * nf * F \
+        + 6.0 * (fftlen // 2 + 1) * W * nf * F
+    work = dict(
+        detrend=dict(calls=1, bytes=nf * roundN * 8 + nf * nblk * 4,
+                     ops=0.0),
+        convolve_topk=dict(calls=nsub, ops=fft_ops,
+                           bytes=nf * roundN * 4 + nf * nblk * 8
+                           + nf * F * W * (k * 12 + 8)),
+        compaction=dict(calls=nsub, ops=0.0,
+                        bytes=nf * F * W * k * 12 + nf * G * 20))
+    for name, wk in work.items():
+        wk["bound_ms"], wk["bound_by"] = bound_ms(wk["bytes"], wk["ops"])
+    split = dict(ms=ms, work=work, overflow_files=len(overflow),
+                 hits_capped=[int(np.minimum(c, k).sum()) for c in counts],
+                 subbatch_files=per, frames=F, widths=W, k=k, G=G)
+    return split, out
+
+
+# the injected single pulses' DM, and the trials searched again on the
+# CPU (the two on each side of it)
+SP_DM = 21.6
+SP_CPU_DMS = ("21.20", "21.40", "21.80", "22.00")
+
+
+def band_sweep_bins(ddm):
+    """Samples of the cold-plasma sweep across the beam's band for a DM
+    error of ddm (the smearing of a trial ddm away)."""
+    from presto_tpu_torch.ops.dedispersion import delay_from_dm
+    b = BEAM
+    f = b["lofreq"] + np.array([0.0, (b["nchan"] - 1) * b["cw"]])
+    d = delay_from_dm(abs(ddm), f)
+    return int(np.ceil((d[0] - d[1]) / b["dt"]))
+
+
+def pulse_centres(raw, cfg, burst):
+    """{trial DM: the centre bin of an injected pulse (burst_spans) in
+    that trial's series}, through prepsubband's own delay plan: channel c
+    of output sample k reads raw sample k + chan_bins[c] + dm_bins[trial,
+    subband of c]."""
+    from presto_tpu_torch.apps import prepsubband
+    from presto_tpu_torch.apps.common import open_raw
+    b = BEAM
+    fb = open_raw(raw)
+    args = prepsubband.build_parser().parse_args(
+        method_argv(raw, cfg, "unused") + [raw])
+    dms, chan_bins, dm_bins = prepsubband.plan_delays(fb.header, args)
+    fb.close()
+    freqs = b["lofreq"] + np.arange(b["nchan"]) * b["cw"]
+    spans = burst_spans(burst, freqs, b["dt"])
+    starts = np.array([a for a, _e in spans])
+    sub = np.arange(b["nchan"]) // (b["nchan"] // cfg.nsub)
+    w = spans[0][1] - spans[0][0]
+    return {round(float(d), 2): int(np.median(starts - chan_bins
+                                             - dm_bins[i, sub])) + w // 2
+            for i, d in enumerate(dms)}
+
+
+def check_injected_pulses(events, injected, centres, dt=BEAM["dt"]):
+    """For each injected pulse (t0, DM, width, amplitude), its centres
+    {trial DM: bin} (pulse_centres) and the events {trial DM:
+    [SPCandidate]}: in the trial nearest its DM and the trials on each
+    side, the strongest event within +-(width/2 + the trial's DM
+    smearing + 2) bins of its centre, which must be the strongest within
+    +-0.5 s and at least 8 sigma; and the trial where it peaks, within
+    0.4 of its DM.  Each is printed."""
+    dms = sorted(events)
+    out = []
+    for (t0, pdm, width, _amp), cen in zip(injected, centres):
+        w = int(round(width / dt))
+        best = {}
+        for d in dms:
+            win = w // 2 + band_sweep_bins(d - pdm) + 2
+            inwin = [c for c in events[d]
+                     if abs(c.bin - cen[round(d, 2)]) <= win]
+            best[d] = max(inwin, key=lambda c: c.sigma, default=None)
+        found = [d for d in dms if best[d] is not None]
+        peak = max(found, key=lambda d: best[d].sigma, default=None)
+        inear = min(range(len(dms)), key=lambda i: abs(dms[i] - pdm))
+        near = []
+        for d in dms[max(inear - 1, 0):inear + 2]:
+            c = best[d]
+            around = [x for x in events[d]
+                      if abs(x.bin - cen[round(d, 2)]) <= 0.5 / dt]
+            top = max(around, key=lambda x: x.sigma, default=None)
+            near.append(dict(
+                dm=d, centre=cen[round(d, 2)],
+                sigma=c.sigma if c else None,
+                downfact=c.downfact if c else None,
+                bin=c.bin if c else None,
+                strongest=c is not None and top is c and c.sigma >= 8.0))
+        pok = (all(n["strongest"] for n in near) and peak is not None
+               and abs(peak - pdm) <= 0.4)
+        out.append(dict(t=t0, width_bins=w, trials=near, peak_dm=peak,
+                        peak_sigma=best[peak].sigma if peak else None,
+                        ok=pok))
+        log("single pulse at %.3f s (%d bins, DM %.1f): %s; peak over %d "
+            "trials at DM %s (sigma %s) %s"
+            % (t0, w, pdm, "; ".join(
+                "DM %.2f sigma %s downfact %s bin %s (centre %d)%s"
+                % (n["dm"], n["sigma"], n["downfact"], n["bin"],
+                   n["centre"], "" if n["strongest"] else " FAIL")
+                for n in near),
+               len(dms), peak, out[-1]["peak_sigma"],
+               "ok" if pok else "FAIL"))
+    return out
+
+
+def check_main_singlepulse(raw, res, workdir, timer):
+    """Stages 9a (the seam) and 9 (verify) of the main phase: a
+    .singlepulse per DM with res.sp_events events in all; each injected
+    pulse (BEAM_PULSES) is the strongest event within +-0.5 s, and at
+    least 8 sigma, within +-(width/2 + the trial's DM smearing + 1) bins
+    of its centre in the trial nearest its DM and in the trials on each
+    side, and the trial where it peaks lies within 0.4 of its DM.  Then
+    single_pulse_search on the CPU over the durable .dat of SP_CPU_DMS:
+    each .singlepulse agrees with the card's by singlepulse.agreement
+    (byte-equal files counted, every boundary line printed).  Then the
+    stage's steps timed one by one on the survey's 24 series
+    (sp_split), whose events must agree with the card's files."""
+    from presto_tpu_torch.apps import single_pulse_search as sps
+    from presto_tpu_torch.io.infodata import read_inf
+    from presto_tpu_torch.io.datfft import read_dat
+    from presto_tpu_torch.search import singlepulse as spm
+    cfg = main_cfg()
+    thr = cfg.sp_threshold
+    spf = {dm_of(p[:-len(".singlepulse")]): p for p in glob.glob(
+        os.path.join(workdir, "psr_DM*.singlepulse"))}
+    events = {d: spm.read_singlepulse(p) for d, p in spf.items()}
+    dms = sorted(events)
+    counts = {"%.2f" % d: len(events[d]) for d in dms}
+    ok = (len(dms) == len(res.datfiles) > 0
+          and res.sp_events == sum(counts.values()))
+    log("single pulse: events per DM %s (%d in all, res.sp_events %d); "
+        "stage 9a %.3f s, stage 9 %.3f s"
+        % (json.dumps(counts), sum(counts.values()), res.sp_events,
+           *timer.samples["single_pulse"]))
+    pulses = check_injected_pulses(
+        events, BEAM_PULSES,
+        [pulse_centres(raw, cfg, p) for p in BEAM_PULSES])
+    ok = ok and all(p["ok"] for p in pulses)
+    # the card's files against single_pulse_search on the CPU
+    cpu = os.path.join(workdir, "cpu_sp")
+    os.makedirs(cpu)
+    for d in SP_CPU_DMS:
+        for ext in (".dat", ".inf"):
+            shutil.copy(os.path.join(workdir, "psr_DM%s%s" % (d, ext)), cpu)
+    t0 = time.time()
+    args = sps.build_parser().parse_args(
+        ["-t", str(thr), "-p"] + [os.path.join(cpu, "psr_DM%s.dat" % d)
+                                  for d in SP_CPU_DMS])
+    sps.run(args, device="cpu")
+    cpu_s = time.time() - t0
+    agree = {}
+    for d in SP_CPU_DMS:
+        name = "psr_DM%s.singlepulse" % d
+        agree[d] = spm.file_agreement(os.path.join(workdir, name),
+                                      os.path.join(cpu, name), thr)
+    same = sum(a["same_bytes"] for a in agree.values())
+    cpu_ok = all(a["ok"] for a in agree.values())
+    ok = ok and cpu_ok
+    log("single pulse: card .singlepulse against single_pulse_search on the "
+        "CPU (%.1f s) for DM %s: %d of %d byte-equal, agree %s; boundary "
+        "lines %s; one-sided lines %s; bad %s"
+        % (cpu_s, list(SP_CPU_DMS), same, len(agree), cpu_ok,
+           json.dumps({d: a["boundary"] for d, a in agree.items()
+                       if a["boundary"]}),
+           json.dumps({d: a["one_sided"] for d, a in agree.items()
+                       if a["one_sided"]}),
+           json.dumps({d: a["bad"] for d, a in agree.items() if a["bad"]})))
+    # the stage's steps at the main path's shape, on the card
+    dat = [os.path.join(workdir, "psr_DM%.2f.dat" % d) for d in dms]
+    infos = [read_inf(f[:-4]) for f in dat]
+    nuse, offs = sps.sp_input_plan(infos[0], os.path.getsize(dat[0]) // 4)
+    batch = torch.as_tensor(np.stack([read_dat(f)[:nuse] for f in dat]),
+                            device="cuda")
+    sp = spm.SinglePulseSearch(threshold=thr, device="cuda")
+    split, out = sp_split(sp, batch, infos[0].dt, [i.dm for i in infos],
+                          [offs] * len(dat))
+    del batch
+    split_ok = all(spm.agreement(events[d], r[0], thr,
+                                 want_printed=True)["ok"]
+                   for d, r in zip(dms, out))
+    ok = ok and split_ok
+    log("single pulse at the main path's shape (%d x %d, CUDA events): %s; "
+        "agrees with the survey's files %s"
+        % (len(dms), nuse, json.dumps(split, default=float), split_ok))
+    return dict(ok=ok, events_per_dm=counts, pulses=pulses,
+                stage_9a_s=timer.samples["single_pulse"][0],
+                stage_9_s=timer.samples["single_pulse"][1],
+                cpu_files_byte_equal=same, cpu_agree=cpu_ok, cpu_s=cpu_s,
+                cpu_detail={d: {k: v for k, v in a.items()}
+                            for d, a in agree.items()},
+                split=split, split_agrees=split_ok)
+
+
+# bench.py's single-pulse workload (make_sp_series, shared by the JAX
+# package's device and CPU benches): 128 series of 2^20 samples at
+# 81.92 us, rng seed 7, +4.0 over 30 samples at 12345 and 500000 in every
+# 8th series; threshold 5
+SP_BENCH = dict(nseries=128, nsamples=1 << 20, dt=8.192e-5, seed=7,
+                threshold=5.0)
+# the series also searched by the plain versions on the CPU: every 8th
+# (pulsed) and its neighbour
+SP_BENCH_CPU_ROWS = (0, 1, 32, 33, 64, 65, 96, 97)
+
+
+def sp_bench_series():
+    """bench.py's make_sp_series, copied (bench.py imports JAX)."""
+    b = SP_BENCH
+    rng = np.random.default_rng(b["seed"])
+    series = [rng.normal(size=b["nsamples"]).astype(np.float32)
+              for _ in range(b["nseries"])]
+    for x in series[::8]:
+        for pos in (12345, 500000):
+            x[pos:pos + 30] += 4.0
+    return np.stack(series)
+
+
+def phase_singlepulse():
+    """The JAX package's single-pulse bench shape on the card:
+    search_many_resident over the 128 device-resident series (one
+    upload), the warm call and the best of 2 (host clock and CUDA
+    events), the best of 2 of its steps (sp_split), and the plain
+    versions on the CPU over SP_BENCH_CPU_ROWS, held to the card's
+    events by singlepulse.agreement."""
+    from presto_tpu_torch.search import singlepulse as spm
+    b = SP_BENCH
+    t0 = time.time()
+    series = sp_bench_series()
+    gen_s = time.time() - t0
+    batch = torch.as_tensor(series, device="cuda")
+    dms = [float(i) for i in range(b["nseries"])]
+    sp = spm.SinglePulseSearch(threshold=b["threshold"], device="cuda")
+    runs = []
+    for _ in range(3):
+        e = [cuda_event() for _ in range(2)]
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        e[0].record()
+        res = sp.search_many_resident(batch, b["dt"], dms)
+        e[1].record()
+        torch.cuda.synchronize()
+        runs.append(dict(host_s=time.perf_counter() - h0,
+                         event_ms=e[0].elapsed_time(e[1])))
+    splits = [sp_split(sp, batch, b["dt"], dms)[0] for _ in range(2)]
+    split = min(splits, key=lambda x: sum(x["ms"].values()))
+    del batch
+    nev = sum(len(c) for (c, _s, _b) in res)
+    t0 = time.time()
+    rows = list(SP_BENCH_CPU_ROWS)
+    cpu = spm.SinglePulseSearch(threshold=b["threshold"], device="cpu") \
+        .search_many_resident(series[rows], b["dt"], [dms[r] for r in rows])
+    cpu_s = time.time() - t0
+    agree = [spm.agreement(c[0], res[r][0], b["threshold"])
+             for r, c in zip(rows, cpu)]
+    cpu_ok = all(a["ok"] for a in agree)
+    pulsed = [len(res[r][0]) for r in rows]
+    found = all(any(abs(c.bin - (p + 15)) <= 16 for c in res[r][0])
+                for r in rows[::2] for p in (12345, 500000))
+    best = min(runs[1:], key=lambda r: r["event_ms"])
+    log("singlepulse bench shape (%d x %d, threshold %g): warm %.3f s "
+        "(%.3f event ms), best of 2 %.3f s (%.3f event ms); split (ms, "
+        "best of 2) %s; %d events; generate %.1f s"
+        % (b["nseries"], b["nsamples"], b["threshold"], runs[0]["host_s"],
+           runs[0]["event_ms"], best["host_s"], best["event_ms"],
+           json.dumps(split, default=float), nev, gen_s))
+    # a block that holds a whole 30-sample pulse of 4 sigma a sample has a
+    # robust std some 8% high, and the bad-block cut (the reference's
+    # rule, the JAX package's too) zaps it: the bench's events are noise
+    log("singlepulse bench shape on the CPU (rows %s, %.1f s): events %s; "
+        "agree with the card %s; boundary %s; one-sided %s; the injected "
+        "pulses found (zapped with their blocks) %s"
+        % (rows, cpu_s, pulsed, cpu_ok,
+           json.dumps([a["boundary"] for a in agree if a["boundary"]]),
+           json.dumps([a["one_sided"] for a in agree if a["one_sided"]]),
+           found))
+    return dict(ok=cpu_ok and nev > 0 and split["overflow_files"] == 0,
+                warm=runs[0], best=best, runs=runs, split=split,
+                events=nev, cpu_rows=rows, cpu_events=pulsed,
+                cpu_agree=cpu_ok, cpu_s=cpu_s, pulses_found=found,
+                generate_s=gen_s)
 
 
 def method_argv(raw, cfg, outbase):
@@ -1488,9 +1904,11 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
     small = phase_small_reference(gen)
     small_ok = all(v["ok"] for v in small.values())
+    torch.cuda.empty_cache()
+    spb = phase_singlepulse()
     results.update(plane_build=k1, stage_reduce=k2, polish=pol,
                    main=main_res, ingest=ingest, fold=fold,
-                   toas=toas,
+                   toas=toas, singlepulse=spb,
                    small_reference=small, total_s=time.time() - t_start)
     kernels = []
     for name, src, rep, k in (
@@ -1513,7 +1931,8 @@ def main():
                               ("polish", pol["ok"]),
                               ("main", main_res["ok"]),
                               ("fold", fold["ok"]), ("toas", toas["ok"]),
-                              ("small_reference", small_ok)) if not ok]
+                              ("small_reference", small_ok),
+                              ("singlepulse", spb["ok"])) if not ok]
     if failed:
         print("chip_smoke: FAILED phases: %s" % failed, file=sys.stderr)
         return 1

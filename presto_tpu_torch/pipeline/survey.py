@@ -3,19 +3,22 @@
 PyTorch counterpart of ``presto_tpu/pipeline/survey.py``: ``run_survey``
 runs rfifind (unless ``skip_rfifind``) -> DDplan -> prepsubband with
 the rfifind mask (the DM fan-out deposited at an in-memory stage seam)
--> batched packed rFFT -> accelsearch on the device spectra -> polish
--> ACCEL/.cand files -> ACCEL_sift -> prepfold of the top candidates,
-with the JAX package's artifacts (_rfifind.mask/.stats/.inf and
-_rfifind_quality.json, .dat/.inf/.fft/_ACCEL_<zmax>/.cand/
-cands_sifted.txt/fold_candN.pfd and .pfd.bestprof) and its journal:
-artifacts are recorded with size and CRC-32 in the workdir's
+-> single-pulse search of the seam-resident series (stage 9a) ->
+batched packed rFFT -> accelsearch on the device spectra -> polish
+-> ACCEL/.cand files -> ACCEL_sift -> prepfold of the top candidates ->
+single_pulse_search of any trial still without a verified .singlepulse
+(stage 9), with the JAX package's artifacts (_rfifind.mask/.stats/.inf
+and _rfifind_quality.json, .dat/.inf/.singlepulse/.fft/_ACCEL_<zmax>/
+.cand/cands_sifted.txt/fold_candN.pfd and .pfd.bestprof) and its
+journal: artifacts are recorded with size and CRC-32 in the workdir's
 manifest.json, and a stage is skipped on a rerun only when its outputs
-verify.  rfifind and the folds run with -noplot: the JAX package's
-_rfifind.png and fold_candN.pfd.png are not written.
+verify.  rfifind, the folds and single_pulse_search run without their
+plots (-noplot, -p): the JAX package's _rfifind.png, fold_candN.pfd.png
+and _singlepulse.png are not written.
 
 Not in this slice (a config that asks for them raises
-NotImplementedError): zapbirds, single pulse, barycentring, triage,
-elastic runs and the serving and telemetry hooks.
+NotImplementedError): zapbirds, barycentring, triage, elastic runs and
+the serving and telemetry hooks.
 The JAX package's cross-stage in-flight window (the FFT of one chunk
 queued while the previous one is collected) only overlaps dispatch and
 is not ported yet.
@@ -31,7 +34,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from presto_tpu_torch.apps import prepfold, prepsubband, rfifind
+from presto_tpu_torch.apps import (prepfold, prepsubband, rfifind,
+                                   single_pulse_search)
 from presto_tpu_torch.apps.accelsearch import refine_and_write
 from presto_tpu_torch.apps.common import open_raw
 from presto_tpu_torch.io import datfft
@@ -46,6 +50,9 @@ from presto_tpu_torch.pipeline.sifting import (select_fold_candidates,
                                                sift_candidates)
 from presto_tpu_torch.search.accel import (AccelCand, AccelConfig,
                                            AccelSearch, resolve_device)
+from presto_tpu_torch.search.singlepulse import (SinglePulseSearch,
+                                                 read_singlepulse,
+                                                 write_singlepulse)
 from presto_tpu_torch.utils.timing import StageTimer
 
 FFT_CHUNK_BYTES = 1 << 30    # series bytes per batched rFFT + search
@@ -112,7 +119,6 @@ class SurveyResult:
 def _refuse_unported(cfg: SurveyConfig) -> None:
     asks = {
         "zapbirds": cfg.zaplist,
-        "single pulse (set singlepulse=False)": cfg.singlepulse,
         "triage": cfg.triage,
         "barycentring": cfg.bary,
         "elastic runs": cfg.elastic,
@@ -443,6 +449,11 @@ def _run_survey_stages(rawfiles, cfg, workdir, res, timer, manifest,
     print("survey: %d dedispersed time series (%d seam-resident)"
           % (len(res.datfiles), len(seam)))
 
+    if cfg.singlepulse and len(seam):
+        # before the FFT stage releases the blocks' device series
+        timer.mark("single_pulse")
+        seam_singlepulse(seam, cfg, device=device, manifest=manifest)
+
     timer.mark("realfft+accelsearch (fused)")
     if len(seam):
         seam_fft_search(seam, cfg, device=device, manifest=manifest,
@@ -470,7 +481,92 @@ def _run_survey_stages(rawfiles, cfg, workdir, res, timer, manifest,
 
     timer.mark("prepfold")
     fold_candidates(cl, cfg, workdir, seam, res, manifest, device)
+
+    timer.mark("single_pulse")
+    if cfg.singlepulse and res.datfiles:
+        res.sp_events = disk_singlepulse(res.datfiles, cfg, seam,
+                                         device=device, manifest=manifest)
     return res
+
+
+def seam_singlepulse(seam: fusion.StageSeam, cfg: SurveyConfig,
+                     device="cuda", manifest=None) -> int:
+    """Stage 9a: the single-pulse search over the seam-resident series,
+    before the FFT stage takes them: the app's pipeline
+    (apps/single_pulse_search) fed from the device instead of a .dat
+    read and an upload.  Inputs are bit-equal to the disk path's (the
+    same padded series, the same .inf round-tripped dt and DM, the same
+    onoff-derived off regions), so the .singlepulse files are the same.
+    Trials with a verified .singlepulse are skipped; the others go in
+    groups of one (searched length, dt), at most the CLI's GROUP_BYTES
+    of series a call, each journaled under "singlepulse".  Returns the
+    number of events written."""
+    _refuse_unported(cfg)
+    sp = SinglePulseSearch(threshold=cfg.sp_threshold,
+                           maxwidth=cfg.sp_maxwidth, device=device)
+    _drop_stale(manifest, [name + ".singlepulse" for b in seam.blocks
+                           for name in b.names])
+    groups: Dict[tuple, list] = {}
+    for block in seam.blocks:
+        for row, name in enumerate(block.names):
+            if _valid(manifest, name + ".singlepulse"):
+                continue
+            nuse, offregions = single_pulse_search.sp_input_plan(
+                block.infos[row], block.numout)
+            groups.setdefault((nuse, fusion.inf_float(block.dt)),
+                              []).append((block, row, offregions))
+    nev = nser = 0
+    for (nuse, dt), items in sorted(groups.items(), key=lambda kv: kv[0]):
+        per = max(1, single_pulse_search.GROUP_BYTES // max(nuse * 4, 1))
+        for g0 in range(0, len(items), per):
+            chunk = items[g0:g0 + per]
+            batch = torch.stack([b.series_dev[row, :nuse]
+                                 for (b, row, _o) in chunk])
+            results = sp.search_many_resident(
+                batch, dt,
+                dms=[fusion.inf_float(b.infos[row].dm, 12)
+                     for (b, row, _o) in chunk],
+                offregions_list=[o for (_b, _r, o) in chunk])
+            del batch
+            written = []
+            for (b, row, _o), (cands, _stds, _bad) in zip(chunk, results):
+                f = b.names[row] + ".singlepulse"
+                write_singlepulse(f, cands)
+                written.append(f)
+                nev += len(cands)
+            _record(manifest, written, "singlepulse")
+            nser += len(chunk)
+    print("survey: single-pulse search over %d seam-resident series "
+          "(%d events)" % (nser, nev))
+    return nev
+
+
+def disk_singlepulse(datfiles: Sequence[str], cfg: SurveyConfig,
+                     seam: Optional[fusion.StageSeam] = None,
+                     device="cuda", manifest=None) -> int:
+    """Stage 9: every trial in ``datfiles`` whose .singlepulse does not
+    verify (a stale one is dropped first) goes through
+    single_pulse_search (-t, -m, and -p: the port has no summary plot),
+    its .dat spilled from ``seam`` first where the seam holds it and it
+    never reached disk; journaled under "singlepulse".  Returns the
+    number of events in the trials' .singlepulse files."""
+    sps = [f[:-4] + ".singlepulse" for f in datfiles]
+    _drop_stale(manifest, sps)
+    todo = [f for f, p in zip(datfiles, sps) if not _valid(manifest, p)]
+    if seam is not None:
+        for f in todo:
+            seam.ensure_dat(f)
+        todo = [f for f in todo if os.path.exists(f)]
+    if todo:
+        argv = ["-t", str(cfg.sp_threshold), "-p"]
+        if cfg.sp_maxwidth:
+            argv += ["-m", str(cfg.sp_maxwidth)]
+        single_pulse_search.main(argv + list(todo), device=device)
+        _record(manifest, [f[:-4] + ".singlepulse" for f in todo],
+                "singlepulse")
+    nev = sum(len(read_singlepulse(p)) for p in sps if os.path.exists(p))
+    print("survey: %d single-pulse events" % nev)
+    return nev
 
 
 def fold_argv(c, num: int, workdir: str):

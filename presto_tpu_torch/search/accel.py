@@ -295,6 +295,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def check_full_f32_matmul(device: torch.device, what: str) -> None:
+    """Raise on a CUDA device while TF32 matmuls are on: ``what`` needs
+    full float32 products, as the JAX package computes them."""
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("%s needs full float32 matmuls, and TF32 is on "
+                           "(set torch.backends.cuda.matmul.allow_tf32 = "
+                           "False)" % what)
+
+
 @dataclass
 class AccelCand:
     """A raw search candidate (accelcand, accel.h:76-86, minus the

@@ -47,7 +47,8 @@ import torch
 
 from presto_tpu_torch.ops import responses as resp
 from presto_tpu_torch.ops import stats as st
-from presto_tpu_torch.search.accel import resolve_device
+from presto_tpu_torch.search.accel import (check_full_f32_matmul,
+                                           resolve_device)
 from presto_tpu_torch.search.optimize import (FourierProps, OptimizedCand,
                                               RDerivs, calc_props)
 
@@ -81,13 +82,6 @@ def _u_grid(npts: int, device) -> torch.Tensor:
             + 0.5) / npts
 
 
-def _check_full_f32_matmul(device: torch.device) -> None:
-    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("polish: TF32 matmuls are on; the window "
-                           "transform needs full float32 (set "
-                           "torch.backends.cuda.matmul.allow_tf32 = False)")
-
-
 # ----------------------------------------------------------------------
 # Device stages
 # ----------------------------------------------------------------------
@@ -104,7 +98,7 @@ def _windows_to_wmat(amp_pairs: torch.Tensor, rints: torch.Tensor, W: int,
     spec_of [P] selecting each pair's spectrum.  Returns [P, npts]
     complex64."""
     dev = amp_pairs.device
-    _check_full_f32_matmul(dev)
+    check_full_f32_matmul(dev, "polish: the window transform")
     n = amp_pairs.shape[-2]
     dl = torch.arange(W, dtype=torch.int64, device=dev) - W // 2
     idx = rints.to(torch.int64)[:, None] + dl[None]

@@ -137,6 +137,50 @@ def test_ingest_and_rfifind_modules_stand_alone_and_need_cuda():
     assert "INGEST ISOLATED" in out.stdout
 
 
+SP_SCRIPT = r"""
+import sys
+import torch
+from presto_tpu_torch.apps import make_spd, rrattrap, single_pulse_search
+from presto_tpu_torch.pipeline import survey
+from presto_tpu_torch.search import singlepulse
+from presto_tpu_torch.singlepulse import grouping, spd, waterfaller
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "presto_tpu" or m.startswith("presto_tpu."))
+assert not bad, bad
+cfg = survey.SurveyConfig(fold_top=0)
+assert cfg.singlepulse is True
+survey._refuse_unported(cfg)
+if not torch.cuda.is_available():
+    for call in (lambda: singlepulse.SinglePulseSearch(),
+                 lambda: single_pulse_search.main(["-p", "missing.dat"]),
+                 lambda: survey.run_survey(["missing.fil"], cfg, "."),
+                 lambda: survey.disk_singlepulse(["missing.dat"], cfg)):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError("an entry point ran without CUDA")
+print("SP ISOLATED")
+"""
+
+
+def test_single_pulse_modules_stand_alone_and_need_cuda():
+    """The single-pulse modules (search, CLI, survey stages 9a/9, the
+    grouping, waterfaller and .spd toolchain, rrattrap and make_spd)
+    import neither jax nor presto_tpu; the survey no longer refuses
+    singlepulse=True; the search, the CLI and the survey's stages called
+    without device= raise without a card."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", SP_SCRIPT], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "SP ISOLATED" in out.stdout
+
+
 def test_port_imports_no_jax_and_needs_cuda():
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT

@@ -3,12 +3,15 @@
 A seeded synthetic pulsar filterbank goes through the JAX package's
 run_survey (its TPU search path on the CPU, as in test_torch_accel, and
 one device: the DM-sharded mesh is off) and the port's run_survey on the
-CPU.  The .dat files are byte-equal; every ACCEL file's strong
-candidates agree within the polish tolerances (tests/test_torch_polish
-.py); the sifted lists agree in DM, numharm and r within 2e-3 bins, with
-the pulsar on top.  A rerun on the same workdir rewrites nothing; a
-second accel pass runs over the .fft files on disk when added on a
-rerun, and over the seam-resident spectra from a fresh workdir.
+CPU, both with the JAX default singlepulse=True.  The .dat files are
+byte-equal; every ACCEL file's strong candidates agree within the polish
+tolerances (tests/test_torch_polish.py); the sifted lists agree in DM,
+numharm and r within 2e-3 bins, with the pulsar on top; every trial's
+.singlepulse agrees by singlepulse.agreement.  A rerun on the same
+workdir rewrites nothing; a second accel pass runs over the .fft files
+on disk when added on a rerun, and over the seam-resident spectra from
+a fresh workdir; a lost .singlepulse is redone through stage 9's disk
+path.
 """
 
 import functools
@@ -31,13 +34,16 @@ from test_torch_polish import assert_polish_agrees
 N, NCHAN, DT, LOFREQ, CW = 1 << 16, 32, 5e-4, 1338.0, 4.0
 F0, DM, WIDTH = 41.3, 49.0, 0.04
 DMS = ["%.2f" % (40.0 + 3.0 * i) for i in range(8)]
+# the beam has no single pulse at the JAX default sp_threshold of 5; at
+# 3.5 each trial has ~60 noise events to compare
+SP_THRESHOLD = 3.5
 
 
 def _config(mod, **kw):
     kw = {"fold_top": 0, "durable_stages": True, "skip_rfifind": True,
-          **kw}
+          "sp_threshold": SP_THRESHOLD, **kw}
     return mod.SurveyConfig(lodm=40.0, hidm=60.0, nsub=8, zmax=20,
-                            numharm=8, singlepulse=False, **kw)
+                            numharm=8, **kw)
 
 
 def _jax_tpu_path(mp):
@@ -56,8 +62,8 @@ def _jax_tpu_path(mp):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """(raw filterbank, JAX workdir, port workdir, the two sifted
-    Candlists) after one run_survey of each package."""
+    """(raw filterbank, JAX workdir, port workdir, the two results) after
+    one run_survey of each package."""
     d = tmp_path_factory.mktemp("survey")
     raw = str(d / "psr.fil")
     fake_filterbank_file(raw, N, DT, NCHAN, LOFREQ, CW,
@@ -70,7 +76,7 @@ def runs(tmp_path_factory):
         jres = jsurvey.run_survey([raw], _config(jsurvey), jwork)
     res = tsurvey.run_survey([raw], _config(tsurvey), twork, device="cpu")
     assert res.candfile == os.path.join(twork, "cands_sifted.txt")
-    return raw, jwork, twork, jres.sifted, res.sifted
+    return raw, jwork, twork, jres, res
 
 
 def test_synth_filterbank_bytes_equal(tmp_path):
@@ -164,13 +170,73 @@ def assert_sifted_agree(want, got):
 
 
 def test_run_survey_sifted_list_matches_jax(runs):
-    _raw, _jwork, _twork, want, got = runs
-    assert_sifted_agree(want, got)
+    _raw, _jwork, _twork, jres, res = runs
+    got = res.sifted
+    assert_sifted_agree(jres.sifted, got)
     top = got[0]
     assert top.DM == DM
     f = top.r / (N * DT)
     assert abs(f / F0 - round(f / F0)) < 0.01 and round(f / F0) >= 1
     assert len(top.hits) >= 2
+
+
+def _sp_files(d):
+    return sorted(n for n in os.listdir(d) if n.endswith(".singlepulse"))
+
+
+def test_run_survey_singlepulse_matches_jax(runs):
+    """Stage 9a on the seam: every trial's .singlepulse agrees with the
+    JAX run's by singlepulse.agreement, byte-equal where no line is near
+    a boundary; res.sp_events is equal."""
+    from presto_tpu_torch.search.singlepulse import (file_agreement,
+                                                     read_singlepulse)
+    _raw, jwork, twork, jres, res = runs
+    names = _sp_files(jwork)
+    assert names == _sp_files(twork) == ["psr_DM%s.singlepulse" % d
+                                         for d in DMS]
+    same = 0
+    for n in names:
+        r = file_agreement(os.path.join(jwork, n), os.path.join(twork, n),
+                           SP_THRESHOLD)
+        assert r["ok"], (n, r)
+        assert r["same_bytes"] or r["boundary"] or r["one_sided"], (n, r)
+        same += r["same_bytes"]
+        assert r["matched"] >= 20
+    assert same >= len(names) - 2
+    assert res.sp_events == jres.sp_events == sum(
+        len(read_singlepulse(os.path.join(twork, n))) for n in names)
+
+
+@pytest.mark.parametrize("how", ["durable_rerun", "non_durable_seam"])
+def test_lost_singlepulse_redone_on_disk(tmp_path, runs, how):
+    """A trial's lost .singlepulse goes through stage 9's disk path
+    (single_pulse_search on its .dat) to the same bytes: on a rerun of a
+    finished durable workdir (whose .dat verify, so the seam is empty),
+    and on a non-durable seam after stage 9a, where ensure_dat first
+    spills the trial's .dat from the seam's host copy."""
+    raw, _jwork, twork, _jr, res = runs
+    lost = "psr_DM%s.singlepulse" % DMS[3]
+    work = str(tmp_path / how)
+    if how == "durable_rerun":
+        shutil.copytree(twork, work)
+        os.remove(os.path.join(work, lost))
+        again = tsurvey.run_survey([raw], _config(tsurvey), work,
+                                   device="cpu")
+        assert again.sp_events == res.sp_events
+    else:
+        cfg = _config(tsurvey, durable_stages=False)
+        seam = tsurvey.survey_head(raw, cfg, work, device="cpu")
+        tsurvey.seam_singlepulse(seam, cfg, device="cpu")
+        assert not any(n.endswith(".dat") for n in os.listdir(work))
+        os.remove(os.path.join(work, lost))
+        dats = [os.path.join(work, "psr_DM%s.dat" % d) for d in DMS]
+        assert tsurvey.disk_singlepulse(dats, cfg, seam,
+                                        device="cpu") == res.sp_events
+        assert [n for n in os.listdir(work) if n.endswith(".dat")] == \
+            [lost.replace(".singlepulse", ".dat")]
+    for n in _sp_files(twork):
+        assert open(os.path.join(work, n), "rb").read() == \
+            open(os.path.join(twork, n), "rb").read(), n
 
 
 def _stamps(d):
@@ -187,6 +253,7 @@ def test_run_survey_resume_rewrites_nothing(tmp_path, runs):
     work = str(tmp_path / "again")
     shutil.copytree(twork, work)
     before = _stamps(work)
+    assert len(_sp_files(work)) == len(DMS)
     tsurvey.run_survey([raw], _config(tsurvey), work, device="cpu")
     after = _stamps(work)
     assert sorted(after) == sorted(before)
@@ -205,6 +272,7 @@ def test_run_survey_resume_redoes_lost_spectra(tmp_path, runs):
     ACCEL files agree with the first run's within the polish tolerances,
     and the sifted list as the JAX comparison does."""
     raw, _jwork, twork, _js, first = runs
+    first = first.sifted
     work = str(tmp_path / "again")
     shutil.copytree(twork, work)
     lost = ["psr_DM%s" % d for d in DMS[2:5]]
@@ -257,7 +325,11 @@ def test_run_survey_times_its_stages(tmp_path, runs):
     timer = StageTimer()
     tsurvey.run_survey([raw], _config(tsurvey), str(tmp_path / "t"),
                        timer=timer, device="cpu")
-    assert list(timer.stages)[:2] == ["prepsubband", "polish"]
+    assert list(timer.stages)[:3] == ["prepsubband", "single_pulse",
+                                      "polish"]
+    # stage 9a before the FFT, stage 9 (verify, nothing left) after the
+    # folds, as the JAX package marks them
+    assert len(timer.samples["single_pulse"]) == 2
     assert len(timer.samples["polish"]) == len(DMS)
     assert len(timer.samples["accel writes"]) == len(DMS)
     lines = [ln.split()[0:3] for ln in timer.report().splitlines()[1:]]
