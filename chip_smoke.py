@@ -72,7 +72,19 @@ Phases (any failure exits non-zero before the final line):
              one by one (detrend, convolve + top-k, compaction, host
              prune), and 8 of the series by the plain versions on the CPU
              held to the card's events by singlepulse.agreement;
-  9. summary the kernels line, the card, and the final ok line.
+  9. jerk    the jerk search (wmax): the JAX package's jerk bench shape
+             (bench.py's 2^20 bins, zmax 100, wmax 300, numharm 4, seed
+             11, a tone at bin 123456) on the card, with the host bank
+             build timed on its own, the warm call and the best of 2,
+             cells/s, launches a search and the tone found; plane_build
+             at its geometry on the w = 300 bank and stage_reduce_planes
+             on the four distinct planes of a w = 300 scan, against their
+             plain versions (the z-only stage_reduce stays timed in
+             phase 2); a jerk pulsar (2^21 samples) through accelsearch
+             -wmax on the card and on the CPU, recovered on top, the two
+             _JERK_ tables held by accelsearch.jerk_file_agreement;
+ 10. summary the kernels line (launches of the main path and of the jerk
+             paths), the card, and the final ok line.
 
 Prints the full results as one JSON line (``results: {...}``).  Imports
 no JAX and nothing of the JAX package.
@@ -122,15 +134,16 @@ def bound_ms(nbytes, flops):
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
-def reducer_geometry(nstages):
+def reducer_geometry(nstages, multi=False):
     """(threads, rows a chunk, chunk buffers, dynamic shared memory bytes,
-    CTAs an SM) of one stage_reduce instantiation, from the library."""
+    CTAs an SM) of one stage_reduce instantiation (multi: the multi-plane
+    kernel), from the library."""
     import ctypes
     from presto_tpu_torch import cuda_build
     out = (ctypes.c_int * 5)()
     fn = cuda_build.load("stage_reduce").stage_reduce_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    cuda_build.check(fn(nstages, out), "stage_reduce_info")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    cuda_build.check(fn(nstages, int(multi), out), "stage_reduce_info")
     return list(out)
 
 
@@ -148,13 +161,16 @@ def phase_build():
     usage = {}
     for name, text in logs.items():
         for fn, u in cuda_build.ptxas_usage(text).items():
-            m = re.search(r"(plane_build|stage_reduce)_kernelILi(\d+)E", fn)
-            key = ("%s<%s=%s>" % (m.group(1), "log2n" if m.group(1)
-                                  == "plane_build" else "nst", m.group(2))
+            m = re.search(r"(plane_build|stage_reduce)_kernelILi(\d+)E"
+                          r"(?:Lb([01])E)?", fn)
+            multi = bool(m and m.group(3) == "1")
+            key = ("%s<%s=%s%s>" % (m.group(1), "log2n" if m.group(1)
+                                    == "plane_build" else "nst", m.group(2),
+                                    ",multi" if multi else "")
                    if m else fn)
             if m and m.group(1) == "stage_reduce":
                 threads, zc, stages, smem, ctas = reducer_geometry(
-                    int(m.group(2)))
+                    int(m.group(2)), multi)
                 u.update(threads=threads, chunk_rows=zc, buffers=stages,
                          dynamic_smem=smem, ctas_per_sm=ctas)
             usage[key] = u
@@ -164,7 +180,9 @@ def phase_build():
         inst = {k: u for k, u in usage.items() if k.startswith(kernel + "<")}
         spills = sorted(k for k, u in inst.items()
                         if u.get("spill_stores", 1) or u.get("spill_loads", 1))
-        want = 7 if kernel == "plane_build" else 5
+        # plane_build: log2 n 8..14; stage_reduce: nstages 1..5 single-
+        # plane and 2..5 multi-plane
+        want = 7 if kernel == "plane_build" else 9
         kok = len(inst) == want and not spills
         ok = ok and kok
         log("build: %s instantiations %s, spilling %s %s"
@@ -180,18 +198,18 @@ def bench_searcher():
                              T=T, numbins=nbins, device="cuda"), nbins
 
 
-def plane_case(s, nbins, gen, label):
+def plane_case(s, nbins, gen, label, Kc=None):
     """The plane builder at one searcher's geometry (forward spectra of a
     random spectrum through the searcher's own windows, normalization
-    and FFT, and its kernel bank): kernel against plain, pads, times
-    (kernel: 10 launches after a warm-up; plain and library: 3), bound,
-    and the library call (torch.fft.ifft + abs^2 over the same product)
-    where device memory allows it."""
+    and FFT, and its kernel bank, or the bank Kc): kernel against plain,
+    pads, times (kernel: 10 launches after a warm-up; plain and library:
+    3), bound, and the library call (torch.fft.ifft + abs^2 over the
+    same product) where device memory allows it."""
     from presto_tpu_torch.search import build_cuda
     pairs = torch.randn((nbins, 2), generator=gen, device="cuda")
     S = s.forward_spectra(pairs)
     del pairs
-    Kc = s._kbank
+    Kc = s._kbank if Kc is None else Kc
     nblocks, nb_pad, numr = s.plane_geom()
     off = s.hw_eff * 2
     numz, n = Kc.shape
@@ -1859,6 +1877,343 @@ def phase_small_reference(gen):
     return out
 
 
+# The JAX package's jerk bench shape (bench.py:548-576, bench_jerk):
+# 2^20 bins of seeded noise with a tone at bin 123456, zmax 100, wmax 300
+# (31 w planes), numharm 4, sigma 6, T = 1000 s (bench.py's ACCEL_T).
+JERK_BENCH = dict(numbins=1 << 20, zmax=100, wmax=300, numharm=4, sigma=6.0,
+                  T=1000.0, seed=11, tone_bin=123456, tone=200.0)
+# A jerk pulsar: tests/test_e2e_accel.py:162-196's shape (f0 7.37 Hz, z 10
+# and w 60 bins at the start, a Gaussian pulse of width 0.1, unit noise,
+# seed 17) at 2^21 samples of 1 ms; searched at that test's zmax 60, wmax
+# 80, numharm 2 on the card and on the CPU.
+JERK_PSR = dict(N=1 << 21, dt=1e-3, f0=7.37, z=10.0, w=60.0, amp=0.15,
+                width=0.1, seed=17,
+                argv=["-zmax", "60", "-wmax", "80", "-numharm", "2",
+                      "-sigma", "5.0"])
+
+
+def reducer_planes_bound(planes, scols, zinds, slab, nst):
+    """The multi-plane reducer's bound on these inputs: each distinct
+    plane read once over the cells the sums name (planes[0]: every row
+    of the slabs' columns; term i's plane: the rows of its z map at
+    the columns round_half_up(j h / htot)), the start columns and z maps
+    once, colmax and colz written once; one add a term and one compare
+    a stage per plane element of the slabs.  Returns (ms, "bytes" or
+    "operations", bytes)."""
+    from presto_tpu_torch.search import accel_cuda
+    nrows, numr = planes[0].shape
+    sc = scols.cpu().numpy().astype(np.int64)
+    cols = np.unique((sc[:, None] + np.arange(slab)[None]).ravel())
+    z = zinds.cpu().numpy()
+    # per distinct plane: [(rows named, columns named)] of its reads
+    reads = {planes[0].data_ptr(): [(np.ones(nrows, bool), cols)]}
+    for i, (h, t) in enumerate(accel_cuda.stage_terms(nst)):
+        rows = np.zeros(nrows, bool)
+        rows[z[i]] = True
+        reads.setdefault(planes[i + 1].data_ptr(), []).append(
+            (rows, (cols // t) * h + ((cols % t) * h + (t >> 1)) // t))
+    cells = 0
+    for rl in reads.values():
+        # rows grouped by which reads name them: the union of those
+        # reads' columns, once a group
+        sig = sum(r.astype(np.int64) << k for k, (r, _c) in enumerate(rl))
+        for g in np.unique(sig[sig > 0]):
+            named = np.zeros(numr, bool)
+            for k, (_r, c) in enumerate(rl):
+                if g >> k & 1:
+                    named[c] = True
+            cells += int(named.sum()) * int((sig == g).sum())
+    nbytes = (cells + scols.numel() + zinds.numel()) * 4 \
+        + 2 * scols.numel() * nst * slab * 4
+    nterms = (1 << (nst - 1)) - 1
+    ms, by = bound_ms(nbytes, sc.size * slab * nrows * (nterms + nst))
+    return ms, by, nbytes
+
+
+def jerk_kernels(s, nbins, gen):
+    """The two kernels at the bench's jerk geometry against their plain
+    versions: plane_build (n = 8192, numz 101) on the w = 300 bank, and
+    stage_reduce_planes on the four distinct planes a w = 300 scan reads
+    (w = 300 and its subharmonic w 160, 80, 220), bit-equal."""
+    from presto_tpu_torch.search import accel, accel_cuda
+    nws = len(s.cfg.ws)
+    pb, S = plane_case(s, nbins, gen, "jerk (zmax 100, wmax 300; w = 300 "
+                       "bank)", Kc=s._w_bank_dev(300.0, nws))
+    fracs = [h / t for st in s.fracs_zinds for (h, t, _z) in st]
+    ws = [300.0] + [float(accel.calc_required_w(f, 300.0)) for f in fracs]
+    planes = [s.build_plane(None, s._w_bank_dev(w, nws), spectra=S)
+              for w in ws]
+    del S
+    geom = s.plane_geom()
+    slab, _k, start_cols = s.slab_plan(geom[2])
+    scols = torch.tensor(start_cols, dtype=torch.int32, device="cuda")
+    nst = s.cfg.numharmstages
+    args = (planes, scols, s._zinds, slab, nst)
+    gm, gz = accel_cuda.reduce_stages_planes(*args)
+    wm, wz = accel_cuda.reduce_stages_planes_plain(*args)
+    torch.cuda.synchronize()
+    err = float((gm - wm).abs().max())
+    ok = (err == 0.0 and bool(torch.equal(gm.view(torch.int32),
+                                          wm.view(torch.int32)))
+          and bool(torch.equal(gz, wz)))
+    del gm, gz, wm, wz
+    ms = cuda_time_ms(lambda: accel_cuda.reduce_stages_planes(*args), 10)
+    plain_ms = cuda_time_ms(
+        lambda: accel_cuda.reduce_stages_planes_plain(*args), 1)
+    bms, by, nbytes = reducer_planes_bound(planes, scols, s._zinds, slab, nst)
+    design = reducer_design_bytes(s._zinds, planes[0].shape[0], slab,
+                                  len(start_cols), nst)
+    share = design / (ms * 1e-3) / PEAK_BYTES_PER_S
+    log("stage_reduce_planes (w %s; planes %s, %d slabs of %d, %d stages): "
+        "max_abs_err %.3g, bit-equal %s; kernel %.3f ms, plain %.3f ms, "
+        "bound %.3f ms (%s, %.3f GB), design bytes %.3f GB (%.1f%% of "
+        "3.35 TB/s) %s"
+        % (ws, tuple(planes[0].shape), len(start_cols), slab, nst, err, ok,
+           ms, plain_ms, bms, by, nbytes / 1e9, design / 1e9, 100 * share,
+           "ok" if ok else "FAIL"))
+    del planes
+    torch.cuda.empty_cache()
+    return pb, dict(ok=ok, ws=ws, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=None, bound_ms=bms, bound_by=by,
+                    bound_bytes=nbytes, design_bytes=design,
+                    design_share=share,
+                    tolerance="exact (same float32 add order)")
+
+
+def jerk_pulsar(workdir):
+    """JERK_PSR's time series (the port's models/synth), its packed .fft,
+    and accelsearch -wmax on it on the card and on the CPU: the injected
+    (f, z, w) on top
+    of the card's list (at the mean frequency and fdot of the
+    observation, w within one ACCEL_DW step), and the two _JERK_ tables
+    held by accelsearch.jerk_file_agreement."""
+    from presto_tpu_torch.apps import accelsearch
+    from presto_tpu_torch.io import datfft
+    from presto_tpu_torch.io.infodata import InfoData
+    from presto_tpu_torch.models import synth
+    from presto_tpu_torch.ops import fftpack
+    from presto_tpu_torch.search import accel, accel_cuda, build_cuda
+    p = JERK_PSR
+    T = p["N"] * p["dt"]
+    sig = synth.FakeSignal(f=p["f0"], fdot=p["z"] / T ** 2,
+                           fdotdot=p["w"] / T ** 3, amp=p["amp"],
+                           shape="gauss", width=p["width"])
+    data = synth.fake_timeseries(p["N"], p["dt"], sig, noise_sigma=1.0,
+                                 seed=p["seed"])
+    packed = fftpack.realfft_packed(torch.from_numpy(data - data.mean())
+                                    ).numpy()
+    runs = []
+    for k, dev in enumerate(("cuda", "cpu")):
+        d = os.path.join(workdir, "%d_%s" % (k, dev))
+        os.makedirs(d)
+        datfft.write_fft(os.path.join(d, "jerk.fft"), packed,
+                         InfoData(N=float(p["N"]), dt=p["dt"], object="jerk"))
+        args = accelsearch.build_parser().parse_args(
+            p["argv"] + [os.path.join(d, "jerk.fft")])
+        build_cuda.launches = accel_cuda.launches = 0
+        accel_cuda.planes_launches = 0
+        t0 = time.time()
+        trace = accelsearch.run(args, device=dev)
+        runs.append(dict(
+            trace=trace, s=time.time() - t0,
+            base=os.path.join(d, "jerk_ACCEL_%d_JERK_%d"
+                              % (args.zmax, args.wmax)),
+            launches=dict(plane_build=build_cuda.launches,
+                          stage_reduce=accel_cuda.launches,
+                          stage_reduce_planes=accel_cuda.planes_launches)))
+    card, ref = runs
+    pairs = fftpack.np_complex64_to_pairs(packed)
+    rep = accelsearch.jerk_file_agreement(pairs, ref["base"], card["base"],
+                                          ref["trace"], card["trace"])
+    for f in rep.get("z", {}).get("flags", []) + \
+            rep.get("jerk", {}).get("flags", []):
+        log("jerk pulsar: a polish move past the rule (%s): %s"
+            % ("tie path" if f.get("tie_path") else "unexplained",
+               json.dumps(f, default=float)))
+    r_mean = p["f0"] * T + p["z"] / 2 + p["w"] / 6
+    z_mean = p["z"] + p["w"] / 2
+    final = card["trace"].final
+    top = final[0] if final else None
+    h = max(1, round(top.r / r_mean)) if top else 0
+    found = bool(top and abs(top.r - h * r_mean) < 0.5 * h
+                 and abs(top.z - h * z_mean) < 2.0 * h
+                 and abs(top.w - h * p["w"]) <= accel.ACCEL_DW * h)
+    ok = (found and rep["ok"]
+          and card["launches"]["stage_reduce_planes"] > 0)
+    res = dict(ok=ok, T=T, injected=dict(r=r_mean, z=z_mean, w=p["w"]),
+               top=dict(r=top.r, z=top.z, w=top.w, sigma=top.sigma,
+                        numharm=top.numharm, harmonic=h) if top else None,
+               found=found, cands=len(final),
+               seeds=len(card["trace"].cands),
+               jerk_taken=sum(card["trace"].jerk_taken),
+               same=rep["same"], boundary=rep["boundary"],
+               explained=rep["explained"], unexplained=rep["unexplained"],
+               z_moved=rep.get("z", {}).get("moved"),
+               jerk_moved=rep.get("jerk", {}).get("moved"),
+               tie_paths=(rep.get("z", {}).get("tie_paths", 0)
+                          + rep.get("jerk", {}).get("tie_paths", 0)),
+               card_s=card["s"], cpu_s=ref["s"],
+               launches=dict(cuda=card["launches"], cpu=ref["launches"]))
+    log("jerk pulsar (%s; T %.1f s): injected r %.3f z %.2f w %.1f; card "
+        "top %s (harmonic %d) found %s; %d candidates, %d took the jerk "
+        "polish; card vs CPU: %d same-point lines (%d on a rounding "
+        "boundary), %d moved and explained, unexplained %s; card %.2f s, "
+        "CPU %.2f s; launches %s %s"
+        % (" ".join(p["argv"]), T, r_mean, z_mean, p["w"],
+           json.dumps(res["top"], default=float), h, found, res["cands"],
+           res["jerk_taken"], rep["same"], rep["boundary"],
+           rep["explained"], rep["unexplained"], card["s"], ref["s"],
+           json.dumps(res["launches"]), "ok" if ok else "FAIL"))
+    return res
+
+
+def jerk_polish(pairs, raw, s):
+    """The bench search's deduplicated candidates polished on the card and
+    on the CPU from the same seeds: the (r, z) polish, then the jerk
+    polish from the CPU's (r, z) results with each candidate's search w,
+    each pair of lists held by polish.agreement (jerk=True for the
+    second); fails on an unexplained move."""
+    from presto_tpu_torch.search import accel, polish
+    cands = accel.remove_duplicates(accel.eliminate_harmonics(raw))
+    host = pairs.cpu()
+    out = dict(cands=len(cands))
+    z = {d: polish.optimize_accelcands(p, cands, s.T, s.numindep,
+                                       with_props=False, device=d)
+         for d, p in (("cuda", pairs), ("cpu", host))}
+    zrep = polish.agreement(host, z["cpu"], z["cuda"], seeds=cands)
+    seeds = [accel.AccelCand(power=o.power, sigma=o.sigma, numharm=o.numharm,
+                             r=o.r, z=o.z, w=c.w)
+             for c, o in zip(cands, z["cpu"])]
+    t = {}
+    j = {}
+    for d, p in (("cuda", pairs), ("cpu", host)):
+        polish.optimize_jerk_cands(p, seeds[:1], s.T, s.numindep, device=d)
+        if d == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.time()
+        j[d] = polish.optimize_jerk_cands(p, seeds, s.T, s.numindep,
+                                          device=d)
+        t[d] = time.time() - t0
+    jrep = polish.agreement(host, j["cpu"], j["cuda"], seeds=seeds,
+                            jerk=True)
+    # the jerk evaluators, card against CPU, at each CPU point and its
+    # 3 x 3 x 3 final-step stencil (what JERK_EVAL_RTOL rests on)
+    W, npts = polish._batch_geometry(seeds, True)
+    rel = {"objective": 0.0, "final": 0.0}
+    for sd, c in zip(seeds, j["cpu"]):
+        h = [x[0] for x in polish.final_steps([c.numharm])] + [
+            polish.final_step_w([c.numharm])[0]]
+        pts = np.array([(c.r + u * h[0], c.z + v * h[1], c.w + x * h[2])
+                        for u in (-1, 0, 1) for v in (-1, 0, 1)
+                        for x in (-1, 0, 1)])
+        card_m, cpu_m = (polish._SeedWindows(p, sd, W, npts, True)
+                         .measures(pts) for p in (pairs, host))
+        for k, name in enumerate(rel):
+            rel[name] = max(rel[name], float(np.max(
+                np.abs(card_m[k] - cpu_m[k]) / np.abs(cpu_m[k]))))
+    out["evaluator_rel"] = rel
+    for name, rep in (("(r, z)", zrep), ("jerk", jrep)):
+        for f in rep["flags"]:
+            log("jerk bench polish: %s candidate %d breaks the agreement "
+                "rule (%s): %s" % (name, f["i"], "tie path, open fault"
+                                   if f.get("tie_path") else "unexplained",
+                                   json.dumps(f, default=float)))
+        out[name] = dict(moved=rep["moved"], tie_paths=rep["tie_paths"],
+                         unexplained=rep["unexplained"], worst=rep["worst"])
+    out.update(ok=zrep["unexplained"] == 0 and jrep["unexplained"] == 0,
+               jerk_card_s=t["cuda"], jerk_cpu_s=t["cpu"],
+               pairs=int(sum(c.numharm for c in cands)))
+    log("jerk bench polish: %d candidates (%d pairs); (r, z) polish card "
+        "vs CPU: %d moved, %d tie paths, %d unexplained; jerk polish "
+        "(%.3f s card, %.2f s CPU): %d moved, %d tie paths, %d "
+        "unexplained; worst %s; jerk evaluators card vs CPU at 27 points "
+        "a candidate, largest relative difference %s (JERK_EVAL_RTOL "
+        "%g) %s"
+        % (len(cands), out["pairs"], zrep["moved"], zrep["tie_paths"],
+           zrep["unexplained"], t["cuda"], t["cpu"], jrep["moved"],
+           jrep["tie_paths"], jrep["unexplained"],
+           json.dumps(jrep["worst"], default=float), json.dumps(rel),
+           polish.JERK_EVAL_RTOL, "ok" if out["ok"] else "FAIL"))
+    return out
+
+
+def phase_jerk(gen, workdir):
+    """The jerk search on the card: the bench shape (JERK_BENCH) with its
+    host bank build timed on its own, the warm call and the best of 2,
+    cells/s as bench_jerk counts them, the launches of one search, the
+    tone found; the kernels at its geometry (jerk_kernels); the jerk
+    pulsar through accelsearch -wmax on the card and the CPU
+    (jerk_pulsar)."""
+    from presto_tpu_torch.search import accel, accel_cuda, build_cuda
+    b = JERK_BENCH
+    n = b["numbins"]
+    rng = np.random.default_rng(b["seed"])
+    pairs = np.stack([rng.normal(size=n), rng.normal(size=n)],
+                     -1).astype(np.float32)
+    pairs[b["tone_bin"]] = (b["tone"], 0.0)
+    cfg = accel.AccelConfig(zmax=b["zmax"], wmax=b["wmax"],
+                            numharm=b["numharm"], sigma=b["sigma"])
+    s = accel.AccelSearch(cfg, T=b["T"], numbins=n, device="cuda")
+    t0 = time.time()
+    for w in cfg.ws:
+        s.bank(w)
+    bank_s = time.time() - t0
+    dev_pairs = torch.as_tensor(pairs, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build_cuda.launches = accel_cuda.launches = 0
+    accel_cuda.planes_launches = 0
+    t0 = time.time()
+    cands = s.search(dev_pairs)
+    torch.cuda.synchronize()
+    warm = time.time() - t0
+    launches = dict(plane_build=build_cuda.launches,
+                    stage_reduce=accel_cuda.launches,
+                    stage_reduce_planes=accel_cuda.planes_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    best = float("inf")
+    for _ in range(2):
+        t0 = time.time()
+        again = s.search(dev_pairs)
+        torch.cuda.synchronize()
+        best = min(best, time.time() - t0)
+    same = ([(c.numharm, c.r, c.z, c.w, c.power) for c in again]
+            == [(c.numharm, c.r, c.z, c.w, c.power) for c in cands])
+    numr = int(s.rhi - s.rlo) * 2
+    cells = cfg.numz * numr * len(cfg.ws)
+    top = cands[0] if cands else None
+    tone = bool(top and abs(top.r - b["tone_bin"]) < 1.0)
+    geom = dict(uselen=s.cfg.uselen, fftlen=s.kern.fftlen,
+                halfwidth=s.kern.halfwidth, numz_pad=s.numz_pad,
+                plane=list(s.plane_geom()), aligned=s.aligned)
+    nws = len(cfg.ws)
+    ok = (tone and same and launches["plane_build"] == nws
+          and launches["stage_reduce_planes"] == nws)
+    log("jerk bench (2^20 bins, zmax 100, wmax 300: %d w planes, numharm 4, "
+        "sigma 6): geometry %s; host bank build %.2f s (%d banks); warm "
+        "call %.3f s, best of 2 %.3f s, %.4g cells/s (%d cells); launches "
+        "a search %s; peak %.2f GB; %d candidates, top r %.2f sigma %.2f, "
+        "tone found %s, repeat identical %s %s"
+        % (nws, json.dumps(geom), bank_s, nws, warm, best, cells / best,
+           cells, json.dumps(launches), peak_gb, len(cands),
+           top.r if top else -1, top.sigma if top else -1, tone, same,
+           "ok" if ok else "FAIL"))
+    pol = jerk_polish(dev_pairs, cands, s)
+    del dev_pairs
+    torch.cuda.empty_cache()
+    pb, red = jerk_kernels(s, n, torch.Generator(device="cuda").manual_seed(9))
+    del s
+    torch.cuda.empty_cache()
+    psr = jerk_pulsar(workdir)
+    return dict(ok=ok and pol["ok"] and pb["ok"] and red["ok"] and psr["ok"],
+                polish=pol, bench=dict(ok=ok, geometry=geom, bank_s=bank_s, banks=nws,
+                           warm_s=warm, best_s=best, cells=cells,
+                           cells_per_s=cells / best, launches=launches,
+                           peak_gb=peak_gb, cands=len(cands), tone=tone,
+                           repeat_identical=same),
+                plane_build=pb, stage_reduce_planes=red, pulsar=psr)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1906,24 +2261,44 @@ def main():
     small_ok = all(v["ok"] for v in small.values())
     torch.cuda.empty_cache()
     spb = phase_singlepulse()
+    torch.cuda.empty_cache()
+    jwork = tempfile.mkdtemp(prefix="chip_smoke_jerk_")
+    try:
+        jerk = phase_jerk(gen, jwork)
+    finally:
+        shutil.rmtree(jwork, ignore_errors=True)
     results.update(plane_build=k1, stage_reduce=k2, polish=pol,
                    main=main_res, ingest=ingest, fold=fold,
-                   toas=toas, singlepulse=spb,
+                   toas=toas, singlepulse=spb, jerk=jerk,
                    small_reference=small, total_s=time.time() - t_start)
+    # launches: the main path's (run_survey), plus the jerk paths' (the
+    # bench search, and accelsearch -wmax on the card), each counted
+    # from zero around its run
+    jl = [jerk["bench"]["launches"], jerk["pulsar"]["launches"]["cuda"]]
     kernels = []
-    for name, src, rep, k in (
+    for name, src, rep, k, jk in (
             ("plane_build", "presto_tpu_torch/csrc/plane_build.cu",
-             "presto_tpu/search/build_pallas.py:136", k1),
+             "presto_tpu/search/build_pallas.py:136", k1,
+             jerk["plane_build"]),
             ("stage_reduce", "presto_tpu_torch/csrc/stage_reduce.cu",
-             "presto_tpu/search/accel_pallas.py:245", k2)):
+             "presto_tpu/search/accel_pallas.py:245", k2,
+             jerk["stage_reduce_planes"])):
+        by_path = {"run_survey": main_res["launches"][name]}
+        for path, counts in zip(("jerk_bench", "accelsearch_wmax"), jl):
+            by_path[path] = counts[name] + counts.get(
+                "stage_reduce_planes", 0) * (name == "stage_reduce")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep,
-                        "launches": main_res["launches"][name],
+                        "launches": sum(by_path.values()),
                         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"],
                         "library_ms": k["library_ms"], "ok": k["ok"],
-                        "tolerance": k["tolerance"]})
+                        "tolerance": k["tolerance"],
+                        "launches_by_path": by_path,
+                        "jerk": {x: jk[x] for x in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}})
     log("results: %s" % json.dumps(results, default=float))
     failed = [n for n, ok in (("build", build["ok"]),
                               ("plane_build", k1["ok"]),
@@ -1932,7 +2307,8 @@ def main():
                               ("main", main_res["ok"]),
                               ("fold", fold["ok"]), ("toas", toas["ok"]),
                               ("small_reference", small_ok),
-                              ("singlepulse", spb["ok"])) if not ok]
+                              ("singlepulse", spb["ok"]),
+                              ("jerk", jerk["ok"])) if not ok]
     if failed:
         print("chip_smoke: FAILED phases: %s" % failed, file=sys.stderr)
         return 1

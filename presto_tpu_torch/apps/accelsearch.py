@@ -3,15 +3,17 @@
 PyTorch counterpart of ``presto_tpu/apps/accelsearch.py`` (CLI parity
 with the reference accelsearch, clig/accelsearch_cmd.cli): -zmax,
 -numharm, -sigma, -flo/-fhi/-rlo/-rhi, -lobin, -zaplist, -baryv and the
-normalization flags.  Outputs <base>_ACCEL_<zmax> (text candidate table,
-column structure of output_fundamentals accel_utils.c:565-718) and
-<base>_ACCEL_<zmax>.cand (binary candidate dump), byte-equal to the JAX
-package's writers for the same candidates.
+normalization flags, and -wmax (the jerk search).  Outputs
+<base>_ACCEL_<zmax> (text candidate table, column structure of
+output_fundamentals accel_utils.c:565-718; with -wmax
+<base>_ACCEL_<zmax>_JERK_<wmax> and an FFT 'w' column) and its .cand
+(binary candidate dump), byte-equal to the JAX package's writers for the
+same candidates.
 
 The polish is the JAX package's default path, the batched polish
-(search/polish.py), on the search's device.  It has no per-candidate
-fallback: a failure raises.  The jerk refinement (-wmax) waits for the
-jerk search and raises NotImplementedError.
+(search/polish.py), on the search's device, and with -wmax the batched
+(r, z, w) jerk polish seeded from it.  It has no per-candidate fallback:
+a failure raises.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import argparse
 import os
 import struct
 from contextlib import nullcontext
+from dataclasses import dataclass, replace
+from typing import List
 
 import numpy as np
 import torch
@@ -33,7 +37,8 @@ from presto_tpu_torch.ops.rednoise import (birds_to_bin_ranges, deredden,
 from presto_tpu_torch.search.accel import (AccelCand, AccelConfig,
                                            AccelSearch, eliminate_harmonics,
                                            remove_duplicates, resolve_device)
-from presto_tpu_torch.search.polish import optimize_accelcands
+from presto_tpu_torch.search.polish import (optimize_accelcands,
+                                           optimize_jerk_cands)
 
 
 def build_parser():
@@ -50,7 +55,8 @@ def build_parser():
                    help="The first Fourier frequency in the data file "
                         "(for spectra chopped out of a longer FFT)")
     p.add_argument("-wmax", type=int, default=0,
-                   help="Jerk refinement (not in the port yet)")
+                   help="Max jerk (w, bins) searched (0 = no jerk "
+                        "search)")
     p.add_argument("-zaplist", type=str, default=None)
     p.add_argument("-baryv", type=float, default=0.0)
     p.add_argument("-inmem", action="store_true",
@@ -137,60 +143,123 @@ def read_cand_file(path: str):
     return parse(*candidates[-1])
 
 
-def write_accel_file(path: str, cands, T: float) -> None:
+def write_accel_file(path: str, cands, T: float,
+                     with_w: bool = False) -> None:
     """Text table with the reference's column structure
-    (output_fundamentals, accel_utils.c:565-718).  Atomic on disk: a
-    killed search never leaves a half-written ACCEL table for a resume
-    to trust."""
+    (output_fundamentals, accel_utils.c:565-718); jerk runs append an
+    FFT 'w' column.  Atomic on disk: a killed search never leaves a
+    half-written ACCEL table for a resume to trust."""
     with atomic_open(path, "w") as f:
         f.write("             Summed  Coherent  Num        Period      "
                 "    Frequency         FFT 'r'        Freq Deriv      "
-                "FFT 'z'      Accel    \n")
+                "FFT 'z'      Accel    "
+                + ("  FFT 'w'   " if with_w else "") + "\n")
         f.write("Cand  Sigma   Power    Power   Harm       (ms)        "
                 "      (Hz)            (bin)           (Hz/s)         "
-                "(bins)      (m/s^2)  \n")
-        f.write("-" * 130 + "\n")
+                "(bins)      (m/s^2)  "
+                + ("  (bins)    " if with_w else "") + "\n")
+        f.write("-" * (142 if with_w else 130) + "\n")
         for i, c in enumerate(cands, 1):
             freq = c.r / T
             period_ms = 1000.0 / freq if freq > 0 else 0.0
             fdot = c.z / (T * T)
             accel = c.z * 299792458.0 / (T * T * max(freq, 1e-12))
             f.write("%-4d  %-5.2f  %-7.2f  %-7.2f  %-3d  %-15.8g  "
-                    "%-15.8g  %-14.4f  %-15.6g  %-10.2f  %-10.4g\n"
+                    "%-15.8g  %-14.4f  %-15.6g  %-10.2f  %-10.4g"
                     % (i, c.sigma, c.power, c.power / c.numharm,
                        c.numharm, period_ms, freq, c.r, fdot, c.z,
                        accel))
+            if with_w:
+                f.write("  %-10.2f" % c.w)
+            f.write("\n")
 
 
-def refine_and_write(raw_cands, amps, T, searcher, base, zmax, wmax=0,
-                     quiet=False, harmremove=True, harmpolish=True,
-                     lobin=0, timer=None):
-    """Candidate post-processing shared by the CLI and the survey:
-    harmonic elimination (unless -noharmremove), dedup, the batched
-    polish on the searcher's device, dedup again, ACCEL/.cand artifacts.
-    amps: the spectrum (a tensor of [n, 2] float32 pairs, or numpy).
-    lobin shifts reported frequencies for spectra chopped out of a
-    longer FFT.  With a ``timer`` (utils/timing.StageTimer) the polish
-    and the writes are timed as stages "polish" and "accel writes".
-    Returns (final candidates, ACCEL path)."""
-    if wmax:
-        raise NotImplementedError("accelsearch: the jerk refinement "
-                                  "(wmax) is not in the port yet")
+@dataclass
+class RefineTrace:
+    """What refine_and_write did to a raw list, step by step: the seeds
+    of the polish (after harmonic elimination and dedup), the polished
+    candidates, with wmax the jerk polish's seeds and results, and the
+    final list (before any lobin shift) with, per final candidate, the
+    index of its seed and whether it took the jerk polish's point.
+    nraw counts the raw list after harmonic elimination."""
+    nraw: int
+    cands: List[AccelCand]
+    ocs: list
+    jseeds: List[AccelCand]
+    jocs: list
+    final: List[AccelCand]
+    seed_of: List[int]
+    jerk_taken: List[bool]
 
+
+def refine(raw_cands, amps, T, searcher, wmax=0, harmremove=True,
+           harmpolish=True, timer=None) -> RefineTrace:
+    """The candidate post-processing of refine_and_write, without the
+    files: harmonic elimination (unless -noharmremove), dedup, the
+    batched polish on the searcher's device (with wmax then the jerk
+    polish, seeded from it with each candidate's search w: its (r, z, w)
+    is kept where |w| <= wmax and its power beats the (r, z) polish's,
+    else w is 0), dedup again.  The raw candidates are not changed."""
     def stage(name):
         return timer.stage(name) if timer is not None else nullcontext()
 
     if harmremove:
         raw_cands = eliminate_harmonics(raw_cands)
     cands = remove_duplicates(raw_cands)
+    jseeds, jocs = [], [None] * len(cands)
     with stage("polish"):
         ocs = optimize_accelcands(amps, cands, T, searcher.numindep,
                                   harmpolish=harmpolish, with_props=False,
                                   device=searcher.device)
-    for c, oc in zip(cands, ocs):
-        c.r, c.z = oc.r, oc.z
-        c.power, c.sigma = oc.power, oc.sigma
-    cands = remove_duplicates(cands)
+        if wmax and cands:
+            jseeds = [AccelCand(power=o.power, sigma=o.sigma,
+                                numharm=o.numharm, r=o.r, z=o.z, w=c.w)
+                      for c, o in zip(cands, ocs)]
+            jocs = optimize_jerk_cands(amps, jseeds, T, searcher.numindep,
+                                       harmpolish=harmpolish,
+                                       device=searcher.device)
+    refined, taken = [], []
+    for c, oc, joc in zip(cands, ocs, jocs):
+        c = replace(c, r=oc.r, z=oc.z, power=oc.power, sigma=oc.sigma)
+        took = bool(wmax) and abs(joc.w) <= wmax and joc.power > c.power
+        if took:
+            c = replace(c, r=joc.r, z=joc.z, w=joc.w, power=joc.power,
+                        sigma=joc.sigma)
+        elif wmax:
+            c.w = 0.0
+        refined.append(c)
+        taken.append(took)
+    final = remove_duplicates(refined)
+    index = {id(c): k for k, c in enumerate(refined)}
+    seed_of = [index[id(c)] for c in final]
+    return RefineTrace(nraw=len(raw_cands), cands=cands, ocs=ocs, jseeds=jseeds, jocs=jocs,
+                       final=final, seed_of=seed_of,
+                       jerk_taken=[taken[k] for k in seed_of])
+
+
+def refine_and_write(raw_cands, amps, T, searcher, base, zmax, wmax=0,
+                     quiet=False, harmremove=True, harmpolish=True,
+                     lobin=0, timer=None):
+    """Candidate post-processing shared by the CLI and the survey
+    (``refine``), then the ACCEL/.cand artifacts (with wmax the
+    _JERK_<wmax> table with its w column).  amps: the spectrum (a tensor
+    of [n, 2] float32 pairs, or numpy).  lobin shifts reported
+    frequencies for spectra chopped out of a longer FFT.  With a
+    ``timer`` (utils/timing.StageTimer) the polish and the writes are
+    timed as stages "polish" and "accel writes".  Returns (final
+    candidates, ACCEL path)."""
+    trace = refine(raw_cands, amps, T, searcher, wmax=wmax,
+                   harmremove=harmremove, harmpolish=harmpolish, timer=timer)
+    accelnm = write_results(trace, T, base, zmax, wmax, quiet=quiet,
+                            lobin=lobin, timer=timer)
+    return trace.final, accelnm
+
+
+def write_results(trace: RefineTrace, T, base, zmax, wmax=0, quiet=False,
+                  lobin=0, timer=None) -> str:
+    """The ACCEL table and .cand of a refined list (<base>_ACCEL_<zmax>,
+    with wmax <base>_ACCEL_<zmax>_JERK_<wmax>); returns the ACCEL path."""
+    cands = trace.final
     if lobin:
         # candidate r is in fundamental units; the chopped spectrum's
         # bin 0 is absolute bin `lobin`, so every reported frequency
@@ -198,16 +267,21 @@ def refine_and_write(raw_cands, amps, T, searcher, base, zmax, wmax=0,
         for c in cands:
             c.r += lobin
     accelnm = "%s_ACCEL_%d" % (base, zmax)
-    with stage("accel writes"):
-        write_accel_file(accelnm, cands, T)
+    if wmax:
+        accelnm += "_JERK_%d" % wmax
+    with (timer.stage("accel writes") if timer is not None
+          else nullcontext()):
+        write_accel_file(accelnm, cands, T, with_w=bool(wmax))
         write_cand_file(accelnm + ".cand", cands)
     if not quiet:
         print("accelsearch: %d raw -> %d final candidates -> %s"
-              % (len(raw_cands), len(cands), accelnm))
-    return cands, accelnm
+              % (trace.nraw, len(cands), accelnm))
+    return accelnm
 
 
-def run(args, device="cuda"):
+def run(args, device="cuda") -> RefineTrace:
+    """The CLI on ``device``: search, refine, write; returns the
+    refinement's trace (its final list is what the files hold)."""
     dev = resolve_device(device)
     base, ext = os.path.splitext(args.infile)
     if ext == ".dat" or (not os.path.exists(base + ".fft")
@@ -255,12 +329,11 @@ def run(args, device="cuda"):
     searcher = AccelSearch(cfg, T=T, numbins=numbins, device=dev)
     pairs_dev = torch.as_tensor(pairs, device=dev)
     raw = searcher.search(pairs_dev)
-    cands, _ = refine_and_write(
-        raw, pairs_dev, T, searcher, base, args.zmax, args.wmax,
-        harmremove=not args.noharmremove,
-        harmpolish=not (args.noharmpolish or args.otheropt),
-        lobin=args.lobin)
-    return cands
+    trace = refine(raw, pairs_dev, T, searcher, wmax=args.wmax,
+                   harmremove=not args.noharmremove,
+                   harmpolish=not (args.noharmpolish or args.otheropt))
+    write_results(trace, T, base, args.zmax, args.wmax, lobin=args.lobin)
+    return trace
 
 
 def main(argv=None, device="cuda") -> int:
@@ -274,3 +347,89 @@ def main(argv=None, device="cuda") -> int:
 if __name__ == "__main__":
     import sys
     sys.exit(main())
+
+
+def jerk_file_agreement(amps, want_base: str, got_base: str,
+                        want: RefineTrace, got: RefineTrace,
+                        harmpolish: bool = True) -> dict:
+    """Hold one _JERK_ ACCEL table and .cand (``got_base``, written from
+    the refinement ``got``) against another (``want_base``, ``want``) of
+    the same spectrum ``amps``, lobin 0 (card against CPU, or the port
+    against the JAX package): the same seeds, candidate count and
+    harmonics; each candidate on the same (r, z, w) grid point with its
+    .cand power and sigma within polish.SAME_POWER_RTOL / SAME_SIGMA
+    (its r, z and w are the same bytes) and its table line byte-equal,
+    or differing only where a sigma or power column's two values
+    straddle a %.2f rounding boundary (named, not failed); each
+    other line explained: its seed moved within search/polish.agreement
+    (or on a tie path) in the (r, z) polish or, from the same jerk seed,
+    in the jerk polish, or the two sides' choice between the two
+    polishes is a near-tie (their powers within 2 JERK_EVAL_RTOL).
+    Returns
+    {"ok", "same", "boundary", "explained", "unexplained", "z", "jerk"}
+    with the two polish agreements' reports."""
+    from presto_tpu_torch.search import polish
+    out = dict(ok=False, same=0, boundary=0, explained=0, unexplained=[])
+    files = [read_cand_file(b + ".cand") for b in (want_base, got_base)]
+    lines = [open(b).read().splitlines() for b in (want_base, got_base)]
+    pt = lambda c: (c.numharm, c.r, c.z, c.w)    # noqa: E731
+    for tr, fl in zip((want, got), files):
+        if [pt(c) for c in tr.final] != [pt(c) for c in fl]:
+            out["unexplained"].append("a .cand differs from its trace")
+    if ([(c.numharm, c.r, c.z, c.w) for c in want.cands]
+            != [(c.numharm, c.r, c.z, c.w) for c in got.cands]):
+        out["unexplained"].append("the two searches' seeds differ")
+    if (len(files[0]) != len(files[1]) or lines[0][:3] != lines[1][:3]
+            or len(lines[0]) != len(lines[1])):
+        out["unexplained"].append("lengths or headers differ")
+    if out["unexplained"]:
+        return out
+    zrep = polish.agreement(amps, want.ocs, got.ocs, seeds=want.cands,
+                            harmpolish=harmpolish)
+    same_j = [k for k, (a, b) in enumerate(zip(want.jseeds, got.jseeds))
+              if (a.r, a.z, a.w) == (b.r, b.z, b.w)]
+    jrep = polish.agreement(amps, [want.jocs[k] for k in same_j],
+                            [got.jocs[k] for k in same_j],
+                            seeds=[want.jseeds[k] for k in same_j],
+                            jerk=True, harmpolish=harmpolish)
+    out.update(z=zrep, jerk=jrep)
+
+    def fine(rep, idx):
+        ok = set(rep["moved_ok"]) | {f["i"] for f in rep["flags"]
+                                     if f.get("tie_path")}
+        return {idx[i] for i in ok}
+    z_ok = fine(zrep, list(range(len(want.cands))))
+    j_ok = fine(jrep, same_j)
+    for i, (a, b) in enumerate(zip(*files)):
+        la, lb = lines[0][3 + i], lines[1][3 + i]
+        if pt(a) == pt(b):
+            out["same"] += 1
+            if (abs(a.power - b.power) > polish.SAME_POWER_RTOL * abs(a.power)
+                    or abs(a.sigma - b.sigma) > polish.SAME_SIGMA):
+                out["unexplained"].append("line %d: power or sigma"
+                                          % (i + 1))
+            elif la != lb:
+                ta, tb = la.split(), lb.split()
+                diff = [k for k, (x, y) in enumerate(zip(ta, tb)) if x != y]
+                if (len(ta) == len(tb) and set(diff) <= {1, 2, 3}
+                        and all(abs(float(ta[k]) - float(tb[k])) <= 0.0100001
+                                for k in diff)):
+                    out["boundary"] += 1
+                else:
+                    out["unexplained"].append("line %d" % (i + 1))
+            continue
+        k = want.seed_of[i]
+        if got.seed_of[i] != k or a.numharm != b.numharm:
+            out["unexplained"].append("line %d: another seed" % (i + 1))
+            continue
+        oa, ob = want.ocs[k], got.ocs[k]
+        ja, jb = want.jocs[k], got.jocs[k]
+        choice_tie = (want.jerk_taken[i] != got.jerk_taken[i] and any(
+            abs(j.power - o.power) <= 2 * polish.JERK_EVAL_RTOL * abs(o.power)
+            for j, o in ((ja, oa), (jb, ob))))
+        if k in z_ok or k in j_ok or choice_tie:
+            out["explained"] += 1
+        else:
+            out["unexplained"].append("line %d: moved" % (i + 1))
+    out["ok"] = not out["unexplained"]
+    return out

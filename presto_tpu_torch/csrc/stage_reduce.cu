@@ -13,6 +13,14 @@
 // The adds run in the same term order as the JAX package (stage by stage,
 // ascending odd harm), so the float32 sums are identical to its bits.
 //
+// The multi-plane variant (MULTI, C entry stage_reduce_planes) computes the
+// same sums with the fundamental read from planes[0] and term i from
+// planes[i + 1] (the jerk search: each subharmonic has its own w plane, as
+// the JAX package's XLA scan _scan_planes_py, presto_tpu/search/accel.py,
+// reads them).  All planes share nrows and ldp.  The pointer table is
+// copied to shared memory once a CTA; everything else is the single-plane
+// kernel, whose instantiations (MULTI false) compile to the same code.
+//
 // What bounds it on this card: device memory.  Each input read once is
 // the plane (3.53 GB at zmax 200 over 2^21 bins, 1.09 ms at 3.35 TB/s).
 // But a column tile needs, besides its own columns, a window of each
@@ -54,6 +62,11 @@
 //    zero-filled by the copy (cp.async src-size), never read beyond it.
 //  * Geometry fixed at compile time: THREADS, ZC, STAGES below, and per
 //    stage count the window sizes in Geo<NST>.
+//  * Multi-plane: the same windows and the same bytes a tile as the
+//    single-plane kernel (each term has its own window either way); what
+//    differs is the bound, since each distinct plane is an input read
+//    once, over the rows and columns its terms name.  Three CTAs an SM
+//    (the pointer table's registers spill under four at numharm 8).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -119,9 +132,14 @@ struct Geo {
   static constexpr int TABLE = ZC * NE + 4;  // offsets, then the direct flag
   static constexpr int BUF = DATA + TABLE;   // a multiple of 4 (16 bytes)
   static constexpr int SMEM = STAGES * BUF * 4;
+  // the multi-plane kernel's pointer table follows the ring
+  static constexpr int SMEM_MULTI = SMEM + NE * 8;
   // CTAs an SM that its 228 KB of shared memory holds (1 KB each reserved)
   static constexpr int FIT = 233472 / (SMEM + 1024);
   static constexpr int MINB = FIT < 4 ? FIT : 4;
+  // the multi-plane kernel's plane pointers cost registers: at numharm 8
+  // it spills under the 64 that four CTAs an SM leave, so it asks for 3
+  static constexpr int MINB_MULTI = FIT < 3 ? FIT : 3;
   static_assert(BUF % 4 == 0 && (NE % 4 == 0 || NE < 4), "16-byte rows");
   static_assert(ZC * NE <= THREADS, "a thread for each table entry");
 };
@@ -161,9 +179,23 @@ __device__ __forceinline__ void take_max(float acc, int z, float& best,
   }
 }
 
+// The plane a read comes from: src(0) the fundamental's, src(i + 1) term
+// i's; one plane P, or (MULTI) the pointer table in shared memory.
+template <bool MULTI>
+struct Src {
+  const float* P;
+  const float* const* table;
+  __device__ __forceinline__ const float* operator()(int k) const {
+    if constexpr (MULTI)
+      return table[k];
+    else
+      return P;
+  }
+};
+
 // Issue the copies of chunk c into buffer B and write its offset table.
-template <int NST>
-__device__ __forceinline__ void stage_chunk(float* B, const float* P,
+template <int NST, class S>
+__device__ __forceinline__ void stage_chunk(float* B, S src,
                                             int ldp, int nrows,
                                             const int* __restrict__ zinds,
                                             int c, int j0, int tid) {
@@ -190,7 +222,7 @@ __device__ __forceinline__ void stage_chunk(float* B, const float* P,
       for (int u = tid; u < n * U; u += THREADS) {
         const int r = u / U, k = u - r * U;
         const long long a = (((long long)(lo + r) * ldp + cb) & ~3LL) + 4 * k;
-        copy16(B + BASE + r * W + 4 * k, P, a, total);
+        copy16(B + BASE + r * W + 4 * k, src(i + 1), a, total);
       }
     });
   }
@@ -260,8 +292,8 @@ __device__ __forceinline__ void sum_row(float acc, int z, Term term,
 
 // Sum chunk c (column j's values f, the term windows in buffer B) into the
 // running maxima of column j.
-template <int NST>
-__device__ __forceinline__ void sum_chunk(const float* B, const float* P,
+template <int NST, class S>
+__device__ __forceinline__ void sum_chunk(const float* B, S src,
                                           int ldp, int nrows, int c,
                                           int j, const float (&f)[ZC],
                                           const int (&co)[Geo<NST>::NE],
@@ -296,22 +328,31 @@ __device__ __forceinline__ void sum_chunk(const float* B, const float* P,
         const int* o = O + zz * g::NE;
         sum_row<NST>(f[zz], z0 + zz, [&](auto ic) {
           constexpr int i = decltype(ic)::value;
-          return __ldg(P + (long long)o[i + 1] * ldp + term_col(j, i));
+          return __ldg(src(i + 1) + (long long)o[i + 1] * ldp +
+                       term_col(j, i));
         }, best, bz);
       }
   }
 }
 
-template <int NST>
-__global__ void __launch_bounds__(THREADS, Geo<NST>::MINB)
+template <int NST, bool MULTI>
+__global__ void __launch_bounds__(THREADS, MULTI ? Geo<NST>::MINB_MULTI
+                                                : Geo<NST>::MINB)
 stage_reduce_kernel(const float* __restrict__ P, int ldp, int nrows,
                     const int* __restrict__ start_cols,
                     const int* __restrict__ zinds, float* __restrict__ colmax,
-                    int* __restrict__ colz, int slab) {
+                    int* __restrict__ colz, int slab,
+                    const float* const* __restrict__ planes) {
   using g = Geo<NST>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
+  const float** table = reinterpret_cast<const float**>(smem + STAGES * g::BUF);
+  if constexpr (MULTI) {
+    if (tid < g::NE) table[tid] = planes[tid];
+    __syncthreads();
+  }
+  const Src<MULTI> src{P, table};
   const int s = blockIdx.y;
   const int t = blockIdx.x * THREADS + tid;  // column within the slab
   const int j0 = __ldg(start_cols + s) + blockIdx.x * THREADS;
@@ -334,28 +375,28 @@ stage_reduce_kernel(const float* __restrict__ P, int ldp, int nrows,
   const int nchunks = cdiv(nrows, ZC);
   // the column's own values of chunk c and c + 1, loaded a chunk ahead
   float f[ZC], fnext[ZC];
-  load_fund(fnext, P, ldp, nrows, 0, j, live);
+  load_fund(fnext, src(0), ldp, nrows, 0, j, live);
 #pragma unroll 1
   for (int c = 0; c < STAGES - 1; ++c) {
     if (c < nchunks)
-      stage_chunk<NST>(smem + c * g::BUF, P, ldp, nrows, zinds, c, j0, tid);
+      stage_chunk<NST>(smem + c * g::BUF, src, ldp, nrows, zinds, c, j0, tid);
     cp_async_commit();
   }
 #pragma unroll 1
   for (int c = 0; c < nchunks; ++c) {
 #pragma unroll
     for (int zz = 0; zz < ZC; ++zz) f[zz] = fnext[zz];
-    load_fund(fnext, P, ldp, nrows, c + 1, j, live);
+    load_fund(fnext, src(0), ldp, nrows, c + 1, j, live);
     cp_async_wait<STAGES - 2>();  // chunk c has landed (this thread's part)
     __syncthreads();              // ... everyone's; chunk c - 1 is summed
     const int cn = c + STAGES - 1;
     if (cn < nchunks)
-      stage_chunk<NST>(smem + (cn % STAGES) * g::BUF, P, ldp, nrows, zinds,
+      stage_chunk<NST>(smem + (cn % STAGES) * g::BUF, src, ldp, nrows, zinds,
                        cn, j0, tid);
     cp_async_commit();
     if (live)
-      sum_chunk<NST>(smem + (c % STAGES) * g::BUF, P, ldp, nrows, c, j, f, co,
-                     best, bz);
+      sum_chunk<NST>(smem + (c % STAGES) * g::BUF, src, ldp, nrows, c, j, f,
+                     co, best, bz);
   }
   if (live) {
 #pragma unroll
@@ -367,45 +408,53 @@ stage_reduce_kernel(const float* __restrict__ P, int ldp, int nrows,
   }
 }
 
+template <int NST, bool MULTI>
+constexpr int smem_bytes() {
+  return MULTI ? Geo<NST>::SMEM_MULTI : Geo<NST>::SMEM;
+}
+
 // Dynamic shared memory above 48 KB, and the SM's split of its 256 KB
 // toward shared memory, so that Geo::MINB CTAs fit.
-template <int NST>
+template <int NST, bool MULTI>
 cudaError_t configure() {
   cudaError_t e = cudaFuncSetAttribute(
-      stage_reduce_kernel<NST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Geo<NST>::SMEM);
+      stage_reduce_kernel<NST, MULTI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<NST, MULTI>());
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(stage_reduce_kernel<NST>,
+  return cudaFuncSetAttribute(stage_reduce_kernel<NST, MULTI>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <int NST>
-int launch(const void* P, long long ldp, int nrows, const void* start_cols,
-           const void* zinds, void* colmax, void* colz, int nslabs, int slab,
-           cudaStream_t stream) {
-  using g = Geo<NST>;
-  cudaError_t e = configure<NST>();
+// P: the plane (MULTI false) or unused; planes: the device pointer table
+// (MULTI true) or null.
+template <int NST, bool MULTI>
+int launch(const void* P, const void* planes, long long ldp, int nrows,
+           const void* start_cols, const void* zinds, void* colmax,
+           void* colz, int nslabs, int slab, cudaStream_t stream) {
+  cudaError_t e = configure<NST, MULTI>();
   if (e != cudaSuccess) return (int)e;
   if (nslabs == 0 || slab == 0) return 0;
   dim3 grid(cdiv(slab, THREADS), nslabs);
-  stage_reduce_kernel<NST><<<grid, THREADS, g::SMEM, stream>>>(
+  const int smem = smem_bytes<NST, MULTI>();
+  stage_reduce_kernel<NST, MULTI><<<grid, THREADS, smem, stream>>>(
       (const float*)P, (int)ldp, nrows, (const int*)start_cols,
-      (const int*)zinds, (float*)colmax, (int*)colz, slab);
+      (const int*)zinds, (float*)colmax, (int*)colz, slab,
+      (const float* const*)planes);
   return (int)cudaGetLastError();
 }
 
-template <int NST>
+template <int NST, bool MULTI>
 int info(int* out) {
-  using g = Geo<NST>;
   out[0] = THREADS;
   out[1] = ZC;
   out[2] = STAGES;
-  out[3] = g::SMEM;
-  cudaError_t e = configure<NST>();
+  out[3] = smem_bytes<NST, MULTI>();
+  cudaError_t e = configure<NST, MULTI>();
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[4], stage_reduce_kernel<NST>, THREADS, g::SMEM);
+      &out[4], stage_reduce_kernel<NST, MULTI>, THREADS,
+      smem_bytes<NST, MULTI>());
 }
 
 }  // namespace
@@ -421,24 +470,54 @@ extern "C" int stage_reduce(const void* P, long long ldp, int nrows,
   if (ldp <= 0 || ldp >= (1LL << 31) - THREADS)
     return (int)cudaErrorInvalidValue;  // columns are 32-bit in the kernel
   switch (nstages) {
-    case 1: return launch<1>(P, ldp, nrows, start_cols, zinds, colmax, colz, nslabs, slab, st);
-    case 2: return launch<2>(P, ldp, nrows, start_cols, zinds, colmax, colz, nslabs, slab, st);
-    case 3: return launch<3>(P, ldp, nrows, start_cols, zinds, colmax, colz, nslabs, slab, st);
-    case 4: return launch<4>(P, ldp, nrows, start_cols, zinds, colmax, colz, nslabs, slab, st);
-    case 5: return launch<5>(P, ldp, nrows, start_cols, zinds, colmax, colz, nslabs, slab, st);
+    case 1: return launch<1, false>(P, nullptr, ldp, nrows, start_cols, zinds, colmax, colz, nslabs, slab, st);
+    case 2: return launch<2, false>(P, nullptr, ldp, nrows, start_cols, zinds, colmax, colz, nslabs, slab, st);
+    case 3: return launch<3, false>(P, nullptr, ldp, nrows, start_cols, zinds, colmax, colz, nslabs, slab, st);
+    case 4: return launch<4, false>(P, nullptr, ldp, nrows, start_cols, zinds, colmax, colz, nslabs, slab, st);
+    case 5: return launch<5, false>(P, nullptr, ldp, nrows, start_cols, zinds, colmax, colz, nslabs, slab, st);
     default: return (int)cudaErrorInvalidValue;  // no instantiation
   }
 }
 
-// The geometry of one instantiation: out = {threads a CTA, rows a chunk,
-// chunk buffers, dynamic shared memory bytes, CTAs an SM}.
-extern "C" int stage_reduce_info(int nstages, int* out) {
+// planes: device array of 2^(nstages-1) plane pointers (the fundamental's,
+// then each term's), each float32 [nrows, ldp] and 16-byte aligned; the
+// rest as stage_reduce.  nstages 2..5 (one plane at nstages 1: stage_reduce).
+extern "C" int stage_reduce_planes(const void* planes, long long ldp,
+                                   int nrows, const void* start_cols,
+                                   const void* zinds, void* colmax,
+                                   void* colz, int nslabs, int slab,
+                                   int nstages, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ldp <= 0 || ldp >= (1LL << 31) - THREADS)
+    return (int)cudaErrorInvalidValue;
   switch (nstages) {
-    case 1: return info<1>(out);
-    case 2: return info<2>(out);
-    case 3: return info<3>(out);
-    case 4: return info<4>(out);
-    case 5: return info<5>(out);
+    case 2: return launch<2, true>(nullptr, planes, ldp, nrows, start_cols, zinds, colmax, colz, nslabs, slab, st);
+    case 3: return launch<3, true>(nullptr, planes, ldp, nrows, start_cols, zinds, colmax, colz, nslabs, slab, st);
+    case 4: return launch<4, true>(nullptr, planes, ldp, nrows, start_cols, zinds, colmax, colz, nslabs, slab, st);
+    case 5: return launch<5, true>(nullptr, planes, ldp, nrows, start_cols, zinds, colmax, colz, nslabs, slab, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The geometry of one instantiation: out = {threads a CTA, rows a chunk,
+// chunk buffers, dynamic shared memory bytes, CTAs an SM}; multi selects
+// the multi-plane kernel (nstages 2..5).
+extern "C" int stage_reduce_info(int nstages, int multi, int* out) {
+  if (multi) {
+    switch (nstages) {
+      case 2: return info<2, true>(out);
+      case 3: return info<3, true>(out);
+      case 4: return info<4, true>(out);
+      case 5: return info<5, true>(out);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (nstages) {
+    case 1: return info<1, false>(out);
+    case 2: return info<2, false>(out);
+    case 3: return info<3, false>(out);
+    case 4: return info<4, false>(out);
+    case 5: return info<5, false>(out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

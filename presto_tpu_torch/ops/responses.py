@@ -6,17 +6,19 @@ nothing from the JAX package.
 Parity targets: reference src/responses.c.
   r_resp_halfwidth      responses.c:11-27
   z_resp_halfwidth      responses.c:29-66
+  w_resp_halfwidth      responses.c:68-91
   gen_r_response        responses.c:165-232  (sinc interpolation kernel)
   gen_z_response        responses.c:234-322  (constant-fdot template via
                                               Fresnel integrals)
+  gen_w_response        responses.c:325-...  (fdotdot template)
   place_complex_kernel  corr_prep.c:58-80    (NR wrap-around placement)
   spread_no_pad         corr_prep.c:28-40    (interbin zero interleave)
 
 These run once at search setup in float64 (SURVEY.md §7.3 hard part 2:
 Fresnel accuracy is a setup-time concern, so it stays on host at full
 precision); the resulting kernel banks move to device as float32 pairs.
-The port keeps the z-only parts: the jerk (w) and binary-orbit responses
-are left for later slices.
+The port keeps the z and w (jerk) parts; the binary-orbit responses are
+left for later slices.
 """
 
 from __future__ import annotations
@@ -56,6 +58,27 @@ def z_resp_halfwidth(z: float, accuracy: int = LOWACC) -> int:
         if z > 100 and m > 0.6 * z:
             m = int(0.6 * z)
     return m
+
+
+def w_resp_halfwidth(z: float, w: float, accuracy: int = LOWACC) -> int:
+    """Kernel half width for linearly-varying fdot (constant fdotdot).
+
+    The response spans the instantaneous-frequency excursion of the
+    kernel's phase model nu(u) = (-z/2 + w/12) + (z - w/2) u +
+    (w/2) u^2 over u in [0, 1] (the continuous model gen_w_response
+    integrates), plus the interpolation wings (responses.c:68-141
+    bounds the same excursion)."""
+    if abs(w) < 1.0e-7:
+        return z_resp_halfwidth(z, accuracy)
+    nu0 = -z / 2.0 + w / 12.0
+    nu1 = z / 2.0 + w / 12.0
+    ext = max(abs(nu0), abs(nu1))
+    if abs(w) > 1e-12:
+        ustar = (w / 2.0 - z) / w
+        if 0.0 < ustar < 1.0:
+            nus = nu0 + (z - w / 2.0) * ustar + (w / 2.0) * ustar ** 2
+            ext = max(ext, abs(nus))
+    return int(np.ceil(ext)) + r_resp_halfwidth(accuracy)
 
 
 def gen_r_response(roffset: float, numbetween: int,
@@ -128,6 +151,76 @@ def gen_z_response(roffset: float, numbetween: int, z: float,
             + xx2 * (3.1006276680299820175 * z)
         resp[m] = rr + 1j * ii
     return resp
+
+
+def gen_w_response(roffset: float, numbetween: int, z: float, w: float,
+                   numkern: int) -> np.ndarray:
+    """Response for constant fdotdot (jerk), by direct quadrature:
+
+      resp[i] = integral_0^1 exp(2 pi i (phi(u) - nu_i u)) du,
+      phi(u) = (-z/2 + w/12) u + (z/2 - w/4) u^2 + (w/6) u^3,
+      nu_i  = i/numbetween - numkern/(2 numbetween) - roffset,
+
+    which is gen_z_response at w = 0.  (The reference, responses.c:325-
+    457, samples the same model at 2^17 points, FFTs and sinc-interpolates
+    it.)  float64 midpoint rule at a resolution covering the template's
+    highest instantaneous frequency."""
+    assert 0.0 <= roffset < 1.0
+    assert numkern >= numbetween and numkern % (2 * numbetween) == 0
+    if abs(w) < 1e-4:
+        return gen_z_response(roffset, numbetween, z, numkern)
+    return gen_w_response_bank(roffset, numbetween,
+                               np.asarray([z]), w, numkern)[0]
+
+
+_WBANK_EXPMAT: dict = {}         # (numkern, numbetween, roffset, npts)
+                                 # -> cached Fourier matrix
+_WBANK_BUDGET = 2 * 2 ** 30      # bytes of cached matrices (a wmax-300
+                                 # bank's matrix is ~0.5-1 GB)
+
+
+def gen_w_response_bank(roffset: float, numbetween: int,
+                        zs: np.ndarray, w: float,
+                        numkern: int) -> np.ndarray:
+    """gen_w_response for a whole z bank at once -> [len(zs), numkern].
+
+    The [npts, numkern] Fourier matrix exp(-2 pi i u nu) depends only on
+    the kernel grid, so one matrix serves every z of every w plane of a
+    jerk search (cached, least recently used first out, under a byte
+    budget; only roffset-0 banks, the kernel-bank builds, are cached),
+    and the per-z work is one chirp table and one matrix product."""
+    zs = np.asarray(zs, np.float64)
+    absz = float(np.abs(zs).max()) if zs.size else 0.0
+    maxfreq = (numkern / (2.0 * numbetween) + absz + abs(w) / 2.0
+               + abs(roffset) + 2.0)
+    npts = int(max(1 << 14, next_pow2(int(32 * maxfreq))))
+    u = (np.arange(npts, dtype=np.float64) + 0.5) / npts
+    ckey = (numkern, numbetween, round(roffset, 12), npts)
+    expmat = _WBANK_EXPMAT.get(ckey)
+    if expmat is not None:
+        _WBANK_EXPMAT[ckey] = _WBANK_EXPMAT.pop(ckey)    # most recent
+    else:
+        i = np.arange(numkern, dtype=np.float64)
+        nu = i / numbetween - numkern / (2.0 * numbetween) - roffset
+        expmat = np.exp(-2j * np.pi * np.outer(u, nu))  # [npts, kern]
+        if roffset == 0.0 and zs.size > 1:
+            _WBANK_EXPMAT[ckey] = expmat
+            used = sum(m.nbytes for m in _WBANK_EXPMAT.values())
+            while used > _WBANK_BUDGET and len(_WBANK_EXPMAT) > 1:
+                used -= _WBANK_EXPMAT.pop(next(iter(_WBANK_EXPMAT))).nbytes
+    z_ = zs[:, None]
+    phi = ((-0.5 * z_ + w / 12.0) * u[None]
+           + (0.5 * z_ - 0.25 * w) * u[None] ** 2
+           + (w / 6.0) * u[None] ** 3)
+    sig = np.exp(2j * np.pi * phi)                      # [nz, npts]
+    return (sig @ expmat) / npts
+
+
+def next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
 
 
 def place_complex_kernel(kernel: np.ndarray, fftlen: int) -> np.ndarray:

@@ -17,16 +17,23 @@ explicit uselen take.  Both run on
     with ties broken by lowest index like ``jax.lax.top_k``;
   * candidate sigma math on the host in float64.
 
+With cfg.wmax it is the jerk search, the (r, z, w) volume: one plane per
+w on the ACCEL_DW grid, each built from that w's response bank, and each
+harmonic term read from the plane of its own subharmonic w
+(calc_required_w); planes are built in |w| order and kept in a plane
+cache, the multi-plane reducer sums them.
+
 Reference call stack (src/accelsearch.c:134-221, src/accel_utils.c):
 subharm_ffdot_plane builds the plane per r-block, inmem harmonic sums
 add subharmonic cells, search_ffdotpows thresholds at powcut[stage].
 
-Left for later slices: the jerk search (wmax), tuning-database lookups
-and telemetry.  Nothing here reads environment variables.
+Left for later slices: tuning-database lookups and telemetry.  Nothing
+here reads environment variables.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass, replace
 from typing import List, Optional
 
@@ -46,6 +53,7 @@ ACCEL_DZ = 2
 ACCEL_RDZ = 0.5
 ACCEL_CLOSEST_R = 15.0
 ACCEL_USELEN = 7470
+ACCEL_DW = 20                    # w grid step of the jerk search
 DBLCORRECT = 1e-14
 
 ROW_PAD = 8          # plane rows pad to a multiple of this (the JAX
@@ -59,6 +67,8 @@ COMPACT_CANDS = 2048  # default top-m budget per trial
 _CMP_ZBITS = 12      # compact meta word: zrow | stage << 12 | slab << 15
 _CMP_SBITS = 3
 MEM_HEADROOM = 0.9   # share of free device memory one trial may use
+MAX_INFLIGHT = 2     # jerk scans queued on the card ahead of the host collect
+BANK_SHARE = 8       # the jerk search's device banks take <= 1/8 of memory
 
 
 def _ref_scratch_bytes(fracs_zinds, numz: int, tile: int) -> int:
@@ -100,24 +110,42 @@ def calc_required_z(harm_fract: float, zfull: float) -> float:
     return _nearest_int(ACCEL_RDZ * zfull * harm_fract) * ACCEL_DZ
 
 
+def calc_required_w(harm_fract: float, wfull: float) -> float:
+    """w of the subharmonic for fundamental w, rounded to the jerk grid
+    (modern PRESTO's calc_required_w)."""
+    return _nearest_int(wfull * harm_fract / ACCEL_DW) * ACCEL_DW
+
+
 def index_from_z(z: float, loz: float) -> int:
     return int((z - loz) * ACCEL_RDZ + DBLCORRECT)
 
 
 def calc_fftlen(numharm: int, harmnum: int, max_zfull: int,
-                uselen: int = ACCEL_USELEN) -> int:
-    """FFT length for a subharmonic block (accel_utils.c:116-131)."""
+                uselen: int = ACCEL_USELEN, max_wfull: int = 0) -> int:
+    """FFT length for a subharmonic block (accel_utils.c:116-131; the
+    jerk search's banks size for the widest w kernel)."""
     harm_fract = harmnum / numharm
     bins_needed = uselen * harmnum // numharm + 2
     z_req = calc_required_z(harm_fract, max_zfull)
-    hw = resp.z_resp_halfwidth(z_req, resp.LOWACC)
+    hw = (resp.w_resp_halfwidth(z_req, max_wfull, resp.LOWACC)
+          if max_wfull else resp.z_resp_halfwidth(z_req, resp.LOWACC))
     return next2_to_n(bins_needed + 2 * ACCEL_NUMBETWEEN * hw)
+
+
+def kernel_halfwidth(cfg: "AccelConfig") -> int:
+    """Half width of the widest kernel of a search's banks: the
+    w-response's at (zmax, wmax) for a jerk search (every plane's bank,
+    w = 0 included, shares it), else the z-response's at zmax."""
+    if cfg.wmax:
+        return resp.w_resp_halfwidth(float(cfg.zmax), float(cfg.wmax),
+                                     resp.LOWACC)
+    return resp.z_resp_halfwidth(float(cfg.zmax), resp.LOWACC)
 
 
 @dataclass
 class AccelConfig:
     zmax: int = 200              # max |z| searched (fundamental)
-    wmax: int = 0                # jerk search: not in this slice
+    wmax: int = 0                # max |w| of the jerk search (0 = off)
     numharm: int = 8             # max harmonics summed (power of two)
     sigma: float = 2.0           # candidate sigma cutoff
     rlo: float = 0.0             # min Fourier freq searched (bins)
@@ -135,11 +163,20 @@ class AccelConfig:
     def numz(self) -> int:
         return (self.zmax // ACCEL_DZ) * 2 + 1
 
+    @property
+    def ws(self) -> np.ndarray:
+        """The jerk search's w grid; [0.] (one plane) when wmax is 0."""
+        if not self.wmax:
+            return np.zeros(1)
+        nside = self.wmax // ACCEL_DW
+        return (np.arange(2 * nside + 1) - nside) * float(ACCEL_DW)
+
 
 @dataclass
 class AccelKernels:
-    """The z-response kernel bank for the fundamental (host-built in
-    float64, stored time-domain, centered in a common kmax-tap window)."""
+    """The response kernel bank of one plane (host-built in float64,
+    stored time-domain, centered in a common kmax-tap window): the
+    z-responses, or for a jerk search's w != 0 plane the w-responses."""
     fftlen: int
     halfwidth: int
     numz: int
@@ -148,21 +185,37 @@ class AccelKernels:
     kern_pairs: np.ndarray       # [numz, kmax, 2] float32, centered
 
     @classmethod
-    def build(cls, cfg: AccelConfig) -> "AccelKernels":
-        """Parity: init_kernel (accel_utils.c:133-151) for harm 1/1."""
-        fftlen = calc_fftlen(1, 1, cfg.zmax, cfg.uselen)
-        halfwidth = resp.z_resp_halfwidth(float(cfg.zmax), resp.LOWACC)
+    def build(cls, cfg: AccelConfig, w: float = 0.0) -> "AccelKernels":
+        """Parity: init_kernel (accel_utils.c:133-151) for harm 1/1, one
+        kernel per z in [-zmax, zmax] step ACCEL_DZ, at plane w.  Every
+        plane of a jerk search shares the kmax of the widest kernel.  A
+        w != 0 bank is one whole-bank quadrature at kmax taps, each z's
+        kernel then cut to its own width (the centred sub-grids of the
+        kmax grid coincide, so this is the per-z kernel)."""
+        fftlen = calc_fftlen(1, 1, cfg.zmax, cfg.uselen, cfg.wmax)
+        halfwidth = kernel_halfwidth(cfg)
         numz = cfg.numz
         kmax = 2 * ACCEL_NUMBETWEEN * halfwidth
         kerns = np.zeros((numz, kmax), dtype=np.complex128)
         zs = -cfg.zmax + np.arange(numz, dtype=np.float64) * ACCEL_DZ
+        if abs(w) >= 1e-7:
+            full = resp.gen_w_response_bank(0.0, ACCEL_NUMBETWEEN, zs,
+                                            float(w), kmax)
         for i in range(numz):
-            hw = resp.z_resp_halfwidth(float(zs[i]), resp.LOWACC)
-            numkern = min(2 * ACCEL_NUMBETWEEN * hw, kmax)
-            k = resp.gen_z_response(0.0, ACCEL_NUMBETWEEN, float(zs[i]),
-                                    numkern)
-            start = kmax // 2 - numkern // 2
-            kerns[i, start:start + numkern] = k[:numkern]
+            if abs(w) < 1e-7:
+                hw = resp.z_resp_halfwidth(float(zs[i]), resp.LOWACC)
+                numkern = min(2 * ACCEL_NUMBETWEEN * hw, kmax)
+                k = resp.gen_z_response(0.0, ACCEL_NUMBETWEEN, float(zs[i]),
+                                        numkern)
+                start = kmax // 2 - numkern // 2
+                kerns[i, start:start + numkern] = k[:numkern]
+            else:
+                hw = resp.w_resp_halfwidth(float(zs[i]), float(w),
+                                           resp.LOWACC)
+                numkern = min(2 * ACCEL_NUMBETWEEN * hw, kmax)
+                start = kmax // 2 - numkern // 2
+                kerns[i, start:start + numkern] = \
+                    full[i, start:start + numkern]
         pairs = np.stack([kerns.real, kerns.imag],
                          axis=-1).astype(np.float32)
         return cls(fftlen=fftlen, halfwidth=halfwidth, numz=numz,
@@ -188,7 +241,8 @@ def _harm_fracs_and_zinds(cfg: AccelConfig, numz: int):
 
 
 def _powcuts(cfg: AccelConfig, rlo: float, rhi: float):
-    """numindep and powcut per stage (accel_utils.c:1629-1641)."""
+    """numindep and powcut per stage (accel_utils.c:1629-1641); a jerk
+    search counts each w plane as another set of independent trials."""
     numindep, powcut = [], []
     for ii in range(cfg.numharmstages):
         harmtosum = 1 << ii
@@ -197,6 +251,7 @@ def _powcuts(cfg: AccelConfig, rlo: float, rhi: float):
         else:
             ni = ((rhi - rlo) * (cfg.numz + 1) * (ACCEL_DZ / 6.95)
                   / harmtosum)
+        ni *= len(cfg.ws)
         numindep.append(ni)
         powcut.append(float(st.power_for_sigma(cfg.sigma, harmtosum, ni)))
     return numindep, powcut
@@ -328,9 +383,6 @@ class AccelSearch:
 
     def __init__(self, cfg: AccelConfig, T: float, numbins: int,
                  device="cuda"):
-        if cfg.wmax:
-            raise NotImplementedError("the jerk search (wmax) is not "
-                                      "ported yet")
         self.device = resolve_device(device)
         max_uselen = max(64, 2 * (numbins - 16))
         if cfg.uselen > max_uselen or cfg.uselen % 2:
@@ -338,11 +390,11 @@ class AccelSearch:
         # the aligned direct-plane geometry (accel.py:768-806 of the
         # JAX package): only the DEFAULT uselen is retuned
         if cfg.uselen == ACCEL_USELEN:
-            fft0 = calc_fftlen(1, 1, cfg.zmax, cfg.uselen)
-            hw0 = resp.z_resp_halfwidth(float(cfg.zmax), resp.LOWACC)
+            fft0 = calc_fftlen(1, 1, cfg.zmax, cfg.uselen, cfg.wmax)
+            hw0 = kernel_halfwidth(cfg)
             u_al = (fft0 - 4 * (-(-hw0 // 64) * 64)) & ~127
             if (1024 <= u_al <= max_uselen
-                    and calc_fftlen(1, 1, cfg.zmax, u_al) == fft0):
+                    and calc_fftlen(1, 1, cfg.zmax, u_al, cfg.wmax) == fft0):
                 cfg = replace(cfg, uselen=u_al)
         self.cfg = cfg
         self.T = T
@@ -387,6 +439,11 @@ class AccelSearch:
                                         device=self.device)
         self._kbank = fft_kernel_bank(kern.kern_pairs, kern.fftlen,
                                       self.device)
+        # the jerk search's banks, by grid w: host banks for the
+        # searcher's lifetime (at most len(cfg.ws) of them), the FFT'd
+        # device banks of w != 0 in a least-recently-used cache
+        self._w_banks = {0.0: kern}
+        self._w_banks_dev: OrderedDict = OrderedDict()
 
     # -- plane ---------------------------------------------------------
 
@@ -437,14 +494,186 @@ class AccelSearch:
             frames = frames * block_median_norms(frames)
         return torch.fft.fft(frames, dim=-1).contiguous()
 
-    def build_plane(self, pairs: torch.Tensor) -> torch.Tensor:
+    def build_plane(self, pairs: torch.Tensor, kbank=None,
+                    spectra=None) -> torch.Tensor:
         """The fundamental F-Fdot plane [numz_pad, plane_numr] of one
         spectrum ([numbins, 2] float32 on the searcher's device): plane
-        column c is absolute half-bin c."""
+        column c is absolute half-bin c.  ``kbank`` is a jerk plane's
+        device bank (default: the w = 0 bank); ``spectra`` the spectrum's
+        forward_spectra, when already computed."""
         _nblocks, nb_pad, _numr = self.plane_geom()
+        if spectra is None:
+            spectra = self.forward_spectra(pairs)
         return build_cuda.build_plane(
-            self.forward_spectra(pairs), self._kbank, self.numz_pad,
+            spectra, self._kbank if kbank is None else kbank, self.numz_pad,
             nb_pad, self.cfg.uselen, self.hw_eff * ACCEL_NUMBETWEEN)
+
+    # -- jerk search ---------------------------------------------------
+
+    def bank(self, w: float) -> AccelKernels:
+        """The host bank of grid plane w, built once a searcher."""
+        w = float(w)
+        kern = self._w_banks.get(w)
+        if kern is None:
+            kern = self._w_banks[w] = AccelKernels.build(self.cfg, w)
+        return kern
+
+    def _w_bank_dev(self, w: float, max_banks: int) -> torch.Tensor:
+        """The FFT'd device bank of grid plane w: the searcher's own at
+        w = 0, else from a least-recently-used cache of at most
+        ``max_banks`` banks kept across searches."""
+        w = float(w)
+        if w == 0.0:
+            return self._kbank
+        cache = self._w_banks_dev
+        kb = cache.pop(w, None)
+        if kb is None:
+            while len(cache) >= max_banks:
+                cache.popitem(last=False)
+            kern = self.bank(w)
+            kb = fft_kernel_bank(kern.kern_pairs, kern.fftlen, self.device)
+        cache[w] = kb
+        return kb
+
+    def _jerk_budget(self, plane_bytes: int, work_bytes: int, keep: int):
+        """(device banks, planes) the jerk search may cache, from the
+        device memory free now (torch.cuda.mem_get_info) plus what its
+        bank cache already holds: the banks take at most 1/BANK_SHARE of
+        it, the planes what is left after ``work_bytes``.  Raises when
+        the ``keep`` planes one scan reads do not fit.  Unbounded on the
+        CPU."""
+        nws = len(self.cfg.ws)
+        if self.device.type != "cuda":
+            return nws, nws
+        free, _total = torch.cuda.mem_get_info(self.device)
+        cached = (torch.cuda.memory_reserved(self.device)
+                  - torch.cuda.memory_allocated(self.device))
+        bank_bytes = self._kbank.numel() * 8
+        held = len(self._w_banks_dev) * bank_bytes
+        avail = MEM_HEADROOM * (free + cached) + held
+        max_banks = int(min(nws, max(1, avail // BANK_SHARE // bank_bytes)))
+        max_planes = int((avail - max_banks * bank_bytes - work_bytes)
+                         // plane_bytes)
+        if max_planes < keep:
+            raise MemoryError("accel: the jerk search reads %d planes of "
+                              "%.2f GB at once, and the device has room "
+                              "for %d" % (keep, plane_bytes / 1e9,
+                                          max(max_planes, 0)))
+        return max_banks, max_planes
+
+    def _search_jerk(self, pairs: torch.Tensor, slab: int,
+                     compact_m: int) -> List[AccelCand]:
+        """The (r, z, w) jerk search of one spectrum over the ACCEL_DW w
+        grid (the JAX package's _search_jerk).  numharm 1: one build +
+        reduce per w, in grid order.  Else per w, in |w| order, the
+        multi-plane reduce of the plane at w and the planes at each
+        term's subharmonic w, from a least-recently-used plane cache
+        whose planes of the current scan are never evicted.  A scan's
+        compacted candidates are copied to the host behind an event, and
+        collected one scan later (MAX_INFLIGHT), so the host decode
+        overlaps the next scan on the card.  What the caches hold
+        changes how often a plane is built, never the candidates."""
+        cfg = self.cfg
+        geom = self.plane_geom()
+        plan = self.slab_plan(geom[2], slab) if geom else None
+        if plan is None:
+            return []
+        slab, k, start_cols = plan
+        scols = torch.tensor(start_cols, dtype=torch.int32,
+                             device=self.device)
+        nst = cfg.numharmstages
+        fracs = [h / t for stage in self.fracs_zinds for (h, t, _z) in stage]
+        ladder = [float(w) for w in cfg.ws]
+        if fracs:
+            ladder.sort(key=abs)
+        subs_of = {w: [float(calc_required_w(f, w)) for f in fracs]
+                   for w in ladder}
+        keep_max = max(len(set(v) | {w}) for w, v in subs_of.items())
+        plane_bytes = self.numz_pad * geom[1] * cfg.uselen * 4
+        spectra = self.forward_spectra(pairs)
+        work = (spectra.numel() * 8 + plane_bytes
+                + (MAX_INFLIGHT + 1) * len(start_cols) * nst * slab * 8 * 3)
+        max_banks, max_planes = self._jerk_budget(
+            plane_bytes, work, keep_max if fracs else 1)
+        planes: OrderedDict = OrderedDict()
+
+        def plane_for(w: float, keep: set) -> torch.Tensor:
+            pl = planes.pop(w, None)
+            if pl is None:
+                # evict before building: at most max_planes resident (the
+                # budget holds a whole scan's keep set)
+                while len(planes) >= max_planes:
+                    del planes[next(x for x in planes if x not in keep)]
+                pl = self.build_plane(pairs, self._w_bank_dev(w, max_banks),
+                                      spectra=spectra)
+            planes[w] = pl
+            return pl
+
+        all_cands: List[AccelCand] = []
+        pend = []
+
+        def drain(down_to: int) -> None:
+            while len(pend) > down_to:
+                w, packed, comp, done = pend.pop(0)
+                if done is not None:
+                    done.synchronize()
+                for c in self._decode(comp.numpy(), packed, start_cols,
+                                      compact_m):
+                    # the plane cell is the numharm-th harmonic: its
+                    # (r, z, w) all scale down to the fundamental
+                    c.w = w / c.numharm
+                    all_cands.append(c)
+
+        for w in ladder:
+            if fracs:
+                keep = set(subs_of[w]) | {w}
+                src = [plane_for(w, keep)] + [plane_for(x, keep)
+                                              for x in subs_of[w]]
+                colmax, colz = accel_cuda.reduce_stages_planes(
+                    src, scols, self._zinds, slab, nst)
+                del src
+            else:
+                pl = self.build_plane(pairs, self._w_bank_dev(w, max_banks),
+                                      spectra=spectra)
+                colmax, colz = accel_cuda.reduce_stages(
+                    pl, scols, self._zinds, slab, nst)
+                del pl
+            packed = collect_from_reduced(colmax, colz, self._powcut_dev, k)
+            del colmax, colz
+            comp = compact_scan_packed(packed, compact_m)
+            done = None
+            if self.device.type == "cuda":
+                host = torch.empty(comp.shape, dtype=comp.dtype,
+                                   pin_memory=True)
+                host.copy_(comp, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                comp = host
+            pend.append((w, packed, comp, done))
+            drain(MAX_INFLIGHT - 1)
+        drain(0)
+        return self._merge_w_cands(all_cands)
+
+    @staticmethod
+    def _merge_w_cands(all_cands: List[AccelCand]) -> List[AccelCand]:
+        """The same (numharm, r) found in several w planes: keep the
+        strongest (the volume's local max)."""
+        best = {}
+        for c in sorted(all_cands, key=lambda c: -c.sigma):
+            best.setdefault((c.numharm, c.r), c)
+        return sorted(best.values(), key=lambda c: (-c.sigma, c.r))
+
+    def _decode(self, comp: np.ndarray, packed: torch.Tensor, start_cols,
+                compact_m: int) -> List[AccelCand]:
+        """One scan's candidates from its compacted output, or, when the
+        compaction budget ran out, from the dense packed output."""
+        try:
+            return self.collect_compacted(comp, start_cols,
+                                          requested_m=compact_m)
+        except ValueError:
+            vals, cidx, zrow = _unpack_scan(packed.cpu().numpy())
+            return self._dedup_sort(
+                self._collect_group(vals, cidx, zrow, start_cols))
 
     # -- search --------------------------------------------------------
 
@@ -512,6 +741,10 @@ class AccelSearch:
         batch = torch.as_tensor(pairs_batch, dtype=torch.float32,
                                 device=self.device)
         nd = batch.shape[0]
+        if self.cfg.wmax:
+            # the jerk search takes one spectrum at a time
+            return [self._search_jerk(batch[d], slab, compact_m)
+                    for d in range(nd)]
         geom = self.plane_geom()
         if nd == 0 or geom is None:
             return [[] for _ in range(nd)]
@@ -531,16 +764,7 @@ class AccelSearch:
             del plane
             packed = collect_from_reduced(colmax, colz, self._powcut_dev, k)
             comp = compact_scan_packed(packed, compact_m).cpu().numpy()
-            try:
-                cands = self.collect_compacted(comp, start_cols,
-                                               requested_m=compact_m)
-            except ValueError:
-                # more positive cells than the compaction budget: the
-                # lossless dense decode
-                vals, cidx, zrow = _unpack_scan(packed.cpu().numpy())
-                cands = self._dedup_sort(
-                    self._collect_group(vals, cidx, zrow, start_cols))
-            out.append(cands)
+            out.append(self._decode(comp, packed, start_cols, compact_m))
         return out
 
     @staticmethod
@@ -622,10 +846,12 @@ class AccelSearch:
 
 def from_reference_arrays(cfg: AccelConfig, T: float, numbins: int,
                           kern_pairs: np.ndarray, fracs_zinds,
-                          numindep, powcut, device="cuda") -> AccelSearch:
+                          numindep, powcut, w_banks=None,
+                          device="cuda") -> AccelSearch:
     """A searcher whose state comes from arrays built elsewhere (the JAX
-    package's kernel bank, z-row maps and powcuts, as numpy): ``cfg`` is
-    the final configuration (after the uselen choice)."""
+    package's kernel bank, z-row maps and powcuts, as numpy; for a jerk
+    search also its w banks, {w: kern_pairs}): ``cfg`` is the final
+    configuration (after the uselen choice)."""
     s = AccelSearch(cfg, T, numbins, device=device)
     if s.cfg != cfg:
         raise ValueError("from_reference_arrays: cfg %r resolves to %r"
@@ -635,6 +861,13 @@ def from_reference_arrays(cfg: AccelConfig, T: float, numbins: int,
         raise ValueError("from_reference_arrays: kernel bank shape %s"
                          % (kern.kern_pairs.shape,))
     s._set_state(kern, fracs_zinds, numindep, powcut)
+    for w, pairs in (w_banks or {}).items():
+        if float(w) != 0.0:
+            wk = replace(kern, kern_pairs=np.asarray(pairs, np.float32))
+            if wk.kern_pairs.shape != kern.kern_pairs.shape:
+                raise ValueError("from_reference_arrays: w bank %g shape %s"
+                                 % (w, wk.kern_pairs.shape))
+            s._w_banks[float(w)] = wk
     return s
 
 

@@ -15,6 +15,14 @@ The slab layout needs no alignment here: reads stay inside the plane,
 since every subharmonic column is <= j.  The kernel needs each z map
 nondecreasing (its chunks stage a row range per term); the wrapper checks
 that, and the slab bounds, once per input tensor, not per launch.
+
+reduce_stages_planes(planes, start_cols, zinds, slab, nstages) is the
+same function over a list of 1 + nterms planes of one shape: the
+fundamental from planes[0], term i from planes[i + 1] (the jerk search's
+per-subharmonic w planes; the JAX package sums them in the XLA scan
+_scan_planes_py, not in its Pallas reducer).  Its kernel is the
+multi-plane instantiation of the same source (C entry
+stage_reduce_planes).
 """
 
 from __future__ import annotations
@@ -29,6 +37,9 @@ from presto_tpu_torch import cuda_build
 
 #: kernel launches made by reduce_stages (reset by callers that count)
 launches = 0
+
+#: kernel launches made by reduce_stages_planes
+planes_launches = 0
 
 #: per checked input tensor: (its version counter, what it was checked for)
 _checked = WeakIdKeyDictionary()
@@ -45,6 +56,17 @@ def reduce_stages_plain(P: torch.Tensor, start_cols: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version: the staged gather-add-max loop, one slab at a
     time, adding terms in the kernel's order."""
+    return reduce_stages_planes_plain([P] * (1 << (nstages - 1)),
+                                      start_cols, zinds, slab, nstages)
+
+
+def reduce_stages_planes_plain(planes, start_cols: torch.Tensor,
+                               zinds: torch.Tensor, slab: int, nstages: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of reduce_stages_planes (and, with one plane
+    repeated, of reduce_stages): the fundamental, then the terms in stage
+    order and ascending odd harm, term i read from planes[i + 1]."""
+    P = planes[0]
     nslabs = start_cols.shape[0]
     terms = stage_terms(nstages)
     zl = zinds.long()
@@ -63,7 +85,7 @@ def reduce_stages_plain(P: torch.Tensor, start_cols: torch.Tensor,
                 harm, htot = terms[ti]
                 rind = ((cols // htot) * harm
                         + ((cols % htot) * harm + (htot >> 1)) // htot)
-                acc += P[zl[ti][:, None], rind[None, :]]
+                acc += planes[ti + 1][zl[ti][:, None], rind[None, :]]
                 ti += 1
             m, z = acc.max(dim=0)
             colmax[s, stage], colz[s, stage] = m, z.int()
@@ -102,13 +124,10 @@ def check_start_cols(start_cols: torch.Tensor, slab: int,
     _check_once(start_cols, ("start_cols", slab, numr), check)
 
 
-def reduce_stages(P: torch.Tensor, start_cols: torch.Tensor,
-                  zinds: torch.Tensor, slab: int, nstages: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """See the module docstring.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
-    if P.device.type == "cpu":
-        return reduce_stages_plain(P, start_cols, zinds, slab, nstages)
+def _check_launch(P: torch.Tensor, start_cols: torch.Tensor,
+                  zinds: torch.Tensor, slab: int, nstages: int) -> None:
+    """The checks both launches make on their inputs (P: the plane, or
+    the first of the planes)."""
     if P.device.type != "cuda" or any(
             t.device != P.device for t in (start_cols, zinds)):
         raise ValueError("reduce_stages: tensors must share one CUDA "
@@ -133,6 +152,18 @@ def reduce_stages(P: torch.Tensor, start_cols: torch.Tensor,
                          % (nslabs, numr, P.data_ptr()))
     check_start_cols(start_cols, slab, numr)
     check_zmaps(zinds, nrows)
+
+
+def reduce_stages(P: torch.Tensor, start_cols: torch.Tensor,
+                  zinds: torch.Tensor, slab: int, nstages: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """See the module docstring.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    if P.device.type == "cpu":
+        return reduce_stages_plain(P, start_cols, zinds, slab, nstages)
+    _check_launch(P, start_cols, zinds, slab, nstages)
+    nrows, numr = P.shape
+    nslabs = start_cols.shape[0]
     lib = cuda_build.load("stage_reduce")
     fn = lib.stage_reduce
     fn.restype = ctypes.c_int
@@ -150,4 +181,53 @@ def reduce_stages(P: torch.Tensor, start_cols: torch.Tensor,
             zinds.data_ptr(), colmax.data_ptr(), colz.data_ptr(), nslabs,
             slab, nstages, torch.cuda.current_stream(P.device).cuda_stream)
     cuda_build.check(rc, "stage_reduce")
+    return colmax, colz
+
+
+def reduce_stages_planes(planes, start_cols: torch.Tensor,
+                         zinds: torch.Tensor, slab: int, nstages: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """See the module docstring: ``planes`` is a sequence of 2^(nstages-1)
+    float32 [nrows, numr] tensors (one may repeat), nstages 2..5.  CPU
+    tensors take the plain version; CUDA tensors launch the multi-plane
+    kernel."""
+    planes = list(planes)
+    P = planes[0]
+    if len(planes) != 1 << (nstages - 1) or not 2 <= nstages <= 5:
+        raise ValueError("reduce_stages_planes: %d planes for %d stages"
+                         % (len(planes), nstages))
+    if any(p.shape != P.shape or p.dtype != P.dtype or p.device != P.device
+           for p in planes):
+        raise ValueError("reduce_stages_planes: the planes must share a "
+                         "shape, a dtype and a device")
+    if P.device.type == "cpu":
+        return reduce_stages_planes_plain(planes, start_cols, zinds, slab,
+                                          nstages)
+    _check_launch(P, start_cols, zinds, slab, nstages)
+    if not all(p.is_contiguous() for p in planes) or any(
+            p.data_ptr() % 16 for p in planes):
+        raise ValueError("reduce_stages_planes: planes must be contiguous "
+                         "and 16-byte aligned")
+    nrows, numr = P.shape
+    nslabs = start_cols.shape[0]
+    # the pointer table rides the stream from pinned memory (no host sync)
+    table = torch.tensor([p.data_ptr() for p in planes], dtype=torch.int64
+                         ).pin_memory().to(P.device, non_blocking=True)
+    lib = cuda_build.load("stage_reduce")
+    fn = lib.stage_reduce_planes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    colmax = torch.empty((nslabs, nstages, slab), dtype=torch.float32,
+                         device=P.device)
+    colz = torch.empty((nslabs, nstages, slab), dtype=torch.int32,
+                       device=P.device)
+    global planes_launches
+    planes_launches += 1
+    rc = fn(table.data_ptr(), numr, nrows, start_cols.data_ptr(),
+            zinds.data_ptr(), colmax.data_ptr(), colz.data_ptr(), nslabs,
+            slab, nstages, torch.cuda.current_stream(P.device).cuda_stream)
+    cuda_build.check(rc, "stage_reduce_planes")
     return colmax, colz

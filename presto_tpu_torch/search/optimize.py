@@ -2,8 +2,11 @@
 and candidate properties.
 
 Host copy of ``presto_tpu/search/optimize.py`` for the PyTorch port,
-which imports nothing from the JAX package: the (r, z) parts.  The jerk
-(r, z, w) refinement and corr_rz_plane wait for the jerk search.
+which imports nothing from the JAX package: the (r, z) parts and the
+jerk's (r, z, w) interpolation and simplex (rzw_interp, power_at_rzw,
+max_rzw_arr: the reference's per-candidate path, which the port's
+refine_and_write does not fall back to; the library and the tests use
+them).  corr_rz_plane is not ported.
 
 Parity targets (behavioral, not line-for-line):
   rz_interp            rzinterp.c:144-...   amplitude at fractional (r,z)
@@ -82,6 +85,32 @@ def power_at_rz(amps: np.ndarray, r: float, z: float) -> float:
     return a.real * a.real + a.imag * a.imag
 
 
+def rzw_interp(amps: np.ndarray, r: float, z: float,
+               w: float) -> complex:
+    """Complex amplitude at fractional (r, z, w): the jerk dimension
+    through gen_w_response (rzwinterp.c's role; w = fdotdot T^3)."""
+    if abs(w) < 1e-6:
+        return rz_interp(amps, r, z)
+    rint = int(np.floor(r))
+    frac = r - rint
+    hw = resp.w_resp_halfwidth(z, w, resp.HIGHACC)
+    numkern = 2 * hw
+    kern = resp.gen_w_response(frac, 1, z, w, numkern)
+    lobin = rint - numkern // 2
+    lo, hi = max(lobin, 0), min(lobin + numkern, amps.shape[0])
+    if hi <= lo:
+        return 0.0 + 0.0j
+    seg = np.zeros(numkern, dtype=np.complex128)
+    seg[lo - lobin:hi - lobin] = amps[lo:hi]
+    return complex(np.dot(seg, np.conj(kern)))
+
+
+def power_at_rzw(amps: np.ndarray, r: float, z: float,
+                 w: float) -> float:
+    a = rzw_interp(amps, r, z, w)
+    return a.real * a.real + a.imag * a.imag
+
+
 # ---------------------------------------------------------------------------
 # Maximization
 
@@ -100,6 +129,31 @@ def max_rz_arr(amps: np.ndarray, rin: float, zin: float):
                                  [rin, zin + 0.8]])})
     r, z = res.x
     return float(r), float(z), float(-res.fun)
+
+
+def max_rzw_arr(amps: np.ndarray, rin: float, zin: float,
+                win: float = 0.0):
+    """Refine (r, z, w) to the local power maximum (maximize_rzw.c's
+    amoeba as a 3-D Nelder-Mead), launched with both w-step signs (the
+    surface from a w = 0 seed often has a shoulder); the better solution
+    wins.  Returns (r, z, w, power)."""
+    def neg(x):
+        return -power_at_rzw(amps, x[0], x[1], x[2])
+
+    best = None
+    for wstep in (20.0, -20.0):
+        res = minimize(
+            neg, np.array([rin, zin, win]), method="Nelder-Mead",
+            options={"xatol": 1e-5, "fatol": 1e-8,
+                     "initial_simplex": np.array(
+                         [[rin, zin, win],
+                          [rin + 0.4, zin, win],
+                          [rin, zin + 0.8, win],
+                          [rin, zin, win + wstep]])})
+        if best is None or res.fun < best.fun:
+            best = res
+    r, z, w = best.x
+    return float(r), float(z), float(w), float(-best.fun)
 
 
 def max_rz_arr_harmonics(amps: np.ndarray, rin: float, zin: float,

@@ -34,7 +34,11 @@ changes a result:
     ``jax.ops.segment_sum``, with no atomics, so deterministic on the card;
   * no scipy fallback and no environment switch: a failure raises.
 
-The jerk (r, z, w) polish waits for the jerk search.
+The jerk (r, z, w) polish, ``optimize_jerk_cands``, is the same descent
+on a (2G+1)^2 (2GW+1) = 245-point (r, z, w) grid, the w term of the chirp
+being w (u^3/6 - u^2/4 + u/12) (the time-domain twin of gen_w_response's
+cubic phase), its local powers measured at w = 0 (the jerk acceptance
+convention of the JAX package).
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from presto_tpu_torch.search.optimize import (FourierProps, OptimizedCand,
                                               RDerivs, calc_props)
 
 GRID_G = 3              # grid half-extent: (2G+1)^2 = 49 points/stage
+GRID_GW = 2             # jerk descent: (2G+1)^2 (2GW+1) = 245 points/stage
 N_STAGES = 5            # stage s step = step0 / 3^s
 SHRINK = 3.0
 # stage-0 steps in FUNDAMENTAL bins (scaled 1/numharm per candidate):
@@ -60,6 +65,7 @@ SHRINK = 3.0
 # peak lies within (0.25, 1.0)/nh of the seed; G*step0 must cover it
 STEP0_R = 0.12
 STEP0_Z = 0.5
+STEP0_W = 5.0           # w step (fundamental; seed error <= ACCEL_DW/2)
 PAIR_CHUNK = 512        # pairs per slice of the [P, grid, npts] evaluation
 
 
@@ -115,28 +121,34 @@ def _windows_to_wmat(amp_pairs: torch.Tensor, rints: torch.Tensor, W: int,
     return torch.matmul(segc, F)                                 # [P, npts]
 
 
-def _eval_A(wmat: torch.Tensor, fr: torch.Tensor,
-            zh: torch.Tensor) -> torch.Tensor:
-    """A at (fr, zh) per pair and grid point: wmat [P, npts] complex,
-    fr/zh [P, G] -> [P, G] complex64 (chirp multiply + mean)."""
+def _eval_A(wmat: torch.Tensor, fr: torch.Tensor, zh: torch.Tensor,
+            wh: torch.Tensor = None) -> torch.Tensor:
+    """A at (fr, zh[, wh]) per pair and grid point: wmat [P, npts]
+    complex, fr/zh/wh [P, G] -> [P, G] complex64 (chirp multiply +
+    mean); wh adds the jerk phase wh (u^3/6 - u^2/4 + u/12)."""
     npts = wmat.shape[-1]
     u = _u_grid(npts, wmat.device)
     cu = 0.5 * (u * u - u)
     phase = fr[..., None] * u
     phase += zh[..., None] * cu
+    if wh is not None:
+        p3 = u * u * u / 6.0 - u * u / 4.0 + u / 12.0
+        phase += wh[..., None] * p3
     ph = _cis(phase.mul_(-2 * math.pi))
     return torch.mean(wmat[:, None, :] * ph, dim=-1)
 
 
 def _eval_A_chunked(wmat: torch.Tensor, fr: torch.Tensor,
-                    zh: torch.Tensor) -> torch.Tensor:
+                    zh: torch.Tensor, wh: torch.Tensor = None
+                    ) -> torch.Tensor:
     """_eval_A over slices of PAIR_CHUNK pairs (bounds the [P, G, npts]
     intermediates)."""
     P = wmat.shape[0]
     if P <= PAIR_CHUNK:
-        return _eval_A(wmat, fr, zh)
+        return _eval_A(wmat, fr, zh, wh)
     return torch.cat([_eval_A(wmat[i:i + PAIR_CHUNK], fr[i:i + PAIR_CHUNK],
-                              zh[i:i + PAIR_CHUNK])
+                              zh[i:i + PAIR_CHUNK],
+                              None if wh is None else wh[i:i + PAIR_CHUNK])
                       for i in range(0, P, PAIR_CHUNK)])
 
 
@@ -156,7 +168,7 @@ def _harmonic_slots(cand_of: np.ndarray, ncand: int):
 
 
 def _refine_stages(wmat, cand_of, hh, frac0, zseed, inv_lp, obj_w,
-                   step0_r, step0_z, ncand: int):
+                   step0_r, step0_z, ncand: int, wseed=None, step0_w=None):
     """The coarse-to-fine joint-harmonic grid descent, in offset space.
 
     wmat [P, npts]; cand_of [P] pair -> candidate (host integers, grouped
@@ -167,18 +179,21 @@ def _refine_stages(wmat, cand_of, hh, frac0, zseed, inv_lp, obj_w,
 
     Returns (dr, dz) [ncand], the fundamental offsets from the seed.
     (The JAX package also flags stage-0 argmaxes on the grid edge, for
-    its opt-in scipy fallback, which the port does not carry.)"""
+    its opt-in scipy fallback, which the port does not carry.)  With
+    wseed/step0_w [ncand] the descent is the jerk's, on the 3-D grid, and
+    returns (dr, dz, dw)."""
     dev = wmat.device
     grid = _StageGrid(wmat, cand_of, hh, frac0, zseed, inv_lp * obj_w,
-                      ncand)
+                      ncand, wseed)
     ar = torch.arange(ncand, device=dev)
-    dr = torch.zeros(ncand, dtype=torch.float32, device=dev)
-    dz = torch.zeros(ncand, dtype=torch.float32, device=dev)
+    d = [torch.zeros(ncand, dtype=torch.float32, device=dev)
+         for _ in range(2 if wseed is None else 3)]
+    steps = [step0_r, step0_z] + ([] if wseed is None else [step0_w])
     for div in STAGE_DIVISORS:
-        obj, rs, zs = grid.objective(dr, dz, step0_r / div, step0_z / div)
+        obj, pts = grid.objective(d, [s_ / div for s_ in steps])
         best = torch.argmax(obj, dim=-1)     # first maximum, as jnp.argmax
-        dr, dz = rs[ar, best], zs[ar, best]
-    return dr, dz
+        d = [p[ar, best] for p in pts]
+    return tuple(d)
 
 
 # each argmax stage's step divisor: the stage-0 walk re-centres twice at
@@ -188,33 +203,45 @@ STAGE_DIVISORS = (1.0, 1.0) + tuple(SHRINK ** s for s in range(1, N_STAGES))
 
 
 class _StageGrid:
-    """The descent's objective on a stage's (2G+1)^2 grid around each
-    candidate's centre: the joint harmonic sum of |A|^2 * weight, the
-    harmonics added in ascending order."""
+    """The descent's objective on a stage's grid around each candidate's
+    centre: the joint harmonic sum of |A|^2 * weight, the harmonics added
+    in ascending order.  The grid is (2G+1)^2 in (r, z), or with a w seed
+    (2G+1)^2 (2GW+1) in (r, z, w), laid out as the JAX package's (w
+    slowest, then r, then z)."""
 
-    def __init__(self, wmat, cand_of, hh, frac0, zseed, weight, ncand):
+    def __init__(self, wmat, cand_of, hh, frac0, zseed, weight, ncand,
+                 wseed=None):
         dev = wmat.device
         G = GRID_G
         ng = 2 * G + 1
         g1 = torch.arange(-G, G + 1, dtype=torch.float32, device=dev)
-        self.gi = torch.repeat_interleave(g1, ng)          # r offsets
-        self.gj = g1.repeat(ng)                            # z offsets
+        self.offs = [torch.repeat_interleave(g1, ng),      # r offsets
+                     g1.repeat(ng)]                        # z offsets
+        if wseed is not None:
+            gw = torch.arange(-GRID_GW, GRID_GW + 1, dtype=torch.float32,
+                              device=dev)
+            nw = gw.numel()
+            self.offs = [o.repeat(nw) for o in self.offs] + [
+                torch.repeat_interleave(gw, ng * ng)]      # w offsets
         slot, self.width = _harmonic_slots(cand_of, ncand)
         self.cof = torch.as_tensor(np.asarray(cand_of, np.int64), device=dev)
         self.slot = torch.as_tensor(slot, device=dev)
-        self.wmat, self.hh, self.frac0, self.zseed = wmat, hh, frac0, zseed
+        self.wmat, self.hh, self.frac0 = wmat, hh, frac0
+        self.seeds = [zseed] + ([] if wseed is None else [wseed])
         self.weight = weight[:, None]
         self.ncand = ncand
 
-    def objective(self, dr, dz, sr, sz):
-        """(objective [ncand, ngrid2], r offsets, z offsets) of the grid
-        of steps (sr, sz) around the centres (dr, dz)."""
+    def objective(self, centres, steps):
+        """(objective [ncand, ngrid], [r, z(, w) offsets [ncand, ngrid]])
+        of the grid of ``steps`` around ``centres`` (offsets from the
+        seeds, one [ncand] tensor an axis)."""
         cof, hh = self.cof, self.hh
-        rs = dr[:, None] + sr[:, None] * self.gi[None]     # [ncand, ngrid2]
-        zs = dz[:, None] + sz[:, None] * self.gj[None]
-        frp = self.frac0[:, None] + rs[cof] * hh[:, None]
-        zhp = (self.zseed[cof][:, None] + zs[cof]) * hh[:, None]
-        A = _eval_A_chunked(self.wmat, frp, zhp)
+        pts = [c[:, None] + s_[:, None] * o[None]          # [ncand, ngrid]
+               for c, s_, o in zip(centres, steps, self.offs)]
+        frp = self.frac0[:, None] + pts[0][cof] * hh[:, None]
+        zw = [(seed[cof][:, None] + p[cof]) * hh[:, None]
+              for seed, p in zip(self.seeds, pts[1:])]
+        A = _eval_A_chunked(self.wmat, frp, *zw)
         P2 = (A.real * A.real + A.imag * A.imag) * self.weight
         slots = torch.zeros((self.ncand, self.width, P2.shape[1]),
                             dtype=P2.dtype, device=P2.device)
@@ -222,7 +249,7 @@ class _StageGrid:
         obj = slots[:, 0]
         for j in range(1, self.width):       # ascending harmonic order
             obj = obj + slots[:, j]
-        return obj, rs, zs
+        return obj, pts
 
 
 def _final_measures(wmat, fr, zh):
@@ -247,14 +274,19 @@ def _final_measures(wmat, fr, zh):
 # ----------------------------------------------------------------------
 
 
-def _geometry(zmax_pairs: float):
-    """(W, npts) for a batch whose largest per-harmonic |z| (including
-    grid drift) is zmax_pairs: the window spans the widest kernel plus
-    the locpow offsets, quadrature resolves W/2 + z/2 + 1 cycles."""
-    hw = resp.z_resp_halfwidth(float(zmax_pairs), resp.HIGHACC)
+def _geometry(zmax_pairs: float, wmax_pairs: float = None):
+    """(W, npts) for a batch whose largest per-harmonic |z| (and, for the
+    jerk polish, |w|), grid drift included, is zmax_pairs (wmax_pairs):
+    the window spans the widest kernel plus the locpow offsets,
+    quadrature resolves W/2 + z/2 (+ w/12) + 2 cycles."""
+    if wmax_pairs is None:
+        hw = resp.z_resp_halfwidth(float(zmax_pairs), resp.HIGHACC)
+    else:
+        hw = resp.w_resp_halfwidth(zmax_pairs, wmax_pairs, resp.HIGHACC)
     W = _round_up(2 * hw + 2 * (resp.DELTAAVGBINS
                                 + resp.NUMLOCPOWAVG // 2) + 16, 128)
-    need = W // 2 + zmax_pairs / 2 + 2
+    extra = 0.0 if wmax_pairs is None else wmax_pairs / 12.0
+    need = W // 2 + zmax_pairs / 2 + extra + 2
     npts = 128
     while npts < 2 * need:
         npts *= 2
@@ -388,12 +420,102 @@ def optimize_accelcands(amps, cands, T: float, numindep: Sequence[float],
     return out
 
 
+def optimize_jerk_cands(amps, cands, T: float, numindep: Sequence[float],
+                        harmpolish: bool = True, device="cuda"
+                        ) -> List[OptimizedCand]:
+    """Batched (r, z, w) polish of jerk-search candidates (the JAX
+    package's optimize_jerk_cands): seeds carry the w of their plane
+    (fundamental-scaled), the descent runs on the 3-D grid, locpow is
+    measured at w = 0.  amps as in optimize_accelcands (one spectrum).
+    Returns OptimizedCand per input, in order, with .w set (no props)."""
+    if not cands:
+        return []
+    amp_pairs = _as_pairs(amps, device)
+    dev = amp_pairs.device
+    nc = len(cands)
+    nh = np.asarray([c.numharm for c in cands], np.int32)
+    seed_r = np.asarray([c.r for c in cands], np.float64)
+    seed_z = np.asarray([c.z for c in cands], np.float64)
+    seed_w = np.asarray([c.w for c in cands], np.float64)
+    cand_of = np.repeat(np.arange(nc, dtype=np.int32), nh)
+    hh = np.concatenate([np.arange(1, n + 1) for n in nh]
+                        ).astype(np.float32)
+    rint = np.floor(seed_r[cand_of] * hh).astype(np.int32)
+    P = cand_of.shape[0]
+    step0_r = (STEP0_R / nh).astype(np.float32)
+    step0_z = (STEP0_Z / nh).astype(np.float32)
+    step0_w = (STEP0_W / nh).astype(np.float32)
+    # the window covers the widest (z, w) kernel of the batch
+    zmax_b = float(np.abs(seed_z[cand_of] * hh).max()
+                   + STEP0_Z * GRID_G + 1.0)
+    wmax_b = float(np.abs(seed_w[cand_of] * hh).max()
+                   + STEP0_W * GRID_GW + 1.0)
+    W, npts = _geometry(zmax_b, wmax_b)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    frac0 = (seed_r[cand_of] * hh.astype(np.float64)
+             - rint).astype(np.float32)
+    seed_z32 = seed_z.astype(np.float32)
+    hh_t = t(hh)
+    wmat = _windows_to_wmat(amp_pairs, t(rint), W, npts)
+    # locpow at the seed, w = 0 (the jerk acceptance convention)
+    _, lp0 = _final_measures(wmat, t(frac0), t(seed_z32[cand_of] * hh))
+    obj_w = np.ones(P, np.float32) if harmpolish else \
+        (hh == 1.0).astype(np.float32)
+    drc, dzc, dwc = _refine_stages(
+        wmat, cand_of, hh_t, t(frac0), t(seed_z32), 1.0 / lp0, t(obj_w),
+        t(step0_r), t(step0_z), nc, wseed=t(seed_w.astype(np.float32)),
+        step0_w=t(step0_w))
+    rr = seed_r + drc.cpu().numpy().astype(np.float64)   # float64 rebuild
+    zz = seed_z + dzc.cpu().numpy().astype(np.float64)
+    ww = seed_w + dwc.cpu().numpy().astype(np.float64)
+
+    # raw powers at the refined (r, z, w), locpow at (r, z) and w = 0
+    hpow = _jerk_measures(wmat, rr, zz, ww, cand_of, hh, rint)
+    tot = np.zeros(nc)
+    np.add.at(tot, cand_of, hpow)
+    stages = np.log2(nh).astype(int)
+    sig = np.empty(nc, np.float64)
+    for s_ in np.unique(stages):
+        m = stages == s_
+        sig[m] = np.atleast_1d(st.candidate_sigma(
+            tot[m], 1 << int(s_), numindep[int(s_)]))
+    pair_lo = np.concatenate([[0], np.cumsum(nh)])
+    return [OptimizedCand(
+        r=float(rr[i]), z=float(zz[i]), power=float(tot[i]),
+        sigma=float(sig[i]), numharm=int(nh[i]),
+        hpows=list(hpow[pair_lo[i]:pair_lo[i + 1]]), w=float(ww[i]))
+        for i in range(nc)]
+
+
+def _jerk_measures(wmat, rr, zz, ww, cand_of, hh, rint) -> np.ndarray:
+    """Per pair |A(r h, z h, w h)|^2 / locpow(r h, z h), locpow at w = 0
+    (the jerk polish's final measurement); float64 [P]."""
+    dev = wmat.device
+    hh64 = hh.astype(np.float64)
+    frf = torch.as_tensor((rr[cand_of] * hh64 - rint).astype(np.float32),
+                          device=dev)
+    zhf = torch.as_tensor((zz[cand_of] * hh).astype(np.float32), device=dev)
+    whf = torch.as_tensor((ww[cand_of] * hh).astype(np.float32), device=dev)
+    A = _eval_A_chunked(wmat, frf[:, None], zhf[:, None], whf[:, None])[:, 0]
+    raw = (A.real * A.real + A.imag * A.imag).cpu().numpy()   # float32
+    _, lpf = _final_measures(wmat, frf, zhf)
+    return raw.astype(np.float64) / lpf.cpu().numpy().astype(np.float64)
+
+
 def final_steps(numharm) -> tuple:
     """(r, z) grid steps of the descent's last stage, fundamental units,
     for candidates of ``numharm`` harmonics."""
     shrink = SHRINK ** (N_STAGES - 1)
     nh = np.asarray(numharm, np.float64)
     return STEP0_R / nh / shrink, STEP0_Z / nh / shrink
+
+
+def final_step_w(numharm):
+    """The jerk descent's last-stage w step, fundamental units."""
+    return STEP0_W / np.asarray(numharm, np.float64) / SHRINK ** (N_STAGES - 1)
 
 
 def joint_powers(amps, r, z, numharm, zmax_pairs=None,
@@ -427,77 +549,134 @@ def joint_powers(amps, r, z, numharm, zmax_pairs=None,
     return tot
 
 
-def descent_replay(amps, seeds, tie_rtol, points=(), zmax_pairs=None,
-                   device="cpu"):
-    """Replay the grid descent of optimize_accelcands (harmpolish on)
-    for each seed candidate, letting every stage's argmax be any grid
-    point whose objective lies within ``tie_rtol`` of the stage's
-    maximum (relative): the final points the descent can reach when its
-    near-ties are broken either way.  ``points`` (one list of (r, z) per
-    seed) are measured as the polish's final measurement measures its
-    peak.  The window geometry is that of optimize_accelcands over a
-    batch whose largest |z h| is ``zmax_pairs`` (by default the seeds').
-    Returns, per seed, (reachable (r, z) float64 [k, 2], the powers of
-    its ``points``)."""
+class _SeedWindows:
+    """One seed's pairs as the polish sets them up: windows centred on
+    floor(r h) of the seed, the batch's window geometry, the seed's local
+    powers (w = 0) as objective weights."""
+
+    def __init__(self, amp_pairs, c, W, npts, jerk, harmpolish=True):
+        dev = amp_pairs.device
+        self.nh = nh = int(c.numharm)
+        self.hh = np.arange(1, nh + 1).astype(np.float32)
+        self.rint = np.floor(c.r * self.hh.astype(np.float64)).astype(np.int32)
+        self.frac0 = (c.r * self.hh.astype(np.float64)
+                      - self.rint).astype(np.float32)
+        self.seed = [np.float64(c.r), np.float64(c.z)] + (
+            [np.float64(c.w)] if jerk else [])
+        self.s32 = [np.float32(x) for x in self.seed[1:]]
+        self.wmat = _windows_to_wmat(amp_pairs, torch.as_tensor(
+            self.rint, device=dev), W, npts)
+        _, self.lp0 = _final_measures(
+            self.wmat, torch.as_tensor(self.frac0, device=dev),
+            torch.as_tensor(self.s32[0] * self.hh, device=dev))
+        self.weight = (self.hh == 1.0) if not harmpolish else \
+            np.ones(nh, bool)
+
+    def measures(self, pts):
+        """For points [k, axes] (absolute r, z(, w)): (the descent's
+        objective, offsets from the seed in float32 as the descent forms
+        them; the final measurement), float64 [k] each."""
+        dev = self.wmat.device
+        pts = np.asarray(pts, np.float64).reshape(-1, len(self.seed))
+        k = len(pts)
+        hh = np.tile(self.hh, k)
+        off = [(pts[:, a] - self.seed[a]).astype(np.float32)
+               for a in range(len(self.seed))]
+        rep = np.repeat(np.arange(k), self.nh)
+        fr = torch.as_tensor(np.tile(self.frac0, k) + off[0][rep] * hh,
+                             device=dev)
+        zw = [torch.as_tensor((s + o[rep]) * hh, device=dev)
+              for s, o in zip(self.s32, off[1:])]
+        wm = self.wmat.repeat(k, 1)
+        A = _eval_A_chunked(wm, fr[:, None], *[x[:, None] for x in zw])[:, 0]
+        raw = (A.real * A.real + A.imag * A.imag).cpu().numpy()
+        lp0 = np.tile(self.lp0.cpu().numpy(), k)
+        wgt = np.tile(self.weight, k)
+        obj = np.where(wgt, raw / lp0, 0.0).reshape(k, self.nh).sum(-1)
+        rint = np.tile(self.rint, k)
+        if len(self.seed) == 3:
+            fin = _jerk_measures(wm, pts[:, 0], pts[:, 1], pts[:, 2], rep,
+                                 hh, rint)
+        else:                 # optimize_accelcands' final measurement
+            frf = torch.as_tensor((pts[rep, 0] * hh.astype(np.float64)
+                                   - rint).astype(np.float32), device=dev)
+            zhf = torch.as_tensor((pts[rep, 1] * hh).astype(np.float32),
+                                  device=dev)
+            Af, lpf = _final_measures(wm, frf, zhf)
+            A0 = Af[:, 0].cpu().numpy().astype(np.complex128)
+            fin = (A0.real ** 2 + A0.imag ** 2) \
+                / lpf.cpu().numpy().astype(np.float64)
+        return obj.astype(np.float64), fin.reshape(k, self.nh).sum(-1)
+
+
+def _batch_geometry(seeds, jerk):
+    """(W, npts) of a polish of the batch ``seeds``."""
+    zgeo = max(abs(float(c.z)) * c.numharm for c in seeds) \
+        + STEP0_Z * GRID_G + 1.0
+    if not jerk:
+        return _geometry(zgeo)
+    return _geometry(zgeo, max(abs(float(c.w)) * c.numharm for c in seeds)
+                     + STEP0_W * GRID_GW + 1.0)
+
+
+def descent_replay(amps, seeds, tie_rtol, points=(), batch=None, jerk=False,
+                   harmpolish=True, device="cpu"):
+    """Replay the grid descent of optimize_accelcands (with ``jerk`` that
+    of optimize_jerk_cands, on the 3-D grid) for each seed candidate,
+    letting every stage's argmax be any grid point whose objective lies
+    within ``tie_rtol`` of the stage's maximum (relative): the final
+    points the descent can reach when its near-ties are broken either
+    way (at most 64 a stage, the best).  ``points`` (one list of (r, z)
+    or (r, z, w) per seed) are measured as the polish's final
+    measurement measures its peak.  The window geometry is that of a
+    polish of ``batch`` (by default the seeds).  Returns, per seed,
+    (reachable points float64 [k, 2 or 3], the powers of its
+    ``points``)."""
     amp_pairs = _as_pairs(amps, device)
     dev = amp_pairs.device
+    naxes = 3 if jerk else 2
+    W, npts = _batch_geometry(batch if batch is not None else seeds, jerk)
 
     def t(a):
         return torch.as_tensor(a, device=dev)
-    if zmax_pairs is None:
-        zmax_pairs = max(abs(float(c.z)) * c.numharm for c in seeds)
-    W, npts = _geometry(float(zmax_pairs) + STEP0_Z * GRID_G + 1.0)
     out = []
     for k, c in enumerate(seeds):
-        nh = int(c.numharm)
-        hh = np.arange(1, nh + 1).astype(np.float32)
-        rint = np.floor(c.r * hh.astype(np.float64)).astype(np.int32)
-        frac0 = (c.r * hh.astype(np.float64) - rint).astype(np.float32)
-        z32 = np.float32(c.z)
-        wmat1 = _windows_to_wmat(amp_pairs, t(rint), W, npts)
-        _, lp0 = _final_measures(wmat1, t(frac0), t(z32 * hh))
-        step0 = (np.float32(STEP0_R / nh), np.float32(STEP0_Z / nh))
-        dr = torch.zeros(1, dtype=torch.float32, device=dev)
-        dz = torch.zeros(1, dtype=torch.float32, device=dev)
+        sw = _SeedWindows(amp_pairs, c, W, npts, jerk, harmpolish)
+        nh, hh = sw.nh, sw.hh
+        step0 = [np.float32(STEP0_R / nh), np.float32(STEP0_Z / nh)] + (
+            [np.float32(STEP0_W / nh)] if jerk else [])
+        d = [torch.zeros(1, dtype=torch.float32, device=dev)
+             for _ in range(naxes)]
+        inv = (1.0 / sw.lp0) * t(sw.weight.astype(np.float32))
         for div in STAGE_DIVISORS:
-            ncent = dr.shape[0]
-            grid = _StageGrid(wmat1.repeat(ncent, 1),
+            ncent = d[0].shape[0]
+            grid = _StageGrid(sw.wmat.repeat(ncent, 1),
                               np.repeat(np.arange(ncent), nh),
-                              t(np.tile(hh, ncent)), t(np.tile(frac0, ncent)),
-                              t(np.full(ncent, z32)),
-                              (1.0 / lp0).repeat(ncent), ncent)
-            sr = torch.full((ncent,), float(step0[0]), dtype=torch.float32,
-                            device=dev) / div
-            sz = torch.full((ncent,), float(step0[1]), dtype=torch.float32,
-                            device=dev) / div
-            obj, rs, zs = grid.objective(dr, dz, sr, sz)
+                              t(np.tile(hh, ncent)),
+                              t(np.tile(sw.frac0, ncent)),
+                              t(np.full(ncent, sw.s32[0])),
+                              inv.repeat(ncent), ncent,
+                              t(np.full(ncent, sw.s32[1])) if jerk else None)
+            steps = [torch.full((ncent,), float(st0), dtype=torch.float32,
+                                device=dev) / div for st0 in step0]
+            obj, pts = grid.objective(d, steps)
             top = obj.max(dim=-1, keepdim=True).values
             keep = obj >= top - tie_rtol * top.abs()
-            cand = torch.stack([rs[keep], zs[keep], obj[keep]], -1).cpu()
+            cand = torch.stack([p[keep] for p in pts] + [obj[keep]],
+                               -1).cpu().numpy()
             seen = {}
-            for r_, z_, o_ in cand.numpy():
-                key = (np.float32(r_).tobytes(), np.float32(z_).tobytes())
-                seen[key] = max(seen.get(key, -np.inf), float(o_))
+            for row in cand:
+                key = np.asarray(row[:naxes], np.float32).tobytes()
+                seen[key] = max(seen.get(key, -np.inf), float(row[-1]))
             best = sorted(seen.items(), key=lambda kv: -kv[1])[:64]
-            dr = t(np.array([np.frombuffer(kk[0], np.float32)[0]
-                             for kk, _ in best], np.float32))
-            dz = t(np.array([np.frombuffer(kk[1], np.float32)[0]
-                             for kk, _ in best], np.float32))
-        reach = np.stack([c.r + dr.cpu().numpy().astype(np.float64),
-                          c.z + dz.cpu().numpy().astype(np.float64)], -1)
+            cent = np.stack([np.frombuffer(kk, np.float32)
+                             for kk, _ in best])
+            d = [t(cent[:, a].copy()) for a in range(naxes)]
+        reach = np.stack([sw.seed[a] + d[a].cpu().numpy().astype(np.float64)
+                          for a in range(naxes)], -1)
         pts = np.asarray(points[k] if points else [], np.float64).reshape(
-            -1, 2)
-        pows = np.zeros(len(pts))
-        if len(pts):
-            npt = len(pts)
-            frf = (pts[:, 0:1] * hh.astype(np.float64) - rint).astype(
-                np.float32).ravel()
-            zhf = (pts[:, 1:2] * hh).astype(np.float32).ravel()
-            A3, lpf = _final_measures(wmat1.repeat(npt, 1), t(frf), t(zhf))
-            A0 = A3[:, 0].cpu().numpy().astype(np.complex128)
-            hp = (A0.real ** 2 + A0.imag ** 2) \
-                / lpf.cpu().numpy().astype(np.float64)
-            pows = hp.reshape(npt, nh).sum(-1)
+            -1, naxes)
+        pows = sw.measures(pts)[1] if len(pts) else np.zeros(0)
         out.append((reach, pows))
     return out
 
@@ -520,6 +699,23 @@ def descent_replay(amps, seeds, tie_rtol, points=(), zmax_pairs=None,
 #    differ by at most L, plus the rounding of the two evaluations;
 #  * the two sides' reported powers within the same bound (each side
 #    evaluated its own point), and sigma within MOVED_SIGMA.
+# The jerk polish (jerk=True; the seeds are required) is held by the same
+# rule in (r, z, w) on its 3-D grid, with L summed over the three axes'
+# Hessian terms from a 3 x 3 x 3 stencil, and one change: P is the
+# descent's own objective (harmonic powers over the SEED's local powers),
+# not the final measurement.  The final measurement divides by the local
+# power at the point, taken at w = 0 around r h: along the jerk's
+# (r, z, w) valley of near-equal objective that local power moves (0.3%
+# for one final step on a strong numharm-4 signal), so the final power
+# is no measure of a near-tie there.  Instead each side's reported power
+# must be the evaluator's final measurement at its own point within
+# 2 * EVAL_RTOL (relative), and sigma, which follows it, is not compared.
+# The jerk rule takes JERK_EVAL_RTOL and JERK_TIE_RTOL in place of
+# EVAL_RTOL and TIE_RTOL: its chirp adds w h (u^3/6 - u^2/4 + u/12), so
+# the float32 phases are larger and two evaluators differ more (up to
+# 9.5e-6 at one point: the objective and the final measurement at 27
+# points around each of ten candidates of the jerk bench shape, card
+# against CPU on an NVIDIA H100 80GB HBM3, PERF.md), rounded up.
 # EVAL_RTOL is the largest relative difference of two evaluators at one
 # point (1.0e-6 to 1.3e-6, card against CPU on an NVIDIA H100 80GB HBM3,
 # PERF.md), rounded up.  Every other move is flagged.  With the seeds,
@@ -539,31 +735,65 @@ SAME_SIGMA = 1e-3
 MOVED_SIGMA = 1e-2
 EVAL_RTOL = 2e-6
 TIE_RTOL = 1e-5
+JERK_EVAL_RTOL = 2e-5
+JERK_TIE_RTOL = 1.6e-4
 
 
-def _in_reach(reach, c) -> bool:
-    return bool(np.any((np.abs(reach[:, 0] - c.r) <= 1e-9 * max(1.0, abs(c.r)))
-                       & (np.abs(reach[:, 1] - c.z) <= 1e-9
-                          * max(1.0, abs(c.z)))))
+def _point(c, jerk):
+    return (c.r, c.z, c.w) if jerk else (c.r, c.z)
 
 
-def agreement(amps, want, got, seeds=None, device="cpu") -> dict:
+def _in_reach(reach, c, jerk=False) -> bool:
+    ok = np.ones(len(reach), bool)
+    for a, v in enumerate(_point(c, jerk)):
+        ok &= np.abs(reach[:, a] - v) <= 1e-9 * max(1.0, abs(v))
+    return bool(ok.any())
+
+
+def _curvature_loss(P0, st_, h):
+    """L = sum_ij |H_ij| h_i h_j / 8 from the stencil values st_ (keyed by
+    offset tuples) around P0, with steps h (one array an axis)."""
+    naxes = len(h)
+    L = np.zeros_like(P0)
+    for a in range(naxes):
+        for b in range(a, naxes):
+            if a == b:
+                e = tuple(int(x == a) for x in range(naxes))
+                m = tuple(-x for x in e)
+                H = (st_[e] + st_[m] - 2 * P0) / h[a] ** 2
+                L = L + np.abs(H) * h[a] ** 2
+            else:
+                def o(sa, sb):
+                    return tuple(sa if x == a else sb if x == b else 0
+                                 for x in range(naxes))
+                H = (st_[o(1, 1)] - st_[o(1, -1)] - st_[o(-1, 1)]
+                     + st_[o(-1, -1)]) / (4 * h[a] * h[b])
+                L = L + 2 * np.abs(H) * h[a] * h[b]
+    return L / 8
+
+
+def agreement(amps, want, got, seeds=None, jerk=False, harmpolish=True,
+              device="cpu") -> dict:
     """Hold ``got`` against ``want`` (two polished lists of the same
     candidates, in the same order, on spectrum ``amps``; ``seeds`` the
-    unpolished candidates of the one batch both polished, when known)
-    by the rule above.  Returns
-    {"ok", "moved", "tie_paths", "unexplained", "worst", "flags"}:
-    ``worst`` holds the largest same-point power and sigma differences,
-    the largest move in final-stage steps and the largest power gap over
-    its bound; each entry of ``flags`` names a candidate that broke the
-    rule, with its numbers (and, given the seeds, the replay's:
-    ``tie_path`` true or false); ``tie_paths`` counts the flags that are
-    tie paths, ``unexplained`` the others."""
+    unpolished candidates of the one batch both polished, when known;
+    ``jerk`` for the jerk polish's (r, z, w) candidates, whose seeds it
+    needs) by the rule above.  Returns
+    {"ok", "moved", "moved_ok", "tie_paths", "unexplained", "worst",
+    "flags"}: ``moved_ok`` lists the candidates that moved within the
+    rule; ``worst`` holds the largest same-point power and sigma
+    differences, the largest move in final-stage steps and the largest
+    power gap over its bound; each entry of ``flags`` names a candidate
+    that broke the rule, with its numbers (and, given the seeds, the
+    replay's: ``tie_path`` true or false); ``tie_paths`` counts the
+    flags that are tie paths, ``unexplained`` the others."""
+    if jerk and seeds is None:
+        raise ValueError("agreement: the jerk rule needs the seeds")
     amps = (amps.detach().cpu() if isinstance(amps, torch.Tensor)
             else amps)
-    out = dict(ok=True, moved=0, tie_paths=0, unexplained=0, flags=[],
-               worst=dict(power_rel=0.0, sigma=0.0, steps=0.0,
-                          gap_over_bound=0.0))
+    out = dict(ok=True, moved=0, moved_ok=[], tie_paths=0, unexplained=0,
+               flags=[], worst=dict(power_rel=0.0, sigma=0.0, steps=0.0,
+                                    gap_over_bound=0.0))
     worst = out["worst"]
     if len(want) != len(got):
         out["flags"].append(dict(i=-1, why="length", want=len(want),
@@ -574,7 +804,8 @@ def agreement(amps, want, got, seeds=None, device="cpu") -> dict:
             out["flags"].append(dict(i=i, why="numharm", want=a.numharm,
                                      got=b.numharm))
             continue
-        if abs(a.r - b.r) < 1e-9 and abs(a.z - b.z) < 1e-9:
+        if all(abs(x - y) < 1e-9 for x, y in zip(_point(a, jerk),
+                                                  _point(b, jerk))):
             dp = abs(a.power - b.power) / abs(a.power)
             ds = abs(a.sigma - b.sigma)
             worst["power_rel"] = max(worst["power_rel"], dp)
@@ -585,63 +816,82 @@ def agreement(amps, want, got, seeds=None, device="cpu") -> dict:
         else:
             moved.append(i)
     out["moved"] = len(moved)
-    if moved:
-        hr, hz = final_steps([want[i].numharm for i in moved])
-        ar = np.array([want[i].r for i in moved])
-        az = np.array([want[i].z for i in moved])
-        nh = np.array([want[i].numharm for i in moved])
-        # points per candidate: a, b, then a's 3 x 3 stencil less a
-        offs = [(u, v) for u in (-1, 0, 1) for v in (-1, 0, 1)
-                if (u, v) != (0, 0)]
-        pr = [ar, np.array([got[i].r for i in moved])] + \
-            [ar + u * hr for u, _v in offs]
-        pz = [az, np.array([got[i].z for i in moved])] + \
-            [az + v * hz for _u, v in offs]
-        zmax = max(abs(c.z) * c.numharm for c in list(want) + list(got))
-        P = joint_powers(amps, np.concatenate(pr), np.concatenate(pz),
-                         np.tile(nh, len(pr)), zmax_pairs=zmax,
-                         device=device).reshape(len(pr), len(moved))
-        st_ = {o: P[2 + k] for k, o in enumerate(offs)}
-        P0 = P[0]
-        Hrr = (st_[(1, 0)] + st_[(-1, 0)] - 2 * P0) / hr ** 2
-        Hzz = (st_[(0, 1)] + st_[(0, -1)] - 2 * P0) / hz ** 2
-        Hrz = (st_[(1, 1)] - st_[(1, -1)] - st_[(-1, 1)]
-               + st_[(-1, -1)]) / (4 * hr * hz)
-        L = (np.abs(Hrr) * hr ** 2 + 2 * np.abs(Hrz) * hr * hz
-             + np.abs(Hzz) * hz ** 2) / 8
-        bound = L + 2 * EVAL_RTOL * np.abs(P0)
+    if not moved:
+        out["ok"] = not out["flags"]
+        out["unexplained"] = len(out["flags"])
+        return out
+    nh = np.array([want[i].numharm for i in moved])
+    h = list(final_steps(nh)) + ([final_step_w(nh)] if jerk else [])
+    naxes = len(h)
+    offs = [tuple(x - 1 for x in o) for o in np.ndindex(*(3,) * naxes)
+            if any(x != 1 for x in o)]
+    A = np.array([_point(want[i], jerk) for i in moved]).T   # [axes, m]
+    B = np.array([_point(got[i], jerk) for i in moved]).T
+    pts = [A, B] + [A + np.array(o)[:, None] * np.array(h) for o in offs]
+    if jerk:
+        # the descent's objective with each seed's windows and weights;
+        # each side's final measurement at its own point
+        amp_pairs = _as_pairs(amps, device)
+        W, npts = _batch_geometry(seeds, True)
+        P = np.zeros((len(pts), len(moved)))
+        Fab = np.zeros((2, len(moved)))
         for k, i in enumerate(moved):
-            a, b = want[i], got[i]
-            steps = max(abs(a.r - b.r) / hr[k], abs(a.z - b.z) / hz[k])
-            gap = abs(P[0, k] - P[1, k])
+            sw = _SeedWindows(amp_pairs, seeds[i], W, npts, True, harmpolish)
+            obj, fin = sw.measures(np.stack([p[:, k] for p in pts]))
+            P[:, k], Fab[:, k] = obj, fin[:2]
+    else:
+        zmax = max(abs(c.z) * c.numharm for c in list(want) + list(got))
+        P = joint_powers(amps, np.concatenate([p[0] for p in pts]),
+                         np.concatenate([p[1] for p in pts]),
+                         np.tile(nh, len(pts)), zmax_pairs=zmax,
+                         device=device).reshape(len(pts), len(moved))
+    L = _curvature_loss(P[0], {o: P[2 + k] for k, o in enumerate(offs)}, h)
+    eval_rtol = JERK_EVAL_RTOL if jerk else EVAL_RTOL
+    bound = L + 2 * eval_rtol * np.abs(P[0])
+    for k, i in enumerate(moved):
+        a, b = want[i], got[i]
+        steps = max(abs(A[x, k] - B[x, k]) / h[x][k] for x in range(naxes))
+        gap = abs(P[0, k] - P[1, k])
+        ds = abs(a.sigma - b.sigma)
+        if jerk:
+            rep = max(abs(c.power - f) / abs(f)
+                      for c, f in zip((a, b), Fab[:, k]))
+            rep_bad = rep > 2 * eval_rtol
+            sig_bad = False
+            worst["gap_over_bound"] = max(worst["gap_over_bound"],
+                                          gap / bound[k])
+        else:
             rep = abs(a.power - b.power)
-            ds = abs(a.sigma - b.sigma)
-            worst["steps"] = max(worst["steps"], steps)
+            rep_bad = rep > bound[k]
+            sig_bad = ds > MOVED_SIGMA
             worst["gap_over_bound"] = max(worst["gap_over_bound"],
                                           gap / bound[k], rep / bound[k])
-            if not (steps > AGREE_STEPS + 1e-6 or gap > bound[k]
-                    or rep > bound[k] or ds > MOVED_SIGMA):
-                continue
-            flag = dict(i=i, why="moved", sigma_a=a.sigma, steps=steps,
-                        power_a=P[0, k], power_b=P[1, k], gap=gap,
-                        bound=bound[k], curvature_loss=L[k],
-                        reported_gap=rep, sigma=ds)
-            if seeds is not None:
-                (reach, pw), = descent_replay(
-                    amps, [seeds[i]], TIE_RTOL,
-                    points=[[(a.r, a.z), (b.r, b.z)]],
-                    zmax_pairs=max(abs(float(c.z)) * c.numharm
-                                   for c in seeds), device=device)
-                rel = [abs(c.power - p) / abs(p) for c, p in zip((a, b), pw)]
-                flag.update(reach=len(reach), a_reached=_in_reach(reach, a),
-                            b_reached=_in_reach(reach, b),
-                            replay_power_rel=max(rel))
-                flag["tie_path"] = bool(
-                    flag["a_reached"] and flag["b_reached"]
-                    and max(rel) <= 2 * EVAL_RTOL
-                    and steps <= AGREE_STEPS + 1e-6 and ds <= MOVED_SIGMA)
-                out["tie_paths"] += flag["tie_path"]
-            out["flags"].append(flag)
+        worst["steps"] = max(worst["steps"], steps)
+        if not (steps > AGREE_STEPS + 1e-6 or gap > bound[k] or rep_bad
+                or sig_bad):
+            out["moved_ok"].append(i)
+            continue
+        flag = dict(i=i, why="moved", sigma_a=a.sigma, steps=steps,
+                    power_a=P[0, k], power_b=P[1, k], gap=gap,
+                    bound=bound[k], curvature_loss=L[k],
+                    reported_gap=rep, sigma=ds)
+        if seeds is not None:
+            (reach, pw), = descent_replay(
+                amps, [seeds[i]], JERK_TIE_RTOL if jerk else TIE_RTOL,
+                points=[[_point(a, jerk), _point(b, jerk)]], batch=seeds,
+                jerk=jerk, harmpolish=harmpolish, device=device)
+            rel = [abs(c.power - p) / abs(p) for c, p in zip((a, b), pw)]
+            flag.update(reach=len(reach),
+                        a_reached=_in_reach(reach, a, jerk),
+                        b_reached=_in_reach(reach, b, jerk),
+                        replay_power_rel=max(rel))
+            flag["tie_path"] = bool(
+                flag["a_reached"] and flag["b_reached"]
+                and max(rel) <= 2 * eval_rtol
+                and steps <= AGREE_STEPS + 1e-6
+                and (jerk or ds <= MOVED_SIGMA))
+            out["tie_paths"] += flag["tie_path"]
+        out["flags"].append(flag)
     out["ok"] = not out["flags"]
     out["unexplained"] = len(out["flags"]) - out["tie_paths"]
     return out

@@ -145,7 +145,9 @@ def test_refine_and_write_matches_jax(tmp_path, searched, harmremove,
 def test_refine_and_write_has_no_fallback(tmp_path, searched,
                                           monkeypatch):
     """A failing polish raises and leaves no ACCEL file behind (the JAX
-    package catches it and falls back to the per-candidate path)."""
+    package catches it and falls back to the per-candidate path); so
+    does a failing jerk polish, and with wmax and a working polish the
+    jerk refinement runs and writes the _JERK_ table."""
     pairs, s, raw = searched
 
     def boom(*a, **k):
@@ -155,9 +157,19 @@ def test_refine_and_write_has_no_fallback(tmp_path, searched,
         tapp.refine_and_write(list(raw), torch.from_numpy(pairs), s.T, s,
                               str(tmp_path / "t"), 20, quiet=True)
     assert not glob.glob(str(tmp_path / "t_ACCEL*"))
-    with pytest.raises(NotImplementedError, match="wmax"):
+    monkeypatch.undo()
+    cands, name = tapp.refine_and_write(list(raw), pairs, s.T, s,
+                                        str(tmp_path / "t"), 20, wmax=10,
+                                        quiet=True)
+    assert name.endswith("t_ACCEL_20_JERK_10") and cands
+    assert all(abs(c.w) <= 10 for c in cands)
+    assert [c.w for c in tapp.read_cand_file(name + ".cand")] == \
+        [c.w for c in cands]
+    monkeypatch.setattr(tapp, "optimize_jerk_cands", boom)
+    with pytest.raises(RuntimeError, match="polish failed"):
         tapp.refine_and_write(list(raw), pairs, s.T, s,
-                              str(tmp_path / "t"), 20, wmax=10)
+                              str(tmp_path / "u"), 20, wmax=10, quiet=True)
+    assert not glob.glob(str(tmp_path / "u_ACCEL*"))
 
 
 def test_port_has_no_polish_switches():
