@@ -76,13 +76,17 @@ Phases (any failure exits non-zero before the final line):
              (bench.py's 2^20 bins, zmax 100, wmax 300, numharm 4, seed
              11, a tone at bin 123456) on the card, with the host bank
              build timed on its own, the warm call and the best of 2,
-             cells/s, launches a search and the tone found; plane_build
+             cells/s, launches a search and the tone found; its polish
+             on the card and the CPU by polish.agreement, and the jerk
+             evaluators' difference held to JERK_EVAL_RTOL; plane_build
              at its geometry on the w = 300 bank and stage_reduce_planes
              on the four distinct planes of a w = 300 scan, against their
              plain versions (the z-only stage_reduce stays timed in
              phase 2); a jerk pulsar (2^21 samples) through accelsearch
              -wmax on the card and on the CPU, recovered on top, the two
-             _JERK_ tables held by accelsearch.jerk_file_agreement;
+             _JERK_ tables held by accel_agreement.jerk_file_agreement,
+             and both kernels again at that path's geometry (numz 61,
+             the 2-stage multi-plane reducer) on its spectrum;
  10. summary the kernels line (launches of the main path and of the jerk
              paths), the card, and the final ok line.
 
@@ -198,15 +202,17 @@ def bench_searcher():
                              T=T, numbins=nbins, device="cuda"), nbins
 
 
-def plane_case(s, nbins, gen, label, Kc=None):
+def plane_case(s, nbins, gen, label, Kc=None, pairs=None):
     """The plane builder at one searcher's geometry (forward spectra of a
-    random spectrum through the searcher's own windows, normalization
-    and FFT, and its kernel bank, or the bank Kc): kernel against plain,
+    random spectrum, or of ``pairs``, through the searcher's own windows,
+    normalization and FFT, and its kernel bank, or the bank Kc): kernel
+    against plain,
     pads, times (kernel: 10 launches after a warm-up; plain and library:
     3), bound, and the library call (torch.fft.ifft + abs^2 over the
     same product) where device memory allows it."""
     from presto_tpu_torch.search import build_cuda
-    pairs = torch.randn((nbins, 2), generator=gen, device="cuda")
+    if pairs is None:
+        pairs = torch.randn((nbins, 2), generator=gen, device="cuda")
     S = s.forward_spectra(pairs)
     del pairs
     Kc = s._kbank if Kc is None else Kc
@@ -1930,20 +1936,21 @@ def reducer_planes_bound(planes, scols, zinds, slab, nst):
     return ms, by, nbytes
 
 
-def jerk_kernels(s, nbins, gen):
-    """The two kernels at the bench's jerk geometry against their plain
-    versions: plane_build (n = 8192, numz 101) on the w = 300 bank, and
-    stage_reduce_planes on the four distinct planes a w = 300 scan reads
-    (w = 300 and its subharmonic w 160, 80, 220), bit-equal."""
+def jerk_kernels(s, nbins, gen, w, label, pairs=None):
+    """The two kernels at one jerk searcher's geometry against their
+    plain versions: plane_build on the bank of grid plane ``w`` (from a
+    random spectrum, or from ``pairs``), and stage_reduce_planes,
+    bit-equal, on the distinct planes the scan at ``w`` reads (w and its
+    subharmonic w), built from the same spectrum on the card."""
     from presto_tpu_torch.search import accel, accel_cuda
-    nws = len(s.cfg.ws)
-    pb, S = plane_case(s, nbins, gen, "jerk (zmax 100, wmax 300; w = 300 "
-                       "bank)", Kc=s._w_bank_dev(300.0, nws))
+    pb, S = plane_case(s, nbins, gen, "%s (w = %g bank)" % (label, w),
+                       Kc=s._w_bank_dev(w), pairs=pairs)
     fracs = [h / t for st in s.fracs_zinds for (h, t, _z) in st]
-    ws = [300.0] + [float(accel.calc_required_w(f, 300.0)) for f in fracs]
-    planes = [s.build_plane(None, s._w_bank_dev(w, nws), spectra=S)
-              for w in ws]
-    del S
+    ws = [float(w)] + [float(accel.calc_required_w(f, w)) for f in fracs]
+    built = {x: s.build_plane(None, s._w_bank_dev(x), spectra=S)
+             for x in dict.fromkeys(ws)}
+    planes = [built[x] for x in ws]
+    del S, built
     geom = s.plane_geom()
     slab, _k, start_cols = s.slab_plan(geom[2])
     scols = torch.tensor(start_cols, dtype=torch.int32, device="cuda")
@@ -1964,13 +1971,13 @@ def jerk_kernels(s, nbins, gen):
     design = reducer_design_bytes(s._zinds, planes[0].shape[0], slab,
                                   len(start_cols), nst)
     share = design / (ms * 1e-3) / PEAK_BYTES_PER_S
-    log("stage_reduce_planes (w %s; planes %s, %d slabs of %d, %d stages): "
-        "max_abs_err %.3g, bit-equal %s; kernel %.3f ms, plain %.3f ms, "
-        "bound %.3f ms (%s, %.3f GB), design bytes %.3f GB (%.1f%% of "
-        "3.35 TB/s) %s"
-        % (ws, tuple(planes[0].shape), len(start_cols), slab, nst, err, ok,
-           ms, plain_ms, bms, by, nbytes / 1e9, design / 1e9, 100 * share,
-           "ok" if ok else "FAIL"))
+    log("stage_reduce_planes %s (w %s; planes %s, %d slabs of %d, %d "
+        "stages): max_abs_err %.3g, bit-equal %s; kernel %.3f ms, plain "
+        "%.3f ms, bound %.3f ms (%s, %.3f GB), design bytes %.3f GB (%.1f%% "
+        "of 3.35 TB/s) %s"
+        % (label, ws, tuple(planes[0].shape), len(start_cols), slab, nst,
+           err, ok, ms, plain_ms, bms, by, nbytes / 1e9, design / 1e9,
+           100 * share, "ok" if ok else "FAIL"))
     del planes
     torch.cuda.empty_cache()
     return pb, dict(ok=ok, ws=ws, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1983,11 +1990,13 @@ def jerk_kernels(s, nbins, gen):
 def jerk_pulsar(workdir):
     """JERK_PSR's time series (the port's models/synth), its packed .fft,
     and accelsearch -wmax on it on the card and on the CPU: the injected
-    (f, z, w) on top
-    of the card's list (at the mean frequency and fdot of the
-    observation, w within one ACCEL_DW step), and the two _JERK_ tables
-    held by accelsearch.jerk_file_agreement."""
-    from presto_tpu_torch.apps import accelsearch
+    (f, z, w) on top of the card's list (at the mean frequency and fdot
+    of the observation, w within one ACCEL_DW step), and the two _JERK_
+    tables held by accel_agreement.jerk_file_agreement.  Then the two
+    kernels at this path's geometry (numz 61, numharm 2: the reducer's
+    2-stage multi-plane instantiation) on this spectrum, against their
+    plain versions (jerk_kernels, the scan at w = wmax)."""
+    from presto_tpu_torch.apps import accel_agreement, accelsearch
     from presto_tpu_torch.io import datfft
     from presto_tpu_torch.io.infodata import InfoData
     from presto_tpu_torch.models import synth
@@ -2023,10 +2032,11 @@ def jerk_pulsar(workdir):
                           stage_reduce_planes=accel_cuda.planes_launches)))
     card, ref = runs
     pairs = fftpack.np_complex64_to_pairs(packed)
-    rep = accelsearch.jerk_file_agreement(pairs, ref["base"], card["base"],
-                                          ref["trace"], card["trace"])
-    for f in rep.get("z", {}).get("flags", []) + \
-            rep.get("jerk", {}).get("flags", []):
+    rep = accel_agreement.jerk_file_agreement(
+        pairs, ref["base"], card["base"], ref["trace"], card["trace"])
+    jreps = rep.get("jerk", {}).get("reports", [])
+    for f in rep.get("z", {}).get("flags", []) + [
+            f for r in jreps for f in r["flags"]]:
         log("jerk pulsar: a polish move past the rule (%s): %s"
             % ("tie path" if f.get("tie_path") else "unexplained",
                json.dumps(f, default=float)))
@@ -2049,9 +2059,11 @@ def jerk_pulsar(workdir):
                same=rep["same"], boundary=rep["boundary"],
                explained=rep["explained"], unexplained=rep["unexplained"],
                z_moved=rep.get("z", {}).get("moved"),
-               jerk_moved=rep.get("jerk", {}).get("moved"),
+               jerk_moved=[r["moved"] for r in jreps],
+               jerk_repolished=rep.get("jerk", {}).get("repolished"),
+               jerk_worst=[r["worst"] for r in jreps],
                tie_paths=(rep.get("z", {}).get("tie_paths", 0)
-                          + rep.get("jerk", {}).get("tie_paths", 0)),
+                          + sum(r["tie_paths"] for r in jreps)),
                card_s=card["s"], cpu_s=ref["s"],
                launches=dict(cuda=card["launches"], cpu=ref["launches"]))
     log("jerk pulsar (%s; T %.1f s): injected r %.3f z %.2f w %.1f; card "
@@ -2064,6 +2076,18 @@ def jerk_pulsar(workdir):
            res["jerk_taken"], rep["same"], rep["boundary"],
            rep["explained"], rep["unexplained"], card["s"], ref["s"],
            json.dumps(res["launches"]), "ok" if ok else "FAIL"))
+    args = accelsearch.build_parser().parse_args(p["argv"] + ["x.fft"])
+    s = accel.AccelSearch(accel.AccelConfig(
+        zmax=args.zmax, wmax=args.wmax, numharm=args.numharm,
+        sigma=args.sigma, flo=args.flo), T=T, numbins=len(pairs),
+        device="cuda")
+    res["plane_build"], res["stage_reduce_planes"] = jerk_kernels(
+        s, len(pairs), None, float(args.wmax), "jerk pulsar (zmax 60, "
+        "wmax 80, numharm 2)", pairs=torch.as_tensor(pairs, device="cuda"))
+    res["ok"] = (ok and res["plane_build"]["ok"]
+                 and res["stage_reduce_planes"]["ok"])
+    del s
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2072,7 +2096,10 @@ def jerk_polish(pairs, raw, s):
     on the CPU from the same seeds: the (r, z) polish, then the jerk
     polish from the CPU's (r, z) results with each candidate's search w,
     each pair of lists held by polish.agreement (jerk=True for the
-    second); fails on an unexplained move."""
+    second); and the jerk evaluators, card against CPU, at each CPU
+    point and its 3 x 3 x 3 final-step stencil.  Fails on an unexplained
+    move, or when the evaluators differ by more than
+    polish.JERK_EVAL_RTOL, the rule's premise."""
     from presto_tpu_torch.search import accel, polish
     cands = accel.remove_duplicates(accel.eliminate_harmonics(raw))
     host = pairs.cpu()
@@ -2095,10 +2122,8 @@ def jerk_polish(pairs, raw, s):
                                           device=d)
         t[d] = time.time() - t0
     jrep = polish.agreement(host, j["cpu"], j["cuda"], seeds=seeds,
-                            jerk=True)
-    # the jerk evaluators, card against CPU, at each CPU point and its
-    # 3 x 3 x 3 final-step stencil (what JERK_EVAL_RTOL rests on)
-    W, npts = polish._batch_geometry(seeds, True)
+                            jerk=True, numindep=s.numindep)
+    W, npts = polish.batch_geometry(seeds, True)
     rel = {"objective": 0.0, "final": 0.0}
     for sd, c in zip(seeds, j["cpu"]):
         h = [x[0] for x in polish.final_steps([c.numharm])] + [
@@ -2106,11 +2131,12 @@ def jerk_polish(pairs, raw, s):
         pts = np.array([(c.r + u * h[0], c.z + v * h[1], c.w + x * h[2])
                         for u in (-1, 0, 1) for v in (-1, 0, 1)
                         for x in (-1, 0, 1)])
-        card_m, cpu_m = (polish._SeedWindows(p, sd, W, npts, True)
+        card_m, cpu_m = (polish.SeedWindows(p, sd, W, npts, True)
                          .measures(pts) for p in (pairs, host))
         for k, name in enumerate(rel):
             rel[name] = max(rel[name], float(np.max(
                 np.abs(card_m[k] - cpu_m[k]) / np.abs(cpu_m[k]))))
+    rel_ok = max(rel.values()) <= polish.JERK_EVAL_RTOL
     out["evaluator_rel"] = rel
     for name, rep in (("(r, z)", zrep), ("jerk", jrep)):
         for f in rep["flags"]:
@@ -2120,7 +2146,8 @@ def jerk_polish(pairs, raw, s):
                                    json.dumps(f, default=float)))
         out[name] = dict(moved=rep["moved"], tie_paths=rep["tie_paths"],
                          unexplained=rep["unexplained"], worst=rep["worst"])
-    out.update(ok=zrep["unexplained"] == 0 and jrep["unexplained"] == 0,
+    out.update(ok=(zrep["unexplained"] == 0 and jrep["unexplained"] == 0
+                   and rel_ok),
                jerk_card_s=t["cuda"], jerk_cpu_s=t["cpu"],
                pairs=int(sum(c.numharm for c in cands)))
     log("jerk bench polish: %d candidates (%d pairs); (r, z) polish card "
@@ -2128,12 +2155,13 @@ def jerk_polish(pairs, raw, s):
         "(%.3f s card, %.2f s CPU): %d moved, %d tie paths, %d "
         "unexplained; worst %s; jerk evaluators card vs CPU at 27 points "
         "a candidate, largest relative difference %s (JERK_EVAL_RTOL "
-        "%g) %s"
+        "%g: %s) %s"
         % (len(cands), out["pairs"], zrep["moved"], zrep["tie_paths"],
            zrep["unexplained"], t["cuda"], t["cpu"], jrep["moved"],
            jrep["tie_paths"], jrep["unexplained"],
            json.dumps(jrep["worst"], default=float), json.dumps(rel),
-           polish.JERK_EVAL_RTOL, "ok" if out["ok"] else "FAIL"))
+           polish.JERK_EVAL_RTOL, "within" if rel_ok else "EXCEEDED",
+           "ok" if out["ok"] else "FAIL"))
     return out
 
 
@@ -2141,9 +2169,10 @@ def phase_jerk(gen, workdir):
     """The jerk search on the card: the bench shape (JERK_BENCH) with its
     host bank build timed on its own, the warm call and the best of 2,
     cells/s as bench_jerk counts them, the launches of one search, the
-    tone found; the kernels at its geometry (jerk_kernels); the jerk
-    pulsar through accelsearch -wmax on the card and the CPU
-    (jerk_pulsar)."""
+    tone found; its polish (jerk_polish); the kernels at its geometry
+    (jerk_kernels, the scan at w = 300); the jerk pulsar through
+    accelsearch -wmax on the card and the CPU, and the kernels at that
+    path's geometry (jerk_pulsar)."""
     from presto_tpu_torch.search import accel, accel_cuda, build_cuda
     b = JERK_BENCH
     n = b["numbins"]
@@ -2201,12 +2230,15 @@ def phase_jerk(gen, workdir):
     pol = jerk_polish(dev_pairs, cands, s)
     del dev_pairs
     torch.cuda.empty_cache()
-    pb, red = jerk_kernels(s, n, torch.Generator(device="cuda").manual_seed(9))
+    pb, red = jerk_kernels(s, n, torch.Generator(device="cuda").manual_seed(9),
+                           300.0, "jerk bench (zmax 100, wmax 300, numharm "
+                           "4)")
     del s
     torch.cuda.empty_cache()
     psr = jerk_pulsar(workdir)
     return dict(ok=ok and pol["ok"] and pb["ok"] and red["ok"] and psr["ok"],
-                polish=pol, bench=dict(ok=ok, geometry=geom, bank_s=bank_s, banks=nws,
+                polish=pol,
+                bench=dict(ok=ok, geometry=geom, bank_s=bank_s, banks=nws,
                            warm_s=warm, best_s=best, cells=cells,
                            cells_per_s=cells / best, launches=launches,
                            peak_gb=peak_gb, cands=len(cands), tone=tone,
@@ -2276,13 +2308,14 @@ def main():
     # from zero around its run
     jl = [jerk["bench"]["launches"], jerk["pulsar"]["launches"]["cuda"]]
     kernels = []
-    for name, src, rep, k, jk in (
+    for name, src, rep, k, jk, pk in (
             ("plane_build", "presto_tpu_torch/csrc/plane_build.cu",
              "presto_tpu/search/build_pallas.py:136", k1,
-             jerk["plane_build"]),
+             jerk["plane_build"], jerk["pulsar"]["plane_build"]),
             ("stage_reduce", "presto_tpu_torch/csrc/stage_reduce.cu",
              "presto_tpu/search/accel_pallas.py:245", k2,
-             jerk["stage_reduce_planes"])):
+             jerk["stage_reduce_planes"],
+             jerk["pulsar"]["stage_reduce_planes"])):
         by_path = {"run_survey": main_res["launches"][name]}
         for path, counts in zip(("jerk_bench", "accelsearch_wmax"), jl):
             by_path[path] = counts[name] + counts.get(
@@ -2296,7 +2329,10 @@ def main():
                         "library_ms": k["library_ms"], "ok": k["ok"],
                         "tolerance": k["tolerance"],
                         "launches_by_path": by_path,
-                        "jerk": {x: jk[x] for x in (
+                        "jerk_bench": {x: jk[x] for x in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")},
+                        "accelsearch_wmax": {x: pk[x] for x in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms")}})
     log("results: %s" % json.dumps(results, default=float))

@@ -176,13 +176,15 @@ def write_accel_file(path: str, cands, T: float,
 
 @dataclass
 class RefineTrace:
-    """What refine_and_write did to a raw list, step by step: the seeds
-    of the polish (after harmonic elimination and dedup), the polished
+    """What refine did to a raw list, step by step: the seeds of the
+    polish (after harmonic elimination and dedup), the polished
     candidates, with wmax the jerk polish's seeds and results, and the
     final list (before any lobin shift) with, per final candidate, the
     index of its seed and whether it took the jerk polish's point.
-    nraw counts the raw list after harmonic elimination."""
+    nraw counts the raw list after harmonic elimination; numindep is the
+    searcher's, per stage (the sigmas')."""
     nraw: int
+    numindep: list
     cands: List[AccelCand]
     ocs: list
     jseeds: List[AccelCand]
@@ -194,12 +196,15 @@ class RefineTrace:
 
 def refine(raw_cands, amps, T, searcher, wmax=0, harmremove=True,
            harmpolish=True, timer=None) -> RefineTrace:
-    """The candidate post-processing of refine_and_write, without the
-    files: harmonic elimination (unless -noharmremove), dedup, the
-    batched polish on the searcher's device (with wmax then the jerk
-    polish, seeded from it with each candidate's search w: its (r, z, w)
-    is kept where |w| <= wmax and its power beats the (r, z) polish's,
-    else w is 0), dedup again.  The raw candidates are not changed."""
+    """The candidate post-processing shared by the CLI and the survey,
+    before write_results writes its files: harmonic elimination (unless
+    -noharmremove), dedup, the batched polish on the searcher's device
+    (with wmax then the jerk polish, seeded from it with each candidate's
+    search w: its (r, z, w) is kept where |w| <= wmax and its power beats
+    the (r, z) polish's, else w is 0), dedup again.  amps: the spectrum
+    (a tensor of [n, 2] float32 pairs, or numpy).  With a ``timer``
+    (utils/timing.StageTimer) the polish is timed as stage "polish".  The
+    raw candidates are not changed."""
     def stage(name):
         return timer.stage(name) if timer is not None else nullcontext()
 
@@ -232,33 +237,19 @@ def refine(raw_cands, amps, T, searcher, wmax=0, harmremove=True,
     final = remove_duplicates(refined)
     index = {id(c): k for k, c in enumerate(refined)}
     seed_of = [index[id(c)] for c in final]
-    return RefineTrace(nraw=len(raw_cands), cands=cands, ocs=ocs, jseeds=jseeds, jocs=jocs,
+    return RefineTrace(nraw=len(raw_cands), numindep=list(searcher.numindep),
+                       cands=cands, ocs=ocs, jseeds=jseeds, jocs=jocs,
                        final=final, seed_of=seed_of,
                        jerk_taken=[taken[k] for k in seed_of])
-
-
-def refine_and_write(raw_cands, amps, T, searcher, base, zmax, wmax=0,
-                     quiet=False, harmremove=True, harmpolish=True,
-                     lobin=0, timer=None):
-    """Candidate post-processing shared by the CLI and the survey
-    (``refine``), then the ACCEL/.cand artifacts (with wmax the
-    _JERK_<wmax> table with its w column).  amps: the spectrum (a tensor
-    of [n, 2] float32 pairs, or numpy).  lobin shifts reported
-    frequencies for spectra chopped out of a longer FFT.  With a
-    ``timer`` (utils/timing.StageTimer) the polish and the writes are
-    timed as stages "polish" and "accel writes".  Returns (final
-    candidates, ACCEL path)."""
-    trace = refine(raw_cands, amps, T, searcher, wmax=wmax,
-                   harmremove=harmremove, harmpolish=harmpolish, timer=timer)
-    accelnm = write_results(trace, T, base, zmax, wmax, quiet=quiet,
-                            lobin=lobin, timer=timer)
-    return trace.final, accelnm
 
 
 def write_results(trace: RefineTrace, T, base, zmax, wmax=0, quiet=False,
                   lobin=0, timer=None) -> str:
     """The ACCEL table and .cand of a refined list (<base>_ACCEL_<zmax>,
-    with wmax <base>_ACCEL_<zmax>_JERK_<wmax>); returns the ACCEL path."""
+    with wmax <base>_ACCEL_<zmax>_JERK_<wmax> with its w column).  lobin
+    shifts reported frequencies for spectra chopped out of a longer FFT.
+    With a ``timer`` the writes are timed as stage "accel writes".
+    Returns the ACCEL path."""
     cands = trace.final
     if lobin:
         # candidate r is in fundamental units; the chopped spectrum's
@@ -348,88 +339,3 @@ if __name__ == "__main__":
     import sys
     sys.exit(main())
 
-
-def jerk_file_agreement(amps, want_base: str, got_base: str,
-                        want: RefineTrace, got: RefineTrace,
-                        harmpolish: bool = True) -> dict:
-    """Hold one _JERK_ ACCEL table and .cand (``got_base``, written from
-    the refinement ``got``) against another (``want_base``, ``want``) of
-    the same spectrum ``amps``, lobin 0 (card against CPU, or the port
-    against the JAX package): the same seeds, candidate count and
-    harmonics; each candidate on the same (r, z, w) grid point with its
-    .cand power and sigma within polish.SAME_POWER_RTOL / SAME_SIGMA
-    (its r, z and w are the same bytes) and its table line byte-equal,
-    or differing only where a sigma or power column's two values
-    straddle a %.2f rounding boundary (named, not failed); each
-    other line explained: its seed moved within search/polish.agreement
-    (or on a tie path) in the (r, z) polish or, from the same jerk seed,
-    in the jerk polish, or the two sides' choice between the two
-    polishes is a near-tie (their powers within 2 JERK_EVAL_RTOL).
-    Returns
-    {"ok", "same", "boundary", "explained", "unexplained", "z", "jerk"}
-    with the two polish agreements' reports."""
-    from presto_tpu_torch.search import polish
-    out = dict(ok=False, same=0, boundary=0, explained=0, unexplained=[])
-    files = [read_cand_file(b + ".cand") for b in (want_base, got_base)]
-    lines = [open(b).read().splitlines() for b in (want_base, got_base)]
-    pt = lambda c: (c.numharm, c.r, c.z, c.w)    # noqa: E731
-    for tr, fl in zip((want, got), files):
-        if [pt(c) for c in tr.final] != [pt(c) for c in fl]:
-            out["unexplained"].append("a .cand differs from its trace")
-    if ([(c.numharm, c.r, c.z, c.w) for c in want.cands]
-            != [(c.numharm, c.r, c.z, c.w) for c in got.cands]):
-        out["unexplained"].append("the two searches' seeds differ")
-    if (len(files[0]) != len(files[1]) or lines[0][:3] != lines[1][:3]
-            or len(lines[0]) != len(lines[1])):
-        out["unexplained"].append("lengths or headers differ")
-    if out["unexplained"]:
-        return out
-    zrep = polish.agreement(amps, want.ocs, got.ocs, seeds=want.cands,
-                            harmpolish=harmpolish)
-    same_j = [k for k, (a, b) in enumerate(zip(want.jseeds, got.jseeds))
-              if (a.r, a.z, a.w) == (b.r, b.z, b.w)]
-    jrep = polish.agreement(amps, [want.jocs[k] for k in same_j],
-                            [got.jocs[k] for k in same_j],
-                            seeds=[want.jseeds[k] for k in same_j],
-                            jerk=True, harmpolish=harmpolish)
-    out.update(z=zrep, jerk=jrep)
-
-    def fine(rep, idx):
-        ok = set(rep["moved_ok"]) | {f["i"] for f in rep["flags"]
-                                     if f.get("tie_path")}
-        return {idx[i] for i in ok}
-    z_ok = fine(zrep, list(range(len(want.cands))))
-    j_ok = fine(jrep, same_j)
-    for i, (a, b) in enumerate(zip(*files)):
-        la, lb = lines[0][3 + i], lines[1][3 + i]
-        if pt(a) == pt(b):
-            out["same"] += 1
-            if (abs(a.power - b.power) > polish.SAME_POWER_RTOL * abs(a.power)
-                    or abs(a.sigma - b.sigma) > polish.SAME_SIGMA):
-                out["unexplained"].append("line %d: power or sigma"
-                                          % (i + 1))
-            elif la != lb:
-                ta, tb = la.split(), lb.split()
-                diff = [k for k, (x, y) in enumerate(zip(ta, tb)) if x != y]
-                if (len(ta) == len(tb) and set(diff) <= {1, 2, 3}
-                        and all(abs(float(ta[k]) - float(tb[k])) <= 0.0100001
-                                for k in diff)):
-                    out["boundary"] += 1
-                else:
-                    out["unexplained"].append("line %d" % (i + 1))
-            continue
-        k = want.seed_of[i]
-        if got.seed_of[i] != k or a.numharm != b.numharm:
-            out["unexplained"].append("line %d: another seed" % (i + 1))
-            continue
-        oa, ob = want.ocs[k], got.ocs[k]
-        ja, jb = want.jocs[k], got.jocs[k]
-        choice_tie = (want.jerk_taken[i] != got.jerk_taken[i] and any(
-            abs(j.power - o.power) <= 2 * polish.JERK_EVAL_RTOL * abs(o.power)
-            for j, o in ((ja, oa), (jb, ob))))
-        if k in z_ok or k in j_ok or choice_tie:
-            out["explained"] += 1
-        else:
-            out["unexplained"].append("line %d: moved" % (i + 1))
-    out["ok"] = not out["unexplained"]
-    return out

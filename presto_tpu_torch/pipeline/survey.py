@@ -36,7 +36,7 @@ import torch
 
 from presto_tpu_torch.apps import (prepfold, prepsubband, rfifind,
                                    single_pulse_search)
-from presto_tpu_torch.apps.accelsearch import refine_and_write
+from presto_tpu_torch.apps.accelsearch import refine, write_results
 from presto_tpu_torch.apps.common import open_raw
 from presto_tpu_torch.io import datfft
 from presto_tpu_torch.io.atomic import cleanup_stale_tmp
@@ -273,18 +273,18 @@ def _accel_names(name: str, cfg: SurveyConfig) -> List[str]:
 def _search_and_write(pairs, names, T, cfg, device, manifest, timer,
                       out, stage) -> None:
     """Every accel pass over one batch of device spectra: search_many,
-    then refine_and_write per trial (the polish on the device, ACCEL and
-    .cand files), journaled under ``stage``."""
+    then refine + write_results per trial (the polish on the device,
+    ACCEL and .cand files), journaled under ``stage``."""
     n = pairs.shape[1]
     for pcfg in _pass_configs(cfg):
         searcher = searcher_for(pcfg, T, n, device=device)
         results = searcher.search_many(pairs)
         arts = []
         for name, pr, raw in zip(names, pairs, results):
-            cands, acc = refine_and_write(raw, pr, T, searcher, name,
-                                          pcfg.zmax, quiet=True,
-                                          timer=timer)
-            out[acc] = cands
+            trace = refine(raw, pr, T, searcher, timer=timer)
+            acc = write_results(trace, T, name, pcfg.zmax, quiet=True,
+                                timer=timer)
+            out[acc] = trace.final
             arts += [acc, acc + ".cand"]
         _record(manifest, arts, stage)
 
@@ -301,7 +301,7 @@ def seam_fft_search(seam: fusion.StageSeam, cfg: SurveyConfig,
                     ) -> Dict[str, List[AccelCand]]:
     """Every accel pass over the seam-resident series: batched rFFT
     straight off each seam block, search_many on the device spectra,
-    then per trial refine_and_write (eliminate_harmonics,
+    then per trial refine + write_results (eliminate_harmonics,
     remove_duplicates, the polish, ACCEL + .cand).  The durable tier
     also writes each trial's .fft.  Trials whose ACCEL files (and, on
     the durable tier, .fft) all verify are skipped.  Returns

@@ -68,7 +68,6 @@ _CMP_ZBITS = 12      # compact meta word: zrow | stage << 12 | slab << 15
 _CMP_SBITS = 3
 MEM_HEADROOM = 0.9   # share of free device memory one trial may use
 MAX_INFLIGHT = 2     # jerk scans queued on the card ahead of the host collect
-BANK_SHARE = 8       # the jerk search's device banks take <= 1/8 of memory
 
 
 def _ref_scratch_bytes(fracs_zinds, numz: int, tile: int) -> int:
@@ -439,11 +438,10 @@ class AccelSearch:
                                         device=self.device)
         self._kbank = fft_kernel_bank(kern.kern_pairs, kern.fftlen,
                                       self.device)
-        # the jerk search's banks, by grid w: host banks for the
-        # searcher's lifetime (at most len(cfg.ws) of them), the FFT'd
-        # device banks of w != 0 in a least-recently-used cache
+        # the jerk search's banks, by grid w, for the searcher's
+        # lifetime: host banks, and the FFT'd device banks of w != 0
         self._w_banks = {0.0: kern}
-        self._w_banks_dev: OrderedDict = OrderedDict()
+        self._w_banks_dev = {}
 
     # -- plane ---------------------------------------------------------
 
@@ -518,48 +516,45 @@ class AccelSearch:
             kern = self._w_banks[w] = AccelKernels.build(self.cfg, w)
         return kern
 
-    def _w_bank_dev(self, w: float, max_banks: int) -> torch.Tensor:
+    def _w_bank_dev(self, w: float) -> torch.Tensor:
         """The FFT'd device bank of grid plane w: the searcher's own at
-        w = 0, else from a least-recently-used cache of at most
-        ``max_banks`` banks kept across searches."""
+        w = 0, else built once and kept for the searcher's lifetime (all
+        len(cfg.ws) banks of a search fit: _jerk_budget)."""
         w = float(w)
         if w == 0.0:
             return self._kbank
-        cache = self._w_banks_dev
-        kb = cache.pop(w, None)
+        kb = self._w_banks_dev.get(w)
         if kb is None:
-            while len(cache) >= max_banks:
-                cache.popitem(last=False)
             kern = self.bank(w)
-            kb = fft_kernel_bank(kern.kern_pairs, kern.fftlen, self.device)
-        cache[w] = kb
+            kb = self._w_banks_dev[w] = fft_kernel_bank(
+                kern.kern_pairs, kern.fftlen, self.device)
         return kb
 
-    def _jerk_budget(self, plane_bytes: int, work_bytes: int, keep: int):
-        """(device banks, planes) the jerk search may cache, from the
-        device memory free now (torch.cuda.mem_get_info) plus what its
-        bank cache already holds: the banks take at most 1/BANK_SHARE of
-        it, the planes what is left after ``work_bytes``.  Raises when
-        the ``keep`` planes one scan reads do not fit.  Unbounded on the
-        CPU."""
+    def _jerk_budget(self, plane_bytes: int, work_bytes: int,
+                     keep: int) -> int:
+        """The planes the jerk search may cache, from the device memory
+        free now (torch.cuda.mem_get_info) plus what its bank cache
+        already holds, after every device bank of cfg.ws and
+        ``work_bytes``.  Raises when the banks and the ``keep`` planes
+        one scan reads do not fit.  Unbounded on the CPU."""
         nws = len(self.cfg.ws)
         if self.device.type != "cuda":
-            return nws, nws
+            return nws
         free, _total = torch.cuda.mem_get_info(self.device)
         cached = (torch.cuda.memory_reserved(self.device)
                   - torch.cuda.memory_allocated(self.device))
         bank_bytes = self._kbank.numel() * 8
-        held = len(self._w_banks_dev) * bank_bytes
-        avail = MEM_HEADROOM * (free + cached) + held
-        max_banks = int(min(nws, max(1, avail // BANK_SHARE // bank_bytes)))
-        max_planes = int((avail - max_banks * bank_bytes - work_bytes)
-                         // plane_bytes)
+        banks = sum(1 for w in self.cfg.ws if w != 0.0) * bank_bytes
+        avail = (MEM_HEADROOM * (free + cached)
+                 + len(self._w_banks_dev) * bank_bytes)
+        max_planes = int((avail - banks - work_bytes) // plane_bytes)
         if max_planes < keep:
-            raise MemoryError("accel: the jerk search reads %d planes of "
-                              "%.2f GB at once, and the device has room "
-                              "for %d" % (keep, plane_bytes / 1e9,
-                                          max(max_planes, 0)))
-        return max_banks, max_planes
+            raise MemoryError("accel: the jerk search holds %d banks of "
+                              "%.3f GB and reads %d planes of %.2f GB at "
+                              "once, and the device has room for %d planes"
+                              % (nws, bank_bytes / 1e9, keep,
+                                 plane_bytes / 1e9, max(max_planes, 0)))
+        return max_planes
 
     def _search_jerk(self, pairs: torch.Tensor, slab: int,
                      compact_m: int) -> List[AccelCand]:
@@ -593,8 +588,8 @@ class AccelSearch:
         spectra = self.forward_spectra(pairs)
         work = (spectra.numel() * 8 + plane_bytes
                 + (MAX_INFLIGHT + 1) * len(start_cols) * nst * slab * 8 * 3)
-        max_banks, max_planes = self._jerk_budget(
-            plane_bytes, work, keep_max if fracs else 1)
+        max_planes = self._jerk_budget(plane_bytes, work,
+                                       keep_max if fracs else 1)
         planes: OrderedDict = OrderedDict()
 
         def plane_for(w: float, keep: set) -> torch.Tensor:
@@ -604,7 +599,7 @@ class AccelSearch:
                 # budget holds a whole scan's keep set)
                 while len(planes) >= max_planes:
                     del planes[next(x for x in planes if x not in keep)]
-                pl = self.build_plane(pairs, self._w_bank_dev(w, max_banks),
+                pl = self.build_plane(pairs, self._w_bank_dev(w),
                                       spectra=spectra)
             planes[w] = pl
             return pl
@@ -633,7 +628,7 @@ class AccelSearch:
                     src, scols, self._zinds, slab, nst)
                 del src
             else:
-                pl = self.build_plane(pairs, self._w_bank_dev(w, max_banks),
+                pl = self.build_plane(pairs, self._w_bank_dev(w),
                                       spectra=spectra)
                 colmax, colz = accel_cuda.reduce_stages(
                     pl, scols, self._zinds, slab, nst)

@@ -154,18 +154,16 @@ def _check_launch(P: torch.Tensor, start_cols: torch.Tensor,
     check_zmaps(zinds, nrows)
 
 
-def reduce_stages(P: torch.Tensor, start_cols: torch.Tensor,
-                  zinds: torch.Tensor, slab: int, nstages: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """See the module docstring.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
-    if P.device.type == "cpu":
-        return reduce_stages_plain(P, start_cols, zinds, slab, nstages)
-    _check_launch(P, start_cols, zinds, slab, nstages)
+def _launch(entry: str, first, P: torch.Tensor, start_cols: torch.Tensor,
+            zinds: torch.Tensor, slab: int, nstages: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch C entry ``entry`` of the stage_reduce library on P's stream:
+    ``first`` is its first argument (the plane, or the device table of
+    plane pointers), P the plane (or the first plane) whose shape and
+    device the launch takes.  Returns (colmax, colz)."""
     nrows, numr = P.shape
     nslabs = start_cols.shape[0]
-    lib = cuda_build.load("stage_reduce")
-    fn = lib.stage_reduce
+    fn = getattr(cuda_build.load("stage_reduce"), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -175,13 +173,25 @@ def reduce_stages(P: torch.Tensor, start_cols: torch.Tensor,
                          device=P.device)
     colz = torch.empty((nslabs, nstages, slab), dtype=torch.int32,
                        device=P.device)
+    rc = fn(first, numr, nrows, start_cols.data_ptr(), zinds.data_ptr(),
+            colmax.data_ptr(), colz.data_ptr(), nslabs, slab, nstages,
+            torch.cuda.current_stream(P.device).cuda_stream)
+    cuda_build.check(rc, entry)
+    return colmax, colz
+
+
+def reduce_stages(P: torch.Tensor, start_cols: torch.Tensor,
+                  zinds: torch.Tensor, slab: int, nstages: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """See the module docstring.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    if P.device.type == "cpu":
+        return reduce_stages_plain(P, start_cols, zinds, slab, nstages)
+    _check_launch(P, start_cols, zinds, slab, nstages)
     global launches
     launches += 1
-    rc = fn(P.data_ptr(), numr, nrows, start_cols.data_ptr(),
-            zinds.data_ptr(), colmax.data_ptr(), colz.data_ptr(), nslabs,
-            slab, nstages, torch.cuda.current_stream(P.device).cuda_stream)
-    cuda_build.check(rc, "stage_reduce")
-    return colmax, colz
+    return _launch("stage_reduce", P.data_ptr(), P, start_cols, zinds, slab,
+                   nstages)
 
 
 def reduce_stages_planes(planes, start_cols: torch.Tensor,
@@ -208,26 +218,10 @@ def reduce_stages_planes(planes, start_cols: torch.Tensor,
             p.data_ptr() % 16 for p in planes):
         raise ValueError("reduce_stages_planes: planes must be contiguous "
                          "and 16-byte aligned")
-    nrows, numr = P.shape
-    nslabs = start_cols.shape[0]
     # the pointer table rides the stream from pinned memory (no host sync)
     table = torch.tensor([p.data_ptr() for p in planes], dtype=torch.int64
                          ).pin_memory().to(P.device, non_blocking=True)
-    lib = cuda_build.load("stage_reduce")
-    fn = lib.stage_reduce_planes
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    colmax = torch.empty((nslabs, nstages, slab), dtype=torch.float32,
-                         device=P.device)
-    colz = torch.empty((nslabs, nstages, slab), dtype=torch.int32,
-                       device=P.device)
     global planes_launches
     planes_launches += 1
-    rc = fn(table.data_ptr(), numr, nrows, start_cols.data_ptr(),
-            zinds.data_ptr(), colmax.data_ptr(), colz.data_ptr(), nslabs,
-            slab, nstages, torch.cuda.current_stream(P.device).cuda_stream)
-    cuda_build.check(rc, "stage_reduce_planes")
-    return colmax, colz
+    return _launch("stage_reduce_planes", table.data_ptr(), P, start_cols,
+                   zinds, slab, nstages)

@@ -5,8 +5,8 @@ Host copy of ``presto_tpu/search/optimize.py`` for the PyTorch port,
 which imports nothing from the JAX package: the (r, z) parts and the
 jerk's (r, z, w) interpolation and simplex (rzw_interp, power_at_rzw,
 max_rzw_arr: the reference's per-candidate path, which the port's
-refine_and_write does not fall back to; the library and the tests use
-them).  corr_rz_plane is not ported.
+accelsearch refine does not fall back to; the library and the tests
+use them).  corr_rz_plane is not ported.
 
 Parity targets (behavioral, not line-for-line):
   rz_interp            rzinterp.c:144-...   amplitude at fractional (r,z)

@@ -549,7 +549,7 @@ def joint_powers(amps, r, z, numharm, zmax_pairs=None,
     return tot
 
 
-class _SeedWindows:
+class SeedWindows:
     """One seed's pairs as the polish sets them up: windows centred on
     floor(r h) of the seed, the batch's window geometry, the seed's local
     powers (w = 0) as objective weights."""
@@ -609,7 +609,7 @@ class _SeedWindows:
         return obj.astype(np.float64), fin.reshape(k, self.nh).sum(-1)
 
 
-def _batch_geometry(seeds, jerk):
+def batch_geometry(seeds, jerk):
     """(W, npts) of a polish of the batch ``seeds``."""
     zgeo = max(abs(float(c.z)) * c.numharm for c in seeds) \
         + STEP0_Z * GRID_G + 1.0
@@ -635,13 +635,13 @@ def descent_replay(amps, seeds, tie_rtol, points=(), batch=None, jerk=False,
     amp_pairs = _as_pairs(amps, device)
     dev = amp_pairs.device
     naxes = 3 if jerk else 2
-    W, npts = _batch_geometry(batch if batch is not None else seeds, jerk)
+    W, npts = batch_geometry(batch if batch is not None else seeds, jerk)
 
     def t(a):
         return torch.as_tensor(a, device=dev)
     out = []
     for k, c in enumerate(seeds):
-        sw = _SeedWindows(amp_pairs, c, W, npts, jerk, harmpolish)
+        sw = SeedWindows(amp_pairs, c, W, npts, jerk, harmpolish)
         nh, hh = sw.nh, sw.hh
         step0 = [np.float32(STEP0_R / nh), np.float32(STEP0_Z / nh)] + (
             [np.float32(STEP0_W / nh)] if jerk else [])
@@ -699,17 +699,27 @@ def descent_replay(amps, seeds, tie_rtol, points=(), batch=None, jerk=False,
 #    differ by at most L, plus the rounding of the two evaluations;
 #  * the two sides' reported powers within the same bound (each side
 #    evaluated its own point), and sigma within MOVED_SIGMA.
-# The jerk polish (jerk=True; the seeds are required) is held by the same
-# rule in (r, z, w) on its 3-D grid, with L summed over the three axes'
-# Hessian terms from a 3 x 3 x 3 stencil, and one change: P is the
-# descent's own objective (harmonic powers over the SEED's local powers),
-# not the final measurement.  The final measurement divides by the local
-# power at the point, taken at w = 0 around r h: along the jerk's
-# (r, z, w) valley of near-equal objective that local power moves (0.3%
-# for one final step on a strong numharm-4 signal), so the final power
-# is no measure of a near-tie there.  Instead each side's reported power
-# must be the evaluator's final measurement at its own point within
-# 2 * EVAL_RTOL (relative), and sigma, which follows it, is not compared.
+# The jerk polish (jerk=True; the seeds and numindep are required) is
+# held by the same rule in (r, z, w) on its 3-D grid, with L summed over
+# the three axes' Hessian terms from a 3 x 3 x 3 stencil, and one change:
+# P is the descent's own objective (harmonic powers over the SEED's local
+# powers), not the final measurement.  The final measurement F divides by
+# the local power at the point, taken at w = 0 around r h: along the
+# jerk's (r, z, w) valley of near-equal objective that local power moves
+# (0.3% for one final step on a strong numharm-4 signal), so F is no
+# measure of a near-tie there.  Instead each side's reported power must
+# be F at its own point within 2 * EVAL_RTOL (relative), and the two
+# reported powers may differ by no more than F itself changes across the
+# move d (in final-stage steps per axis), from F's gradient g and Hessian
+# H on the same stencil (in step units):
+#     |p_a - p_b| <= sum_i |g_i d_i| + 1/2 sum_ij |H_ij d_i d_j|
+#                    + EVAL_RTOL |F(a)| (6 + sum_i |d_i|
+#                                        + 2 sum_i d_i^2
+#                                        + sum_i<j |d_i d_j|),
+# the last term the rounding of one evaluator in the stencil's
+# differences and in the two reported powers.  Sigma, a function of the
+# power, may differ by no more than the sigma of that power gap (at the
+# lower power, from numindep) plus SAME_SIGMA.
 # The jerk rule takes JERK_EVAL_RTOL and JERK_TIE_RTOL in place of
 # EVAL_RTOL and TIE_RTOL: its chirp adds w h (u^3/6 - u^2/4 + u/12), so
 # the float32 phases are larger and two evaluators differ more (up to
@@ -750,45 +760,53 @@ def _in_reach(reach, c, jerk=False) -> bool:
     return bool(ok.any())
 
 
-def _curvature_loss(P0, st_, h):
-    """L = sum_ij |H_ij| h_i h_j / 8 from the stencil values st_ (keyed by
-    offset tuples) around P0, with steps h (one array an axis)."""
-    naxes = len(h)
-    L = np.zeros_like(P0)
+def _taylor_bound(P0, st_, d, grad):
+    """sum_i |g_i| d_i + 1/2 sum_ij |H_ij| d_i d_j, with the gradient g
+    (when ``grad``) and the Hessian H by central differences of the
+    stencil values st_ (keyed by offset tuples of one step) around P0, in
+    step units; d the move's size in steps, one array an axis."""
+    naxes = len(d)
+    out = np.zeros_like(P0)
     for a in range(naxes):
-        for b in range(a, naxes):
-            if a == b:
-                e = tuple(int(x == a) for x in range(naxes))
-                m = tuple(-x for x in e)
-                H = (st_[e] + st_[m] - 2 * P0) / h[a] ** 2
-                L = L + np.abs(H) * h[a] ** 2
-            else:
-                def o(sa, sb):
-                    return tuple(sa if x == a else sb if x == b else 0
-                                 for x in range(naxes))
-                H = (st_[o(1, 1)] - st_[o(1, -1)] - st_[o(-1, 1)]
-                     + st_[o(-1, -1)]) / (4 * h[a] * h[b])
-                L = L + 2 * np.abs(H) * h[a] * h[b]
-    return L / 8
+        e = tuple(int(x == a) for x in range(naxes))
+        m = tuple(-x for x in e)
+        if grad:
+            out = out + np.abs(st_[e] - st_[m]) / 2 * d[a]
+        out = out + np.abs(st_[e] + st_[m] - 2 * P0) / 2 * d[a] ** 2
+        for b in range(a + 1, naxes):
+            def o(sa, sb):
+                return tuple(sa if x == a else sb if x == b else 0
+                             for x in range(naxes))
+            out = out + np.abs(st_[o(1, 1)] - st_[o(1, -1)] - st_[o(-1, 1)]
+                               + st_[o(-1, -1)]) / 4 * d[a] * d[b]
+    return out
+
+
+def _curvature_loss(P0, st_):
+    """L = sum_ij |H_ij| h_i h_j / 8: how far below the peak a grid
+    maximum of the stencil's step can lie (half a step on each axis)."""
+    naxes = len(next(iter(st_)))
+    return _taylor_bound(P0, st_, [0.5] * naxes, grad=False)
 
 
 def agreement(amps, want, got, seeds=None, jerk=False, harmpolish=True,
-              device="cpu") -> dict:
+              numindep=None, device="cpu") -> dict:
     """Hold ``got`` against ``want`` (two polished lists of the same
     candidates, in the same order, on spectrum ``amps``; ``seeds`` the
     unpolished candidates of the one batch both polished, when known;
-    ``jerk`` for the jerk polish's (r, z, w) candidates, whose seeds it
-    needs) by the rule above.  Returns
-    {"ok", "moved", "moved_ok", "tie_paths", "unexplained", "worst",
-    "flags"}: ``moved_ok`` lists the candidates that moved within the
-    rule; ``worst`` holds the largest same-point power and sigma
-    differences, the largest move in final-stage steps and the largest
-    power gap over its bound; each entry of ``flags`` names a candidate
+    ``jerk`` for the jerk polish's (r, z, w) candidates, whose seeds and
+    ``numindep`` (the polish's, per stage) it needs) by the rule above.
+    Returns {"ok", "moved", "moved_ok", "tie_paths", "unexplained",
+    "worst", "flags"}: ``moved_ok`` lists the candidates that moved
+    within the rule; ``worst`` holds the largest same-point power and
+    sigma differences, the largest move in final-stage steps and the
+    largest power gap over its bound; each entry of ``flags`` names a candidate
     that broke the rule, with its numbers (and, given the seeds, the
     replay's: ``tie_path`` true or false); ``tie_paths`` counts the
     flags that are tie paths, ``unexplained`` the others."""
-    if jerk and seeds is None:
-        raise ValueError("agreement: the jerk rule needs the seeds")
+    if jerk and (seeds is None or numindep is None):
+        raise ValueError("agreement: the jerk rule needs the seeds and "
+                         "numindep")
     amps = (amps.detach().cpu() if isinstance(amps, torch.Tensor)
             else amps)
     out = dict(ok=True, moved=0, moved_ok=[], tie_paths=0, unexplained=0,
@@ -829,52 +847,70 @@ def agreement(amps, want, got, seeds=None, jerk=False, harmpolish=True,
     B = np.array([_point(got[i], jerk) for i in moved]).T
     pts = [A, B] + [A + np.array(o)[:, None] * np.array(h) for o in offs]
     if jerk:
-        # the descent's objective with each seed's windows and weights;
-        # each side's final measurement at its own point
+        # the descent's objective with each seed's windows and weights,
+        # and the final measurement, at every point
         amp_pairs = _as_pairs(amps, device)
-        W, npts = _batch_geometry(seeds, True)
+        W, npts = batch_geometry(seeds, True)
         P = np.zeros((len(pts), len(moved)))
-        Fab = np.zeros((2, len(moved)))
+        F = np.zeros((len(pts), len(moved)))
         for k, i in enumerate(moved):
-            sw = _SeedWindows(amp_pairs, seeds[i], W, npts, True, harmpolish)
-            obj, fin = sw.measures(np.stack([p[:, k] for p in pts]))
-            P[:, k], Fab[:, k] = obj, fin[:2]
+            sw = SeedWindows(amp_pairs, seeds[i], W, npts, True, harmpolish)
+            P[:, k], F[:, k] = sw.measures(np.stack([p[:, k] for p in pts]))
     else:
         zmax = max(abs(c.z) * c.numharm for c in list(want) + list(got))
         P = joint_powers(amps, np.concatenate([p[0] for p in pts]),
                          np.concatenate([p[1] for p in pts]),
                          np.tile(nh, len(pts)), zmax_pairs=zmax,
                          device=device).reshape(len(pts), len(moved))
-    L = _curvature_loss(P[0], {o: P[2 + k] for k, o in enumerate(offs)}, h)
+    L = _curvature_loss(P[0], {o: P[2 + k] for k, o in enumerate(offs)})
     eval_rtol = JERK_EVAL_RTOL if jerk else EVAL_RTOL
     bound = L + 2 * eval_rtol * np.abs(P[0])
+    d = [np.abs(B[x] - A[x]) / h[x] for x in range(naxes)]
+    if jerk:
+        # the change of the final measurement across each move
+        fbound = _taylor_bound(F[0], {o: F[2 + k] for k, o in
+                                      enumerate(offs)}, d, grad=True)
+        fbound += eval_rtol * np.abs(F[0]) * (
+            6 + sum(d) + 2 * sum(x * x for x in d)
+            + sum(d[x] * d[y] for x in range(naxes)
+                  for y in range(x + 1, naxes)))
     for k, i in enumerate(moved):
         a, b = want[i], got[i]
-        steps = max(abs(A[x, k] - B[x, k]) / h[x][k] for x in range(naxes))
+        steps = max(d[x][k] for x in range(naxes))
         gap = abs(P[0, k] - P[1, k])
         ds = abs(a.sigma - b.sigma)
         if jerk:
             rep = max(abs(c.power - f) / abs(f)
-                      for c, f in zip((a, b), Fab[:, k]))
+                      for c, f in zip((a, b), F[:2, k]))
+            rgap = abs(a.power - b.power)
+            lo = min(a.power, b.power)
+            stage = int(np.log2(a.numharm))
+            sig_bound = SAME_SIGMA + float(np.diff(st.candidate_sigma(
+                np.array([lo, lo + fbound[k]]), a.numharm,
+                numindep[stage]))[0])
+            # the two sides' reported power and sigma across the move
+            move_bad = rgap > fbound[k] or ds > sig_bound
             rep_bad = rep > 2 * eval_rtol
-            sig_bad = False
             worst["gap_over_bound"] = max(worst["gap_over_bound"],
-                                          gap / bound[k])
+                                          gap / bound[k], rgap / fbound[k])
         else:
             rep = abs(a.power - b.power)
             rep_bad = rep > bound[k]
-            sig_bad = ds > MOVED_SIGMA
+            move_bad = ds > MOVED_SIGMA
             worst["gap_over_bound"] = max(worst["gap_over_bound"],
                                           gap / bound[k], rep / bound[k])
         worst["steps"] = max(worst["steps"], steps)
         if not (steps > AGREE_STEPS + 1e-6 or gap > bound[k] or rep_bad
-                or sig_bad):
+                or move_bad):
             out["moved_ok"].append(i)
             continue
         flag = dict(i=i, why="moved", sigma_a=a.sigma, steps=steps,
                     power_a=P[0, k], power_b=P[1, k], gap=gap,
                     bound=bound[k], curvature_loss=L[k],
                     reported_gap=rep, sigma=ds)
+        if jerk:
+            flag.update(reported_power_gap=rgap, reported_bound=fbound[k],
+                        sigma_bound=sig_bound)
         if seeds is not None:
             (reach, pw), = descent_replay(
                 amps, [seeds[i]], JERK_TIE_RTOL if jerk else TIE_RTOL,
@@ -888,8 +924,7 @@ def agreement(amps, want, got, seeds=None, jerk=False, harmpolish=True,
             flag["tie_path"] = bool(
                 flag["a_reached"] and flag["b_reached"]
                 and max(rel) <= 2 * eval_rtol
-                and steps <= AGREE_STEPS + 1e-6
-                and (jerk or ds <= MOVED_SIGMA))
+                and steps <= AGREE_STEPS + 1e-6 and not move_bad)
             out["tie_paths"] += flag["tie_path"]
         out["flags"].append(flag)
     out["ok"] = not out["flags"]

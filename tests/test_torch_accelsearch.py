@@ -1,5 +1,5 @@
-"""The port's accelsearch app (ACCEL/.cand files, refine_and_write, the
-CLI) against the JAX package's, on the CPU.
+"""The port's accelsearch app (ACCEL/.cand files, refine + write_results,
+the CLI) against the JAX package's (refine_and_write), on the CPU.
 
 The writers are byte-equal for the same candidates.  Polished
 candidates agree within the tolerances of tests/test_torch_polish.py
@@ -106,6 +106,16 @@ def searched():
     return pairs, s, s.search(pairs)
 
 
+def refine_and_write(raw, amps, T, s, base, zmax, wmax=0, harmremove=True,
+                     lobin=0):
+    """The port's counterpart of the JAX package's refine_and_write:
+    refine, then write_results.  Returns (final candidates, ACCEL
+    path)."""
+    trace = tapp.refine(raw, amps, T, s, wmax=wmax, harmremove=harmremove)
+    return trace.final, tapp.write_results(trace, T, base, zmax, wmax,
+                                           quiet=True, lobin=lobin)
+
+
 def to_jax(cands):
     return [jaccel.AccelCand(power=c.power, sigma=c.sigma,
                              numharm=c.numharm, r=c.r, z=c.z)
@@ -125,10 +135,10 @@ def test_refine_and_write_matches_jax(tmp_path, searched, harmremove,
         to_jax(raw), amps.astype(np.complex64), s.T, s,
         str(tmp_path / "j"), 20, quiet=True, harmremove=harmremove,
         lobin=lobin)
-    got, tname = tapp.refine_and_write(
+    got, tname = refine_and_write(
         [taccel.AccelCand(**vars(c)) for c in raw],
         torch.from_numpy(pairs), s.T, s, str(tmp_path / "t"), 20,
-        quiet=True, harmremove=harmremove, lobin=lobin)
+        harmremove=harmremove, lobin=lobin)
     assert tname.endswith("t_ACCEL_20") and os.path.exists(tname + ".cand")
     assert len(got) == len(want) > 0
     assert [c.numharm for c in got] == [c.numharm for c in want]
@@ -154,21 +164,20 @@ def test_refine_and_write_has_no_fallback(tmp_path, searched,
         raise RuntimeError("polish failed")
     monkeypatch.setattr(tapp, "optimize_accelcands", boom)
     with pytest.raises(RuntimeError, match="polish failed"):
-        tapp.refine_and_write(list(raw), torch.from_numpy(pairs), s.T, s,
-                              str(tmp_path / "t"), 20, quiet=True)
+        refine_and_write(list(raw), torch.from_numpy(pairs), s.T, s,
+                         str(tmp_path / "t"), 20)
     assert not glob.glob(str(tmp_path / "t_ACCEL*"))
     monkeypatch.undo()
-    cands, name = tapp.refine_and_write(list(raw), pairs, s.T, s,
-                                        str(tmp_path / "t"), 20, wmax=10,
-                                        quiet=True)
+    cands, name = refine_and_write(list(raw), pairs, s.T, s,
+                                   str(tmp_path / "t"), 20, wmax=10)
     assert name.endswith("t_ACCEL_20_JERK_10") and cands
     assert all(abs(c.w) <= 10 for c in cands)
     assert [c.w for c in tapp.read_cand_file(name + ".cand")] == \
         [c.w for c in cands]
     monkeypatch.setattr(tapp, "optimize_jerk_cands", boom)
     with pytest.raises(RuntimeError, match="polish failed"):
-        tapp.refine_and_write(list(raw), pairs, s.T, s,
-                              str(tmp_path / "u"), 20, wmax=10, quiet=True)
+        refine_and_write(list(raw), pairs, s.T, s, str(tmp_path / "u"), 20,
+                         wmax=10)
     assert not glob.glob(str(tmp_path / "u_ACCEL*"))
 
 

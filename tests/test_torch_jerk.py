@@ -20,13 +20,15 @@ plain versions.  Tolerances:
     near-tie move of at most 6 final-stage steps whose descent
     objectives differ within the 3-D final grid's curvature bound (plus
     2 JERK_EVAL_RTOL) with each reported power its point's final
-    measurement within 2 JERK_EVAL_RTOL, or a tie path that the
-    descent replay reaches; none unexplained;
+    measurement within 2 JERK_EVAL_RTOL, the two reported powers within
+    the final measurement's own change across the move (its stencil
+    gradient and curvature) and the sigmas within that gap's sigma, or
+    a tie path that the descent replay reaches; none unexplained;
   * the ``_JERK_`` table and .cand by
-    ``apps/accelsearch.jerk_file_agreement``: on the same grid point the
-    .cand's r, z, w bytes equal, power and sigma as above, and the table
-    line byte-equal (or a named %.2f rounding boundary); every other
-    line explained by the two polishes' agreement.
+    ``apps/accel_agreement.jerk_file_agreement``: on the same grid point
+    the .cand's r, z, w bytes equal, power and sigma as above, and the
+    table line byte-equal (or a named %.2f rounding boundary); every
+    other line explained by both polishes' agreement.
 """
 
 import dataclasses
@@ -43,8 +45,10 @@ from presto_tpu.ops import responses as jresp
 from presto_tpu.search import accel as jaccel
 from presto_tpu.search import optimize as jopt
 from presto_tpu.search import polish as jpolish
+from presto_tpu_torch.apps import accel_agreement
 from presto_tpu_torch.apps import accelsearch as tapp
 from presto_tpu_torch.ops import responses as tresp
+from presto_tpu_torch.ops import stats as tst
 from presto_tpu_torch.search import accel as taccel
 from presto_tpu_torch.search import accel_cuda
 from presto_tpu_torch.search import optimize as topt
@@ -218,6 +222,32 @@ def test_search_matches_jax(jax_tpu_path, numharm, banks, nbins):  # noqa: F811
         assert min(abs(top.r / T - 40.3 * h) for h in (1, 2)) < 0.2
 
 
+def test_jerk_budget_holds_every_bank(monkeypatch):
+    """The jerk search keeps every device bank of cfg.ws for its lifetime:
+    the plane budget is what the device holds after all of them and the
+    work, and a device without room for the banks and one scan's planes
+    raises (a fake free-memory reading on a CPU searcher)."""
+    s = taccel.AccelSearch(taccel.AccelConfig(zmax=20, wmax=40, numharm=2),
+                           T=T, numbins=NBINS, device="cpu")
+    bank = s._kbank.numel() * 8
+    nbanks = len(s.cfg.ws) - 1           # w = 0 is the searcher's own
+    plane, work = 1 << 20, 1 << 16
+    free = [0]
+    monkeypatch.setattr(s, "device", torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda d=None: (free[0], 1 << 40))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda d=None: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d=None: 0)
+    free[0] = (nbanks * bank + work + 3 * plane) / taccel.MEM_HEADROOM + 1
+    assert s._jerk_budget(plane, work, 3) == 3
+    free[0] -= bank / taccel.MEM_HEADROOM
+    with pytest.raises(MemoryError, match="banks"):
+        s._jerk_budget(plane, work, 3)
+    # banks already on the device count as room
+    s._w_banks_dev[20.0] = torch.zeros(1)
+    assert s._jerk_budget(plane, work, 3) == 3
+
+
 def test_search_many_is_per_spectrum():
     """search_many of a jerk searcher searches one spectrum at a time:
     the same lists as search, and the caches change nothing."""
@@ -353,7 +383,7 @@ def test_jerk_polish_matches_jax(harmpolish):
     got = tpolish.optimize_jerk_cands(X, tc, 500.0, numindep,
                                       harmpolish=harmpolish, device="cpu")
     rep = tpolish.agreement(X, want, got, seeds=tc, jerk=True,
-                            harmpolish=harmpolish)
+                            harmpolish=harmpolish, numindep=numindep)
     assert rep["unexplained"] == 0, rep["flags"]
     for (r0, z0, w0, _nh, _e), oc in zip(truths, got):
         assert abs(oc.r - r0) < 0.05 and abs(oc.z - z0) < 0.5
@@ -368,9 +398,91 @@ def test_jerk_agreement_flags_a_far_move():
                            w=w) for r, z, w, nh in seeds[:2]]
     got = tpolish.optimize_jerk_cands(X, tc, 500.0, [1e4] * 3, device="cpu")
     moved = [dataclasses.replace(got[0], w=got[0].w + 9.0), got[1]]
-    rep = tpolish.agreement(X, got, moved, seeds=tc, jerk=True)
+    rep = tpolish.agreement(X, got, moved, seeds=tc, jerk=True,
+                            numindep=[1e4] * 3)
     assert rep["unexplained"] == 1 and rep["flags"][0]["i"] == 0
-    assert tpolish.agreement(X, got, got, seeds=tc, jerk=True)["ok"]
+    assert tpolish.agreement(X, got, got, seeds=tc, jerk=True,
+                             numindep=[1e4] * 3)["ok"]
+
+
+def near_tie_moves():
+    """The injected seeds' CPU jerk polish, and per candidate its one-step
+    neighbour (one final-stage step on each axis at most) of least
+    objective loss, reported as the polish reports a point: its final
+    measurement and that power's sigma.  (X, seeds, polished, moved,
+    numindep)."""
+    X, seeds, _truths = jerk_seeds()
+    numindep = [1e4] * 3
+    tc = [taccel.AccelCand(power=900.0, sigma=20.0, numharm=nh, r=r, z=z,
+                           w=w) for r, z, w, nh in seeds[:4]]
+    got = tpolish.optimize_jerk_cands(X, tc, 500.0, numindep, device="cpu")
+    amp = torch.as_tensor(np.stack([X.real, X.imag], -1))
+    W, npts = tpolish.batch_geometry(tc, True)
+    offs = np.array([o for o in np.ndindex(3, 3, 3) if o != (1, 1, 1)]) - 1
+    moved = []
+    for sd, c in zip(tc, got):
+        h = np.array([x[0] for x in tpolish.final_steps([c.numharm])]
+                     + [tpolish.final_step_w([c.numharm])[0]])
+        pts = np.array([c.r, c.z, c.w]) + offs * h
+        obj, fin = tpolish.SeedWindows(amp, sd, W, npts, True).measures(
+            np.vstack([[c.r, c.z, c.w], pts]))
+        k = int(np.argmax(obj[1:]))
+        p = float(fin[1 + k])
+        moved.append(dataclasses.replace(
+            c, r=pts[k, 0], z=pts[k, 1], w=pts[k, 2], power=p,
+            sigma=float(tst.candidate_sigma(p, c.numharm, numindep[
+                int(np.log2(c.numharm))]))))
+    return X, tc, got, moved, numindep
+
+
+def test_jerk_agreement_holds_moved_power_and_sigma():
+    """A near-tie move of one final step, reported as the polish reports
+    it, is within the jerk rule; the same move with a reported power off
+    its point's final measurement, or a sigma past the sigma of the
+    power's change across the move, is not."""
+    X, tc, got, moved, numindep = near_tie_moves()
+    rep = tpolish.agreement(X, got, moved, seeds=tc, jerk=True,
+                            numindep=numindep)
+    assert rep["ok"] and rep["moved_ok"] == [0, 1, 2, 3], rep["flags"]
+    assert 0 < rep["worst"]["gap_over_bound"] < 1
+    for field, delta in (("power", 1.01), ("sigma", 1.0)):
+        bad = list(moved)
+        v = getattr(moved[2], field)
+        bad[2] = dataclasses.replace(
+            moved[2], **{field: v * delta if field == "power" else v + delta})
+        rep = tpolish.agreement(X, got, bad, seeds=tc, jerk=True,
+                                numindep=numindep)
+        assert rep["unexplained"] == 1 and rep["flags"][0]["i"] == 2, field
+        assert not rep["flags"][0]["tie_path"]
+    with pytest.raises(ValueError, match="numindep"):
+        tpolish.agreement(X, got, moved, seeds=tc, jerk=True)
+
+
+def trace_of(jseeds, jocs, numindep):
+    """A RefineTrace that holds only a jerk polish's seeds and results."""
+    return tapp.RefineTrace(nraw=0, numindep=numindep, cands=[], ocs=[],
+                            jseeds=jseeds, jocs=jocs, final=[], seed_of=[],
+                            jerk_taken=[])
+
+
+def test_jerk_polish_agreement_from_each_sides_seeds():
+    """Where the (r, z) polish moved, the two sides' jerk seeds differ:
+    each side's jerk polish is then held against the CPU polish of its
+    own seeds, and a wrong result on either side is caught."""
+    X, tc, got, _moved, numindep = near_tie_moves()
+    other = [dataclasses.replace(c, r=c.r + 1e-3, z=c.z - 1e-2) for c in tc]
+    oth = tpolish.optimize_jerk_cands(X, other, 500.0, numindep,
+                                      device="cpu")
+    want, have = trace_of(tc, got, numindep), trace_of(other, oth, numindep)
+    rep = accel_agreement.jerk_polish_agreement(X, want, have)
+    assert rep["repolished"] and rep["passed"] == {0, 1, 2, 3}
+    far = list(oth)
+    far[1] = dataclasses.replace(oth[1], w=oth[1].w + 9.0)
+    rep = accel_agreement.jerk_polish_agreement(
+        X, want, trace_of(other, far, numindep))
+    assert rep["passed"] == {0, 2, 3}
+    same = accel_agreement.jerk_polish_agreement(X, want, want)
+    assert not same["repolished"] and same["passed"] == {0, 1, 2, 3}
 
 
 # ----------------------------------------------------------------------
@@ -431,7 +543,8 @@ def jax_refine(raw, amps, T, js, wmax, harmpolish=True):
     final = jaccel.remove_duplicates(refined)
     seed_of = [next(k for k, r in enumerate(refined) if r is c)
                for c in final]
-    return tapp.RefineTrace(nraw=len(raw), cands=cands, ocs=ocs,
+    return tapp.RefineTrace(nraw=len(raw), numindep=list(js.numindep),
+                            cands=cands, ocs=ocs,
                             jseeds=jseeds, jocs=jocs, final=final,
                             seed_of=seed_of,
                             jerk_taken=[taken[k] for k in seed_of])
@@ -446,7 +559,7 @@ def test_accelsearch_wmax_cli_matches_jax(tmp_path, jax_tpu_path,  # noqa: F811
                                           argv):
     """accelsearch -wmax on one .fft: the JAX CLI (its TPU path, on the
     CPU) and the port's write _ACCEL_20_JERK_<w> tables and .cand files
-    that agree by accelsearch.jerk_file_agreement (lines byte-equal on
+    that agree by accel_agreement.jerk_file_agreement (lines byte-equal on
     the same grid point, every other line explained)."""
     pairs = jerk_spectrum()
     jf = write_spectrum(str(tmp_path / "j"), pairs)
@@ -461,11 +574,11 @@ def test_accelsearch_wmax_cli_matches_jax(tmp_path, jax_tpu_path,  # noqa: F811
     jtrace = jax_refine(js.search(pairs), amps, T, js, args.wmax,
                         harmpolish=not args.noharmpolish)
     name = "x_ACCEL_20_JERK_%d" % args.wmax
-    rep = tapp.jerk_file_agreement(pairs, str(tmp_path / "j" / name),
-                                   str(tmp_path / "t" / name), jtrace,
-                                   ttrace, harmpolish=not args.noharmpolish)
+    rep = accel_agreement.jerk_file_agreement(
+        pairs, str(tmp_path / "j" / name), str(tmp_path / "t" / name),
+        jtrace, ttrace, harmpolish=not args.noharmpolish)
     assert rep["ok"], (rep["unexplained"], rep["z"]["flags"],
-                       rep["jerk"]["flags"])
+                       [r["flags"] for r in rep["jerk"]["reports"]])
     assert rep["same"] >= 1
     lines = open(str(tmp_path / "t" / name)).read().splitlines()
     assert len(lines[2]) == 142 and "FFT 'w'" in lines[0]
