@@ -64,6 +64,21 @@ Phases (any failure exits non-zero before the final line):
   6. toas    get_TOAs (-n 8 -d <best DM>) on that fold, on the card and
              on the CPU: 8 TOAs whose phases under the injected (f0,
              fdot) agree within their errors, and the two agree;
+  6b. sharded  torch.cuda.device_count() printed; the beam through
+             run_survey on a DM mesh over every card, or 4 logical shards
+             of cuda:0 on one card (said so: they share its memory and
+             stream, no speed-up is shown), with the main phase's
+             configuration: plane_build and stage_reduce launches per
+             shard and per device (each launch on its shard's device);
+             every .dat, .singlepulse and cands_sifted.txt byte-equal to
+             the unsharded run's; each shard's candidate lists equal to
+             the one-device search_many's on the same spectra; the two
+             runs' stage times side by side, no claim;
+  6c. cluster  two processes on the card run the survey's prepsubband
+             method: through -coordinator (gloo; each writes its own
+             rows), then through -elastic with one killed at a shard's
+             commit point, the survivor finishing; every .dat of both
+             byte-equal to the unsharded run's;
   7. small   spectra of 2^15 and 3000 bins searched on the card and on
              the CPU (the second on the non-aligned plane geometry);
   8. singlepulse  the JAX package's single-pulse bench shape (bench.py's
@@ -87,8 +102,9 @@ Phases (any failure exits non-zero before the final line):
              _JERK_ tables held by accel_agreement.jerk_file_agreement,
              and both kernels again at that path's geometry (numz 61,
              the 2-stage multi-plane reducer) on its spectrum;
- 10. summary the kernels line (launches of the main path and of the jerk
-             paths), the card, and the final ok line.
+ 10. summary the kernels line (launches of the main path, the sharded
+             main path, by shard too, and the jerk paths), the card, and
+             the final ok line.
 
 Prints the full results as one JSON line (``results: {...}``).  Imports
 no JAX and nothing of the JAX package.
@@ -2246,6 +2262,242 @@ def phase_jerk(gen, workdir):
                 plane_build=pb, stage_reduce_planes=red, pulsar=psr)
 
 
+SHARDS_ON_ONE_CARD = 4
+
+
+def _same_files(a_dir, b_dir, pattern):
+    """{basename: bytes equal} of each file of pattern in a_dir to its
+    namesake in b_dir."""
+    out = {}
+    for p in sorted(glob.glob(os.path.join(a_dir, pattern))):
+        q = os.path.join(b_dir, os.path.basename(p))
+        out[os.path.basename(p)] = (os.path.exists(q) and open(
+            p, "rb").read() == open(q, "rb").read())
+    return out
+
+
+def phase_sharded(raw, workdir, mwork, main_res):
+    """The main beam through survey.run_survey on a DM mesh with the main
+    phase's configuration: every card, or SHARDS_ON_ONE_CARD logical
+    shards of cuda:0 on a one-card machine (they share its memory and
+    stream: the per-shard programs and the placement are shown, not a
+    speed-up).  Launch counters read around it, per shard
+    (parallel/sharded.shard_launches) and per device (each wrapper
+    counts its launches by the device it made current); every .dat,
+    .singlepulse and cands_sifted.txt byte-equal to the unsharded main
+    run's (mwork), its .fft compared too (the per-shard FFT batches are
+    not the unsharded run's); then on the sharded run's own spectra each
+    shard's candidate lists from search_many(mesh=) equal to the
+    one-device search_many's, field for field.  The two runs' stage
+    times are printed side by side, with no claim."""
+    import contextlib
+    import dataclasses
+    from presto_tpu_torch.io import datfft
+    from presto_tpu_torch.io.infodata import read_inf
+    from presto_tpu_torch.ops import fftpack
+    from presto_tpu_torch.parallel import mesh as pmesh
+    from presto_tpu_torch.parallel import sharded
+    from presto_tpu_torch.pipeline import survey
+    from presto_tpu_torch.search import accel_cuda, build_cuda
+    from presto_tpu_torch.utils.timing import StageTimer
+    ncards = torch.cuda.device_count()
+
+    def visible():
+        return (pmesh.set_logical_devices(SHARDS_ON_ONE_CARD, "cuda:0")
+                if ncards == 1 else contextlib.nullcontext())
+    cfg = main_cfg()
+    timer = StageTimer()
+    with visible():
+        mesh = pmesh.make_mesh()
+        log("sharded: torch.cuda.device_count() = %d; the mesh: %s"
+            % (ncards, "%d logical shards of cuda:0 (one card)"
+               % mesh.size if ncards == 1 else "%d cards" % mesh.size))
+        build_cuda.launches = accel_cuda.launches = 0
+        accel_cuda.planes_launches = 0
+        build_cuda.launches_by_device.clear()
+        accel_cuda.launches_by_device.clear()
+        sharded.shard_launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = survey.run_survey([raw], cfg, workdir, timer=timer,
+                                device="cuda")
+        torch.cuda.synchronize()
+        total_s = time.time() - t0
+    launches = {"plane_build": build_cuda.launches,
+                "stage_reduce": accel_cuda.launches}
+    by_device = {"plane_build": dict(build_cuda.launches_by_device),
+                 "stage_reduce": dict(accel_cuda.launches_by_device)}
+    by_shard = {k: dict(v) for k, v in sorted(sharded.shard_launches.items())}
+    ndms = len(res.datfiles)
+    per = ndms // mesh.size
+    shards_ok = (sorted(by_shard) == list(range(mesh.size)) and all(
+        r["device"] == str(mesh.devices[k]) and r["trials"] == per
+        and r["plane_build"] == r["stage_reduce"] == per
+        for k, r in by_shard.items()))
+    # each launch on its shard's device: the wrappers' per-device counts
+    # are the shards' launches on that device, and nothing else
+    want_dev = {}
+    for k, r in by_shard.items():
+        idx = mesh.devices[k].index
+        want_dev[idx] = want_dev.get(idx, 0) + r["plane_build"]
+    device_ok = all(by_device[name] == want_dev for name in by_device)
+    if ncards == 1:
+        # every shard is cuda:0: the per-device counts cannot show a
+        # launch landing on another card
+        device_note = "devices: not testable on one card (all shards cuda:0)"
+    else:
+        device_note = "devices ok" if device_ok else "devices FAIL"
+    launches_ok = (ndms == main_res["ndms"] and accel_cuda.planes_launches
+                   == 0 and all(v == ndms for v in launches.values()))
+    log("sharded: run_survey %.3f s; launches %s, by device %s, by shard "
+        "%s; %s; %s" % (total_s, json.dumps(launches), json.dumps(by_device),
+                        json.dumps(by_shard), "shards ok" if shards_ok
+                        else "shards FAIL", device_note))
+    dats = _same_files(workdir, mwork, "psr_DM*.dat")
+    sps = _same_files(workdir, mwork, "psr_DM*.singlepulse")
+    sifted = _same_files(workdir, mwork, "cands_sifted.txt")
+    ffts = _same_files(workdir, mwork, "psr_DM*.fft")
+    name22 = "psr_DM%.2f.dat" % BEAM["dm"]
+    files_ok = (len(dats) == len(sps) == ndms and all(dats.values())
+                and all(sps.values()) and sifted.get("cands_sifted.txt")
+                and dats.get(name22))
+    log("sharded: byte-equal to the unsharded run: %d/%d .dat (%s %s), "
+        "%d/%d .singlepulse, cands_sifted.txt %s; .fft %d/%d equal %s"
+        % (sum(dats.values()), len(dats), name22, dats.get(name22),
+           sum(sps.values()), len(sps), sifted.get("cands_sifted.txt"),
+           sum(ffts.values()), len(ffts), "ok" if files_ok else "FAIL"))
+    # the candidate lists, shard by shard, on the same spectra
+    info = read_inf(res.datfiles[0][:-4])
+    T = info.N * info.dt
+    fftfiles = sorted(glob.glob(os.path.join(workdir, "psr_DM*.fft")))
+    batch = torch.stack([torch.from_numpy(fftpack.np_complex64_to_pairs(
+        datfft.read_fft(f))) for f in fftfiles]).to("cuda")
+    searcher = survey.searcher_for(cfg, T, batch.shape[1], device="cuda")
+    got = searcher.search_many(batch, mesh=mesh)
+    want = searcher.search_many(batch)
+    del batch
+    rows = pmesh.shard_row_ranges(mesh, len(fftfiles))
+    lists_equal = [all([dataclasses.astuple(c) for c in got[d]]
+                       == [dataclasses.astuple(c) for c in want[d]]
+                       for d in range(lo, hi)) for lo, hi in rows]
+    ncands = [sum(len(want[d]) for d in range(lo, hi)) for lo, hi in rows]
+    lists_ok = len(got) == len(want) == ndms and all(lists_equal)
+    log("sharded: candidate lists equal to the one-device search_many's, "
+        "by shard %s (%s candidates) %s"
+        % (lists_equal, ncands, "ok" if lists_ok else "FAIL"))
+    st = timer.stages
+    fused = st["realfft+accelsearch (fused)"]
+    stages = dict(run_survey_s=total_s, rfifind_s=st["rfifind"],
+                  survey_head_s=st["prepsubband"],
+                  single_pulse_s=st["single_pulse"], fused_s=fused,
+                  polish_s=st["polish"], accel_writes_s=st["accel writes"],
+                  sift_s=st["sift"], prepfold_s=st["prepfold"],
+                  fft_search_s=fused - st["polish"] - st["accel writes"])
+    log("sharded: stage times, sharded %s; unsharded %s (host seconds, "
+        "one call, no claim)" % (
+            json.dumps({k: round(v, 4) for k, v in stages.items()}),
+            json.dumps({k: round(main_res["stages"][k], 4) for k in stages
+                        if k in main_res["stages"]})))
+    ok = launches_ok and shards_ok and device_ok and files_ok and lists_ok
+    return dict(ok=ok, shards=mesh.size, cards=ncards,
+                logical=ncards == 1, devices_tested=ncards > 1,
+                ndms=ndms, launches=launches,
+                launches_by_device=by_device, launches_by_shard=by_shard,
+                dat_equal=sum(dats.values()), sp_equal=sum(sps.values()),
+                sifted_equal=bool(sifted.get("cands_sifted.txt")),
+                fft_equal=sum(ffts.values()), lists_equal=lists_equal,
+                stages=stages)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_two_processes(argv, kill_rank=None, timeout=300):
+    """Two processes of `prepsubband.main(argv + ["-procid", rank])` on
+    the card, joined through -coordinator (a free localhost port); with
+    kill_rank, that rank's elastic loop exits at its first
+    pre-shard-commit point.  Returns (return codes, output tails,
+    seconds); every process is stopped before it returns."""
+    from presto_tpu_torch.parallel import elastic
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; from presto_tpu_torch.apps import prepsubband; "
+            "prepsubband.main(sys.argv[1:])")
+    argv = argv + ["-coordinator", "localhost:%d" % _free_port(),
+                   "-nproc", "2"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    procs = []
+    t0 = time.time()
+    try:
+        for rank in range(2):
+            e = dict(env)
+            if rank == kill_rank:
+                e[elastic.KILL_ENV] = "pre-shard-commit:1:exit"
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code] + argv
+                + ["-procid", str(rank)], cwd=here, env=e,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        outs = [p.communicate(timeout=timeout)[0].decode(
+            errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], [o[-1500:] for o in outs], \
+        time.time() - t0
+
+
+def phase_cluster(raw, workdir, mwork, maskfile):
+    """Two processes on the card run the survey's prepsubband method with
+    its mask: through -coordinator (a gloo process group; each process
+    dedisperses and writes its own 12 DMs), then through -elastic
+    -coordinator with rank 0 killed (os._exit) after computing its first
+    shard, before the commit: the survivor reaps it, takes its shard and
+    finishes.  Every .dat of both runs byte-equal to the unsharded main
+    run's (mwork)."""
+    cfg = main_cfg()
+    out = {}
+    for name, extra, kill in (
+            ("coordinator", [], None),
+            ("elastic", ["-elastic", "-heartbeat-interval", "0.5",
+                         "-lease-ttl", "60", "-barrier-timeout", "60"], 0)):
+        d = os.path.join(workdir, name)
+        os.makedirs(d)
+        argv = (method_argv(raw, cfg, os.path.join(d, "psr"))
+                + ["-mask", maskfile] + extra + [raw])
+        rcs, tails, secs = run_two_processes(argv, kill_rank=kill)
+        dats = _same_files(d, mwork, "psr_DM*.dat")
+        want_rcs = [0, 0] if kill is None else [43, 0]
+        ok = (rcs == want_rcs and all(dats.values()) and len(dats) == len(
+            glob.glob(os.path.join(mwork, "psr_DM*.dat"))))
+        rec = dict(ok=ok, rcs=rcs, seconds=secs, dat_equal=sum(
+            dats.values()), dats=len(dats))
+        if name == "elastic":
+            led = json.load(open(os.path.join(d, "shards.json")))
+            rec.update(epoch=led["epoch"],
+                       rank0_alive=led["hosts"]["proc0"]["alive"],
+                       shards={k: v["owner"] for k, v in
+                               sorted(led["shards"].items())})
+            ok = rec["ok"] = ok and led["epoch"] >= 1 and \
+                not led["hosts"]["proc0"]["alive"]
+        log("cluster: %s: return codes %s (want %s), %.1f s, %d/%d .dat "
+            "byte-equal to the unsharded run's%s %s"
+            % (name, rcs, want_rcs, secs, rec["dat_equal"], rec["dats"],
+               "; ledger epoch %d, shards by %s" % (rec["epoch"],
+                                                   rec["shards"])
+               if name == "elastic" else "", "ok" if ok else "FAIL"))
+        if not ok:
+            for r, t in enumerate(tails):
+                log("cluster: %s rank %d output tail:\n%s" % (name, r, t))
+        out[name] = rec
+    return dict(ok=all(v["ok"] for v in out.values()), **out)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2287,6 +2539,12 @@ def main():
                 else dict(ok=False))
         toas = (phase_toas(fold["pfd"], fold["best_dm"], mwork)
                 if "pfd" in fold else dict(ok=False))
+        torch.cuda.empty_cache()
+        shard = phase_sharded(raw, os.path.join(work, "sharded"), mwork,
+                              main_res)
+        torch.cuda.empty_cache()
+        cluster = phase_cluster(raw, os.path.join(work, "cluster"), mwork,
+                                main_res["maskfile"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     small = phase_small_reference(gen)
@@ -2301,11 +2559,12 @@ def main():
         shutil.rmtree(jwork, ignore_errors=True)
     results.update(plane_build=k1, stage_reduce=k2, polish=pol,
                    main=main_res, ingest=ingest, fold=fold,
-                   toas=toas, singlepulse=spb, jerk=jerk,
+                   toas=toas, singlepulse=spb, jerk=jerk, sharded=shard,
+                   cluster=cluster,
                    small_reference=small, total_s=time.time() - t_start)
-    # launches: the main path's (run_survey), plus the jerk paths' (the
-    # bench search, and accelsearch -wmax on the card), each counted
-    # from zero around its run
+    # launches: the main path's (run_survey, and run_survey on the DM
+    # mesh), plus the jerk paths' (the bench search, and accelsearch
+    # -wmax on the card), each counted from zero around its run
     jl = [jerk["bench"]["launches"], jerk["pulsar"]["launches"]["cuda"]]
     kernels = []
     for name, src, rep, k, jk, pk in (
@@ -2316,7 +2575,8 @@ def main():
              "presto_tpu/search/accel_pallas.py:245", k2,
              jerk["stage_reduce_planes"],
              jerk["pulsar"]["stage_reduce_planes"])):
-        by_path = {"run_survey": main_res["launches"][name]}
+        by_path = {"run_survey": main_res["launches"][name],
+                   "run_survey_sharded": shard["launches"][name]}
         for path, counts in zip(("jerk_bench", "accelsearch_wmax"), jl):
             by_path[path] = counts[name] + counts.get(
                 "stage_reduce_planes", 0) * (name == "stage_reduce")
@@ -2329,6 +2589,9 @@ def main():
                         "library_ms": k["library_ms"], "ok": k["ok"],
                         "tolerance": k["tolerance"],
                         "launches_by_path": by_path,
+                        "launches_by_shard": {
+                            k: r[name] for k, r in
+                            shard["launches_by_shard"].items()},
                         "jerk_bench": {x: jk[x] for x in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms")},
@@ -2344,7 +2607,9 @@ def main():
                               ("fold", fold["ok"]), ("toas", toas["ok"]),
                               ("small_reference", small_ok),
                               ("singlepulse", spb["ok"]),
-                              ("jerk", jerk["ok"])) if not ok]
+                              ("jerk", jerk["ok"]),
+                              ("sharded", shard["ok"]),
+                              ("cluster", cluster["ok"])) if not ok]
     if failed:
         print("chip_smoke: FAILED phases: %s" % failed, file=sys.stderr)
         return 1

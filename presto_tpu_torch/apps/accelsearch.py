@@ -195,14 +195,16 @@ class RefineTrace:
 
 
 def refine(raw_cands, amps, T, searcher, wmax=0, harmremove=True,
-           harmpolish=True, timer=None) -> RefineTrace:
+           harmpolish=True, timer=None, device=None) -> RefineTrace:
     """The candidate post-processing shared by the CLI and the survey,
     before write_results writes its files: harmonic elimination (unless
     -noharmremove), dedup, the batched polish on the searcher's device
     (with wmax then the jerk polish, seeded from it with each candidate's
     search w: its (r, z, w) is kept where |w| <= wmax and its power beats
     the (r, z) polish's, else w is 0), dedup again.  amps: the spectrum
-    (a tensor of [n, 2] float32 pairs, or numpy).  With a ``timer``
+    (a tensor of [n, 2] float32 pairs, or numpy).  ``device``: where the
+    polish runs (default: the searcher's; a shard's spectrum is polished
+    on its own device).  With a ``timer``
     (utils/timing.StageTimer) the polish is timed as stage "polish".  The
     raw candidates are not changed."""
     def stage(name):
@@ -212,17 +214,19 @@ def refine(raw_cands, amps, T, searcher, wmax=0, harmremove=True,
         raw_cands = eliminate_harmonics(raw_cands)
     cands = remove_duplicates(raw_cands)
     jseeds, jocs = [], [None] * len(cands)
+    if device is None:
+        device = searcher.device
     with stage("polish"):
         ocs = optimize_accelcands(amps, cands, T, searcher.numindep,
                                   harmpolish=harmpolish, with_props=False,
-                                  device=searcher.device)
+                                  device=device)
         if wmax and cands:
             jseeds = [AccelCand(power=o.power, sigma=o.sigma,
                                 numharm=o.numharm, r=o.r, z=o.z, w=c.w)
                       for c, o in zip(cands, ocs)]
             jocs = optimize_jerk_cands(amps, jseeds, T, searcher.numindep,
                                        harmpolish=harmpolish,
-                                       device=searcher.device)
+                                       device=device)
     refined, taken = [], []
     for c, oc, joc in zip(cands, ocs, jocs):
         c = replace(c, r=oc.r, z=oc.z, power=oc.power, sigma=oc.sigma)

@@ -5,13 +5,15 @@ prepsubband streaming loop, rfifind, accelsearch and prepfold use: the
 raw-data flags, open_raw_args, obs_metadata, BlockPrep (mask
 substitution, clipping on by default, zero-DM, running average,
 ignorechan) and block_prep, stream_blocklen, pad_to_good_N, set_onoff,
-fil_to_inf, load_timeseries and load_spectrum.  The port reads SIGPROC filterbanks only;
+fil_to_inf, load_timeseries, load_spectrum and CLIResume (the app
+CLIs' -resume).  The port reads SIGPROC filterbanks only;
 PSRFITS input and barycentring are left for later slices.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -100,6 +102,36 @@ def start_skip_spectra(args, N: int) -> int:
     if frac > 0.0:
         skip = max(skip, int(frac * N))
     return min(skip, N)
+
+
+class CLIResume:
+    """Journal-backed ``-resume`` for an app CLI: the tool journals its
+    outputs (size + CRC-32) in the ``manifest.json`` beside them, the
+    survey's journal (pipeline/manifest.py), so a relaunched run skips
+    outputs only when they exist, verify and were journaled by the same
+    stage, and redoes anything missing, truncated or stale."""
+
+    def __init__(self, outbase: str, stage: str):
+        from presto_tpu_torch.pipeline.manifest import SurveyManifest
+        self.workdir = os.path.dirname(os.path.abspath(outbase)) or "."
+        self.manifest = SurveyManifest.load(self.workdir)
+        self.stage = stage
+
+    def complete(self, paths) -> bool:
+        """Every expected output exists, verifies and was journaled by
+        this tool's stage."""
+        paths = list(paths)
+        return bool(paths) and all(
+            self.manifest.valid(p) and self.manifest.stage_of(p) == self.stage
+            for p in paths)
+
+    def invalidate_stale(self, paths) -> list:
+        """Delete and forget outputs that fail verification; returns them."""
+        return self.manifest.invalidate_stale(list(paths))
+
+    def record(self, paths) -> None:
+        self.manifest.record_many([p for p in paths if os.path.exists(p)],
+                                  self.stage)
 
 
 def load_timeseries(path: str) -> Tuple[np.ndarray, InfoData]:

@@ -160,3 +160,16 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t from a C entry point."""
     if rc != 0:
         raise RuntimeError("%s: CUDA error %d" % (what, rc))
+
+
+def launch(fn, device, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` with ``device`` (a
+    CUDA device) current and raise on its error code: the entry's
+    cudaFuncSetAttribute and its <<<>>> launch act on the calling
+    thread's current device, and ``stream`` is that device's current
+    stream, so a kernel for a tensor on cuda:1 is configured and
+    launched on cuda:1 whichever device was current before."""
+    import torch
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(rc, getattr(fn, "__name__", "kernel"))

@@ -182,6 +182,29 @@ def make_block_step(chan_delays, dm_delays, numsubbands: int,
     return step
 
 
+def dedisperse_scan(blocks, delays_dm, numsubbands: int,
+                    approx_mean: float = 0.0, downsamp: int = 1
+                    ) -> torch.Tensor:
+    """The streaming pipeline over in-memory blocks [nblocks, numchan,
+    numpts] (nblocks >= 2) at delays_dm {"chan": [numchan], "dm":
+    [numdms, nsub]}: [numdms, (nblocks-2) * numpts // downsamp], the
+    dedispersed series from stream sample 0.  The first two blocks only
+    prime the carry (the reference's two-buffer SWAP priming,
+    prepsubband.c:985-991)."""
+    blocks = torch.as_tensor(blocks)
+    chan = _as_delays(delays_dm["chan"], blocks.device)
+    dm = _as_delays(delays_dm["dm"], blocks.device)
+    last_raw, last_sub = blocks[1], dedisp_subbands_block(
+        blocks[0], blocks[1], chan, numsubbands)
+    outs = []
+    for block in blocks[2:]:
+        sub = dedisp_subbands_block(last_raw, block, chan, numsubbands)
+        outs.append(downsample_block(float_dedisp_many_block(
+            last_sub, sub, dm, approx_mean), downsamp))
+        last_raw, last_sub = block, sub
+    return torch.cat(outs, dim=1)
+
+
 def dedisperse_series(data: torch.Tensor, delays) -> torch.Tensor:
     """Whole-series dedispersion of an in-memory [numchan, N] array:
     out[t] = Σ_c data[c, t + d_c], zero beyond the end."""

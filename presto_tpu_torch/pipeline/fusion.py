@@ -1,16 +1,21 @@
-"""In-memory stage seam between the survey's stages (single device).
+"""In-memory stage seam between the survey's stages.
 
 PyTorch counterpart of ``presto_tpu/pipeline/fusion.py``: prepsubband
 deposits the dedispersed DM fan-out as a device tensor
 (:class:`SeamBlock`) in a :class:`StageSeam`, and the FFT + search
 stage reads it without a disk round trip, then releases the block's
-device series.  The durable tier also writes each trial's ``.dat`` from
+device series.  On the DM-sharded mesh path the deposit is a
+:class:`ShardedSeamBlock`: one tensor per shard, on the device that
+dedispersed those DM rows, which the FFT, the search and the
+single-pulse search consume in place (:func:`fused_rfft_batch` with a
+mesh transforms each shard on its own device); the host copy is
+assembled shard by shard (:func:`gather_shards`).  The durable tier also writes each trial's ``.dat`` from
 the bit-identical host copy, so the artifacts equal a staged run's; a
 non-durable seam writes one trial's ``.dat`` when the fold asks for it.
 :func:`feed_blocks` decodes and preprocesses block k+1 on a worker
 thread (:class:`DoubleBufferedIngest`) into a pinned staging buffer
-(:class:`UploadRing`) while block k is on the device.  Sharded seams and
-telemetry come in later slices.
+(:class:`UploadRing`) while block k is on the device, and copies it to
+every device of a mesh.  Telemetry comes in a later slice.
 """
 
 from __future__ import annotations
@@ -18,8 +23,8 @@ from __future__ import annotations
 import os
 import queue
 import threading
-from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +33,20 @@ from presto_tpu_torch.io.datfft import write_dat
 from presto_tpu_torch.io.infodata import write_inf
 from presto_tpu_torch.ops import fftpack
 
+DEFAULT_WINDOW_DEPTH = 2     # sharded FFT chunks queued ahead of their search
 DEFAULT_INGEST_DEPTH = 2     # host blocks decoded ahead of the device
+
+
+def resolve_depth(inflight_depth: Optional[int] = None) -> int:
+    """The sharded seam's window (the JAX package's ``shard_window``):
+    the sharded FFT chunks queued on the mesh before the oldest one's
+    search collects (each holds memory on every mesh device).  An
+    explicit ``inflight_depth`` sets it; the port has no tuning
+    database, so otherwise the default.  Clamped to [1, 8]: a depth
+    changes overlap, never bytes."""
+    depth = DEFAULT_WINDOW_DEPTH if inflight_depth is None \
+        else int(inflight_depth)
+    return max(1, min(depth, 8))
 
 
 def inf_float(x, digits: int = 15) -> float:
@@ -98,21 +116,25 @@ class UploadRing:
     """Host staging buffers of the device feed: ``nbuf`` time-major
     [blocklen, nchan] float32 buffers (pinned when ``device`` is a CUDA
     device, so the upload is an asynchronous DMA) that the ingest
-    worker decodes and preprocesses into and the consumer uploads.  A
-    buffer returns to the worker's free list with the CUDA event
-    recorded after its upload, and acquire() waits on that event before
+    worker decodes and preprocesses into and the consumer uploads, to
+    ``device`` or to each device of a list (a mesh's distinct devices).
+    A buffer returns to the worker's free list with the CUDA events
+    recorded after its uploads, and acquire() waits on them before
     handing the buffer out again: an upload in flight is never
     overwritten."""
 
     def __init__(self, nbuf: int, blocklen: int, nchan: int, device):
-        self.device = torch.device(device)
+        self._many = isinstance(device, (list, tuple))
+        self.devices = ([torch.device(d) for d in device] if self._many
+                        else [torch.device(device)])
+        self.device = self.devices[0]
         pin = self.device.type == "cuda"
         self._bufs = [torch.empty((blocklen, nchan), dtype=torch.float32,
                                   pin_memory=pin) for _ in range(nbuf)]
         self._arrays = [b.numpy() for b in self._bufs]
         self._free: "queue.Queue" = queue.Queue()
         for i in range(nbuf):
-            self._free.put((i, None))
+            self._free.put((i, ()))
         self._closed = threading.Event()
 
     def acquire(self) -> int:
@@ -122,26 +144,30 @@ class UploadRing:
                 i, done = self._free.get(timeout=0.1)
             except queue.Empty:
                 continue
-            if done is not None:
-                done.synchronize()
+            for ev in done:
+                ev.synchronize()
             return i
         raise RuntimeError("upload ring closed")
 
     def array(self, i: int) -> np.ndarray:
         return self._arrays[i]
 
-    def upload(self, i: int) -> torch.Tensor:
+    def upload(self, i: int):
         """Buffer i on the device, channel-major [nchan, blocklen]: a
         non-blocking copy of the time-major buffer, transposed on the
-        device (a copy, so bit-exact); the buffer then goes back to the
-        free list."""
-        tm = self._bufs[i].to(self.device, non_blocking=True, copy=True)
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
+        device (a copy, so bit-exact); with a list of devices, a list of
+        such copies, one a device (the MPI_Bcast analog).  The buffer
+        then goes back to the free list."""
+        outs, done = [], []
+        for d in self.devices:
+            tm = self._bufs[i].to(d, non_blocking=True, copy=True)
+            if d.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(d))
+                done.append(ev)
+            outs.append(tm.t().contiguous())
         self._free.put((i, done))
-        return tm.t().contiguous()
+        return outs if self._many else outs[0]
 
     def close(self) -> None:
         self._closed.set()
@@ -188,10 +214,11 @@ def feed_blocks(fb, prep, blocklen: int, nblocks: int, device,
                 skip: int = 0) -> Iterator[tuple]:
     """The device feed of a streamed pass over a filterbank: yields
     (start spectrum, channel-major [nchan, blocklen] float32 block on
-    ``device``) for ``nblocks`` blocks from spectrum ``skip`` (zeros
-    past the data).  The decode, preprocessing (``prep``) and upload
-    staging of block k+1 run on a worker thread (DoubleBufferedIngest)
-    while block k is on the device."""
+    ``device``, or a list of such blocks, one on each device of a list)
+    for ``nblocks`` blocks from spectrum ``skip`` (zeros past the data).
+    The decode, preprocessing (``prep``) and upload staging of block
+    k+1 run on a worker thread (DoubleBufferedIngest) while block k is
+    on the device."""
     # a buffer for each block queued, the one being filled and the one
     # being uploaded
     depth = DEFAULT_INGEST_DEPTH
@@ -219,18 +246,59 @@ class SeamBlock:
     numout: int                 # padded length
     dt: float                   # post-downsample sample time
 
+    def row_on(self, row: int, device) -> torch.Tensor:
+        """Trial ``row``'s device series [numout], on ``device``."""
+        return self.series_dev[row].to(device)
+
+
+@dataclass
+class ShardedSeamBlock(SeamBlock):
+    """A SeamBlock whose ``series_dev`` is a list of per-shard tensors
+    [rows_k, numout], shard k holding DM rows ``row_ranges[k]`` on
+    ``mesh.devices[k]``, the device that dedispersed them.  Consumers
+    work on the shards in place; the host copy was assembled shard by
+    shard (gather_shards), never through one device."""
+    row_ranges: List[Tuple[int, int]] = field(default_factory=list)
+    mesh: object = None
+
+    def row_on(self, row: int, device) -> torch.Tensor:
+        for part, (lo, hi) in zip(self.series_dev, self.row_ranges):
+            if lo <= row < hi:
+                return part[row - lo].to(device)
+        raise IndexError("sharded seam block: no shard holds row %d" % row)
+
+
+def is_sharded(block) -> bool:
+    """Is this seam block's device series split over a mesh?"""
+    return getattr(block, "mesh", None) is not None
+
+
+def gather_shards(parts, row_ranges) -> np.ndarray:
+    """The host copy of per-shard device tensors: each shard's rows copied
+    device-to-host into its own rows of one host array, with no gather
+    through one device."""
+    nrows = max(hi for _lo, hi in row_ranges)
+    out = np.empty((nrows,) + tuple(parts[0].shape[1:]),
+                   dtype=np.float32)
+    for part, (lo, hi) in zip(parts, row_ranges):
+        out[lo:hi] = part.cpu().numpy()
+    return out
+
 
 class StageSeam:
     """In-memory seam between survey stages.  ``durable`` writes each
     deposited block's ``.dat`` at once (the staged contract); ``.inf``
     sidecars are written on every tier.  A non-durable seam spills one
     trial's ``.dat`` on demand (ensure_dat), journaled in ``manifest``
-    (pipeline/manifest.SurveyManifest) when one is given."""
+    (pipeline/manifest.SurveyManifest) when one is given.  ``depth`` is
+    the sharded chunks' window (resolve_depth)."""
 
-    def __init__(self, workdir: str, durable: bool = True, manifest=None):
+    def __init__(self, workdir: str, durable: bool = True, manifest=None,
+                 inflight_depth: Optional[int] = None):
         self.workdir = os.path.abspath(workdir)
         self.durable = bool(durable)
         self.manifest = manifest
+        self.depth = resolve_depth(inflight_depth)
         self.blocks: List[SeamBlock] = []
         self._by_dat: Dict[str, tuple] = {}    # abs .dat -> (block, row)
 
@@ -289,7 +357,11 @@ class StageSeam:
         block.series_dev = None
 
 
-def fused_rfft_batch(series_dev: torch.Tensor) -> torch.Tensor:
+def fused_rfft_batch(series_dev, mesh=None):
     """Batched packed real FFT of a seam block [n, N] -> float32 pairs
-    [n, N/2, 2] on the same device."""
+    [n, N/2, 2] on the same device.  With a ``mesh`` ``series_dev`` is
+    the list of per-shard tensors, and each shard's rows are transformed
+    on its own device: a list of per-shard pairs, where they were."""
+    if mesh is not None:
+        return [fftpack.realfft_packed_pairs(part) for part in series_dev]
     return fftpack.realfft_packed_pairs(series_dev)

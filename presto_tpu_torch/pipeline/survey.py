@@ -16,12 +16,19 @@ verify.  rfifind, the folds and single_pulse_search run without their
 plots (-noplot, -p): the JAX package's _rfifind.png, fold_candN.pfd.png
 and _singlepulse.png are not written.
 
+With more than one device visible (parallel/mesh.visible_devices: every
+card, or logical shards) prepsubband deposits a DM-sharded seam block,
+and the FFT, the search and stage 9a run on each shard's device in place
+(seam_fft_search, seam_singlepulse).  ``cfg.elastic`` runs each
+prepsubband method as leased shards (prepsubband -elastic, the trials
+then flow through the disk consumers); ``cfg.fault_injector``
+(testing/chaos.FaultInjector) is called at the JAX package's kill points.
+The FFT of a sharded seam chunk is queued on the mesh before the
+previous one's search collects (StageSeam.depth).
+
 Not in this slice (a config that asks for them raises
-NotImplementedError): zapbirds, barycentring, triage, elastic runs and
-the serving and telemetry hooks.
-The JAX package's cross-stage in-flight window (the FFT of one chunk
-queued while the previous one is collected) only overlaps dispatch and
-is not ported yet.
+NotImplementedError): zapbirds, barycentring, triage and the serving
+and telemetry hooks.
 """
 
 from __future__ import annotations
@@ -121,14 +128,35 @@ def _refuse_unported(cfg: SurveyConfig) -> None:
         "zapbirds": cfg.zaplist,
         "triage": cfg.triage,
         "barycentring": cfg.bary,
-        "elastic runs": cfg.elastic,
         "serving and telemetry hooks": (cfg.plan_provider or cfg.obs
-                                        or cfg.fault_injector or cfg.tune),
+                                        or cfg.tune),
     }
     for what, on in asks.items():
         if on:
             raise NotImplementedError(
                 "survey: %s comes in a later slice of the port" % what)
+
+
+def _chaos(cfg: SurveyConfig, point: str) -> None:
+    """Fire the configured fault injector at a named kill point."""
+    if cfg.fault_injector is not None:
+        cfg.fault_injector.point(point)
+
+
+def _elastic_argv(elastic_cfg) -> List[str]:
+    """A SurveyConfig.elastic value (True or an ElasticConfig) as
+    prepsubband -elastic flags."""
+    argv = ["-elastic"]
+    if elastic_cfg is True:
+        return argv
+    for flag, attr in (("-shard-rows", "shard_rows"),
+                       ("-lease-ttl", "lease_ttl"),
+                       ("-barrier-timeout", "barrier_timeout"),
+                       ("-heartbeat-interval", "heartbeat_interval")):
+        val = getattr(elastic_cfg, attr, None)
+        if val:
+            argv += [flag, str(val)]
+    return argv
 
 
 def _stage(done_glob: str, workdir: str) -> List[str]:
@@ -191,11 +219,14 @@ def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
                 timer=None) -> fusion.StageSeam:
     """rfifind (unless cfg.skip_rfifind) -> DDplan -> prepsubband per
     method with the rfifind mask, the fan-out deposited at an in-memory
-    seam.  ``durable_stages`` (None -> True) also writes each trial's
-    .dat; the .inf sidecars are always written.  A method whose .dat
-    files all verify (a resumed run) is skipped: its trials are left on
-    disk, outside the seam.  ``res`` receives the mask path and the
-    quality report; ``timer`` the rfifind and prepsubband stages."""
+    seam (sharded over the mesh when prepsubband takes it).
+    ``durable_stages`` (None -> True) also writes each trial's .dat; the
+    .inf sidecars are always written.  With ``cfg.elastic`` each method
+    runs as prepsubband -elastic and writes its files (the seam stays
+    empty).  A method whose .dat files all verify (a resumed run) is
+    skipped: its trials are left on disk, outside the seam.  ``res``
+    receives the mask path and the quality report; ``timer`` the rfifind
+    and prepsubband stages."""
     _refuse_unported(cfg)
     resolve_device(device)
     os.makedirs(workdir, exist_ok=True)
@@ -204,6 +235,7 @@ def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
     rawfiles = [os.path.abspath(f) for f in rawfiles]
     base = _base(rawfiles, workdir)
     maskfile = None
+    _chaos(cfg, "pre-rfifind")
     if not cfg.skip_rfifind:
         if timer is not None:
             timer.mark("rfifind")
@@ -211,6 +243,7 @@ def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
                                           manifest)
         if res is not None:
             res.maskfile, res.quality = maskfile, quality
+    _chaos(cfg, "post-rfifind")
     if timer is not None:
         timer.mark("prepsubband")
     fb = open_raw(rawfiles)
@@ -224,8 +257,10 @@ def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
                              numsub=cfg.nsub)
     print("survey: DDplan -> %d methods, %d total DMs"
           % (len(plan.methods), plan.total_numdms))
+    _chaos(cfg, "pre-prepsubband")
     seam = fusion.StageSeam(workdir, durable=cfg.durable_stages
-                            is not False, manifest=manifest)
+                            is not False, manifest=manifest,
+                            inflight_depth=cfg.inflight_depth)
     dat_glob = os.path.basename(base) + "_DM*.dat"
     # verify a previous run's survivors once, before the loop: this
     # run's own outputs are journaled as each method lands
@@ -239,11 +274,31 @@ def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
                 "-downsamp", str(m.downsamp), "-o", base, "-nobary"]
         if maskfile and os.path.exists(maskfile):
             argv += ["-mask", maskfile]
-        prepsubband.run(prepsubband.build_parser().parse_args(
-            argv + rawfiles), device=device, seam=seam)
+        if cfg.elastic:
+            # the leased-shard fan-out; the injector reaches the elastic
+            # loop through its process seam (argv carries no objects)
+            from presto_tpu_torch.parallel import elastic
+            elastic.set_process_injector(cfg.fault_injector)
+            try:
+                prepsubband.run(prepsubband.build_parser().parse_args(
+                    argv + _elastic_argv(cfg.elastic) + rawfiles),
+                    device=device)
+            finally:
+                elastic.set_process_injector(None)
+            _chaos(cfg, "elastic-method")
+        else:
+            prepsubband.run(prepsubband.build_parser().parse_args(
+                argv + rawfiles), device=device, seam=seam)
         done = _stage(dat_glob, workdir)
         _record(manifest, done + [f[:-4] + ".inf" for f in done],
                 "prepsubband")
+        _chaos(cfg, "prepsubband-method")
+    n_sharded = sum(len(b.names) for b in seam.blocks
+                    if fusion.is_sharded(b))
+    _chaos(cfg, "seam-handoff")
+    if n_sharded:
+        _chaos(cfg, "shard-seam-handoff")
+    _chaos(cfg, "post-prepsubband")
     return seam
 
 
@@ -271,17 +326,22 @@ def _accel_names(name: str, cfg: SurveyConfig) -> List[str]:
 
 
 def _search_and_write(pairs, names, T, cfg, device, manifest, timer,
-                      out, stage) -> None:
+                      out, stage, mesh=None) -> None:
     """Every accel pass over one batch of device spectra: search_many,
-    then refine + write_results per trial (the polish on the device,
-    ACCEL and .cand files), journaled under ``stage``."""
-    n = pairs.shape[1]
+    then refine + write_results per trial (the polish on the spectrum's
+    device, ACCEL and .cand files), journaled under ``stage``.  With a
+    ``mesh`` ``pairs`` is the list of per-shard spectra, searched where
+    they are."""
+    trials = ([p[j] for p in pairs for j in range(p.shape[0])]
+              if mesh is not None else list(pairs))
+    n = trials[0].shape[0]
     for pcfg in _pass_configs(cfg):
         searcher = searcher_for(pcfg, T, n, device=device)
-        results = searcher.search_many(pairs)
+        results = searcher.search_many(pairs, mesh=mesh)
         arts = []
-        for name, pr, raw in zip(names, pairs, results):
-            trace = refine(raw, pr, T, searcher, timer=timer)
+        for name, pr, raw in zip(names, trials, results):
+            trace = refine(raw, pr, T, searcher, timer=timer,
+                           device=pr.device)
             acc = write_results(trace, T, name, pcfg.zmax, quiet=True,
                                 timer=timer)
             out[acc] = trace.final
@@ -290,7 +350,10 @@ def _search_and_write(pairs, names, T, cfg, device, manifest, timer,
 
 
 def _write_ffts(pairs, names, manifest, stage) -> None:
-    host = pairs.cpu().numpy()
+    """The .fft of each trial of a batch of device spectra (a tensor, or
+    the per-shard list: one copy down a shard)."""
+    host = (np.concatenate([p.cpu().numpy() for p in pairs])
+            if isinstance(pairs, list) else pairs.cpu().numpy())
     for name, pr in zip(names, host):
         datfft.write_fft(name + ".fft", fftpack.np_pairs_to_complex64(pr))
     _record(manifest, [name + ".fft" for name in names], stage)
@@ -304,14 +367,33 @@ def seam_fft_search(seam: fusion.StageSeam, cfg: SurveyConfig,
     then per trial refine + write_results (eliminate_harmonics,
     remove_duplicates, the polish, ACCEL + .cand).  The durable tier
     also writes each trial's .fft.  Trials whose ACCEL files (and, on
-    the durable tier, .fft) all verify are skipped.  Returns
+    the durable tier, .fft) all verify are skipped.  A whole sharded
+    block is one chunk: each shard's rows are transformed, searched and
+    polished on its own device, the chunk's FFT queued on the mesh
+    before the previous sharded chunk's search collects (at most
+    seam.depth in flight; a one-device chunk is searched at once).  A
+    partially resumed sharded block moves its rows to ``device`` and
+    takes the one-device path.  Returns
     {ACCEL path: final candidates} for the trials searched."""
     _refuse_unported(cfg)
-    resolve_device(device)
+    dev = resolve_device(device)
     out: Dict[str, List[AccelCand]] = {}
+    pending = []
+
+    def collect(ent) -> None:
+        block, chunk, pairs, mesh = ent
+        T = block.numout * fusion.inf_float(block.dt)
+        names = [block.names[r] for r in chunk]
+        _search_and_write(pairs, names, T, cfg, device, manifest, timer,
+                          out, "fft+accel", mesh=mesh)
+        if seam.durable:
+            _write_ffts(pairs, names, manifest, "fft+accel")
+        _chaos(cfg, "fused-chunk")
+        if mesh is not None:
+            _chaos(cfg, "sharded-fused-chunk")
+
     for numout, blocks in sorted(seam.groups().items()):
         n = numout & ~1
-        per = max(1, FFT_CHUNK_BYTES // (n * 4))
         for block in blocks:
             arts = [a for name in block.names
                     for a in _accel_names(name, cfg)]
@@ -324,23 +406,37 @@ def seam_fft_search(seam: fusion.StageSeam, cfg: SurveyConfig,
             if not rows:
                 seam.release(block)
                 continue
-            T = block.numout * fusion.inf_float(block.dt)
+            sharded = fusion.is_sharded(block)
+            # the memory budget is a device's: a whole sharded block
+            # holds numdms / ndev rows on each
+            per = max(1, FFT_CHUNK_BYTES // (n * 4)) * (
+                block.mesh.size if sharded else 1)
+            whole = rows == list(range(len(block.names)))
+            mesh = (block.mesh if sharded and whole and len(rows) <= per
+                    else None)
             for g0 in range(0, len(rows), per):
                 chunk = rows[g0:g0 + per]
-                series = (block.series_dev[:, :n]
-                          if chunk == list(range(len(block.names)))
-                          else block.series_dev[chunk, :n])
-                pairs = fusion.fused_rfft_batch(series)
+                if mesh is not None:
+                    series = [p[:, :n] for p in block.series_dev]
+                elif sharded:
+                    series = torch.stack([block.row_on(r, dev)[:n]
+                                          for r in chunk])
+                elif whole and len(chunk) == len(rows):
+                    series = block.series_dev[:, :n]
+                else:
+                    series = block.series_dev[chunk, :n]
+                pairs = fusion.fused_rfft_batch(series, mesh=mesh)
                 del series
                 if g0 + per >= len(rows):
                     # the block's last FFT chunk has consumed its series:
                     # its memory goes back before the chunk's search
                     seam.release(block)
-                names = [block.names[r] for r in chunk]
-                _search_and_write(pairs, names, T, cfg, device, manifest,
-                                  timer, out, "fft+accel")
-                if seam.durable:
-                    _write_ffts(pairs, names, manifest, "fft+accel")
+                pending.append((block, chunk, pairs, mesh))
+                window = seam.depth if mesh is not None else 1
+                while len(pending) >= window:
+                    collect(pending.pop(0))
+    while pending:
+        collect(pending.pop(0))
     return out
 
 
@@ -379,6 +475,7 @@ def _fused_fft_search(datfiles, cfg, device, manifest, timer) -> None:
             _write_ffts(pairs, names, manifest, "fft+accel")
             _search_and_write(pairs, names, T, first, device, manifest,
                               timer, {}, "fft+accel")
+            _chaos(cfg, "fused-chunk")
     print("survey: fused realfft+accelsearch over %d disk trials"
           % len(todo))
 
@@ -404,6 +501,7 @@ def _batched_accelsearch(fftfiles, cfg, device, manifest, timer) -> None:
             _search_and_write(torch.as_tensor(batch, device=dev),
                               [f[:-4] for f in chunk], T, cfg, device,
                               manifest, timer, {}, "accel")
+            _chaos(cfg, "accel-chunk")
     print("survey: accelsearch over %d trials (batched)" % len(todo))
 
 
@@ -446,8 +544,10 @@ def _run_survey_stages(rawfiles, cfg, workdir, res, timer, manifest,
     # survivors) flow through the disk consumers
     disk_only = [f for f in res.datfiles
                  if os.path.abspath(f) not in seam_set]
-    print("survey: %d dedispersed time series (%d seam-resident)"
-          % (len(res.datfiles), len(seam)))
+    print("survey: %d dedispersed time series (%d seam-resident, %d "
+          "sharded)" % (len(res.datfiles), len(seam),
+                        sum(len(b.names) for b in seam.blocks
+                            if fusion.is_sharded(b))))
 
     if cfg.singlepulse and len(seam):
         # before the FFT stage releases the blocks' device series
@@ -466,6 +566,7 @@ def _run_survey_stages(rawfiles, cfg, workdir, res, timer, manifest,
                              device, manifest, timer)
 
     timer.mark("sift")
+    _chaos(cfg, "pre-sift")
     accfiles = []
     for (zmax, _nh, _sg, _flo) in cfg.all_passes:
         accfiles += _stage(os.path.basename(base) + "_DM*_ACCEL_%d" % zmax,
@@ -478,14 +579,17 @@ def _run_survey_stages(rawfiles, cfg, workdir, res, timer, manifest,
     _record(manifest, [res.candfile], "sift")
     res.sifted = cl
     print("survey: %d sifted candidates -> %s" % (len(cl), res.candfile))
+    _chaos(cfg, "post-sift")
 
     timer.mark("prepfold")
     fold_candidates(cl, cfg, workdir, seam, res, manifest, device)
 
     timer.mark("single_pulse")
+    _chaos(cfg, "pre-singlepulse")
     if cfg.singlepulse and res.datfiles:
         res.sp_events = disk_singlepulse(res.datfiles, cfg, seam,
                                          device=device, manifest=manifest)
+    _chaos(cfg, "post-survey")
     return res
 
 
@@ -497,47 +601,81 @@ def seam_singlepulse(seam: fusion.StageSeam, cfg: SurveyConfig,
     read and an upload.  Inputs are bit-equal to the disk path's (the
     same padded series, the same .inf round-tripped dt and DM, the same
     onoff-derived off regions), so the .singlepulse files are the same.
-    Trials with a verified .singlepulse are skipped; the others go in
-    groups of one (searched length, dt), at most the CLI's GROUP_BYTES
-    of series a call, each journaled under "singlepulse".  Returns the
-    number of events written."""
+    A whole sharded block is searched shard by shard, each shard's rows
+    in place on its device (one SinglePulseSearch a distinct device; a
+    file's events do not depend on its batch).  The other trials without
+    a verified .singlepulse go in groups of one (searched length, dt),
+    at most the CLI's GROUP_BYTES of series a call (a partially resumed
+    sharded block's rows moved to ``device``), each journaled under
+    "singlepulse".  Returns the number of events written."""
     _refuse_unported(cfg)
-    sp = SinglePulseSearch(threshold=cfg.sp_threshold,
-                           maxwidth=cfg.sp_maxwidth, device=device)
+    dev = resolve_device(device)
+    searchers: Dict[torch.device, SinglePulseSearch] = {}
+
+    def sp_on(d) -> SinglePulseSearch:
+        if d not in searchers:
+            searchers[d] = SinglePulseSearch(threshold=cfg.sp_threshold,
+                                             maxwidth=cfg.sp_maxwidth,
+                                             device=d)
+        return searchers[d]
+
     _drop_stale(manifest, [name + ".singlepulse" for b in seam.blocks
                            for name in b.names])
     groups: Dict[tuple, list] = {}
+    sharded = []
     for block in seam.blocks:
-        for row, name in enumerate(block.names):
-            if _valid(manifest, name + ".singlepulse"):
+        todo = [row for row, name in enumerate(block.names)
+                if not _valid(manifest, name + ".singlepulse")]
+        if not todo:
+            continue
+        if fusion.is_sharded(block) and len(todo) == len(block.names):
+            bplan = single_pulse_search.sp_block_plan(block.infos,
+                                                      block.numout)
+            if bplan is not None:
+                sharded.append((block,) + tuple(bplan))
                 continue
+        for row in todo:
             nuse, offregions = single_pulse_search.sp_input_plan(
                 block.infos[row], block.numout)
             groups.setdefault((nuse, fusion.inf_float(block.dt)),
                               []).append((block, row, offregions))
-    nev = nser = 0
+
+    def search(sp, batch, dt, items) -> int:
+        """Search one batch of the (block, row, offregions) items and
+        write their .singlepulse files; returns the events."""
+        results = sp.search_many_resident(
+            batch, dt,
+            dms=[fusion.inf_float(b.infos[row].dm, 12)
+                 for (b, row, _o) in items],
+            offregions_list=[o for (_b, _r, o) in items])
+        written, nev = [], 0
+        for (b, row, _o), (cands, _stds, _bad) in zip(items, results):
+            f = b.names[row] + ".singlepulse"
+            write_singlepulse(f, cands)
+            written.append(f)
+            nev += len(cands)
+        _record(manifest, written, "singlepulse")
+        _chaos(cfg, "sp-seam-chunk")
+        return nev
+
+    nev = nser = nsh = 0
+    for block, nuse, offregions in sharded:
+        for part, (lo, hi) in zip(block.series_dev, block.row_ranges):
+            nev += search(sp_on(part.device), part[:, :nuse],
+                          fusion.inf_float(block.dt),
+                          [(block, r, offregions) for r in range(lo, hi)])
+            nsh += hi - lo
     for (nuse, dt), items in sorted(groups.items(), key=lambda kv: kv[0]):
         per = max(1, single_pulse_search.GROUP_BYTES // max(nuse * 4, 1))
         for g0 in range(0, len(items), per):
             chunk = items[g0:g0 + per]
-            batch = torch.stack([b.series_dev[row, :nuse]
+            batch = torch.stack([b.row_on(row, dev)[:nuse]
                                  for (b, row, _o) in chunk])
-            results = sp.search_many_resident(
-                batch, dt,
-                dms=[fusion.inf_float(b.infos[row].dm, 12)
-                     for (b, row, _o) in chunk],
-                offregions_list=[o for (_b, _r, o) in chunk])
+            nev += search(sp_on(dev), batch, dt, chunk)
             del batch
-            written = []
-            for (b, row, _o), (cands, _stds, _bad) in zip(chunk, results):
-                f = b.names[row] + ".singlepulse"
-                write_singlepulse(f, cands)
-                written.append(f)
-                nev += len(cands)
-            _record(manifest, written, "singlepulse")
             nser += len(chunk)
     print("survey: single-pulse search over %d seam-resident series "
-          "(%d events)" % (nser, nev))
+          "(%d events, %d sharded)" % (nser + nsh, nev, nsh))
     return nev
 
 
@@ -605,4 +743,5 @@ def fold_candidates(cl, cfg: SurveyConfig, workdir: str, seam, res,
             _record(manifest, [outbase + ".pfd"], "prepfold")
         except SystemExit as e:
             print("survey: fold of cand %d failed: %s" % (i + 1, e))
+        _chaos(cfg, "fold-cand")
     print("survey: folded %d candidates" % len(res.folded))

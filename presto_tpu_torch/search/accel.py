@@ -341,11 +341,16 @@ def _unpack_scan(packed: np.ndarray):
 
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks
-    for the CPU; no CUDA device raises (nothing falls back)."""
+    for the CPU, with its index (the current device when none is named);
+    no CUDA device raises (nothing falls back)."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("presto_tpu_torch: no CUDA device is available; "
-                           "pass device='cpu' to run the plain versions")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("presto_tpu_torch: no CUDA device is "
+                               "available; pass device='cpu' to run the "
+                               "plain versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -442,6 +447,23 @@ class AccelSearch:
         # lifetime: host banks, and the FFT'd device banks of w != 0
         self._w_banks = {0.0: kern}
         self._w_banks_dev = {}
+        # copies of (bank, z maps, powcuts) on the other devices of a
+        # mesh, made once a device
+        self._copies = {}
+
+    def state_on(self, device):
+        """(FFT'd w = 0 bank, z-row maps, powcuts) on ``device``: the
+        searcher's own on its device, else a copy made once for the
+        searcher's lifetime."""
+        device = torch.device(device)
+        if device == self.device:
+            return self._kbank, self._zinds, self._powcut_dev
+        st = self._copies.get(device)
+        if st is None:
+            st = self._copies[device] = tuple(
+                t.to(device) for t in (self._kbank, self._zinds,
+                                       self._powcut_dev))
+        return st
 
     # -- plane ---------------------------------------------------------
 
@@ -495,16 +517,19 @@ class AccelSearch:
     def build_plane(self, pairs: torch.Tensor, kbank=None,
                     spectra=None) -> torch.Tensor:
         """The fundamental F-Fdot plane [numz_pad, plane_numr] of one
-        spectrum ([numbins, 2] float32 on the searcher's device): plane
-        column c is absolute half-bin c.  ``kbank`` is a jerk plane's
-        device bank (default: the w = 0 bank); ``spectra`` the spectrum's
-        forward_spectra, when already computed."""
+        spectrum ([numbins, 2] float32, on any device the searcher has
+        state on): plane column c is absolute half-bin c.  ``kbank`` is a
+        device bank on the spectrum's device (default: the w = 0 bank
+        there); ``spectra`` the spectrum's forward_spectra, when already
+        computed."""
         _nblocks, nb_pad, _numr = self.plane_geom()
         if spectra is None:
             spectra = self.forward_spectra(pairs)
+        if kbank is None:
+            kbank = self.state_on(spectra.device)[0]
         return build_cuda.build_plane(
-            spectra, self._kbank if kbank is None else kbank, self.numz_pad,
-            nb_pad, self.cfg.uselen, self.hw_eff * ACCEL_NUMBETWEEN)
+            spectra, kbank, self.numz_pad, nb_pad, self.cfg.uselen,
+            self.hw_eff * ACCEL_NUMBETWEEN)
 
     # -- jerk search ---------------------------------------------------
 
@@ -706,15 +731,18 @@ class AccelSearch:
             off += slab
         return slab, k, start_cols
 
-    def _check_memory(self, plane_numr: int, slab: int, nslabs: int):
-        """One trial's plane and reducer outputs must fit in the device
-        memory free now (torch.cuda.mem_get_info): the port holds one
-        plane at a time instead of the JAX package's TPU-sized groups."""
-        if self.device.type != "cuda":
+    def _check_memory(self, plane_numr: int, slab: int, nslabs: int,
+                      device=None):
+        """One trial's plane and reducer outputs must fit in the memory
+        free now (torch.cuda.mem_get_info) on ``device`` (default: the
+        searcher's): the port holds one plane at a time a device instead
+        of the JAX package's TPU-sized groups."""
+        device = self.device if device is None else torch.device(device)
+        if device.type != "cuda":
             return
-        free, _total = torch.cuda.mem_get_info(self.device)
-        cached = (torch.cuda.memory_reserved(self.device)
-                  - torch.cuda.memory_allocated(self.device))
+        free, _total = torch.cuda.mem_get_info(device)
+        cached = (torch.cuda.memory_reserved(device)
+                  - torch.cuda.memory_allocated(device))
         need = (self.numz_pad * plane_numr * 4
                 + nslabs * self.cfg.numharmstages * slab * 8 * 3)
         if need > MEM_HEADROOM * (free + cached):
@@ -727,40 +755,32 @@ class AccelSearch:
         return self.search_many(torch.as_tensor(pairs)[None], slab=slab)[0]
 
     def search_many(self, pairs_batch, slab: int = 1 << 20,
-                    compact_m: int = COMPACT_CANDS
+                    compact_m: int = COMPACT_CANDS, mesh=None
                     ) -> List[List[AccelCand]]:
         """Search many same-length spectra ([nd, numbins, 2] float32,
         numpy or a tensor) -> per-spectrum candidate lists, sorted by
         (-sigma, r), at most one per ~8 r-bins (apply remove_duplicates /
-        eliminate_harmonics for the reference's final-list semantics)."""
-        batch = torch.as_tensor(pairs_batch, dtype=torch.float32,
-                                device=self.device)
-        nd = batch.shape[0]
+        eliminate_harmonics for the reference's final-list semantics).
+        The trials are searched by parallel/sharded.sharded_accel_search_
+        many over ``mesh`` (parallel/mesh.Mesh; ``pairs_batch`` may then
+        be its per-shard tensors), by default a one-entry mesh of the
+        searcher's device; the lists do not depend on the mesh.  A jerk
+        search (cfg.wmax) takes one spectrum at a time on the searcher's
+        device."""
         if self.cfg.wmax:
-            # the jerk search takes one spectrum at a time
+            if isinstance(pairs_batch, (list, tuple)):
+                pairs_batch = torch.cat([p.to(self.device)
+                                         for p in pairs_batch])
+            batch = torch.as_tensor(pairs_batch, dtype=torch.float32,
+                                    device=self.device)
             return [self._search_jerk(batch[d], slab, compact_m)
-                    for d in range(nd)]
-        geom = self.plane_geom()
-        if nd == 0 or geom is None:
-            return [[] for _ in range(nd)]
-        plan = self.slab_plan(geom[2], slab)
-        if plan is None:
-            return [[] for _ in range(nd)]
-        slab, k, start_cols = plan
-        scols = torch.tensor(start_cols, dtype=torch.int32,
-                             device=self.device)
-        self._check_memory(geom[1] * self.cfg.uselen, slab,
-                           len(start_cols))
-        out = []
-        for d in range(nd):
-            plane = self.build_plane(batch[d])
-            colmax, colz = accel_cuda.reduce_stages(
-                plane, scols, self._zinds, slab, self.cfg.numharmstages)
-            del plane
-            packed = collect_from_reduced(colmax, colz, self._powcut_dev, k)
-            comp = compact_scan_packed(packed, compact_m).cpu().numpy()
-            out.append(self._decode(comp, packed, start_cols, compact_m))
-        return out
+                    for d in range(batch.shape[0])]
+        from presto_tpu_torch.parallel.mesh import Mesh
+        from presto_tpu_torch.parallel.sharded import (
+            sharded_accel_search_many)
+        return sharded_accel_search_many(
+            self, pairs_batch, mesh or Mesh((self.device,)), slab=slab,
+            compact_m=compact_m)
 
     @staticmethod
     def _dedup_sort(cands: List[AccelCand]) -> List[AccelCand]:

@@ -27,6 +27,7 @@ stage_reduce_planes).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Tuple
 
@@ -40,6 +41,9 @@ launches = 0
 
 #: kernel launches made by reduce_stages_planes
 planes_launches = 0
+
+#: the launches of both by the index of the CUDA device they ran on
+launches_by_device: collections.Counter = collections.Counter()
 
 #: per checked input tensor: (its version counter, what it was checked for)
 _checked = WeakIdKeyDictionary()
@@ -157,10 +161,11 @@ def _check_launch(P: torch.Tensor, start_cols: torch.Tensor,
 def _launch(entry: str, first, P: torch.Tensor, start_cols: torch.Tensor,
             zinds: torch.Tensor, slab: int, nstages: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch C entry ``entry`` of the stage_reduce library on P's stream:
-    ``first`` is its first argument (the plane, or the device table of
-    plane pointers), P the plane (or the first plane) whose shape and
-    device the launch takes.  Returns (colmax, colz)."""
+    """Launch C entry ``entry`` of the stage_reduce library with P's
+    device current, on its stream: ``first`` is its first argument (the
+    plane, or the device table of plane pointers), P the plane (or the
+    first plane) whose shape and device the launch takes.  Returns
+    (colmax, colz)."""
     nrows, numr = P.shape
     nslabs = start_cols.shape[0]
     fn = getattr(cuda_build.load("stage_reduce"), entry)
@@ -173,10 +178,10 @@ def _launch(entry: str, first, P: torch.Tensor, start_cols: torch.Tensor,
                          device=P.device)
     colz = torch.empty((nslabs, nstages, slab), dtype=torch.int32,
                        device=P.device)
-    rc = fn(first, numr, nrows, start_cols.data_ptr(), zinds.data_ptr(),
-            colmax.data_ptr(), colz.data_ptr(), nslabs, slab, nstages,
-            torch.cuda.current_stream(P.device).cuda_stream)
-    cuda_build.check(rc, entry)
+    launches_by_device[P.device.index] += 1
+    cuda_build.launch(fn, P.device, first, numr, nrows, start_cols.data_ptr(),
+                      zinds.data_ptr(), colmax.data_ptr(), colz.data_ptr(),
+                      nslabs, slab, nstages)
     return colmax, colz
 
 
@@ -218,9 +223,12 @@ def reduce_stages_planes(planes, start_cols: torch.Tensor,
             p.data_ptr() % 16 for p in planes):
         raise ValueError("reduce_stages_planes: planes must be contiguous "
                          "and 16-byte aligned")
-    # the pointer table rides the stream from pinned memory (no host sync)
-    table = torch.tensor([p.data_ptr() for p in planes], dtype=torch.int64
-                         ).pin_memory().to(P.device, non_blocking=True)
+    # the pointer table rides the plane device's stream from pinned
+    # memory (no host sync)
+    with torch.cuda.device(P.device):
+        table = torch.tensor([p.data_ptr() for p in planes],
+                             dtype=torch.int64).pin_memory().to(
+                                 P.device, non_blocking=True)
     global planes_launches
     planes_launches += 1
     return _launch("stage_reduce_planes", table.data_ptr(), P, start_cols,

@@ -24,6 +24,7 @@ It takes the twiddle bases of its passes from ``_twiddle_table``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -33,6 +34,9 @@ from presto_tpu_torch import cuda_build
 
 #: kernel launches made by build_plane (reset by callers that count)
 launches = 0
+
+#: the same launches by the index of the CUDA device they ran on
+launches_by_device: collections.Counter = collections.Counter()
 
 #: the FFT lengths the kernel is instantiated for: 2^8 .. 2^14
 LOG2N_MIN, LOG2N_MAX = 8, 14
@@ -120,8 +124,8 @@ def build_plane(S: torch.Tensor, Kc: torch.Tensor, numz_pad: int,
                         device=S.device)
     global launches
     launches += 1
-    rc = fn(S.data_ptr(), Kc.data_ptr(), tw.data_ptr(), plane.data_ptr(),
-            nblocks, nb_pad, numz, numz_pad, log2n, uselen, off,
-            torch.cuda.current_stream(S.device).cuda_stream)
-    cuda_build.check(rc, "plane_build")
+    launches_by_device[S.device.index] += 1
+    cuda_build.launch(fn, S.device, S.data_ptr(), Kc.data_ptr(),
+                      tw.data_ptr(), plane.data_ptr(), nblocks, nb_pad, numz,
+                      numz_pad, log2n, uselen, off)
     return plane

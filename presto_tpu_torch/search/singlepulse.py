@@ -37,7 +37,7 @@ may differ, and every such line is reported.
 from __future__ import annotations
 
 from collections import defaultdict, deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -475,8 +475,9 @@ class SinglePulseSearch:
         down, normalization scales up, and the compacted top-G
         above-threshold hits down.
 
-        series: [nf, N] float32, a tensor on the search's device (used
-        as it is) or a numpy array (uploaded once).  Results match
+        series: [nf, N] float32, a tensor (used as it is, on its own
+        device: the search runs there) or a numpy array (uploaded once to
+        the search's device).  Results match
         search_many exactly (same chunking, pruning, bad-block cuts)
         unless a file has more than G above-threshold top-k samples
         (heavy RFI): that file goes through search_many on the same
@@ -495,6 +496,12 @@ class SinglePulseSearch:
             if series.device.type != self._dev.type:
                 raise ValueError("single pulse: series on %s, search on %s"
                                  % (series.device, self._dev))
+            if series.device != self._dev:
+                # a shard's series on another card: the whole call runs
+                # there, the overflow path included
+                return replace(self, device=series.device) \
+                    .search_many_resident(series, dt, dms, offregions_list,
+                                          G=G)
             dev = series
         else:
             dev = torch.as_tensor(np.asarray(series, np.float32),

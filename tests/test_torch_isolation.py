@@ -181,6 +181,57 @@ def test_single_pulse_modules_stand_alone_and_need_cuda():
     assert "SP ISOLATED" in out.stdout
 
 
+PARALLEL_SCRIPT = r"""
+import sys
+import torch
+from presto_tpu_torch.apps import common, prepsubband
+from presto_tpu_torch.parallel import elastic, mesh, sharded
+from presto_tpu_torch.pipeline import fusion, leaseledger, shardledger, survey
+from presto_tpu_torch.testing import chaos
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "presto_tpu" or m.startswith("presto_tpu."))
+assert not bad, bad
+assert mesh.make_mesh(device="cpu").size == 1
+with mesh.set_logical_devices(4, "cpu"):
+    assert mesh.make_mesh(device="cpu").size == 4
+cfg = survey.SurveyConfig(fold_top=0, elastic=True,
+                          fault_injector=chaos.FaultInjector(mode="off"))
+survey._refuse_unported(cfg)
+if not torch.cuda.is_available():
+    argv = ["-coordinator", "localhost:1", "-nproc", "2", "-procid", "0",
+            "-nobary", "missing.fil"]
+    for call in (lambda: mesh.make_mesh(),
+                 lambda: mesh.visible_devices(),
+                 lambda: mesh.set_logical_devices(2).__enter__(),
+                 lambda: prepsubband.main(argv),
+                 lambda: prepsubband.main(["-elastic"] + argv)):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError("an entry point ran without CUDA")
+    assert not torch.distributed.is_initialized()
+print("PARALLEL ISOLATED")
+"""
+
+
+def test_parallel_modules_stand_alone_and_need_cuda():
+    """The sharding, elastic, ledger and chaos modules import neither jax
+    nor presto_tpu; the survey no longer refuses elastic runs or a fault
+    injector; make_mesh() (and visible_devices, the logical-shard
+    context) and prepsubband -coordinator (and -elastic) called without
+    device= raise without a card, before joining any process group."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "PARALLEL ISOLATED" in out.stdout
+
+
 def test_port_imports_no_jax_and_needs_cuda():
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT
