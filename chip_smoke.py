@@ -102,12 +102,34 @@ Phases (any failure exits non-zero before the final line):
              _JERK_ tables held by accel_agreement.jerk_file_agreement,
              and both kernels again at that path's geometry (numz 61,
              the 2-stage multi-plane reducer) on its spectrum;
- 10. summary the kernels line (launches of the main path, the sharded
-             main path, by shard too, and the jerk paths), the card, and
-             the final ok line.
+ 10. stream  one live beam of the beam's geometry (2^18 8-bit spectra,
+             33.6 s) over a loopback socket, paced at 4x real time, into
+             RingBlockSource -> StreamService on the port's SearchService
+             (DM 0-255 in steps of 1, nsub 32, 8192-spectrum blocks, the
+             rest StreamConfig's defaults): four dispersed pulses (DM 21.6,
+             57, 143, 231) and a broadband DM-0 burst each triggered exactly
+             once (time within 0.2 s, DM within 5 trials); four trials'
+             rolling series byte-equal to the port's prepsubband .dat of
+             the file on the card; deadline-lane batches and one latency
+             sample a trigger; the blocks, triggers, latency p50/p99, the
+             dedispersion step's device ms, the per-trial single-pulse
+             loop's host ms a block and the real-time factor;
+ 11. beams   13 beams of that geometry (4 blocks each) through
+             BeamMultiplexer, fed as fast as the rings take them, with the
+             veto off (each beam's triggers equal to an independent
+             StreamSearch's, its stacked series bit-equal to that one-beam
+             carry's on every tick, stacked steps <= ticks) and with
+             coincidence_k=3 (the burst in every beam vetoed, beam 0's
+             pulse kept); the kernels of one tick (torch.profiler) equal
+             at 1 and 13 beams; the stacked step's device ms at 13 beams
+             beside 13 one-beam steps; the real-time factor;
+ 12. summary the kernels line (launches of the main path, the sharded
+             main path, by shard too, the jerk paths and the live paths),
+             the card, and the final ok line.
 
 Prints the full results as one JSON line (``results: {...}``).  Imports
-no JAX and nothing of the JAX package.
+no JAX and nothing of the JAX package.  ``--live-only`` runs phases 10 and
+11 alone (no build, no kernels line, no final ok line).
 """
 
 import argparse
@@ -485,6 +507,8 @@ def synth_filterbank(path, gen, N, nchan, dt, lofreq, cw, pulsars,
             pulse = amp * torch.exp(
                 -0.5 * ((ph - 0.5) / (width / 2.35482)) ** 2).float()
             x = pulse if x is None else x + pulse
+        if x is None:                       # no pulsar: noise alone
+            x = torch.zeros((t.shape[0], nchan), device=device)
         x = 32.0 + x + 6.0 * torch.randn(x.shape, generator=gen,
                                          device=device)
         if rfi is not None:
@@ -2498,7 +2522,571 @@ def phase_cluster(raw, workdir, mwork, maskfile):
     return dict(ok=all(v["ok"] for v in out.values()), **out)
 
 
+# ---------------------------------------------------------------------------
+# The live stream (stream/, serve/): the stream and beams phases
+# ---------------------------------------------------------------------------
+
+# the live feed's geometry is the beam's (128 x 3 MHz at 1214-1595 MHz, dt
+# 128 us, 8-bit), a Parkes Multibeam L-band feed (13 beams of 96 x 3 MHz,
+# Manchester et al. 2001) with 128 channels; the stream configuration is
+# DM 0-255 in steps of 1 over 32 subbands, 1.05 s blocks, the other
+# StreamConfig fields at their defaults
+LIVE = dict(nchan=128, dt=1.28e-4, lofreq=1214.0, cw=3.0)
+LIVE_CFG = dict(lodm=0.0, dmstep=1.0, numdms=256, nsub=32, blocklen=8192)
+# one live beam through the service: 2^18 spectra (33.6 s), paced at 4x
+# real time over loopback; four dispersed pulses and a broadband DM-0 burst
+# (arrival at the top of the band s, DM, width s, amplitude per channel:
+# matched S/N A sqrt(128 w) / 6 of 23-36 before the subband smearing)
+STREAM = dict(N=1 << 18, seed=31, speed=4.0)
+STREAM_PULSES = ((4.1, 21.6, 0.5e-3, 6.0), (10.3, 57.0, 1.0e-3, 5.0),
+                 (16.7, 143.0, 2.0e-3, 4.0), (23.2, 231.0, 3.0e-3, 4.0),
+                 (28.9, 0.0, 1.0e-3, 4.0))
+# the trials held byte-equal to prepsubband's .dat: DM 0 keeps the
+# 256-trial plan's delay normalization, -subdm its subband centre DM
+STREAM_DAT_DMS = (0, 57, 114, 171)
+# a trigger matches an injected pulse within this time and DM
+TRIGGER_DT_S, TRIGGER_DDM = 0.2, 5.0
+# 13 beams of 4 blocks (32768 spectra, 4.2 s) each, fed as fast as the
+# rings take them; one dispersed pulse in beam 0 alone and a broadband
+# burst in all.  Cut from 2^17 spectra (16.8 s), which took 198 s for the
+# phase on an H100 (the per-trial single-pulse loop: 13 x 256 host round
+# trips a tick, three passes), then from 6 blocks (80-131 s), to keep
+# both live phases near 90 s
+BEAMS = dict(N=4 * 8192, nbeams=13, seed=41, coincidence_k=3)
+BEAMS_PULSE = (1.5, 57.0, 1.0e-3, 5.0)
+BEAMS_BURST = (3.0, 0.0, 1.0e-3, 4.0)
+
+
+def live_filterbank(path, seed, n, bursts, device="cuda"):
+    """A seeded live-geometry 8-bit filterbank with `bursts` (no pulsar)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    g = LIVE
+    synth_filterbank(path, gen, n, g["nchan"], g["dt"], g["lofreq"],
+                     g["cw"], (), bursts=bursts, device=device)
+
+
+def _span_ms(obs, name):
+    """(count, mean ms, total s) of the finished spans of `name`."""
+    ds = [s.duration for s in obs.tracer.finished() if s.name == name]
+    return len(ds), (1e3 * sum(ds) / len(ds) if ds else 0.0), sum(ds)
+
+
+def _match_triggers(trigs, injected):
+    """Per injected (t0, dm, ...): the triggers within TRIGGER_DT_S of its
+    time; ok when each has exactly one, within TRIGGER_DDM of its DM."""
+    rows, used = [], set()
+    for t0, dm, *_ in injected:
+        hits = [i for i, e in enumerate(trigs)
+                if abs(e["time"] - t0) <= TRIGGER_DT_S]
+        used.update(hits)
+        rows.append(dict(t0=t0, dm=dm, hits=[
+            dict(time=trigs[i]["time"], dm=trigs[i]["dm"],
+                 sigma=trigs[i]["sigma"]) for i in hits],
+            ok=len(hits) == 1 and abs(trigs[hits[0]]["dm"] - dm)
+            <= TRIGGER_DDM))
+    extra = [trigs[i] for i in range(len(trigs)) if i not in used]
+    return rows, extra
+
+
+def _send_paced(address, wire, hdrlen, bps, dt, speed, chunk=1024):
+    """Send a filterbank's bytes over a socket: the header at once, then
+    `chunk` spectra at a time at `speed` x real time."""
+    import socket
+    s = socket.create_connection(address)
+    try:
+        s.sendall(wire[:hdrlen])
+        t0, pos, sent = time.time(), hdrlen, 0
+        while pos < len(wire):
+            s.sendall(wire[pos:pos + chunk * bps])
+            pos += chunk * bps
+            sent += chunk
+            lag = t0 + sent * dt / speed - time.time()
+            if lag > 0:
+                time.sleep(lag)
+    finally:
+        s.close()
+
+
+def profile_ticks(ticks, active):
+    """Run the callables of `ticks` in turn in one torch.profiler window,
+    each inside its own record_function span, and read the device work
+    of the last `active`: every kernel and copy launched from within
+    their spans (by the profiler's launch correlation, so none of the
+    earlier ticks' work and no clock alignment is involved; the earlier
+    ticks also give the device tracing time to start).  Returns
+    (kernels, copies, host ms of those ticks), kernels and copies as the
+    profiler's per-launch records (name, duration in us)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    names = ["chip_smoke_tick_%d" % k for k in range(len(ticks))]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, tick in zip(names, ticks):
+            with record_function(name):
+                tick()
+                torch.cuda.synchronize()
+    want = set(names[len(ticks) - active:])
+    kern, copies, host = [], [], 0.0
+    for e in prof.events():
+        if e.name not in want:
+            continue
+        host += e.time_range.elapsed_us() / 1e3
+        todo = [e]
+        while todo:
+            x = todo.pop()
+            for k in x.kernels:
+                (copies if k.name.lower().startswith(("memcpy", "memset"))
+                 else kern).append(k)
+            todo.extend(x.cpu_children)
+    return kern, copies, host
+
+
+def tick_profile(hdr, cfg, raw, device="cuda"):
+    """The blocks of `raw` (whole blocks, at least 4) through a fresh
+    StreamSearch on the card: the third from last timed on the host
+    clock alone, the last two in a torch.profiler window (the first of
+    them its warm-up).  The kernels and copies the last tick launches,
+    the device's busy ms (the sum of their durations), the host ms of a
+    tick with and without the profiler, and the device's idle share
+    (busy ms over the tick without the profiler)."""
+    from presto_tpu_torch.stream import StreamSearch
+    eng = StreamSearch(hdr, cfg, device=device)
+    bl = cfg.blocklen
+    nblocks = len(raw) // bl
+
+    def tick(k):
+        eng.feed_block(raw[k * bl:(k + 1) * bl], bl)
+    for k in range(nblocks - 3):
+        tick(k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tick(nblocks - 3)
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) * 1e3
+    kern, copies, profiled_ms = profile_ticks(
+        [lambda k=k: tick(k) for k in (nblocks - 2, nblocks - 1)],
+        active=1)
+    busy_ms = sum(k.duration for k in kern + copies) / 1e3
+    return dict(kernels=len(kern), copies=len(copies),
+                device_busy_ms=busy_ms, tick_host_ms=tick_ms,
+                profiled_tick_host_ms=profiled_ms,
+                idle_share=1.0 - busy_ms / tick_ms)
+
+
+def phase_stream(workdir, device="cuda"):
+    """One live beam through the port's service path: SocketProducer on
+    loopback (paced at STREAM speed x real time) -> RingBlockSource ->
+    StreamService on the port's SearchService, the device work on the
+    card.  Every injected pulse triggered exactly once (time within
+    TRIGGER_DT_S, DM within TRIGGER_DDM); the rolling series of
+    STREAM_DAT_DMS byte-equal over the valid span to the port's
+    prepsubband .dat of the same file on the card; deadline-lane batches
+    >= 1 and one stream_latency_seconds sample a trigger.  Prints the
+    blocks, triggers, latency p50/p99 (block arrival -> trigger emitted),
+    the dedispersion step's device ms a block (CUDA events at the run's
+    shapes), the host ms a block of the per-trial single-pulse loop (the
+    stream:search spans), the real-time factor (data seconds over the
+    seconds the deadline-lane ticks took), and one steady-state tick
+    under torch.profiler (tick_profile: its kernels and copies, the
+    device's busy ms and idle share)."""
+    import threading
+    from presto_tpu_torch.apps import prepsubband
+    from presto_tpu_torch.io.datfft import read_dat
+    from presto_tpu_torch.serve.server import SearchService
+    from presto_tpu_torch.stream import (RingBlockSource, SocketProducer,
+                                         StreamConfig, StreamSearch,
+                                         StreamService)
+    from presto_tpu_torch.stream import service as stream_service
+    os.makedirs(workdir)
+    raw = os.path.join(workdir, "live.fil")
+    t0 = time.time()
+    live_filterbank(raw, STREAM["seed"], STREAM["N"], STREAM_PULSES, device)
+    synth_s = time.time() - t0
+    wire = open(raw, "rb").read()
+    bps = LIVE["nchan"]
+    hdrlen = len(wire) - STREAM["N"] * bps
+    cfg = StreamConfig(**LIVE_CFG)
+    rows = list(STREAM_DAT_DMS)
+    kept = []
+
+    class Recording(StreamSearch):
+        """The service's engine, keeping the rolling series of `rows`."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            feed = self.rolling.feed
+
+            def capture(block):
+                out = feed(block)
+                if out is not None:
+                    kept.append(out[rows].copy())
+                return out
+            self.rolling.feed = capture
+
+    svc = SearchService(os.path.join(workdir, "serve"), heartbeat_s=1.0)
+    svc.start()
+    stream_service.StreamSearch = Recording
+    try:
+        src = RingBlockSource(capacity=cfg.ring_capacity,
+                              policy=cfg.ring_policy)
+        prod = SocketProducer(src).start()
+        sender = threading.Thread(target=_send_paced, args=(
+            prod.address, wire, hdrlen, bps, LIVE["dt"], STREAM["speed"]),
+            daemon=True)
+        t0 = time.time()
+        sender.start()
+        stream = StreamService(svc, src, cfg, device=device).start()
+        done = stream.wait(600.0)
+        wall_s = time.time() - t0
+        sender.join(10.0)
+        prod.close()
+    finally:
+        stream_service.StreamSearch = StreamSearch
+        svc.stop()
+    if not done or stream.failed is not None:
+        log("stream: the service did not finish: %r" % stream.failed)
+        return dict(ok=False, error=repr(stream.failed))
+    eng = stream.engine
+    evs = svc.events.tail(100000)
+    trigs = [e for e in evs if e["kind"] == "trigger"]
+    matched, extra = _match_triggers(trigs, STREAM_PULSES)
+    reg = svc.obs.metrics
+    lanes = reg.get("serve_lane_batches_total").labels(
+        lane="deadline").value
+    hist = reg.get("stream_latency_seconds").labels(stream="stream-0",
+                                                     beam="-")
+    lat = hist.percentiles((50, 99))
+    blocks = int(reg.get("stream_blocks_total").value)
+    # the series against prepsubband's .dat on the card
+    t0 = time.time()
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        prepsubband.main(["-lodm", "0", "-dmstep", str(rows[1] - rows[0]),
+                          "-numdms", str(len(rows)), "-subdm",
+                          str(cfg.lodm + 0.5 * (cfg.numdms - 1)
+                              * cfg.dmstep),
+                          "-nsub", str(cfg.nsub), "-nobary", "-clip", "0",
+                          "-o", "live", raw], device=device)
+    finally:
+        os.chdir(cwd)
+    prep_s = time.time() - t0
+    series = np.concatenate(kept, axis=1)
+    valid = STREAM["N"] - eng.maxd
+    dats = sorted(glob.glob(os.path.join(workdir, "live_DM*.dat")),
+                  key=lambda p: float(os.path.basename(p)[7:-4]))
+    dat_equal = [bool(np.array_equal(read_dat(p)[:valid], series[i][:valid]))
+                 for i, p in enumerate(dats)]
+    # the dedispersion step's device time at the run's shapes
+    g = torch.Generator(device=device)
+    g.manual_seed(5)
+    blk = [torch.randn((LIVE["nchan"], cfg.blocklen), generator=g,
+                       device=device) for _ in range(2)]
+    sub = torch.randn((cfg.nsub, cfg.blocklen), generator=g, device=device)
+    step_ms = cuda_time_ms(lambda: eng.rolling.step(blk[0], blk[1], sub),
+                           reps=20)
+    from presto_tpu_torch.io.sigproc import FilterbankFile
+    with FilterbankFile(raw) as fb:
+        prof = tick_profile(fb.header, cfg, fb.read_spectra(
+            0, 6 * cfg.blocklen), device=device)
+    _, block_ms, block_s = _span_ms(svc.obs, "stream:block")
+    _, dedisp_ms, _ = _span_ms(svc.obs, "stream:dedisp")
+    _, search_ms, search_s = _span_ms(svc.obs, "stream:search")
+    data_s = STREAM["N"] * LIVE["dt"]
+    ok = (all(m["ok"] for m in matched) and len(dats) == len(rows)
+          and all(dat_equal) and lanes >= 1 and hist.count == len(trigs)
+          and blocks == -(-STREAM["N"] // cfg.blocklen))
+    res = dict(ok=ok, spectra=STREAM["N"], blocks=blocks,
+               triggers=len(trigs), matched=matched, extra_triggers=extra,
+               latency_p50_s=lat["p50"], latency_p99_s=lat["p99"],
+               latency_samples=hist.count, deadline_batches=lanes,
+               dat_equal=dat_equal, valid=valid, maxd=eng.maxd,
+               dedisp_step_ms=step_ms, dedisp_block_host_ms=dedisp_ms,
+               sp_loop_host_ms=search_ms, tick_host_ms=block_ms,
+               sp_loop_share=search_s / block_s if block_s else 0.0,
+               realtime_factor=data_s / block_s if block_s else 0.0,
+               tick_profile=prof,
+               wall_s=wall_s, paced_s=data_s / STREAM["speed"],
+               synth_s=synth_s, prepsubband_s=prep_s,
+               summary=stream.summary())
+    log("stream: %d spectra (%.1f s of data) paced at %gx over loopback: "
+        "%d blocks, %d triggers (%d beside the injected), injected %s; "
+        "latency p50 %.3f s, p99 %.3f s (%d samples); deadline-lane "
+        "batches %d; dedispersion step %.3f device ms a block (%.3f host "
+        "ms with the upload and copy back); per-trial single-pulse loop "
+        "%.3f host ms a block, %.1f%% of the tick (%.3f ms); real-time "
+        "factor %.2f (data s over tick s); one tick under the profiler: "
+        "%d kernels, %d copies, device busy %.3f ms of a %.3f ms tick "
+        "(%.3f ms profiled; idle share %.3f); wall %.1f s; %d/%d .dat "
+        "byte-equal to prepsubband's on the card (DMs %s, %d valid "
+        "samples) %s"
+        % (STREAM["N"], data_s, STREAM["speed"], blocks, len(trigs),
+           len(extra), json.dumps([(m["t0"], m["dm"], len(m["hits"]),
+                                    m["hits"][0]["dm"] if m["hits"]
+                                    else None) for m in matched]),
+           lat["p50"], lat["p99"], hist.count, lanes, step_ms, dedisp_ms,
+           search_ms, 100 * res["sp_loop_share"], block_ms,
+           res["realtime_factor"], prof["kernels"], prof["copies"],
+           prof["device_busy_ms"], prof["tick_host_ms"],
+           prof["profiled_tick_host_ms"], prof["idle_share"], wall_s,
+           sum(dat_equal), len(dats),
+           list(rows), valid, "ok" if ok else "FAIL"))
+    return res
+
+
+def _tick_kernels(stacked, blocks):
+    """Kernel launches and copies on the card of one steady-state tick of
+    a StackedRollingDedisp (primed with blocks[0:2]), from
+    torch.profiler's device events over two identical ticks: (kernels,
+    copies) a tick."""
+    stacked.feed(blocks[0])
+    stacked.feed(blocks[1])
+    kern, copies, _ = profile_ticks(
+        [lambda b=b: stacked.feed(b) for b in (blocks[0], blocks[1],
+                                               blocks[0])], active=2)
+    return len(kern) / 2, len(copies) / 2
+
+
+def phase_beams(workdir, device="cuda"):
+    """BEAMS["nbeams"] beams of the live geometry through BeamMultiplexer
+    on the port's SearchService, fed as fast as the rings take them:
+    first with the veto off (every beam's triggers equal an independent
+    StreamSearch's on the same blocks; beam b's stacked series bit-equal,
+    on every tick, to that one-beam RollingDedisp's, by SHA-256 of each
+    block's bytes; stacked steps <= ticks; every spectrum consumed), then
+    with coincidence_k (the burst in every beam vetoed, the beam-0 pulse
+    kept).  The kernels one tick launches (torch.profiler) equal at 1 beam
+    and at all of them; the stacked step's device ms at all beams beside
+    that many times the one-beam step's; the real-time factor (seconds of
+    data over the multiplexer's wall seconds, with every beam live)."""
+    import hashlib
+    import threading
+    from presto_tpu_torch.io.sigproc import FilterbankFile
+    from presto_tpu_torch.serve.server import SearchService
+    from presto_tpu_torch.stream import (BeamMultiplexer, RingBlockSource,
+                                         StackedRollingDedisp, StreamConfig,
+                                         StreamSearch, make_beam_block_step)
+    os.makedirs(workdir)
+    nb, n = BEAMS["nbeams"], BEAMS["N"]
+    t0 = time.time()
+    datas = []
+    for b in range(nb):
+        path = os.path.join(workdir, "beam%02d.fil" % b)
+        live_filterbank(path, BEAMS["seed"] + b, n,
+                        ((BEAMS_PULSE,) if b == 0 else ()) + (BEAMS_BURST,),
+                        device)
+        with FilterbankFile(path) as fb:
+            hdr = fb.header
+            datas.append(fb.read_spectra(0, n))
+        os.remove(path)
+    synth_s = time.time() - t0
+    cfg = StreamConfig(**LIVE_CFG)
+    digest = lambda a: hashlib.sha256(  # noqa: E731
+        np.ascontiguousarray(a).tobytes()).hexdigest()
+    strip = lambda d: json.dumps(  # noqa: E731
+        {k: v for k, v in d.items() if k not in (
+            "seq", "ts", "kind", "stream", "beam", "latency_s")},
+        sort_keys=True)
+
+    # the reference: an independent one-beam StreamSearch a beam
+    t0 = time.time()
+    ref_hashes, ref_trigs = [], []
+    for data in datas:
+        eng = StreamSearch(hdr, cfg, device=device)
+        hashes, feed = [], eng.rolling.feed
+
+        def capture(block, feed=feed, hashes=hashes):
+            out = feed(block)
+            if out is not None:
+                hashes.append(digest(out))
+            return out
+        eng.rolling.feed = capture
+        trigs = []
+        for lo in range(0, n, cfg.blocklen):
+            trigs += eng.feed_block(data[lo:lo + cfg.blocklen], cfg.blocklen)
+        trigs += eng.finish()
+        ref_hashes.append(hashes)
+        ref_trigs.append(sorted(strip(t.to_json()) for t in trigs))
+    ref_s = time.time() - t0
+
+    class Hashing(BeamMultiplexer):
+        """The multiplexer, hashing each beam's stacked series a tick."""
+
+        def _setup(self):
+            super()._setup()
+            self.hashes = [[] for _ in self.lanes]
+            for rolling, idxs in self.groups:
+                feed = rolling.feed
+
+                def hashed(stack, feed=feed, idxs=idxs):
+                    out, k = feed(stack)
+                    if out is not None:
+                        for j, i in enumerate(idxs):
+                            self.hashes[i].append(digest(out[j]))
+                    return out, k
+                rolling.feed = hashed
+
+    def push(src, data):
+        src.set_header(hdr)
+        for lo in range(0, n, 1024):
+            src.push_spectra(data[lo:lo + 1024])
+        src.eof()
+
+    runs = {}
+    for name, k in (("veto_off", 0), ("veto_on", BEAMS["coincidence_k"])):
+        svc = SearchService(os.path.join(workdir, name), heartbeat_s=1.0)
+        svc.start()
+        try:
+            srcs = [RingBlockSource(capacity=cfg.ring_capacity,
+                                    policy=cfg.ring_policy)
+                    for _ in datas]
+            t0 = time.time()
+            for s, d in zip(srcs, datas):
+                threading.Thread(target=push, args=(s, d),
+                                 daemon=True).start()
+            mux = Hashing(svc, srcs, cfg, coincidence_k=k,
+                          device=device).start()
+            done = mux.wait(600.0)
+            wall = time.time() - t0
+        finally:
+            svc.stop()
+        if not done or mux.failed is not None:
+            log("beams: %s did not finish: %r" % (name, mux.failed))
+            return dict(ok=False, error=repr(mux.failed))
+        evs = svc.events.tail(1000000)
+        per_beam = {lane.beam_id: [] for lane in mux.lanes}
+        for e in evs:
+            if e["kind"] == "trigger":
+                per_beam[e["beam"]].append(e)
+        totals = mux.summary_totals()
+        runs[name] = dict(
+            wall_s=wall, ticks=max(lane.ticks for lane in mux.lanes),
+            dispatches=totals["dispatches"], totals=totals,
+            per_beam=per_beam, hashes=mux.hashes,
+            vetoes=[e for e in evs if e["kind"] == "beam-veto"],
+            spectra=[row["spectra"] for row in
+                     mux.summary()["per_beam"]],
+            lost=sum(row["dropped_spectra"] + row["stalled_spectra"]
+                     + row["source"]["dropped_spectra"]
+                     for row in mux.summary()["per_beam"]))
+    off, on = runs["veto_off"], runs["veto_on"]
+    trig_equal = [sorted(strip(e) for e in off["per_beam"]["beam-%d" % b])
+                  == ref_trigs[b] for b in range(nb)]
+    series_equal = [off["hashes"][b] == ref_hashes[b]
+                    and len(ref_hashes[b]) == -(-n // cfg.blocklen)
+                    for b in range(nb)]
+    burst_vetoed = any(abs(v["time"] - BEAMS_BURST[0]) <= TRIGGER_DT_S
+                       and v["nbeams"] >= BEAMS["coincidence_k"]
+                       for v in on["vetoes"])
+    kept = [e for e in on["per_beam"]["beam-0"]
+            if abs(e["time"] - BEAMS_PULSE[0]) <= TRIGGER_DT_S
+            and abs(e["dm"] - BEAMS_PULSE[1]) <= TRIGGER_DDM]
+    burst_left = [e for b in on["per_beam"].values() for e in b
+                  if abs(e["time"] - BEAMS_BURST[0]) <= TRIGGER_DT_S]
+    # the launches of one tick and the stacked step's device time, at 1
+    # beam and at all of them
+    g = torch.Generator(device="cpu")
+    g.manual_seed(9)
+    first = StreamSearch(hdr, cfg, device=device)
+    counts, step_ms = {}, {}
+    for B in (1, nb):
+        blocks = [torch.randn((B, cfg.blocklen, LIVE["nchan"]),
+                              generator=g).numpy() for _ in range(2)]
+        counts[B] = _tick_kernels(StackedRollingDedisp(
+            first._chan_bins, first._dm_bins, cfg.nsub, cfg.downsamp,
+            device=device), blocks)
+        prime, step = make_beam_block_step(first._chan_bins, first._dm_bins,
+                                           cfg.nsub, cfg.downsamp)
+        x = [torch.as_tensor(b, device=device).transpose(1, 2).contiguous()
+             for b in blocks]
+        sub = prime(x[0], x[1])
+        step_ms[B] = cuda_time_ms(lambda: step(x[0], x[1], sub), reps=10)
+        del x, sub
+    launches_equal = counts[1] == counts[nb]
+    data_s = n * LIVE["dt"]
+    ok = (all(trig_equal) and all(series_equal)
+          and off["dispatches"] <= off["ticks"]
+          and all(s == n for r in runs.values() for s in r["spectra"])
+          and off["lost"] == on["lost"] == 0 and launches_equal
+          and counts[1][0] > 0 and burst_vetoed and len(kept) == 1
+          and not burst_left)
+    res = dict(ok=ok, beams=nb, spectra=n, synth_s=synth_s,
+               reference_s=ref_s, trig_equal=trig_equal,
+               series_equal=series_equal,
+               triggers={name: {b: len(v) for b, v in
+                                r["per_beam"].items()}
+                         for name, r in runs.items()},
+               ticks=off["ticks"], dispatches=off["dispatches"],
+               wall_s={k: r["wall_s"] for k, r in runs.items()},
+               realtime_factor={k: data_s / r["wall_s"]
+                                for k, r in runs.items()},
+               beam0_triggers={name: [{k: e[k] for k in ("time", "dm",
+                                                          "sigma")}
+                                      for e in r["per_beam"]["beam-0"]]
+                               for name, r in runs.items()},
+               burst_vetoed=burst_vetoed, pulse_kept=len(kept),
+               burst_triggers_left=len(burst_left),
+               vetoes=[{k: v[k] for k in ("time", "nbeams")}
+                       for v in on["vetoes"]],
+               tick_kernels={B: dict(kernels=c[0], copies=c[1])
+                             for B, c in counts.items()},
+               step_ms={B: v for B, v in step_ms.items()},
+               step_ms_one_beam_times_beams=nb * step_ms[1])
+    log("beams: %d beams x %d spectra (%.1f s of data each): veto off "
+        "%d ticks, %d stacked steps, triggers a beam %s, equal to "
+        "independent StreamSearches %d/%d, stacked series bit-equal to the "
+        "one-beam carries on every tick %d/%d; veto on (k=%d): vetoes %s, "
+        "burst vetoed %s, beam-0 pulse kept %d, burst triggers left %d; "
+        "one tick's kernels (copies) at 1 beam %d (%d), at %d beams %d "
+        "(%d); stacked step %.3f device ms at %d "
+        "beams against %d x %.3f = %.3f ms one beam at a time; real-time "
+        "factor %s; wall %s s; reference %.1f s %s"
+        % (nb, n, data_s, off["ticks"], off["dispatches"],
+           json.dumps(res["triggers"]["veto_off"]), sum(trig_equal), nb,
+           sum(series_equal), nb, BEAMS["coincidence_k"],
+           json.dumps(res["vetoes"]), burst_vetoed, len(kept),
+           len(burst_left), counts[1][0], counts[1][1], nb,
+           counts[nb][0], counts[nb][1], step_ms[nb], nb, nb, step_ms[1],
+           nb * step_ms[1],
+           json.dumps(res["realtime_factor"]),
+           json.dumps(res["wall_s"]), ref_s, "ok" if ok else "FAIL"))
+    return res
+
+
+def launch_counts():
+    """Both kernel wrappers' launch counters, set to zero (read them again
+    after the path to count its launches)."""
+    from presto_tpu_torch.search import accel_cuda, build_cuda
+    build_cuda.launches = accel_cuda.launches = 0
+    accel_cuda.planes_launches = 0
+    return lambda: dict(plane_build=build_cuda.launches,
+                        stage_reduce=accel_cuda.launches,
+                        stage_reduce_planes=accel_cuda.planes_launches)
+
+
+def live_phases():
+    """The stream and beams phases, each in its own directory, with the
+    kernel launches each path made (read from zero around it)."""
+    out = {}
+    for name, phase in (("stream", phase_stream), ("beams", phase_beams)):
+        d = tempfile.mkdtemp(prefix="chip_smoke_%s_" % name)
+        try:
+            read = launch_counts()
+            t0 = time.time()
+            out[name] = phase(os.path.join(d, "w"))
+            out[name].update(launches=read(), phase_s=time.time() - t0)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--live-only", action="store_true",
+                    help="run the stream and beams phases alone (no build, "
+                         "no kernels line, no final ok line)")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2510,6 +3098,10 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log("card: %s" % card)
+    if opts.live_only:
+        live = live_phases()
+        log("results: %s" % json.dumps(live, default=float))
+        return 0 if all(v["ok"] for v in live.values()) else 1
     t_start = time.time()
     results = {"card": card}
     build = phase_build()
@@ -2557,11 +3149,13 @@ def main():
         jerk = phase_jerk(gen, jwork)
     finally:
         shutil.rmtree(jwork, ignore_errors=True)
+    torch.cuda.empty_cache()
+    live = live_phases()
     results.update(plane_build=k1, stage_reduce=k2, polish=pol,
                    main=main_res, ingest=ingest, fold=fold,
                    toas=toas, singlepulse=spb, jerk=jerk, sharded=shard,
-                   cluster=cluster,
-                   small_reference=small, total_s=time.time() - t_start)
+                   cluster=cluster, small_reference=small, **live,
+                   total_s=time.time() - t_start)
     # launches: the main path's (run_survey, and run_survey on the DM
     # mesh), plus the jerk paths' (the bench search, and accelsearch
     # -wmax on the card), each counted from zero around its run
@@ -2577,7 +3171,10 @@ def main():
              jerk["pulsar"]["stage_reduce_planes"])):
         by_path = {"run_survey": main_res["launches"][name],
                    "run_survey_sharded": shard["launches"][name]}
-        for path, counts in zip(("jerk_bench", "accelsearch_wmax"), jl):
+        for path, counts in zip(("jerk_bench", "accelsearch_wmax",
+                                 "stream", "beams"),
+                                jl + [live["stream"]["launches"],
+                                      live["beams"]["launches"]]):
             by_path[path] = counts[name] + counts.get(
                 "stage_reduce_planes", 0) * (name == "stage_reduce")
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -2609,7 +3206,9 @@ def main():
                               ("singlepulse", spb["ok"]),
                               ("jerk", jerk["ok"]),
                               ("sharded", shard["ok"]),
-                              ("cluster", cluster["ok"])) if not ok]
+                              ("cluster", cluster["ok"]),
+                              ("stream", live["stream"]["ok"]),
+                              ("beams", live["beams"]["ok"])) if not ok]
     if failed:
         print("chip_smoke: FAILED phases: %s" % failed, file=sys.stderr)
         return 1

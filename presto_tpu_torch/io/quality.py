@@ -1,9 +1,7 @@
 """Ingest quarantine: data-quality accounting for the raw-data readers.
 
 Host copy of ``presto_tpu/io/quality.py`` for the PyTorch port, which
-imports nothing from the JAX package.  ``DataQualityReport.publish``
-(the obs metrics registry) is left out until the port's telemetry
-(ROADMAP queue 1, item 8).
+imports nothing from the JAX package.
 
 The readers (io/sigproc.py, io/psrfits.py) must not crash — or worse,
 silently emit garbage — when an observation contains truncated reads,
@@ -134,6 +132,36 @@ class DataQualityReport:
         return ("data quality: %d/%d spectra quarantined (%.2f%%): %s"
                 % (self.bad_spectra(), self.nspectra, 100 * frac,
                    ", ".join("%s=%d" % kv for kv in sorted(cnt.items()))))
+
+    # -- metrics ------------------------------------------------------
+    def publish(self, registry) -> None:
+        """Fold this report's tallies into an obs MetricsRegistry so
+        ingest health is visible on a live /metrics scrape, not only
+        in per-run `<base>_quality.json` files:
+
+          ingest_reports_total                one per published report
+          ingest_scrubbed_samples_total       NaN/Inf samples scrubbed
+          ingest_quarantined_spectra_total{reason=...}
+                                              spectra per quarantine
+                                              reason (zero-fill,
+                                              short-read, ...)
+        """
+        registry.counter(
+            "ingest_reports_total",
+            "Data-quality reports published").inc()
+        if self.scrubbed_samples:
+            registry.counter(
+                "ingest_scrubbed_samples_total",
+                "Samples scrubbed (NaN/Inf replaced with pad)"
+            ).inc(self.scrubbed_samples)
+        counts = self.counts()
+        if counts:
+            c = registry.counter(
+                "ingest_quarantined_spectra_total",
+                "Spectra quarantined by the ingest readers",
+                ("reason",))
+            for reason, n in counts.items():
+                c.labels(reason=reason).inc(n)
 
     # -- (de)serialization --------------------------------------------
     def to_json(self) -> dict:

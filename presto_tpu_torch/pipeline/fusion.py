@@ -118,19 +118,23 @@ class UploadRing:
     device, so the upload is an asynchronous DMA) that the ingest
     worker decodes and preprocesses into and the consumer uploads, to
     ``device`` or to each device of a list (a mesh's distinct devices).
+    ``lead`` prepends axes to every buffer ([beams, blocklen, nchan]
+    for the live beam multiplexer's stacked blocks).
     A buffer returns to the worker's free list with the CUDA events
     recorded after its uploads, and acquire() waits on them before
     handing the buffer out again: an upload in flight is never
     overwritten."""
 
-    def __init__(self, nbuf: int, blocklen: int, nchan: int, device):
+    def __init__(self, nbuf: int, blocklen: int, nchan: int, device,
+                 lead: tuple = ()):
         self._many = isinstance(device, (list, tuple))
         self.devices = ([torch.device(d) for d in device] if self._many
                         else [torch.device(device)])
         self.device = self.devices[0]
         pin = self.device.type == "cuda"
-        self._bufs = [torch.empty((blocklen, nchan), dtype=torch.float32,
-                                  pin_memory=pin) for _ in range(nbuf)]
+        self._bufs = [torch.empty(tuple(lead) + (blocklen, nchan),
+                                  dtype=torch.float32, pin_memory=pin)
+                      for _ in range(nbuf)]
         self._arrays = [b.numpy() for b in self._bufs]
         self._free: "queue.Queue" = queue.Queue()
         for i in range(nbuf):
@@ -153,8 +157,8 @@ class UploadRing:
         return self._arrays[i]
 
     def upload(self, i: int):
-        """Buffer i on the device, channel-major [nchan, blocklen]: a
-        non-blocking copy of the time-major buffer, transposed on the
+        """Buffer i on the device, channel-major [..., nchan, blocklen]:
+        a non-blocking copy of the time-major buffer, transposed on the
         device (a copy, so bit-exact); with a list of devices, a list of
         such copies, one a device (the MPI_Bcast analog).  The buffer
         then goes back to the free list."""
@@ -165,7 +169,7 @@ class UploadRing:
                 ev = torch.cuda.Event()
                 ev.record(torch.cuda.current_stream(d))
                 done.append(ev)
-            outs.append(tm.t().contiguous())
+            outs.append(tm.transpose(-1, -2).contiguous())
         self._free.put((i, done))
         return outs if self._many else outs[0]
 

@@ -1,10 +1,12 @@
 """Per-stage wall-clock accounting for the survey driver and the apps.
 
-Host copy of ``StageTimer`` and ``app_timer`` from
-``presto_tpu/utils/timing.py`` for the PyTorch port, without the
-telemetry hooks (latency registry, spans, profiler traces).  The port's
-StageTimer also keeps every closed interval per name in ``samples``,
-so a caller can read per-trial times (e.g. the polish of each DM).
+Host copy of ``StageTimer``, ``app_timer`` and ``LatencyStats`` from
+``presto_tpu/utils/timing.py`` for the PyTorch port.  StageTimer has no
+telemetry hooks (spans, profiler traces); it also keeps every closed
+interval per name in ``samples``, so a caller can read per-trial times
+(e.g. the polish of each DM).  LatencyStats is a view over the obs
+metrics registry (``latency_seconds{name=...}``), so the serve layer's
+/metrics JSON and its Prometheus text read the same numbers.
 """
 
 from __future__ import annotations
@@ -14,6 +16,58 @@ import sys
 import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional
+
+
+class LatencyStats:
+    """Per-name latency samples with percentile accounting — the
+    serving layer's /metrics backbone.  Each name is one child of a
+    shared registry histogram (`latency_seconds{name=...}`): lifetime
+    count/sum plus a bounded window of recent samples for p50/p90/p99
+    (nearest-rank, old samples age out).  Thread-safe: the service
+    records from scheduler and HTTP threads.
+
+    Pass `registry` (obs MetricsRegistry) to share the serve layer's
+    registry; by default a private always-enabled registry backs the
+    instance."""
+
+    METRIC = "latency_seconds"
+
+    def __init__(self, window: int = 2048, registry=None):
+        if registry is None:
+            from presto_tpu_torch.obs.metrics import MetricsRegistry
+            registry = MetricsRegistry(enabled=True)
+        self.registry = registry
+        self._hist = registry.histogram(
+            self.METRIC, "Recorded latency samples by name",
+            ("name",), window=window)
+
+    def record(self, name: str, seconds: float) -> None:
+        self._hist.labels(name=name).observe(float(seconds))
+
+    def percentiles(self, name: str,
+                    qs=(50, 90, 99)) -> Dict[str, float]:
+        """Nearest-rank percentiles over the sample window."""
+        return self._hist.labels(name=name).percentiles(qs)
+
+    def snapshot(self) -> Dict[str, dict]:
+        """{name: {count, mean_s, p50_s, p90_s, p99_s, max_s}} for
+        every recorded name (the /metrics `latency` block)."""
+        out = {}
+        for labels, child in self._hist.children():
+            count = child.count
+            xs = child.samples()
+            if not count or not xs:
+                continue
+            pcts = child.percentiles()
+            out[dict(labels)["name"]] = {
+                "count": count,
+                "mean_s": round(child.sum / count, 6),
+                "p50_s": round(pcts["p50"], 6),
+                "p90_s": round(pcts["p90"], 6),
+                "p99_s": round(pcts["p99"], 6),
+                "max_s": round(max(xs), 6),
+            }
+        return out
 
 
 class StageTimer:

@@ -232,6 +232,66 @@ def test_parallel_modules_stand_alone_and_need_cuda():
     assert "PARALLEL ISOLATED" in out.stdout
 
 
+STREAM_SCRIPT = r"""
+import sys, threading
+import numpy as np
+import torch
+from presto_tpu_torch import obs, serve, stream
+from presto_tpu_torch.io import sigproc
+from presto_tpu_torch.stream import beams, service
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "presto_tpu" or m.startswith("presto_tpu."))
+assert not bad, bad
+hdr = sigproc.FilterbankHeader(nbits=32, nchans=16, nifs=1, tsamp=1e-3,
+                               fch1=400.0, foff=-1.0)
+cfg = stream.StreamConfig(lodm=10.0, dmstep=5.0, numdms=4, nsub=8,
+                          blocklen=4096)
+cb, db = np.zeros(16, np.int32), np.zeros((4, 8), np.int32)
+svc = serve.SearchService("stream_isolation_work")
+src = stream.RingBlockSource()
+on_cpu = (lambda: stream.StreamSearch(hdr, cfg, device="cpu"),
+          lambda: stream.RollingDedisp(cb, db, 8, device="cpu"),
+          lambda: stream.StackedRollingDedisp(cb, db, 8, device="cpu"),
+          lambda: stream.StreamService(svc, src, cfg, device="cpu"),
+          lambda: stream.BeamMultiplexer(svc, [src], cfg, device="cpu"))
+for call in on_cpu:
+    call()
+if not torch.cuda.is_available():
+    for call in (lambda: stream.StreamSearch(hdr, cfg),
+                 lambda: stream.RollingDedisp(cb, db, 8),
+                 lambda: stream.StackedRollingDedisp(cb, db, 8),
+                 lambda: stream.StreamService(svc, src, cfg),
+                 lambda: stream.BeamMultiplexer(svc, [src], cfg),
+                 lambda: service.main(["-tail", "missing.fil"]),
+                 lambda: beams.main(["-tails", "missing.fil"])):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError("an entry point ran without CUDA")
+    # the CLIs refused before starting a service, a producer or a pump
+    assert threading.active_count() == 1, threading.enumerate()
+print("STREAM ISOLATED")
+"""
+
+
+def test_stream_and_serve_modules_stand_alone_and_need_cuda(tmp_path):
+    """The stream, serve and obs modules import neither jax nor
+    presto_tpu; StreamSearch, RollingDedisp, StackedRollingDedisp,
+    StreamService, BeamMultiplexer and the two stream CLIs (service and
+    beams main) run with device="cpu" and, called without it, raise
+    without a card before starting any thread."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", STREAM_SCRIPT],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "STREAM ISOLATED" in out.stdout
+
+
 def test_port_imports_no_jax_and_needs_cuda():
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT
