@@ -2857,8 +2857,11 @@ def phase_beams(workdir, device="cuda"):
     with coincidence_k (the burst in every beam vetoed, the beam-0 pulse
     kept).  The kernels one tick launches (torch.profiler) equal at 1 beam
     and at all of them; the stacked step's device ms at all beams beside
-    that many times the one-beam step's; the real-time factor (seconds of
-    data over the multiplexer's wall seconds, with every beam live)."""
+    that many times a one-beam RollingDedisp.step's (timed side by side
+    at the run's shapes); the steady-state real-time factor (a tick's
+    seconds of data over the mean stream:beam-tick span past the two
+    priming ticks), and the whole run's (seconds of data over the
+    multiplexer's wall seconds, set-up, priming and flush included)."""
     import hashlib
     import threading
     from presto_tpu_torch.io.sigproc import FilterbankFile
@@ -2926,6 +2929,11 @@ def phase_beams(workdir, device="cuda"):
                     return out, k
                 rolling.feed = hashed
 
+    def steady_ticks(obs):
+        """Durations (s) of the stream:beam-tick spans past priming."""
+        return [sp.duration for sp in obs.tracer.finished()
+                if sp.name == "stream:beam-tick" and sp.attrs["tick"] >= 2]
+
     def push(src, data):
         src.set_header(hdr)
         for lo in range(0, n, 1024):
@@ -2963,6 +2971,7 @@ def phase_beams(workdir, device="cuda"):
             wall_s=wall, ticks=max(lane.ticks for lane in mux.lanes),
             dispatches=totals["dispatches"], totals=totals,
             per_beam=per_beam, hashes=mux.hashes,
+            steady_tick_s=steady_ticks(svc.obs),
             vetoes=[e for e in evs if e["kind"] == "beam-veto"],
             spectra=[row["spectra"] for row in
                      mux.summary()["per_beam"]],
@@ -2984,26 +2993,32 @@ def phase_beams(workdir, device="cuda"):
     burst_left = [e for b in on["per_beam"].values() for e in b
                   if abs(e["time"] - BEAMS_BURST[0]) <= TRIGGER_DT_S]
     # the launches of one tick and the stacked step's device time, at 1
-    # beam and at all of them
+    # beam and at all of them, beside the one-beam carry's own step
     g = torch.Generator(device="cpu")
     g.manual_seed(9)
     first = StreamSearch(hdr, cfg, device=device)
-    counts, step_ms = {}, {}
+    counts, step_ms, x = {}, {}, {}
     for B in (1, nb):
         blocks = [torch.randn((B, cfg.blocklen, LIVE["nchan"]),
                               generator=g).numpy() for _ in range(2)]
         counts[B] = _tick_kernels(StackedRollingDedisp(
             first._chan_bins, first._dm_bins, cfg.nsub, cfg.downsamp,
             device=device), blocks)
-        prime, step = make_beam_block_step(first._chan_bins, first._dm_bins,
-                                           cfg.nsub, cfg.downsamp)
-        x = [torch.as_tensor(b, device=device).transpose(1, 2).contiguous()
-             for b in blocks]
-        sub = prime(x[0], x[1])
-        step_ms[B] = cuda_time_ms(lambda: step(x[0], x[1], sub), reps=10)
-        del x, sub
+        x[B] = [torch.as_tensor(b, device=device).transpose(1, 2)
+                .contiguous() for b in blocks]
+    prime, step = make_beam_block_step(first._chan_bins, first._dm_bins,
+                                       cfg.nsub, cfg.downsamp)
+    subs = {B: prime(x[B][0], x[B][1]) for B in x}
+    one, one_sub = [b[0] for b in x[1]], subs[1][0]
+    step_ms["one_beam_carry"] = cuda_time_ms(
+        lambda: first.rolling.step(one[0], one[1], one_sub), reps=30)
+    for B in x:
+        step_ms[B] = cuda_time_ms(
+            lambda: step(x[B][0], x[B][1], subs[B]), reps=30)
+    del x, one, one_sub, subs
     launches_equal = counts[1] == counts[nb]
     data_s = n * LIVE["dt"]
+    tick_data_s = cfg.blocklen * LIVE["dt"]
     ok = (all(trig_equal) and all(series_equal)
           and off["dispatches"] <= off["ticks"]
           and all(s == n for r in runs.values() for s in r["spectra"])
@@ -3018,8 +3033,13 @@ def phase_beams(workdir, device="cuda"):
                          for name, r in runs.items()},
                ticks=off["ticks"], dispatches=off["dispatches"],
                wall_s={k: r["wall_s"] for k, r in runs.items()},
-               realtime_factor={k: data_s / r["wall_s"]
-                                for k, r in runs.items()},
+               realtime_factor_steady={
+                   k: tick_data_s * len(r["steady_tick_s"])
+                   / sum(r["steady_tick_s"]) for k, r in runs.items()},
+               steady_ticks={k: len(r["steady_tick_s"])
+                             for k, r in runs.items()},
+               realtime_factor_whole_run={k: data_s / r["wall_s"]
+                                          for k, r in runs.items()},
                beam0_triggers={name: [{k: e[k] for k in ("time", "dm",
                                                           "sigma")}
                                       for e in r["per_beam"]["beam-0"]]
@@ -3031,24 +3051,28 @@ def phase_beams(workdir, device="cuda"):
                tick_kernels={B: dict(kernels=c[0], copies=c[1])
                              for B, c in counts.items()},
                step_ms={B: v for B, v in step_ms.items()},
-               step_ms_one_beam_times_beams=nb * step_ms[1])
+               step_ms_one_beam_times_beams=nb
+               * step_ms["one_beam_carry"])
     log("beams: %d beams x %d spectra (%.1f s of data each): veto off "
         "%d ticks, %d stacked steps, triggers a beam %s, equal to "
         "independent StreamSearches %d/%d, stacked series bit-equal to the "
         "one-beam carries on every tick %d/%d; veto on (k=%d): vetoes %s, "
         "burst vetoed %s, beam-0 pulse kept %d, burst triggers left %d; "
         "one tick's kernels (copies) at 1 beam %d (%d), at %d beams %d "
-        "(%d); stacked step %.3f device ms at %d "
-        "beams against %d x %.3f = %.3f ms one beam at a time; real-time "
-        "factor %s; wall %s s; reference %.1f s %s"
+        "(%d); stacked step %.3f device ms at %d beams (%.3f at 1) "
+        "against %d x %.3f = %.3f ms of one-beam RollingDedisp steps; "
+        "real-time factor over the steady ticks %s, over the whole run "
+        "(set-up, priming and flush included) %s; wall %s s; reference "
+        "%.1f s %s"
         % (nb, n, data_s, off["ticks"], off["dispatches"],
            json.dumps(res["triggers"]["veto_off"]), sum(trig_equal), nb,
            sum(series_equal), nb, BEAMS["coincidence_k"],
            json.dumps(res["vetoes"]), burst_vetoed, len(kept),
            len(burst_left), counts[1][0], counts[1][1], nb,
-           counts[nb][0], counts[nb][1], step_ms[nb], nb, nb, step_ms[1],
-           nb * step_ms[1],
-           json.dumps(res["realtime_factor"]),
+           counts[nb][0], counts[nb][1], step_ms[nb], nb, step_ms[1], nb,
+           step_ms["one_beam_carry"], nb * step_ms["one_beam_carry"],
+           json.dumps(res["realtime_factor_steady"]),
+           json.dumps(res["realtime_factor_whole_run"]),
            json.dumps(res["wall_s"]), ref_s, "ok" if ok else "FAIL"))
     return res
 

@@ -17,7 +17,8 @@ Enabling it:
   * the serve layer is always observed (a resident service without
     /metrics is blind) — `SearchService` builds an enabled handle;
   * the live stream (stream/) reports through its service's handle;
-    process-wide it is enabled with ``PRESTO_TORCH_OBS=1``.
+  * the process default (:func:`get_obs`) is disabled until
+    :func:`configure` replaces it.
 """
 
 from __future__ import annotations
@@ -39,10 +40,6 @@ __all__ = [
     "write_chrome_trace", "NOOP_SPAN",
 ]
 
-#: environment switch: PRESTO_TORCH_OBS=1 enables the process default
-ENV_SWITCH = "PRESTO_TORCH_OBS"
-
-
 @dataclass
 class ObsConfig:
     """Observability knobs (wire-safe: plain values only)."""
@@ -54,13 +51,6 @@ class ObsConfig:
     flightrec_capacity: int = 2048
     #: logical service name stamped on dumps/reports
     service: str = "presto_tpu_torch"
-
-    @classmethod
-    def from_env(cls) -> "ObsConfig":
-        on = os.environ.get(ENV_SWITCH, "") not in ("", "0")
-        return cls(enabled=on,
-                   trace_dir=os.environ.get(ENV_SWITCH + "_DIR")
-                   or None)
 
 
 class Observability:
@@ -150,13 +140,13 @@ _default_lock = threading.Lock()
 
 
 def get_obs() -> Observability:
-    """The process default Observability (enabled iff
-    PRESTO_TORCH_OBS=1 at first use, or after configure())."""
+    """The process default Observability (disabled until configure()
+    replaces it)."""
     global _default
     if _default is None:
         with _default_lock:
             if _default is None:
-                _default = Observability(ObsConfig.from_env())
+                _default = Observability(ObsConfig())
     return _default
 
 

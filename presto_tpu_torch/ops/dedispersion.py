@@ -89,16 +89,17 @@ def _accum_shifted_rows(x2: torch.Tensor, delays: torch.Tensor,
                         numpts: int) -> torch.Tensor:
     """Σ_r x2[..., r, d_r : d_r + numpts], row-ascending.
 
-    x2: [G, R, W] (G independent groups); delays: [G, R] int64.
-    Returns [G, numpts].  The loop runs over R, each step adding one
-    shifted window per group, so every group's sum is the chain
-    row0 + row1 + ... in order (see the module docstring)."""
-    G, R, _ = x2.shape
+    x2: [..., G, R, W] (G independent groups, any leading batch axes);
+    delays: [G, R] int64, shared by the batch.  Returns [..., G,
+    numpts].  The loop runs over R, each step adding one shifted window
+    per group (one gather for the whole batch), so every group's sum is
+    the chain row0 + row1 + ... in order (see the module docstring)."""
+    G, R, _ = x2.shape[-3:]
     ar = torch.arange(numpts, device=x2.device)
     rows = torch.arange(G, device=x2.device)
     acc = None
     for r in range(R):
-        win = x2[rows[:, None], r, delays[:, r:r + 1] + ar[None]]
+        win = x2[..., rows[:, None], r, delays[:, r:r + 1] + ar[None]]
         acc = win if acc is None else acc + win
     return acc
 
@@ -113,14 +114,16 @@ def dedisp_subbands_block(lastdata: torch.Tensor, data: torch.Tensor,
                           delays, numsubbands: int) -> torch.Tensor:
     """Channels -> subbands shift-and-add for one streaming block.
 
-    lastdata, data: [numchan, numpts] float32 channel-major, ascending
-    frequency.  delays: [numchan] int bins, each < numpts.  Returns
-    [numsubbands, numpts]; channel-ascending within each subband.
+    lastdata, data: [..., numchan, numpts] float32 channel-major,
+    ascending frequency (leading axes: independent streams, e.g. the
+    beams of a multibeam receiver, sharing the delays).  delays:
+    [numchan] int bins, each < numpts.  Returns [..., numsubbands,
+    numpts]; channel-ascending within each subband.
     Parity: dispersion.c:165-203."""
-    numchan, numpts = lastdata.shape
-    x2 = torch.cat([lastdata, data], dim=1)
+    *lead, numchan, numpts = lastdata.shape
+    x2 = torch.cat([lastdata, data], dim=-1)
     per = numchan // numsubbands
-    x3 = x2.reshape(numsubbands, per, 2 * numpts)
+    x3 = x2.reshape(tuple(lead) + (numsubbands, per, 2 * numpts))
     d2 = _as_delays(delays, x2.device).reshape(numsubbands, per)
     return _accum_shifted_rows(x3, d2, numpts)
 
@@ -130,16 +133,18 @@ def float_dedisp_many_block(lastdata: torch.Tensor, data: torch.Tensor,
                             ) -> torch.Tensor:
     """float_dedisp over many DM trials at once.
 
-    lastdata, data: [nsub, numpts]; delays_dm: [numdms, nsub] int.
-    Returns [numdms, numpts], each row the subband-ascending sum.
+    lastdata, data: [..., nsub, numpts] (leading axes as in
+    dedisp_subbands_block); delays_dm: [numdms, nsub] int.  Returns
+    [..., numdms, numpts], each row the subband-ascending sum; one
+    gather a subband serves every leading index and DM trial.
     Parity: dispersion.c:206-229."""
-    nsub, numpts = lastdata.shape
-    x2 = torch.cat([lastdata, data], dim=1)              # [nsub, 2T]
+    nsub, numpts = lastdata.shape[-2:]
+    x2 = torch.cat([lastdata, data], dim=-1)             # [..., nsub, 2T]
     d = _as_delays(delays_dm, x2.device)                 # [numdms, nsub]
     ar = torch.arange(numpts, device=x2.device)
     acc = None
     for s in range(nsub):
-        win = x2[s][d[:, s:s + 1] + ar[None]]            # [numdms, T]
+        win = x2[..., s, d[:, s:s + 1] + ar[None]]       # [..., numdms, T]
         acc = win if acc is None else acc + win
     return acc - approx_mean
 
@@ -163,8 +168,9 @@ def make_block_step(chan_delays, dm_delays, numsubbands: int,
     per-DM dedispersion + downsample.
 
     chan_delays: [numchan] int bins; dm_delays: [numdms, nsub] int.
-    Returns step(prev_raw, cur, prev_sub) -> (sub, series).  The delay
-    tensors move to the blocks' device on first use."""
+    Returns step(prev_raw, cur, prev_sub) -> (sub, series) over
+    [..., nchan, blocklen] carries.  The delay tensors move to the
+    blocks' device on first use."""
     cache = {}
 
     def _on(dev):

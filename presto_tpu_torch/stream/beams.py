@@ -65,15 +65,13 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from presto_tpu_torch.io.quality import DataQualityReport
 from presto_tpu_torch.ops import dedispersion as dd
-from presto_tpu_torch.pipeline.fusion import UploadRing
 from presto_tpu_torch.pipeline.leaseledger import LeaseLedger
 from presto_tpu_torch.search.accel import resolve_device
-from presto_tpu_torch.stream.rolling import (StreamConfig, StreamSearch,
-                                             Trigger)
+from presto_tpu_torch.stream.rolling import (RollingDedisp, StreamConfig,
+                                             StreamSearch, Trigger)
 from presto_tpu_torch.stream.service import LATENCY_BUCKETS
 from presto_tpu_torch.stream.source import (FileTailProducer,
                                             RingBlockSource,
@@ -88,115 +86,46 @@ BEAM_KILL_POINTS = ("beam-tick", "beam-commit", "beam-handoff")
 # Stacked rolling dedispersion: one device step for a whole beam group
 # ----------------------------------------------------------------------
 
-def _stacked_subbands(prev_raw: torch.Tensor, cur: torch.Tensor,
-                      chan_groups: torch.Tensor,
-                      nsub: int) -> torch.Tensor:
-    """dedisp_subbands_block over a beam axis: [B, nchan, T] blocks ->
-    [B, nsub, T].  The B x nsub subbands are the independent groups of
-    ops.dedispersion._accum_shifted_rows (``chan_groups`` [B * nsub,
-    chan a subband]: the channel delays repeated for each beam), so each
-    subband is its channels' ascending chain of adds, as in one beam."""
-    B, nchan, T = cur.shape
-    x3 = torch.cat([prev_raw, cur], dim=2).reshape(
-        B * nsub, nchan // nsub, 2 * T)
-    return dd._accum_shifted_rows(x3, chan_groups, T).reshape(B, nsub, T)
-
-
-def _stacked_dedisp_many(prev_sub: torch.Tensor, sub: torch.Tensor,
-                         dm_delays: torch.Tensor) -> torch.Tensor:
-    """float_dedisp_many_block over a beam axis: [B, nsub, T] subband
-    blocks -> [B, numdms, T]; one gather a subband serves every beam
-    and DM trial, added in subband-ascending order, as in one beam."""
-    B, nsub, T = sub.shape
-    x2 = torch.cat([prev_sub, sub], dim=2)               # [B, nsub, 2T]
-    ar = torch.arange(T, device=x2.device)
-    acc = None
-    for s in range(nsub):
-        win = x2[:, s][:, dm_delays[:, s:s + 1] + ar[None]]
-        acc = win if acc is None else acc + win
-    return acc
-
-
 def make_beam_block_step(chan_delays, dm_delays, numsubbands: int,
                          downsamp: int = 1):
     """Build the stacked two-block rolling step: ``(prime, step)``
     callables over ``[beams, nchan, blocklen]`` device carries.
 
-    One batched step over the beam axis, the delays shared by every
-    beam: its launches do not depend on the beam count, and beam b's
-    series is bit-identical to a one-beam RollingDedisp fed the same
-    blocks (the same float32 adds in the same order; no reduction
-    reorders them).  The delay tensors move to the blocks' device on
-    first use."""
+    These are ops.dedispersion's block functions over a leading beam
+    axis, the delays shared by every beam: one gather a channel of a
+    subband and one a subband serve every beam, so the launches do not
+    depend on the beam count, and beam b's series is bit-identical to a
+    one-beam RollingDedisp fed the same blocks (the same float32 adds
+    in the same order; no reduction reorders them)."""
     nsub = int(numsubbands)
-    ds = int(downsamp)
-    chan = np.asarray(chan_delays, np.int64).reshape(nsub, -1)
-    cache = {}
-
-    def _delays(dev, B):
-        if (dev, B) not in cache:
-            cache[(dev, B)] = (
-                torch.as_tensor(np.tile(chan, (B, 1)), device=dev),
-                dd._as_delays(dm_delays, dev))
-        return cache[(dev, B)]
 
     def prime(prev_raw, cur):
         """First carry transition: subbands only (no series yet)."""
-        chan_g, _ = _delays(cur.device, cur.shape[0])
-        return _stacked_subbands(prev_raw, cur, chan_g, nsub)
+        return dd.dedisp_subbands_block(
+            prev_raw, cur, dd._as_delays(chan_delays, cur.device), nsub)
 
-    def step(prev_raw, cur, prev_sub):
-        chan_g, dm_d = _delays(cur.device, cur.shape[0])
-        sub = _stacked_subbands(prev_raw, cur, chan_g, nsub)
-        series = _stacked_dedisp_many(prev_sub, sub, dm_d)
-        return sub, dd.downsample_block(series, ds)
-
-    return prime, step
+    return prime, dd.make_block_step(chan_delays, dm_delays, nsub,
+                                     downsamp)
 
 
-class StackedRollingDedisp:
-    """RollingDedisp's two-block carry lifted over a beam axis, resident
-    on ``device``: same priming state machine (block 0 primes the raw
-    carry, block 1 the subband carry, every later block yields one
-    stacked series block), one stacked step per fed block once primed,
-    the stack uploaded through one pinned staging buffer."""
-
-    def __init__(self, chan_bins, dm_bins, nsub: int,
-                 downsamp: int = 1, device="cuda"):
-        self.device = resolve_device(device)
-        self._prime, self._step = make_beam_block_step(
-            chan_bins, dm_bins, nsub, downsamp)
-        self._ring: Optional[UploadRing] = None
-        self._prev_raw = None
-        self._prev_sub = None
-        self.blocks_in = 0
-
-    def _upload(self, stack_tc: np.ndarray) -> torch.Tensor:
-        if self._ring is None:
-            B, T, C = stack_tc.shape
-            self._ring = UploadRing(2, T, C, self.device, lead=(B,))
-        i = self._ring.acquire()
-        self._ring.array(i)[...] = stack_tc
-        return self._ring.upload(i)
+class StackedRollingDedisp(RollingDedisp):
+    """RollingDedisp fed [beams, blocklen, nchan] stacks: the same
+    carry, priming and pinned upload, each fed block one stacked step
+    for every beam once primed."""
 
     def feed(self, stack_tc: np.ndarray
              ) -> Tuple[Optional[np.ndarray], int]:
         """stack_tc: [beams, blocklen, nchan] float32.  Returns
         (series [beams, numdms, blocklen // downsamp] or None while
         priming, stacked steps issued)."""
-        cur = self._upload(stack_tc)
-        out, dispatched = None, 0
-        if self._prev_raw is not None:
-            if self._prev_sub is None:
-                self._prev_sub = self._prime(self._prev_raw, cur)
-            else:
-                self._prev_sub, series = self._step(
-                    self._prev_raw, cur, self._prev_sub)
-                out = series.cpu().numpy()
-            dispatched = 1
-        self._prev_raw = cur
-        self.blocks_in += 1
-        return out, dispatched
+        dispatched = int(self._prev_raw is not None)
+        return super().feed(stack_tc), dispatched
+
+    def flush(self, blocklen: int, nchan: int) -> List[np.ndarray]:
+        """The two zero flush blocks of every beam: the final stacked
+        series blocks."""
+        return [out for out, _ in super().flush(blocklen, nchan)
+                if out is not None]
 
 
 # ----------------------------------------------------------------------
@@ -829,6 +758,23 @@ class BeamMultiplexer:
             bucket=("stream", self.mux_id))
 
     def _tick(self, job) -> dict:
+        """Drain the bundle backlog.  A tick that raises has already
+        taken its bundle, so the stacked carry cannot go on: the
+        failure ends the multiplexer (`failed`, `wait()`; the leases
+        are left for another replica to reap), and the scheduler's
+        retry of the job raises again instead of skipping a tick."""
+        if self._failed is not None:
+            raise RuntimeError("multiplexer %s ended by %s: %s" % (
+                self.mux_id, type(self._failed).__name__,
+                self._failed))
+        try:
+            return self._drain()
+        except BaseException as e:
+            self._failed = self._failed or e
+            self._done.set()
+            raise
+
+    def _drain(self) -> dict:
         processed = 0
         emitted = 0
         while True:

@@ -109,7 +109,9 @@ class RollingDedisp:
     series block covering the window two blocks back.  flush() pushes
     the batch driver's two zero blocks through the carry.  The step is
     ops/dedispersion's block functions, so the series bytes equal
-    prepsubband's .dat whatever the block length.
+    prepsubband's .dat whatever the block length.  Blocks may carry
+    leading axes ([beams, blocklen, nchan]: the stacked multibeam carry
+    of stream/beams.py), the same ops running over them.
     """
 
     def __init__(self, chan_bins: np.ndarray, dm_bins: np.ndarray,
@@ -125,28 +127,29 @@ class RollingDedisp:
         self.blocks_in = 0
 
     def _upload(self, block_tc: np.ndarray):
-        """[blocklen, nchan] host block -> [nchan, blocklen] on the
-        device, through a pinned staging buffer refilled only after
-        its previous upload completed."""
+        """[..., blocklen, nchan] host block -> [..., nchan, blocklen]
+        on the device, through a pinned staging buffer refilled only
+        after its previous upload completed."""
         if self._ring is None:
-            self._ring = UploadRing(2, block_tc.shape[0],
-                                    block_tc.shape[1], self.device)
+            *lead, blocklen, nchan = block_tc.shape
+            self._ring = UploadRing(2, blocklen, nchan, self.device,
+                                    lead=tuple(lead))
         i = self._ring.acquire()
         self._ring.array(i)[...] = block_tc
         return self._ring.upload(i)
 
     def step(self, prev_raw, cur, prev_sub):
         """One carry step on device tensors: (subband block, series
-        block [numdms, blocklen // downsamp])."""
+        block [..., numdms, blocklen // downsamp])."""
         sub = dd.dedisp_subbands_block(prev_raw, cur, self._chan_bins,
                                        self.nsub)
         series = dd.float_dedisp_many_block(prev_sub, sub, self._dm_bins)
         return sub, dd.downsample_block(series, self.downsamp)
 
     def feed(self, block_tc: np.ndarray) -> Optional[np.ndarray]:
-        """block_tc: [blocklen, nchan] float32 ascending.  Returns the
-        next [numdms, blocklen // downsamp] series block (host), or None
-        while the carry is still priming."""
+        """block_tc: [..., blocklen, nchan] float32 ascending.  Returns
+        the next [..., numdms, blocklen // downsamp] series block
+        (host), or None while the carry is still priming."""
         cur = self._upload(block_tc)
         out = None
         if self._prev_raw is not None:
@@ -165,7 +168,9 @@ class RollingDedisp:
         """The batch loop's two zero flush blocks: drains the carry,
         returning the final series blocks."""
         outs = []
-        zero = np.zeros((blocklen, nchan), np.float32)
+        lead = () if self._ring is None else \
+            self._ring.array(0).shape[:-2]
+        zero = np.zeros(lead + (blocklen, nchan), np.float32)
         for _ in range(2):
             out = self.feed(zero)
             if out is not None:

@@ -138,7 +138,7 @@ class StreamService:
                 nchan=hdr.nchans, tsamp=hdr.tsamp,
                 blocklen=self.engine.blocklen,
                 numdms=self.cfg.numdms, maxd=self.engine.maxd)
-            while True:
+            while self._failed is None:
                 blk = self.source.next_block(timeout=0.25)
                 self._g_backlog.set(self.source.backlog)
                 if blk is None:
@@ -146,10 +146,19 @@ class StreamService:
                         break
                     continue
                 self._enqueue(blk)
-            self._enqueue(None)         # EOF sentinel
+            if self._failed is None:
+                self._enqueue(None)     # EOF sentinel
         except BaseException as e:
-            self._failed = e
-            self._done.set()
+            self._fail(e)
+
+    def _fail(self, exc: BaseException) -> None:
+        """End the stream visibly: the first failure is kept, the pump
+        stops, and wait() returns with `failed` set."""
+        if self._failed is None:
+            self._failed = exc
+            self.events.emit("stream-fail", stream=self.stream_id,
+                             error="%s: %s" % (type(exc).__name__, exc))
+        self._done.set()
 
     def _enqueue(self, item: Optional[StreamBlock]) -> None:
         with self._inbox_lock:
@@ -167,7 +176,24 @@ class StreamService:
 
     def _tick(self, job) -> dict:
         """Drain the inbox: all pending blocks (and possibly the EOF
-        flush) in one deadline-lane execution."""
+        flush) in one deadline-lane execution.
+
+        A tick that raises has already taken its block from the inbox,
+        so the carry cannot go on: the failure ends the stream
+        (`failed`, `wait()`), and the scheduler's retry of the job
+        raises again instead of pairing the next block with a stale
+        carry."""
+        if self._failed is not None:
+            raise RuntimeError("stream %s ended by %s: %s" % (
+                self.stream_id, type(self._failed).__name__,
+                self._failed))
+        try:
+            return self._drain()
+        except BaseException as e:
+            self._fail(e)
+            raise
+
+    def _drain(self) -> dict:
         processed = 0
         triggers = 0
         while True:

@@ -39,6 +39,7 @@ from presto_tpu.stream.beams import \
     StackedRollingDedisp as JStacked  # noqa: E402
 from presto_tpu.stream.rolling import Trigger as JTrigger  # noqa: E402
 
+from presto_tpu_torch.serve.scheduler import SchedulerConfig  # noqa: E402
 from presto_tpu_torch.serve.server import SearchService  # noqa: E402
 from presto_tpu_torch.stream import (BeamMultiplexer,  # noqa: E402
                                      CoincidenceVeto, RingBlockSource,
@@ -46,7 +47,8 @@ from presto_tpu_torch.stream import (BeamMultiplexer,  # noqa: E402
                                      StreamConfig, StreamService,
                                      make_beam_block_step)
 from presto_tpu_torch.stream.rolling import Trigger  # noqa: E402
-from presto_tpu_torch.testing.chaos import FaultInjector  # noqa: E402
+from presto_tpu_torch.testing.chaos import (FaultInjector,  # noqa: E402
+                                           SimulatedCrash)
 
 DT = 1e-3
 NCHAN = 16
@@ -102,6 +104,11 @@ def test_stacked_bit_equal_to_one_beam_carries_and_jax(downsamp):
         for b in range(beams):
             assert np.array_equal(out[b], refs[b])
     assert emitted == 3 and stacked.blocks_in == 5
+    flushed = stacked.flush(blocklen, nchan)
+    assert len(flushed) == 2
+    for b, single in enumerate(singles):
+        for f, r in zip(flushed, single.flush(blocklen, nchan)):
+            assert np.array_equal(f[b], r)
 
 
 def test_stacked_carry_needs_two_blocks():
@@ -326,6 +333,50 @@ def test_mux_coincidence_veto_kills_the_burst_keeps_the_pulse(tmp_path):
 # tools/stream_chaos.py's beam trials, on the port
 # ----------------------------------------------------------------------
 
+def test_mux_tick_device_error_ends_the_multiplexer(tmp_path,
+                                                   monkeypatch):
+    """A CUDA out-of-memory inside a tick's stacked step has taken that
+    tick's bundle: the multiplexer ends with `failed` set, the retried
+    job runs no further stacked step, and the job fails visibly."""
+    import torch
+    hdr, datas, _, cfg = _beam_setup(2, (0,), 3, seconds=8.0,
+                                     npulses=1)
+    feeds = []
+    real_feed = StackedRollingDedisp.feed
+
+    def feed(self, stack_tc):
+        feeds.append(stack_tc.shape)
+        if len(feeds) == 2:
+            raise torch.cuda.OutOfMemoryError("injected in a tick")
+        return real_feed(self, stack_tc)
+
+    monkeypatch.setattr(StackedRollingDedisp, "feed", feed)
+    svc = SearchService(str(tmp_path), scheduler_cfg=SchedulerConfig(
+        backoff_base_s=0.01)).start()
+    try:
+        sources = [RingBlockSource(capacity=cfg.ring_capacity,
+                                   policy=cfg.ring_policy) for _ in datas]
+        for src, d in zip(sources, datas):
+            threading.Thread(target=_push, args=(src, hdr, d),
+                             daemon=True).start()
+        mux = BeamMultiplexer(svc, sources, cfg, device="cpu").start()
+        assert mux.wait(60.0)
+        assert isinstance(mux.failed, torch.cuda.OutOfMemoryError)
+        reg = svc.obs.metrics
+        deadline = time.time() + 10.0
+        while (reg.get("serve_jobs_failed_total").value < 1
+               and time.time() < deadline):
+            time.sleep(0.02)
+        assert reg.get("serve_jobs_failed_total").value == 1
+        assert reg.get("serve_device_errors_total").value >= 1
+        assert len(feeds) == 2
+        kinds = [e["kind"] for e in svc.events.tail(100000)]
+        assert "stream-eof" not in kinds
+        assert _scheduler_alive(svc)
+    finally:
+        svc.stop()
+
+
 def _beam_setup(nbeams, pulse_beams, seed, seconds=16.0, npulses=3):
     hdr, datas, t_signal, _ = stream_loadgen.make_beam_feeds(
         nbeams, pulse_beams=pulse_beams, seed=seed, nchan=64, dt=5e-4,
@@ -458,7 +509,8 @@ def test_beam_handoff_exactly_once(tmp_path):
     while faults.fired is None and time.time() < deadline:
         time.sleep(0.05)
     assert faults.fired == "beam-tick"
-    mux_a._failed = mux_a._failed or RuntimeError("replica killed")
+    # the tick's crash ends replica A itself: no later tick runs
+    assert mux_a.wait(10.0) and isinstance(mux_a.failed, SimulatedCrash)
     a_committed = ledger_triggers()
     svc_a.stop()
     time.sleep(1.5)                     # A's heartbeat expires (ttl 1.0)

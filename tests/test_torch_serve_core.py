@@ -240,8 +240,10 @@ def test_flight_recorder_dump_and_flush(tmp_path):
 
 
 def test_obs_process_default_and_resolve(monkeypatch):
-    monkeypatch.setenv("PRESTO_TORCH_OBS", "1")
-    obs = configure(ObsConfig.from_env())
+    import presto_tpu_torch.obs as obs_mod
+    monkeypatch.setattr(obs_mod, "_default", None)
+    assert not get_obs().enabled          # disabled until configure()
+    obs = configure(ObsConfig(enabled=True))
     assert obs.enabled and get_obs() is obs
     assert resolve_obs(None) is obs and resolve_obs(obs) is obs
     assert not resolve_obs(ObsConfig()).enabled

@@ -46,6 +46,7 @@ from presto_tpu.testing import chaos as jchaos  # noqa: E402
 
 from presto_tpu_torch.io import sigproc  # noqa: E402
 from presto_tpu_torch.search import singlepulse as spm  # noqa: E402
+from presto_tpu_torch.serve.scheduler import SchedulerConfig  # noqa: E402
 from presto_tpu_torch.serve.server import SearchService  # noqa: E402
 from presto_tpu_torch.stream import (FileTailProducer,  # noqa: E402
                                      RingBlockSource, RollingDedisp,
@@ -611,6 +612,77 @@ def test_stream_service_socket_feed_triggers_exactly_once(tmp_path):
         assert {"stream:block", "stream:dedisp", "stream:search",
                 "serve-job"} <= names
         assert stream.summary()["latency"]["p99"] > 0
+    finally:
+        svc.stop()
+
+
+@pytest.mark.parametrize("where", ["before-tick", "in-tick"])
+def test_stream_service_tick_failure_skips_no_block(tmp_path, monkeypatch,
+                                                    where):
+    """A device error on the deadline lane never skips a block.  Raised
+    by the scheduler's fault injector before the second tick runs, the
+    block is still in the inbox: the retry processes it and every pulse
+    triggers once.  Raised inside the second block's step (a CUDA
+    out-of-memory), the block is gone: the stream ends with `failed`
+    set, no later block reaches the carry, and the retried job fails."""
+    import torch
+    hdr, wire, truth = stream_loadgen.make_feed(
+        seed=4, nchan=NCHAN, dt=DT, seconds=20.0, npulses=2, dm=20.0,
+        amp=4.0)
+    cfg = StreamConfig(lodm=LODM, dmstep=DMSTEP, numdms=NUMDMS,
+                       nsub=NSUB, threshold=6.5, blocklen=4096)
+    nblocks = -(-hdr.N // 4096)
+    ticks = []
+
+    def injector(job, attempt):
+        if where == "before-tick" and "-tick-" in job.job_id:
+            ticks.append(job.job_id)
+            if len(ticks) == 2:
+                raise RuntimeError("CUDA error: injected before a tick")
+
+    feeds = []
+    real_feed = StreamSearch.feed_block
+
+    def feed_block(self, data, nreal):
+        feeds.append(nreal)
+        if where == "in-tick" and len(feeds) == 2:
+            raise torch.cuda.OutOfMemoryError("injected in a tick")
+        return real_feed(self, data, nreal)
+
+    monkeypatch.setattr(StreamSearch, "feed_block", feed_block)
+    svc = SearchService(str(tmp_path), scheduler_cfg=SchedulerConfig(
+        fault_injector=injector, backoff_base_s=0.01)).start()
+    try:
+        src = RingBlockSource(capacity=32, policy="block")
+        stream = StreamService(svc, src, cfg, device="cpu").start()
+        src.set_header(hdr)
+        raw = _wire_spectra(hdr, wire)
+        for lo in range(0, hdr.N, 4096):
+            src.push_spectra(raw[lo:lo + 4096])
+            time.sleep(0.02)           # one block a tick
+        src.eof()
+        assert stream.wait(60.0)
+        reg = svc.obs.metrics
+        blocks = reg.get("stream_blocks_total").value
+        kinds = [e["kind"] for e in svc.events.tail(100000)]
+        if where == "before-tick":
+            assert stream.failed is None
+            assert reg.get("serve_job_retries_total").value >= 1
+            assert blocks == nblocks
+            assert all(c == 1 for c in _hits(svc, truth).values())
+            assert "stream-eof" in kinds and "stream-fail" not in kinds
+            return
+        assert isinstance(stream.failed, torch.cuda.OutOfMemoryError)
+        assert blocks == 1 and len(feeds) == 2
+        assert "stream-fail" in kinds and "stream-eof" not in kinds
+        assert reg.get("serve_device_errors_total").value >= 1
+        deadline = time.time() + 10.0
+        while (reg.get("serve_jobs_failed_total").value < 1
+               and time.time() < deadline):
+            time.sleep(0.02)
+        assert reg.get("serve_jobs_failed_total").value == 1
+        assert len(feeds) == 2        # the retries fed nothing further
+        assert _scheduler_alive(svc)
     finally:
         svc.stop()
 
