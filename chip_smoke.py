@@ -79,6 +79,17 @@ Phases (any failure exits non-zero before the final line):
              rows), then through -elastic with one killed at a shard's
              commit point, the survivor finishing; every .dat of both
              byte-equal to the unsharded run's;
+  6d. serve  survey jobs on the port's SearchService (plan store,
+             stacked=True, HTTP front end): two POST /submit specs of the
+             beam with the main phase's configuration run as one stacked
+             batch (one schedule event of occupancy 2, no degrade), each
+             job's .dat, .singlepulse, ACCEL files, cands_sifted.txt and
+             .pfd equal to the main run's; a second service on the store
+             prewarms (warm fraction 1.0) and a third job alone hits the
+             plan cache; metrics() with the kernel cost book; the card's
+             roofline peaks measured beside the nominal ones; the stacked
+             batch's wall beside two jobs alone; a smoke-shape tuning
+             sweep into a DB, read back through tune.best;
   7. small   spectra of 2^15 and 3000 bins searched on the card and on
              the CPU (the second on the non-aligned plane geometry);
   8. singlepulse  the JAX package's single-pulse bench shape (bench.py's
@@ -124,7 +135,9 @@ Phases (any failure exits non-zero before the final line):
              at 1 and 13 beams; the stacked step's device ms at 13 beams
              beside 13 one-beam steps; the real-time factor;
  12. summary the kernels line (launches of the main path, the sharded
-             main path, by shard too, the jerk paths and the live paths),
+             main path, by shard too, the serve path, the jerk paths and
+             the live paths; each kernel's bound also at the measured
+             peaks),
              the card, and the final ok line.
 
 Prints the full results as one JSON line (``results: {...}``).  Imports
@@ -272,11 +285,9 @@ def plane_case(s, nbins, gen, label, Kc=None, pairs=None):
         "(plane max %.3g), pads zero %s %s"
         % (label, tuple(S.shape), tuple(Kc.shape), s.numz_pad, numr, err,
            scale, pads_zero, "ok" if ok else "FAIL"))
-    nbytes = (S.numel() * 8 + Kc.numel() * 8
-              + build_cuda._twiddle_table(n, "cuda").numel() * 8
-              + s.numz_pad * numr * 4)
-    flops = nblocks * numz * (6 * n + 5 * n * np.log2(n)
-                              + 3 * s.cfg.uselen)
+    from presto_tpu_torch.obs import costmodel
+    nbytes, flops = costmodel.plane_build_work(nblocks, numz, n,
+                                               s.cfg.uselen, s.numz_pad, numr)
     bms, by = bound_ms(nbytes, flops)
     ms = cuda_time_ms(lambda: build_cuda.build_plane(*args), 10)
     plain_ms = cuda_time_ms(lambda: build_cuda.build_plane_plain(*args), 3)
@@ -297,7 +308,7 @@ def plane_case(s, nbins, gen, label, Kc=None, pairs=None):
     return dict(ok=ok, n=n, plane=[s.numz_pad, numr], max_abs_err=err,
                 rel_err=err / scale, pads_zero=pads_zero, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                bound_by=by), S
+                bound_by=by, bytes=nbytes, flops=flops), S
 
 
 def check_plane_build(s, nbins, gen):
@@ -347,42 +358,27 @@ def check_plane_build(s, nbins, gen):
 
 
 def reducer_design_bytes(zinds, nrows, slab, nslabs, nstages):
-    """Bytes the stage reducer reads from device memory for these inputs,
-    from its geometry (stage_reduce.cu: Geo<NST>, term_cap, term_width):
-    each column's own rows, and per tile and chunk each term's staged
-    window rows in 16-byte units, or, in a chunk over a window's row
-    capacity, the 32-byte sectors of its direct reads; plus the z maps
-    and the outputs."""
+    """Bytes the stage reducer reads from device memory for these inputs
+    (obs/costmodel.reducer_design_bytes at this instantiation's threads
+    and chunk rows, from the library)."""
+    from presto_tpu_torch.obs import costmodel
     threads, zc, _stages, _smem, _ctas = reducer_geometry(nstages)
-    z = zinds.cpu().numpy()
-    terms = [(h, 1 << st) for st in range(1, nstages)
-             for h in range(1, 1 << st, 2)]
-    caps = [-(-(zc - 1) * h // t) + 2 for h, t in terms]
-    wide = [-(-(threads - 1) * h // t) + 1 for h, t in terms]
-    per_tile = nrows * threads * 4
-    for z0 in range(0, nrows, zc):
-        rows = min(zc, nrows - z0)
-        n = [int(zi[z0 + rows - 1] - zi[z0]) + 1 for zi in z]
-        if any(ni > c for ni, c in zip(n, caps)):
-            per_tile += sum(rows * (w // 8 + 2) * 32 for w in wide)
-        else:
-            per_tile += sum(ni * 16 * -(-(w + 3) // 4)
-                            for ni, w in zip(n, wide))
-    tiles = nslabs * -(-slab // threads)
-    return tiles * per_tile + z.nbytes + 2 * nslabs * nstages * slab * 4
+    return costmodel.reducer_design_bytes(zinds.cpu().numpy(), nrows, slab,
+                                          nslabs, nstages, threads, zc)
 
 
 def reducer_bound(plane, scols, zinds, slab, nst):
     """The stage reducer's bound on these inputs: the plane, start
     columns and z maps read once, colmax and colz written once; one add
-    a term and one compare a stage per plane element of the slabs.
-    Returns (ms, "bytes" or "operations", bytes)."""
-    nterms = (1 << (nst - 1)) - 1
-    ncols = scols.numel() * slab
-    nbytes = (plane.numel() + scols.numel() + zinds.numel()) * 4 \
-        + 2 * scols.numel() * nst * slab * 4
-    ms, by = bound_ms(nbytes, ncols * plane.shape[0] * (nterms + nst))
-    return ms, by, nbytes
+    a term and one compare a stage per plane element of the slabs
+    (obs/costmodel.stage_reduce_work).  Returns (ms, "bytes" or
+    "operations", bytes, operations)."""
+    from presto_tpu_torch.obs import costmodel
+    nbytes, flops = costmodel.stage_reduce_work(
+        plane.shape[0], plane.shape[1], scols.numel(), slab, nst,
+        zinds.numel())
+    ms, by = bound_ms(nbytes, flops)
+    return ms, by, nbytes, flops
 
 
 def check_stage_reduce(s, S, gen):
@@ -432,7 +428,7 @@ def check_stage_reduce(s, S, gen):
     ms16 = cuda_time_ms(lambda: accel_cuda.reduce_stages(*args16), 10)
     bytes16 = reducer_design_bytes(z16, plane.shape[0], slab,
                                    len(start_cols), 5)
-    bms16, by16, _ = reducer_bound(plane, scols, z16, slab, 5)
+    bms16, by16, _, _ = reducer_bound(plane, scols, z16, slab, 5)
     log("stage_reduce numharm 16 (5 stages) on the bench plane: "
         "max_abs_err %.3g, colz equal %s; kernel %.3f ms, bound %.3f ms "
         "(%s), design bytes %.3f GB (%.1f%% of 3.35 TB/s) %s"
@@ -453,7 +449,8 @@ def check_stage_reduce(s, S, gen):
     rok = rerr == 0.0 and bool((rz == pz).all())
     log("stage_reduce ragged (5 stages, 32 rows, slabs of 1000): "
         "max_abs_err %.3g %s" % (rerr, "ok" if rok else "FAIL"))
-    bms, by, nbytes = reducer_bound(plane, scols, s._zinds, slab, nst)
+    bms, by, nbytes, flops = reducer_bound(plane, scols, s._zinds, slab,
+                                           nst)
     design = reducer_design_bytes(s._zinds, plane.shape[0], slab,
                                   len(start_cols), nst)
     ms = cuda_time_ms(lambda: accel_cuda.reduce_stages(*args), 10)
@@ -468,7 +465,8 @@ def check_stage_reduce(s, S, gen):
            100 * share))
     return dict(ok=ok and ok16 and rok, max_abs_err=err, ragged_err=rerr,
                 ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
-                bound_by=by, design_bytes=design, design_share=share,
+                bound_by=by, bytes=nbytes, flops=flops,
+                design_bytes=design, design_share=share,
                 numharm16=dict(ok=ok16, max_abs_err=err16, ms=ms16,
                                bound_ms=bms16, bound_by=by16,
                                design_bytes=bytes16),
@@ -2433,6 +2431,217 @@ def phase_sharded(raw, workdir, mwork, main_res):
                 stages=stages)
 
 
+def _http(method, url, payload=None, timeout=30):
+    """(status, JSON body) of one request to the service's front end."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _pfd_rebased(path, src_dir, dst_dir):
+    """A .pfd's bytes with the job's workdir in its four embedded names
+    rewritten to the main phase's (the folds embed their file paths)."""
+    from presto_tpu_torch.io import pfd as pfdio
+    p = pfdio.read_pfd(path)
+    for f in ("filenm", "candnm", "telescope", "pgdev"):
+        setattr(p, f, getattr(p, f).replace(src_dir, dst_dir))
+    tmp = path + ".rebased"
+    pfdio.write_pfd(tmp, p)
+    with open(tmp, "rb") as f:
+        out = f.read()
+    os.remove(tmp)
+    return out
+
+
+def _job_files_equal(jobdir, mwork):
+    """{kind: (equal, count)} of a job's artifacts against the main
+    phase's: .dat, .singlepulse, ACCEL tables and .cand, cands_sifted.txt
+    byte for byte; fold_candN.pfd byte for byte after rebasing."""
+    out = {}
+    for kind, pat in (("dat", "psr_DM*.dat"), ("singlepulse",
+                      "psr_DM*.singlepulse"), ("accel", "psr_DM*_ACCEL_*"),
+                      ("sifted", "cands_sifted.txt")):
+        same = _same_files(mwork, jobdir, pat)
+        out[kind] = (bool(same) and all(same.values()), len(same))
+    # the survey's folds only (the main phase keeps its card folds
+    # beside their CPU refolds as fold_candN.card.pfd)
+    pfds = sorted(p for p in glob.glob(os.path.join(mwork, "fold_cand*.pfd"))
+                  if re.fullmatch(r"fold_cand\d+\.pfd", os.path.basename(p)))
+    eq = []
+    for p in pfds:
+        q = os.path.join(jobdir, os.path.basename(p))
+        eq.append(os.path.exists(q) and open(p, "rb").read()
+                  == _pfd_rebased(q, os.path.abspath(jobdir),
+                                  os.path.abspath(mwork)))
+    out["pfd"] = (bool(eq) and all(eq), len(eq))
+    return out
+
+
+SERVE_COST_KINDS = ("plane_build", "stage_reduce", "rfft_batch",
+                    "accel_search")
+
+
+def phase_serve(raw, workdir, mwork, main_res, device="cuda"):
+    """Survey jobs on the port's SearchService on the card: a service
+    with a plan store, stacked=True and its HTTP front end takes two
+    POST /submit specs of the beam with the main phase's configuration
+    (two workdirs, one bucket): one schedule event of occupancy 2, no
+    degrade, each job's files equal to the main run's.  A second service
+    on the same store prewarms (>= 1 plan, warm fraction 1.0), and a
+    third job runs alone with a plan hit and no plan build.  metrics():
+    the plan cache and the kernel cost book (non-zero flops and bytes
+    for plane_build, stage_reduce, rfft_batch, accel_search); the card's
+    roofline peaks measured (obs/roofline) beside the nominal ones; the
+    stacked batch's wall beside two jobs run alone (the main phase's
+    run_survey and the third job).  Then a smoke-shape TuneRunner sweep
+    of serve_batch_geometry and pipeline_inflight_depth into a DB, read
+    back through tune.best, and its provenance written.  (``device``
+    "cpu" rehearses the phase's control flow at a small size.)"""
+    import dataclasses
+    from presto_tpu_torch import tune
+    from presto_tpu_torch.obs import roofline
+    from presto_tpu_torch.serve.server import SearchService, start_http
+    from presto_tpu_torch.tune import space
+    from presto_tpu_torch.tune.db import TuneDB
+    from presto_tpu_torch.tune.runner import TuneRunner
+    cfg = main_cfg()
+    config = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(cfg)
+              if f.name in ("lodm", "hidm", "nsub", "zmax", "numharm",
+                            "fold_top", "durable_stages")}
+    store = os.path.join(workdir, "store")
+    svc = SearchService(os.path.join(workdir, "svc"), plan_store_dir=store,
+                        stacked=True, device=device)
+    httpd = start_http(svc)
+    base = "http://%s:%d" % httpd.server_address[:2]
+    try:
+        posted = [_http("POST", base + "/submit",
+                        {"rawfiles": [raw], "config": config,
+                         "job_id": "serve-%d" % i}) for i in range(2)]
+        ids = [body.get("job_id") for _code, body in posted]
+        sub_ok = all(code == 202 for code, _b in posted)
+        t0 = time.time()
+        svc.start()
+        done = svc.wait(ids, timeout=600.0)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        stacked_s = time.time() - t0
+        views = [_http("GET", base + "/jobs/%s/result" % j)[1] for j in ids]
+        evs = svc.events.tail(100000)
+        scheds = [e for e in evs if e["kind"] == "schedule"]
+        degrades = [e for e in evs if e["kind"] == "degrade"]
+        files = {j: _job_files_equal(svc.get_job(j).workdir, mwork)
+                 for j in ids}
+        files_ok = all(ok and n > 0 for f in files.values()
+                       for ok, n in f.values())
+        stack_ok = (sub_ok and done and len(scheds) == 1
+                    and scheds[0]["occupancy"] == 2 and not degrades
+                    and all(v.get("status") == "done" for v in views)
+                    and all(v["result"].get("stacked") == 2 for v in views))
+        log("serve: POST /submit x2 -> %s; schedule events %s, degrades %d; "
+            "stacked batch %.3f s; files equal to the main run's %s %s"
+            % ([c for c, _b in posted], [e["occupancy"] for e in scheds],
+               len(degrades), stacked_s, json.dumps(files),
+               "ok" if stack_ok and files_ok else "FAIL"))
+        m1 = svc.metrics()
+        readyz1 = svc.readyz()
+    finally:
+        httpd.shutdown()
+        svc.stop()
+    # a second service on the same store: prewarm, then one job alone
+    svc2 = SearchService(os.path.join(workdir, "svc2"),
+                         plan_store_dir=store, stacked=True, device=device)
+    try:
+        warmed = svc2.prewarm()
+        warm = svc2.warm_fraction()
+        before = svc2.plans.stats()
+        jid = svc2.submit({"rawfiles": [raw], "config": config,
+                           "job_id": "serve-alone"})["job_id"]
+        t0 = time.time()
+        svc2.start()
+        done2 = svc2.wait([jid], timeout=600.0)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        alone_s = time.time() - t0
+        after = svc2.plans.stats()
+        files3 = _job_files_equal(svc2.get_job(jid).workdir, mwork)
+        readyz2 = svc2.readyz()
+        m2 = svc2.metrics()
+    finally:
+        svc2.stop()
+    warm_ok = (warmed >= 1 and warm == 1.0 and done2
+               and after["hits"] > before["hits"]
+               and after["misses"] == before["misses"]
+               and all(ok and n > 0 for ok, n in files3.values()))
+    log("serve: second service prewarmed %d plan(s) from the store (warm "
+        "fraction %.3f, store %s); third job alone %.3f s: plan hits %d -> "
+        "%d, builds %d -> %d, files equal %s %s"
+        % (warmed, warm, json.dumps(readyz2["plan_store"]), alone_s,
+           before["hits"], after["hits"], before["misses"], after["misses"],
+           json.dumps(files3), "ok" if warm_ok else "FAIL"))
+    costs = m1["kernel_costs"].get("kinds", {})
+    cost_rows = {k: {x: costs.get(k, {}).get(x) for x in (
+        "dispatches", "flops_per_dispatch", "hbm_bytes_per_dispatch",
+        "flops_total", "hbm_bytes_total", "intensity")}
+        for k in sorted(costs)}
+    costs_ok = all((costs.get(k, {}).get("flops_total") or 0) > 0
+                   and (costs.get(k, {}).get("hbm_bytes_total") or 0) > 0
+                   for k in SERVE_COST_KINDS)
+    log("serve: metrics() plans %s; kernel_costs %s %s"
+        % (json.dumps(m1["plans"]), json.dumps(cost_rows),
+           "ok" if costs_ok else "FAIL"))
+    db_path = os.path.join(workdir, "tune.json")
+    peaks = roofline.device_peaks(db_path=db_path, measure=True)
+    rows = roofline.roofline_rows(m1["kernel_costs"], peaks)
+    log("serve: measured peaks %.4g FLOP/s (float32 matmul, TF32 off; "
+        "nominal %.4g) and %.4g B/s (triad; nominal %.4g), ridge %.3f "
+        "FLOP/B; roofline %s"
+        % (peaks["flops_per_s"], PEAK_F32_FLOPS, peaks["bytes_per_s"],
+           PEAK_BYTES_PER_S, peaks["ridge_intensity"],
+           json.dumps({r["kind"]: r["verdict"] for r in rows})))
+    # the tuning DB: two families swept at their smoke shapes
+    runner = TuneRunner(k=3, warmup=1, device=device)
+    db = TuneDB()
+    tuned = {}
+    for name in ("serve_batch_geometry", "pipeline_inflight_depth"):
+        tuned[name] = space.tune_family(space.FAMILIES[name], runner,
+                                        smoke=True, db=db)
+    db.save(db_path)
+    tune.configure(enabled=True, db_path=db_path)
+    try:
+        best = {name: tune.best(name, tune.GLOBAL_KEY) for name in tuned}
+        prov = tune.write_provenance(workdir)
+    finally:
+        tune.reset()
+    tune_ok = (all(best[n] == tuned[n][0][1] for n in tuned)
+               and prov is not None and os.path.exists(prov))
+    log("serve: tuned %s; tune.best %s; provenance %s %s"
+        % (json.dumps({n: [[k, c, m] for k, c, m in v]
+                       for n, v in tuned.items()}), json.dumps(best),
+           prov, "ok" if tune_ok else "FAIL"))
+    two_alone = main_res["stages"]["run_survey_s"] + alone_s
+    log("serve: stacked batch of 2 %.3f s beside two jobs alone %.3f s "
+        "(the main phase's run_survey %.3f s + the third job %.3f s; host "
+        "clock, one call, no claim)"
+        % (stacked_s, two_alone, main_res["stages"]["run_survey_s"],
+           alone_s))
+    ok = stack_ok and files_ok and warm_ok and costs_ok and tune_ok
+    return dict(ok=ok, stacked_s=stacked_s, alone_s=alone_s,
+                two_alone_s=two_alone, files=files, files_alone=files3,
+                occupancy=[e["occupancy"] for e in scheds],
+                degrades=len(degrades), prewarmed=warmed, warm_fraction=warm,
+                plans=m1["plans"], plans_second=m2["plans"],
+                plan_store=readyz1["plan_store"], kernel_costs=cost_rows,
+                peaks=peaks, roofline=rows, tuned=tuned, tune_best=best)
+
+
 def _free_port():
     import socket
     with socket.socket() as s:
@@ -3161,6 +3370,12 @@ def main():
         torch.cuda.empty_cache()
         cluster = phase_cluster(raw, os.path.join(work, "cluster"), mwork,
                                 main_res["maskfile"])
+        torch.cuda.empty_cache()
+        read = launch_counts()
+        serve = phase_serve(raw, os.path.join(work, "serve"), mwork,
+                            main_res)
+        serve["launches"] = read()
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     small = phase_small_reference(gen)
@@ -3178,7 +3393,8 @@ def main():
     results.update(plane_build=k1, stage_reduce=k2, polish=pol,
                    main=main_res, ingest=ingest, fold=fold,
                    toas=toas, singlepulse=spb, jerk=jerk, sharded=shard,
-                   cluster=cluster, small_reference=small, **live,
+                   cluster=cluster, serve=serve, small_reference=small,
+                   **live,
                    total_s=time.time() - t_start)
     # launches: the main path's (run_survey, and run_survey on the DM
     # mesh), plus the jerk paths' (the bench search, and accelsearch
@@ -3194,7 +3410,8 @@ def main():
              jerk["stage_reduce_planes"],
              jerk["pulsar"]["stage_reduce_planes"])):
         by_path = {"run_survey": main_res["launches"][name],
-                   "run_survey_sharded": shard["launches"][name]}
+                   "run_survey_sharded": shard["launches"][name],
+                   "serve": serve["launches"][name]}
         for path, counts in zip(("jerk_bench", "accelsearch_wmax",
                                  "stream", "beams"),
                                 jl + [live["stream"]["launches"],
@@ -3208,6 +3425,9 @@ def main():
                         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"],
                         "library_ms": k["library_ms"], "ok": k["ok"],
+                        "bound_ms_measured_peaks": 1e3 * max(
+                            k["bytes"] / serve["peaks"]["bytes_per_s"],
+                            k["flops"] / serve["peaks"]["flops_per_s"]),
                         "tolerance": k["tolerance"],
                         "launches_by_path": by_path,
                         "launches_by_shard": {
@@ -3231,6 +3451,7 @@ def main():
                               ("jerk", jerk["ok"]),
                               ("sharded", shard["ok"]),
                               ("cluster", cluster["ok"]),
+                              ("serve", serve["ok"]),
                               ("stream", live["stream"]["ok"]),
                               ("beams", live["beams"]["ok"])) if not ok]
     if failed:

@@ -46,6 +46,7 @@ from presto_tpu_torch.apps.common import (CLIResume, add_common_flags,
                                           start_skip_spectra,
                                           stream_blocklen)
 from presto_tpu_torch.io.datfft import write_dat
+from presto_tpu_torch.obs import costmodel, devtel
 from presto_tpu_torch.ops import dedispersion as dd
 from presto_tpu_torch.parallel import mesh as pmesh
 from presto_tpu_torch.parallel.sharded import ShardedDedispPlan
@@ -181,11 +182,14 @@ def _trial_names(args):
     return outbase, ["%s_DM%.*f" % (outbase, args.dmprec, dm) for dm in dms]
 
 
-def _dedisperse(s: _Setup, args, plan: ShardedDedispPlan, width: int):
+def _dedisperse(s: _Setup, args, plan: ShardedDedispPlan, width: int,
+                obs=None):
     """One streamed pass over the file through ``plan``: per-shard output
     tensors [rows_k, width] on the shards' devices, the data in
     [:, :s.valid].  Each block's series goes straight into its columns:
-    no list of blocks and no concatenation held beside them."""
+    no list of blocks and no concatenation held beside them.  ``obs``
+    books each steady step as one dedisp dispatch a shard, with the
+    unit cost of one shard's step."""
     outs = [torch.empty((hi - lo, width), dtype=torch.float32, device=d)
             for d, (lo, hi) in zip(plan.devices, plan.row_ranges)]
     distinct = plan.mesh.distinct_devices()
@@ -202,6 +206,11 @@ def _dedisperse(s: _Setup, args, plan: ShardedDedispPlan, width: int):
                 if prev_sub is None:
                     prev_sub = plan.prime(prev_raw, cur)
                 else:
+                    lo, hi = plan.row_ranges[0]
+                    costmodel.probe(obs, "dedisp", numdms=hi - lo,
+                                    nsub=args.nsub, nchan=s.nchan,
+                                    numpts=s.blocklen)
+                    devtel.note_dispatch(obs, "dedisp", len(plan.devices))
                     prev_sub, series = plan.step(prev_raw, cur, prev_sub)
                     take = min(series[0].shape[1], s.valid - pos)
                     if take > 0:
@@ -277,7 +286,8 @@ def run(args, device="cuda", seam: fusion.StageSeam = None):
               % ("fused-seam" if use_seam else "staged"))
     width = (max(s.valid, good_numout(s.valid, args.numout)) if use_seam
              else s.valid)
-    parts = _dedisperse(s, args, plan, width)
+    parts = _dedisperse(s, args, plan, width,
+                        obs=seam.obs if use_seam else None)
     if use_seam:
         return _seam_handoff(args, s, seam, parts, plan, outbase,
                              names, sharded=use_mesh)

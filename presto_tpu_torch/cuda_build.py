@@ -9,6 +9,13 @@ arch=compute_90a,code=sm_90a -O3 -shared``; each ``csrc/<name>.cpp``
 ``.gitignore``) and is loaded with ``ctypes``.  The build runs at first
 use; ``build_all`` starts one compiler per source at once.  A missing
 toolchain raises: nothing falls back to another implementation.
+
+``set_store(dir)`` (serve/plancache.PlanStore's executable tier, one
+directory per card fingerprint) keeps a copy of every library built or
+loaded: a library the store holds is copied in instead of compiled, so
+a second service on the same store starts without nvcc runs.  Each
+compile is booked through obs/devtel (``jax_compiles_total{kind=
+"nvcc:<name>"}``).
 """
 
 from __future__ import annotations
@@ -30,6 +37,44 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_store_dir = None
+
+
+def set_store(path) -> None:
+    """Keep built libraries in ``path`` as well (None: no store); the
+    libraries this process has loaded already are copied there now."""
+    global _store_dir
+    with _lock:
+        if path is not None:
+            os.makedirs(path, exist_ok=True)
+        _store_dir = path
+        for name in _libs:
+            out = _target(name)
+            kept = _stored(out)
+            if kept is not None and not os.path.exists(kept):
+                _copy_pair(out, kept)
+
+
+def store() -> str:
+    """The current library store (None: no store)."""
+    return _store_dir
+
+
+def _stored(out: str):
+    """The store's copy of a library's target path (None: no store)."""
+    if _store_dir is None:
+        return None
+    return os.path.join(_store_dir, os.path.basename(out))
+
+
+def _copy_pair(src: str, dst: str) -> None:
+    """Copy a library and its compiler log, the library last (its
+    presence marks a whole pair), each through a temporary name."""
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    for ext in (".txt", ""):
+        tmp = "%s.%d.tmp" % (dst + ext, os.getpid())
+        shutil.copyfile(src + ext, tmp)
+        os.replace(tmp, dst + ext)
 
 
 def nvcc() -> str:
@@ -81,11 +126,16 @@ def _start(name: str):
     if os.path.exists(out) and os.path.exists(out + ".txt"):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
+    kept = _stored(out)
+    if kept is not None and os.path.exists(kept) \
+            and os.path.exists(kept + ".txt"):
+        _copy_pair(kept, out)
+        return None
     tmp = "%s.%d.%d.tmp" % (out, os.getpid(), threading.get_ident())
     proc = subprocess.Popen(_command(_source(name), tmp),
                             stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.time()
 
 
 def _finish(name: str, job) -> str:
@@ -94,7 +144,7 @@ def _finish(name: str, job) -> str:
     if job is None:
         with open(_target(name) + ".txt") as f:
             return f.read()
-    proc, tmp, out = job
+    proc, tmp, out, t0 = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError("build failed for %s:\n%s"
@@ -102,6 +152,8 @@ def _finish(name: str, job) -> str:
     with open(out + ".txt", "w") as f:
         f.write(log)
     os.replace(tmp, out)
+    from presto_tpu_torch.obs import devtel
+    devtel.note_build(name, time.time() - t0)
     return log
 
 
@@ -150,7 +202,11 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             t0 = time.time()
             _finish(name, _start(name))
-            lib = ctypes.CDLL(_target(name))
+            out = _target(name)
+            kept = _stored(out)
+            if kept is not None and not os.path.exists(kept):
+                _copy_pair(out, kept)
+            lib = ctypes.CDLL(out)
             lib.build_seconds = time.time() - t0
             _libs[name] = lib
     return lib

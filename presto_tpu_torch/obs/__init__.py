@@ -4,8 +4,10 @@ Host copy of ``presto_tpu/obs/__init__.py`` (with obs/metrics.py,
 obs/trace.py and obs/flightrec.py) for the PyTorch port: one metrics
 registry, one structured tracer and one flight recorder, bundled by
 :class:`Observability` so every subsystem threads a single handle.  The
-JAX package's dispatch telemetry and kernel-cost book (obs/jaxtel.py,
-obs/costmodel.py) are not here: ``flush`` writes the trace files only.
+dispatch telemetry (obs/devtel.py, the counterpart of the JAX package's
+obs/jaxtel.py), the analytic kernel-cost book (obs/costmodel.py) and the
+card's measured roofline (obs/roofline.py) hang off the same handle;
+``flush`` writes the trace files and ``kernel_costs.json``.
 
 Cost contract: everything is off-by-default-cheap.  A disabled
 Observability answers every record call with one branch, and a survey
@@ -127,6 +129,10 @@ class Observability:
                         "".join(_json.dumps(s.to_json(),
                                             sort_keys=True) + "\n"
                                 for s in spans))
+            # the kernel-cost book -> kernel_costs.json (no-op when
+            # nothing was probed; runs no device work)
+            from presto_tpu_torch.obs import costmodel
+            costmodel.write_costs(self, d)
         except Exception:
             pass
 

@@ -131,6 +131,19 @@ def dm_sharding(mesh: Mesh, nrows: int
     return list(zip(mesh.devices, shard_row_ranges(mesh, nrows)))
 
 
+def batch_sharding(mesh: Mesh, nrows: int
+                   ) -> List[Tuple[torch.device, Tuple[int, int]]]:
+    """(device, (lo, hi)) of each shard of a stacked micro-batch's
+    leading axis (coalesced same-bucket jobs, or a job's DM fan-out),
+    split over the mesh's first axis as dm_sharding splits a DM axis:
+    the counterpart of the JAX package's NamedSharding over
+    mesh.axis_names[0].  ``nrows`` need not divide: each shard takes
+    ceil(nrows / size) rows, the last ones fewer (none past the end)."""
+    per = -(-int(nrows) // mesh.size)
+    return [(d, (min(k * per, nrows), min((k + 1) * per, nrows)))
+            for k, d in enumerate(mesh.devices)]
+
+
 def replicated(mesh: Mesh) -> List[torch.device]:
     """The devices that each hold a whole copy of a replicated input (the
     raw blocks): each distinct device once."""

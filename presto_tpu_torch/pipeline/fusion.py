@@ -15,7 +15,10 @@ non-durable seam writes one trial's ``.dat`` when the fold asks for it.
 :func:`feed_blocks` decodes and preprocesses block k+1 on a worker
 thread (:class:`DoubleBufferedIngest`) into a pinned staging buffer
 (:class:`UploadRing`) while block k is on the device, and copies it to
-every device of a mesh.  Telemetry comes in a later slice.
+every device of a mesh.  The feeder's depth and the sharded seam's
+window read the tuning DB when tuning is active (resolve_ingest_depth,
+resolve_depth); a seam carries the survey's Observability handle for its
+producers' dispatch telemetry.
 """
 
 from __future__ import annotations
@@ -37,15 +40,36 @@ DEFAULT_WINDOW_DEPTH = 2     # sharded FFT chunks queued ahead of their search
 DEFAULT_INGEST_DEPTH = 2     # host blocks decoded ahead of the device
 
 
-def resolve_depth(inflight_depth: Optional[int] = None) -> int:
+def resolve_depth(inflight_depth: Optional[int] = None, obs=None) -> int:
     """The sharded seam's window (the JAX package's ``shard_window``):
     the sharded FFT chunks queued on the mesh before the oldest one's
     search collects (each holds memory on every mesh device).  An
-    explicit ``inflight_depth`` sets it; the port has no tuning
-    database, so otherwise the default.  Clamped to [1, 8]: a depth
-    changes overlap, never bytes."""
-    depth = DEFAULT_WINDOW_DEPTH if inflight_depth is None \
-        else int(inflight_depth)
+    explicit ``inflight_depth`` sets it; otherwise, with tuning active
+    (presto_tpu_torch/tune), the DB's ``sharded_inflight_depth`` window,
+    else its ``pipeline_inflight_depth`` window, else the default.
+    Clamped to [1, 8]: a depth changes overlap, never bytes."""
+    depth = DEFAULT_WINDOW_DEPTH
+    from presto_tpu_torch import tune
+    if tune.enabled():
+        for family in ("pipeline_inflight_depth", "sharded_inflight_depth"):
+            cfg = tune.best(family, tune.GLOBAL_KEY, obs=obs)
+            if cfg and "window" in cfg:
+                depth = int(cfg["window"])
+    if inflight_depth is not None:
+        depth = int(inflight_depth)
+    return max(1, min(depth, 8))
+
+
+def resolve_ingest_depth(obs=None) -> int:
+    """Host blocks the feeder decodes ahead of the device: the tuning
+    DB's ``pipeline_inflight_depth`` ingest depth when tuning is
+    active, else the default; clamped to [1, 8]."""
+    depth = DEFAULT_INGEST_DEPTH
+    from presto_tpu_torch import tune
+    if tune.enabled():
+        cfg = tune.best("pipeline_inflight_depth", tune.GLOBAL_KEY, obs=obs)
+        if cfg and "ingest_depth" in cfg:
+            depth = int(cfg["ingest_depth"])
     return max(1, min(depth, 8))
 
 
@@ -225,7 +249,7 @@ def feed_blocks(fb, prep, blocklen: int, nblocks: int, device,
     on the device."""
     # a buffer for each block queued, the one being filled and the one
     # being uploaded
-    depth = DEFAULT_INGEST_DEPTH
+    depth = resolve_ingest_depth()
     ring = UploadRing(depth + 2, blocklen, fb.header.nchans, device)
     ingest = DoubleBufferedIngest(
         _host_blocks(fb, prep, ring, blocklen, nblocks, skip), depth)
@@ -295,14 +319,16 @@ class StageSeam:
     sidecars are written on every tier.  A non-durable seam spills one
     trial's ``.dat`` on demand (ensure_dat), journaled in ``manifest``
     (pipeline/manifest.SurveyManifest) when one is given.  ``depth`` is
-    the sharded chunks' window (resolve_depth)."""
+    the sharded chunks' window (resolve_depth); ``obs`` receives the
+    producers' dispatch telemetry (prepsubband's dedispersion steps)."""
 
     def __init__(self, workdir: str, durable: bool = True, manifest=None,
-                 inflight_depth: Optional[int] = None):
+                 inflight_depth: Optional[int] = None, obs=None):
         self.workdir = os.path.abspath(workdir)
         self.durable = bool(durable)
         self.manifest = manifest
-        self.depth = resolve_depth(inflight_depth)
+        self.obs = obs
+        self.depth = resolve_depth(inflight_depth, obs=obs)
         self.blocks: List[SeamBlock] = []
         self._by_dat: Dict[str, tuple] = {}    # abs .dat -> (block, row)
 

@@ -26,13 +26,23 @@ then flow through the disk consumers); ``cfg.fault_injector``
 The FFT of a sharded seam chunk is queued on the mesh before the
 previous one's search collects (StageSeam.depth).
 
+The serving and telemetry hooks: ``cfg.plan_provider``
+(serve/plancache.SearcherProvider) builds the searchers, so a resident
+service shares one plan per trial geometry across jobs; ``cfg.obs``
+(an ObsConfig or Observability) records the survey's spans, its
+dispatches and their analytic costs (obs/devtel, obs/costmodel) and
+writes them beside the artifacts; ``cfg.tune`` scopes the tuning-DB
+lookups (presto_tpu_torch/tune) and writes ``tuned.json``.
+``run_survey_stacked`` runs N same-geometry surveys with their device
+middle stacked (serve/batchexec's executor).
+
 Not in this slice (a config that asks for them raises
-NotImplementedError): zapbirds, barycentring, triage and the serving
-and telemetry hooks.
+NotImplementedError): zapbirds, barycentring and triage.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import os
 from dataclasses import dataclass, field, replace
@@ -41,6 +51,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from presto_tpu_torch import tune as _tune
 from presto_tpu_torch.apps import (prepfold, prepsubband, rfifind,
                                    single_pulse_search)
 from presto_tpu_torch.apps.accelsearch import refine, write_results
@@ -49,6 +60,7 @@ from presto_tpu_torch.io import datfft
 from presto_tpu_torch.io.atomic import cleanup_stale_tmp
 from presto_tpu_torch.io.infodata import read_inf
 from presto_tpu_torch.io.quality import DataQualityReport
+from presto_tpu_torch.obs import costmodel, devtel, resolve_obs
 from presto_tpu_torch.ops import fftpack
 from presto_tpu_torch.pipeline import fusion
 from presto_tpu_torch.pipeline.ddplan import Observation, plan_dedispersion
@@ -128,8 +140,6 @@ def _refuse_unported(cfg: SurveyConfig) -> None:
         "zapbirds": cfg.zaplist,
         "triage": cfg.triage,
         "barycentring": cfg.bary,
-        "serving and telemetry hooks": (cfg.plan_provider or cfg.obs
-                                        or cfg.tune),
     }
     for what, on in asks.items():
         if on:
@@ -216,7 +226,7 @@ def rfifind_stage(rawfiles, cfg: SurveyConfig, base: str, device="cuda",
 
 def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
                 device="cuda", manifest=None, res: SurveyResult = None,
-                timer=None) -> fusion.StageSeam:
+                timer=None, obs=None) -> fusion.StageSeam:
     """rfifind (unless cfg.skip_rfifind) -> DDplan -> prepsubband per
     method with the rfifind mask, the fan-out deposited at an in-memory
     seam (sharded over the mesh when prepsubband takes it).
@@ -226,7 +236,7 @@ def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
     empty).  A method whose .dat files all verify (a resumed run) is
     skipped: its trials are left on disk, outside the seam.  ``res``
     receives the mask path and the quality report; ``timer`` the rfifind
-    and prepsubband stages."""
+    and prepsubband stages; ``obs`` the dedispersion steps' dispatches."""
     _refuse_unported(cfg)
     resolve_device(device)
     os.makedirs(workdir, exist_ok=True)
@@ -260,7 +270,7 @@ def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
     _chaos(cfg, "pre-prepsubband")
     seam = fusion.StageSeam(workdir, durable=cfg.durable_stages
                             is not False, manifest=manifest,
-                            inflight_depth=cfg.inflight_depth)
+                            inflight_depth=cfg.inflight_depth, obs=obs)
     dat_glob = os.path.basename(base) + "_DM*.dat"
     # verify a previous run's survivors once, before the loop: this
     # run's own outputs are journaled as each method lands
@@ -304,9 +314,29 @@ def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
 
 def searcher_for(cfg: SurveyConfig, T: float, nbins: int,
                  device="cuda") -> AccelSearch:
-    return AccelSearch(AccelConfig(zmax=cfg.zmax, numharm=cfg.numharm,
-                                   sigma=cfg.sigma, flo=cfg.flo),
-                       T=T, numbins=nbins, device=device)
+    """One accel searcher for a (pass config, duration, length): through
+    ``cfg.plan_provider`` when a resident service shares one
+    (serve/plancache), so same-shaped trial groups reuse one plan."""
+    acfg = AccelConfig(zmax=cfg.zmax, numharm=cfg.numharm,
+                       sigma=cfg.sigma, flo=cfg.flo)
+    if cfg.plan_provider is not None:
+        return cfg.plan_provider.searcher(acfg, T, nbins, device=device)
+    return AccelSearch(acfg, T=T, numbins=nbins, device=device)
+
+
+def _column_slab(searcher, obs=None) -> int:
+    """The search's column slab: the tuning DB's ``accel_column_slab``
+    for this geometry when tuning is active, else search_many's default
+    (every slab gives the same candidate lists)."""
+    slab = 1 << 20
+    if _tune.enabled():
+        from presto_tpu_torch.tune.space import key_column_slab
+        best = _tune.best("accel_column_slab", key_column_slab(
+            searcher.cfg.numz, searcher.cfg.numharm, searcher.numbins),
+            obs=obs)
+        if best and int(best.get("slab", 0)) > 0:
+            slab = int(best["slab"])
+    return slab
 
 
 def _pass_configs(cfg: SurveyConfig) -> List[SurveyConfig]:
@@ -326,18 +356,24 @@ def _accel_names(name: str, cfg: SurveyConfig) -> List[str]:
 
 
 def _search_and_write(pairs, names, T, cfg, device, manifest, timer,
-                      out, stage, mesh=None) -> None:
+                      out, stage, mesh=None, obs=None) -> None:
     """Every accel pass over one batch of device spectra: search_many,
     then refine + write_results per trial (the polish on the spectrum's
     device, ACCEL and .cand files), journaled under ``stage``.  With a
     ``mesh`` ``pairs`` is the list of per-shard spectra, searched where
-    they are."""
+    they are.  ``obs`` books each pass as one accel_search dispatch and
+    a plane_build and a stage_reduce launch a trial, with their costs."""
     trials = ([p[j] for p in pairs for j in range(p.shape[0])]
               if mesh is not None else list(pairs))
     n = trials[0].shape[0]
     for pcfg in _pass_configs(cfg):
         searcher = searcher_for(pcfg, T, n, device=device)
-        results = searcher.search_many(pairs, mesh=mesh)
+        slab = _column_slab(searcher, obs)
+        costmodel.probe_search(obs, searcher, len(trials), slab=slab)
+        devtel.note_dispatch(obs, "accel_search")
+        devtel.note_dispatch(obs, "plane_build", len(trials))
+        devtel.note_dispatch(obs, "stage_reduce", len(trials))
+        results = searcher.search_many(pairs, mesh=mesh, slab=slab)
         arts = []
         for name, pr, raw in zip(names, trials, results):
             trace = refine(raw, pr, T, searcher, timer=timer,
@@ -349,18 +385,19 @@ def _search_and_write(pairs, names, T, cfg, device, manifest, timer,
         _record(manifest, arts, stage)
 
 
-def _write_ffts(pairs, names, manifest, stage) -> None:
+def _write_ffts(pairs, names, manifest, stage, obs=None) -> None:
     """The .fft of each trial of a batch of device spectra (a tensor, or
     the per-shard list: one copy down a shard)."""
     host = (np.concatenate([p.cpu().numpy() for p in pairs])
             if isinstance(pairs, list) else pairs.cpu().numpy())
+    devtel.note_get(obs, host.nbytes)
     for name, pr in zip(names, host):
         datfft.write_fft(name + ".fft", fftpack.np_pairs_to_complex64(pr))
     _record(manifest, [name + ".fft" for name in names], stage)
 
 
 def seam_fft_search(seam: fusion.StageSeam, cfg: SurveyConfig,
-                    device="cuda", manifest=None, timer=None
+                    device="cuda", manifest=None, timer=None, obs=None
                     ) -> Dict[str, List[AccelCand]]:
     """Every accel pass over the seam-resident series: batched rFFT
     straight off each seam block, search_many on the device spectra,
@@ -373,8 +410,9 @@ def seam_fft_search(seam: fusion.StageSeam, cfg: SurveyConfig,
     before the previous sharded chunk's search collects (at most
     seam.depth in flight; a one-device chunk is searched at once).  A
     partially resumed sharded block moves its rows to ``device`` and
-    takes the one-device path.  Returns
-    {ACCEL path: final candidates} for the trials searched."""
+    takes the one-device path.  ``obs`` books the rFFT and search
+    dispatches and the copies.  Returns {ACCEL path: final candidates}
+    for the trials searched."""
     _refuse_unported(cfg)
     dev = resolve_device(device)
     out: Dict[str, List[AccelCand]] = {}
@@ -385,9 +423,10 @@ def seam_fft_search(seam: fusion.StageSeam, cfg: SurveyConfig,
         T = block.numout * fusion.inf_float(block.dt)
         names = [block.names[r] for r in chunk]
         _search_and_write(pairs, names, T, cfg, device, manifest, timer,
-                          out, "fft+accel", mesh=mesh)
+                          out, "fft+accel", mesh=mesh, obs=obs)
         if seam.durable:
-            _write_ffts(pairs, names, manifest, "fft+accel")
+            _write_ffts(pairs, names, manifest, "fft+accel", obs=obs)
+        devtel.sample_live_buffers(obs, dev)
         _chaos(cfg, "fused-chunk")
         if mesh is not None:
             _chaos(cfg, "sharded-fused-chunk")
@@ -425,11 +464,17 @@ def seam_fft_search(seam: fusion.StageSeam, cfg: SurveyConfig,
                     series = block.series_dev[:, :n]
                 else:
                     series = block.series_dev[chunk, :n]
+                parts = series if mesh is not None else [series]
+                costmodel.probe(obs, "rfft_batch", rows=parts[0].shape[0],
+                                n=n)
+                devtel.note_dispatch(obs, "rfft_batch", len(parts))
                 pairs = fusion.fused_rfft_batch(series, mesh=mesh)
-                del series
+                del series, parts
                 if g0 + per >= len(rows):
                     # the block's last FFT chunk has consumed its series:
                     # its memory goes back before the chunk's search
+                    devtel.note_donation(obs, len(block.names)
+                                         * block.numout * 4)
                     seam.release(block)
                 pending.append((block, chunk, pairs, mesh))
                 window = seam.depth if mesh is not None else 1
@@ -453,7 +498,8 @@ def _trial_T(first_file: str) -> float:
     return info.N * info.dt
 
 
-def _fused_fft_search(datfiles, cfg, device, manifest, timer) -> None:
+def _fused_fft_search(datfiles, cfg, device, manifest, timer,
+                      obs=None) -> None:
     """Disk trials (outside the seam) with no verified .fft: batched
     rFFT on the device, search, .fft + ACCEL files for the first pass.
     Trials with a verified .fft are left to _batched_accelsearch."""
@@ -469,18 +515,22 @@ def _fused_fft_search(datfiles, cfg, device, manifest, timer) -> None:
         for g0 in range(0, len(files), per):
             chunk = files[g0:g0 + per]
             arr = np.stack([datfft.read_dat(f)[:n] for f in chunk])
+            devtel.note_put(obs, arr.nbytes)
+            costmodel.probe(obs, "rfft_batch", rows=len(chunk), n=n)
+            devtel.note_dispatch(obs, "rfft_batch")
             pairs = fftpack.realfft_packed_pairs(
                 torch.as_tensor(arr, device=dev))
             names = [f[:-4] for f in chunk]
-            _write_ffts(pairs, names, manifest, "fft+accel")
+            _write_ffts(pairs, names, manifest, "fft+accel", obs=obs)
             _search_and_write(pairs, names, T, first, device, manifest,
-                              timer, {}, "fft+accel")
+                              timer, {}, "fft+accel", obs=obs)
             _chaos(cfg, "fused-chunk")
     print("survey: fused realfft+accelsearch over %d disk trials"
           % len(todo))
 
 
-def _batched_accelsearch(fftfiles, cfg, device, manifest, timer) -> None:
+def _batched_accelsearch(fftfiles, cfg, device, manifest, timer,
+                         obs=None) -> None:
     """One accel pass (``cfg`` from _pass_configs) over .fft files
     already on disk whose ACCEL table or .cand companion (one logical
     artifact) does not verify."""
@@ -498,9 +548,10 @@ def _batched_accelsearch(fftfiles, cfg, device, manifest, timer) -> None:
             chunk = files[g0:g0 + per]
             batch = np.stack([fftpack.np_complex64_to_pairs(
                 datfft.read_fft(f)) for f in chunk])
+            devtel.note_put(obs, batch.nbytes)
             _search_and_write(torch.as_tensor(batch, device=dev),
                               [f[:-4] for f in chunk], T, cfg, device,
-                              manifest, timer, {}, "accel")
+                              manifest, timer, {}, "accel", obs=obs)
             _chaos(cfg, "accel-chunk")
     print("survey: accelsearch over %d trials (batched)" % len(todo))
 
@@ -510,9 +561,13 @@ def run_survey(rawfiles: Sequence[str], cfg: SurveyConfig,
                device="cuda") -> SurveyResult:
     """The survey from filterbank to the folds of its top candidates
     (see the module docstring).  ``timer`` (utils/timing.StageTimer,
-    made here when None) receives the stages; it is reported on exit."""
+    made here when None) receives the stages; it is reported on exit.
+    With ``cfg.obs`` enabled the run is one ``survey`` span, a death
+    leaves a flight-recorder dump in the workdir, and the spans and the
+    kernel-cost book are written there on exit."""
     _refuse_unported(cfg)
     resolve_device(device)
+    obs = resolve_obs(cfg.obs)
     os.makedirs(workdir, exist_ok=True)
     rawfiles = [os.path.abspath(f) for f in rawfiles]
     res = SurveyResult(workdir=workdir)
@@ -521,50 +576,77 @@ def run_survey(rawfiles: Sequence[str], cfg: SurveyConfig,
     cleanup_stale_tmp(workdir)
     manifest = SurveyManifest.load(workdir) if cfg.verify_resume else None
     if timer is None:
-        timer = StageTimer()
+        timer = StageTimer(obs=obs)
+    root = obs.span("survey", workdir=workdir,
+                    raw=os.path.basename(rawfiles[0]))
     try:
-        return _run_survey_stages(rawfiles, cfg, workdir, res, timer,
-                                  manifest, device)
+        with _tune.scoped(cfg.tune):
+            seam, disk_only = _head_stage(rawfiles, cfg, workdir, res,
+                                          timer, manifest, device, obs)
+            _device_search_stages(seam, disk_only, cfg, timer, manifest,
+                                  device, obs)
+            _finish_survey_stages(rawfiles, cfg, workdir, res, timer,
+                                  manifest, device, seam)
+        root.finish()
+        return res
+    except BaseException as e:
+        root.finish("error: %s" % type(e).__name__)
+        obs.dump_flight(workdir, reason=type(e).__name__)
+        raise
     finally:
         timer.mark(None)
         timer.report()
+        with _tune.scoped(cfg.tune):
+            _tune.write_provenance(workdir)
+        obs.flush(default_dir=workdir)
 
 
-def _run_survey_stages(rawfiles, cfg, workdir, res, timer, manifest,
-                       device):
+def _head_stage(rawfiles, cfg, workdir, res, timer, manifest, device,
+                obs):
+    """survey_head, then res.datfiles; returns (seam, the trials the
+    seam does not hold: a previous run's verified survivors)."""
     base = _base(rawfiles, workdir)
     seam = survey_head(rawfiles, cfg, workdir, device=device,
-                       manifest=manifest, res=res, timer=timer)
+                       manifest=manifest, res=res, timer=timer, obs=obs)
     seam_set = set(seam.dat_paths())
     res.datfiles = sorted(set(_stage(os.path.basename(base) + "_DM*.dat",
                                      workdir))
                           | {os.path.join(workdir, os.path.basename(p))
                              for p in seam_set})
-    # trials the seam does not hold (a previous run's verified
-    # survivors) flow through the disk consumers
     disk_only = [f for f in res.datfiles
                  if os.path.abspath(f) not in seam_set]
     print("survey: %d dedispersed time series (%d seam-resident, %d "
           "sharded)" % (len(res.datfiles), len(seam),
                         sum(len(b.names) for b in seam.blocks
                             if fusion.is_sharded(b))))
+    return seam, disk_only
 
+
+def _device_search_stages(seam, disk_only, cfg, timer, manifest, device,
+                          obs) -> None:
+    """The device middle: stage 9a on the seam, then the FFT and every
+    accel pass over the seam and the disk trials."""
     if cfg.singlepulse and len(seam):
         # before the FFT stage releases the blocks' device series
         timer.mark("single_pulse")
-        seam_singlepulse(seam, cfg, device=device, manifest=manifest)
-
+        seam_singlepulse(seam, cfg, device=device, manifest=manifest,
+                         obs=obs)
     timer.mark("realfft+accelsearch (fused)")
     if len(seam):
         seam_fft_search(seam, cfg, device=device, manifest=manifest,
-                        timer=timer)
-    _fused_fft_search(disk_only, cfg, device, manifest, timer)
+                        timer=timer, obs=obs)
+    _fused_fft_search(disk_only, cfg, device, manifest, timer, obs=obs)
     for pcfg in _pass_configs(cfg):
         # the resume case for the first pass; the extra passes of
         # trials whose .fft was already on disk
         _batched_accelsearch([f[:-4] + ".fft" for f in disk_only], pcfg,
-                             device, manifest, timer)
+                             device, manifest, timer, obs=obs)
 
+
+def _finish_survey_stages(rawfiles, cfg, workdir, res, timer, manifest,
+                          device, seam) -> SurveyResult:
+    """The per-job tail: sift, folds, stage 9."""
+    base = _base(rawfiles, workdir)
     timer.mark("sift")
     _chaos(cfg, "pre-sift")
     accfiles = []
@@ -594,7 +676,7 @@ def _run_survey_stages(rawfiles, cfg, workdir, res, timer, manifest,
 
 
 def seam_singlepulse(seam: fusion.StageSeam, cfg: SurveyConfig,
-                     device="cuda", manifest=None) -> int:
+                     device="cuda", manifest=None, obs=None) -> int:
     """Stage 9a: the single-pulse search over the seam-resident series,
     before the FFT stage takes them: the app's pipeline
     (apps/single_pulse_search) fed from the device instead of a .dat
@@ -607,7 +689,8 @@ def seam_singlepulse(seam: fusion.StageSeam, cfg: SurveyConfig,
     a verified .singlepulse go in groups of one (searched length, dt),
     at most the CLI's GROUP_BYTES of series a call (a partially resumed
     sharded block's rows moved to ``device``), each journaled under
-    "singlepulse".  Returns the number of events written."""
+    "singlepulse".  ``obs`` books each batch as one sp_search dispatch
+    with its cost.  Returns the number of events written."""
     _refuse_unported(cfg)
     dev = resolve_device(device)
     searchers: Dict[torch.device, SinglePulseSearch] = {}
@@ -643,11 +726,12 @@ def seam_singlepulse(seam: fusion.StageSeam, cfg: SurveyConfig,
     def search(sp, batch, dt, items) -> int:
         """Search one batch of the (block, row, offregions) items and
         write their .singlepulse files; returns the events."""
+        devtel.note_dispatch(obs, "sp_search")
         results = sp.search_many_resident(
             batch, dt,
             dms=[fusion.inf_float(b.infos[row].dm, 12)
                  for (b, row, _o) in items],
-            offregions_list=[o for (_b, _r, o) in items])
+            offregions_list=[o for (_b, _r, o) in items], obs=obs)
         written, nev = [], 0
         for (b, row, _o), (cands, _stds, _bad) in zip(items, results):
             f = b.names[row] + ".singlepulse"
@@ -745,3 +829,233 @@ def fold_candidates(cl, cfg: SurveyConfig, workdir: str, seam, res,
             print("survey: fold of cand %d failed: %s" % (i + 1, e))
         _chaos(cfg, "fold-cand")
     print("survey: folded %d candidates" % len(res.folded))
+
+
+# ----------------------------------------------------------------------
+# Stacked cross-job execution (the serve layer's batch executor)
+# ----------------------------------------------------------------------
+
+class StackedSeamError(RuntimeError):
+    """This job set cannot share one stacked device chain (the seams hold
+    mesh-sharded blocks, whose concatenation would cross device
+    placements).  The serve scheduler treats it like any batch failure:
+    it degrades to the per-job path."""
+
+
+class _FanTimer:
+    """StageTimer fan-out: the merged device stage advances every stacked
+    job's stage clock together (a shared device call is each job's stage
+    work)."""
+
+    def __init__(self, timers):
+        self.timers = [t for t in timers if t is not None]
+
+    def mark(self, name):
+        for t in self.timers:
+            t.mark(name)
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        with contextlib.ExitStack() as stack:
+            for t in self.timers:
+                stack.enter_context(t.stage(name))
+            yield
+
+
+class _FanInjector:
+    """Chaos fan-out for the merged chain: a fault injected into any
+    stacked job aborts the shared device call (the scheduler then
+    degrades the batch to per-job execution)."""
+
+    def __init__(self, injectors):
+        self.injectors = list(injectors)
+
+    def point(self, name):
+        for fi in self.injectors:
+            fi.point(name)
+
+
+class _StackManifest:
+    """Artifact-journal fan-out for a merged seam: every record / verify
+    routes to the manifest of the job whose workdir holds the path, so N
+    stacked jobs' journals end up what N per-job runs would write."""
+
+    def __init__(self, routes):
+        #: [(abs workdir, manifest-or-None)], deepest path first so a
+        #: nested workdir routes to its own journal
+        self.routes = sorted(((os.path.abspath(w), m) for w, m in routes),
+                             key=lambda e: -len(e[0]))
+
+    def _for(self, path):
+        p = os.path.abspath(path)
+        for wd, m in self.routes:
+            if p == wd or p.startswith(wd + os.sep):
+                return m
+        return None
+
+    def _grouped(self, paths):
+        groups = {}
+        for p in paths:
+            m = self._for(p)
+            groups.setdefault(id(m), (m, []))[1].append(p)
+        return list(groups.values())
+
+    def valid(self, path):
+        m = self._for(path)
+        return os.path.exists(path) if m is None else m.valid(path)
+
+    def stage_of(self, path):
+        m = self._for(path)
+        return "" if m is None else m.stage_of(path)
+
+    def record_many(self, paths, stage="", save=True):
+        for m, ps in self._grouped(paths):
+            if m is not None:
+                m.record_many(ps, stage, save=save)
+
+    def invalidate_stale(self, paths, remove=True):
+        stale = []
+        for m, ps in self._grouped(paths):
+            if m is not None:
+                stale += list(m.invalidate_stale(ps, remove=remove))
+            else:
+                stale += [p for p in ps if not os.path.exists(p)]
+        return stale
+
+
+def _merged_seam(ctxs, obs, manifest) -> fusion.StageSeam:
+    """One StageSeam over every stacked job's deposited blocks: blocks of
+    one geometry (padded length, valid span, sample time) concatenated on
+    the batch axis into one [sum(numdms), numout] device tensor, so the
+    FFT, search and single-pulse stages make one batched call where N
+    per-job runs made N.  Per-trial math does not depend on the batch, so
+    every artifact matches the per-job run.  Source blocks hand their
+    device tensor to the merged copy (each job's seam keeps its host copy
+    for spills and folds)."""
+    cfg0 = ctxs[0]["cfg"]
+    seam = fusion.StageSeam(ctxs[0]["workdir"],
+                            durable=cfg0.durable_stages is not False,
+                            manifest=manifest,
+                            inflight_depth=cfg0.inflight_depth, obs=obs)
+    groups: Dict[tuple, list] = {}
+    for c in ctxs:
+        for b in c["seam"].blocks:
+            if fusion.is_sharded(b):
+                raise StackedSeamError("mesh-sharded seam blocks cannot be "
+                                       "stacked across jobs")
+            groups.setdefault((int(b.numout), int(b.valid), float(b.dt)),
+                              []).append(b)
+    for key, blocks in groups.items():
+        if len(blocks) == 1:
+            mb = blocks[0]
+        else:
+            mb = fusion.SeamBlock(
+                names=[n for b in blocks for n in b.names],
+                infos=[i for b in blocks for i in b.infos],
+                dms=[d for b in blocks for d in b.dms],
+                series_dev=torch.cat([b.series_dev for b in blocks]),
+                series_host=np.concatenate([b.series_host
+                                            for b in blocks]),
+                valid=key[1], numout=key[0], dt=key[2])
+            for b in blocks:
+                b.series_dev = None
+        seam.blocks.append(mb)
+        for row, name in enumerate(mb.names):
+            seam._by_dat[os.path.abspath(name + ".dat")] = (mb, row)
+    return seam
+
+
+def _stacked_device_stages(ctxs, device) -> None:
+    """The merged middle for one sub-stack: every job's seam blocks
+    concatenated, one _device_search_stages pass over the union."""
+    cfg0 = ctxs[0]["cfg"]
+    obs0 = ctxs[0]["obs"]
+    manifest = _StackManifest([(c["workdir"], c["manifest"]) for c in ctxs])
+    injectors = [c["cfg"].fault_injector for c in ctxs
+                 if c["cfg"].fault_injector is not None]
+    cfg_m = cfg0
+    if injectors and (len(injectors) > 1
+                      or injectors[0] is not cfg0.fault_injector):
+        cfg_m = replace(cfg0, fault_injector=_FanInjector(injectors))
+    seam = _merged_seam(ctxs, obs0, manifest)
+    disk_only = [f for c in ctxs for f in c["disk_only"]]
+    _device_search_stages(seam, disk_only, cfg_m,
+                          _FanTimer([c["timer"] for c in ctxs]), manifest,
+                          device, obs0)
+
+
+def run_survey_stacked(jobs, stack_planner=None, device="cuda"):
+    """Run N same-geometry surveys with the device middle stacked:
+    per-job heads (rfifind -> DDplan -> prepsubband) deposit N seams, the
+    merged DM fan-outs cross stage 9a and the rFFT -> accelsearch chain
+    in shared batched calls (plane_build and stage_reduce launched over
+    the merged fan-out), and per-job tails (sift, folds, stage 9) finish
+    each survey.
+
+    jobs: (rawfiles, cfg, workdir, timer) tuples whose configs are
+    stack-compatible (serve/batchexec checks the signature).
+    stack_planner: callable(per-job chain bytes) -> sub-stack sizes
+    summing to N (serve/batchexec's tuned plan with the memory clamp);
+    None = one stack of every job.
+
+    Every artifact is byte-identical to N independent run_survey calls;
+    any failure propagates (the scheduler redoes the batch per job, and
+    the resume journal makes the partial head work safe to redo)."""
+    resolve_device(device)
+    ctxs = []
+    for (rawfiles, cfg, workdir, timer) in jobs:
+        _refuse_unported(cfg)
+        obs = resolve_obs(cfg.obs)
+        os.makedirs(workdir, exist_ok=True)
+        cleanup_stale_tmp(workdir)
+        ctxs.append({
+            "rawfiles": [os.path.abspath(f) for f in rawfiles],
+            "cfg": cfg, "workdir": workdir,
+            "res": SurveyResult(workdir=workdir),
+            "timer": timer if timer is not None else StageTimer(obs=obs),
+            "manifest": (SurveyManifest.load(workdir)
+                         if cfg.verify_resume else None),
+            "obs": obs, "span": None})
+    try:
+        with _tune.scoped(ctxs[0]["cfg"].tune):
+            for c in ctxs:
+                c["span"] = c["obs"].span(
+                    "survey", workdir=c["workdir"],
+                    raw=os.path.basename(c["rawfiles"][0]),
+                    stacked=len(ctxs))
+                c["seam"], c["disk_only"] = _head_stage(
+                    c["rawfiles"], c["cfg"], c["workdir"], c["res"],
+                    c["timer"], c["manifest"], device, c["obs"])
+            sizes = [len(ctxs)]
+            if stack_planner is not None:
+                per_job = [sum(len(b.names) * b.numout * 4 * 3
+                               for b in c["seam"].blocks) for c in ctxs]
+                sizes = list(stack_planner(per_job)) or sizes
+            if sum(sizes) != len(ctxs):
+                raise StackedSeamError("stack plan %r does not cover %d jobs"
+                                       % (sizes, len(ctxs)))
+            i = 0
+            for size in sizes:
+                _stacked_device_stages(ctxs[i:i + size], device)
+                i += size
+            for c in ctxs:
+                _finish_survey_stages(c["rawfiles"], c["cfg"], c["workdir"],
+                                      c["res"], c["timer"], c["manifest"],
+                                      device, c["seam"])
+                c["span"].finish()
+                c["span"] = None
+    except BaseException as e:
+        for c in ctxs:
+            if c["span"] is not None:
+                c["span"].finish("error: %s" % type(e).__name__)
+                c["span"] = None
+            c["obs"].dump_flight(c["workdir"], reason=type(e).__name__)
+        raise
+    finally:
+        for c in ctxs:
+            c["timer"].mark(None)
+            c["timer"].report()
+            with _tune.scoped(c["cfg"].tune):
+                _tune.write_provenance(c["workdir"])
+            c["obs"].flush(default_dir=c["workdir"])
+    return [c["res"] for c in ctxs]

@@ -27,8 +27,10 @@ Reference call stack (src/accelsearch.c:134-221, src/accel_utils.c):
 subharm_ffdot_plane builds the plane per r-block, inmem harmonic sums
 add subharmonic cells, search_ffdotpows thresholds at powcut[stage].
 
-Left for later slices: tuning-database lookups and telemetry.  Nothing
-here reads environment variables.
+The survey tunes the column slab (``search_many(slab=)``, the tuning
+DB's ``accel_column_slab``) and books each search's dispatches and
+analytic costs (obs/devtel, obs/costmodel) around ``search_many``.
+Nothing here reads environment variables.
 """
 
 from __future__ import annotations

@@ -481,13 +481,9 @@ class SinglePulseSearch:
         search_many exactly (same chunking, pruning, bad-block cuts)
         unless a file has more than G above-threshold top-k samples
         (heavy RFI): that file goes through search_many on the same
-        device, the JAX package's own path.  ``obs`` (the JAX package's
-        cost-model probe) is not in the port yet.
+        device, the JAX package's own path.  ``obs`` receives the unit
+        cost of the call (obs/costmodel kind "sp_search") for its shape.
         """
-        if obs is not None:
-            raise NotImplementedError("single pulse: the obs cost-model "
-                                      "probe comes in a later slice of "
-                                      "the port")
         nf = int(series.shape[0])
         N = int(series.shape[1])
         if offregions_list is None:
@@ -501,7 +497,7 @@ class SinglePulseSearch:
                 # there, the overflow path included
                 return replace(self, device=series.device) \
                     .search_many_resident(series, dt, dms, offregions_list,
-                                          G=G)
+                                          G=G, obs=obs)
             dev = series
         else:
             dev = torch.as_tensor(np.asarray(series, np.float32),
@@ -510,6 +506,11 @@ class SinglePulseSearch:
         nblk = N // dlen
         widths, chunklen, fftlen, overlap, kern_f = \
             self._chunk_geometry(widths=[1] + list(self.downfacts_for(dt)))
+        if obs is not None:
+            from presto_tpu_torch.obs import costmodel
+            costmodel.probe(obs, "sp_search", nf=nf, N=nblk * dlen,
+                            nwidths=len(widths), chunklen=chunklen,
+                            fftlen=fftlen)
         # pass 1: detrend once; residuals stay RESIDENT for pass 2,
         # only the tiny stds cross to the host
         roundN = nblk * dlen

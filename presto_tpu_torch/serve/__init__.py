@@ -1,4 +1,4 @@
-"""presto_tpu_torch.serve — the serve core the live stream runs on.
+"""presto_tpu_torch.serve — the always-on search service.
 
 The port of ``presto_tpu/serve``'s core: an always-on service whose
 scheduler thread does the device work, fed by a bounded two-lane queue.
@@ -6,15 +6,18 @@ scheduler thread does the device work, fed by a bounded two-lane queue.
   queue.py      bounded priority job queue with backpressure and the
                 deadline/throughput lanes
   scheduler.py  the serving loop: same-bucket coalescing, per-job
-                timeout, bounded retry with exponential backoff
-  server.py     SearchService (in-process callable jobs: the stream's
-                deadline-lane ticks) + threaded HTTP front end
-                (/healthz /readyz /metrics /events /jobs)
+                timeout, bounded retry with exponential backoff, plan
+                eviction on a device error
+  server.py     SearchService (survey jobs, and in-process callable jobs:
+                the stream's deadline-lane ticks) + threaded HTTP front
+                end (/submit /healthz /readyz /metrics /events /jobs)
+  plancache.py  the searcher-plan cache, its pad-to-bucket keys and the
+                persistent plan store
+  batchexec.py  the stacked cross-job batch executor
   events.py     structured JSON event log with a resumable cursor
 
-Survey jobs, the compiled-plan cache and the stacked batch executor come
-with ROADMAP queue 1 item 2; the fleet (job ledger, replicas, router,
-DAGs) with item 3.
+The fleet (job ledger, replicas, router, DAGs) comes with ROADMAP queue
+1 item 3.
 """
 
 from presto_tpu_torch.serve.events import EventLog

@@ -1,8 +1,7 @@
 """Bounded priority job queue with backpressure (serve layer).
 
-Host copy of ``presto_tpu/serve/queue.py`` for the PyTorch port.  The
-port's service admits in-process callables (the live stream's ticks);
-survey jobs come with ROADMAP queue 1 item 2.
+Host copy of ``presto_tpu/serve/queue.py`` for the PyTorch port: survey
+jobs and in-process callables (the live stream's ticks).
 
 A job is one observation + one SurveyConfig-like spec.  The queue is
 a heap ordered by (priority, arrival); depth is bounded so a burst of

@@ -2,9 +2,9 @@
 
 Host copy of ``presto_tpu/serve/scheduler.py`` for the PyTorch port.
 Its device-error rule names what a CUDA failure raises in torch (see
-``is_device_error``).  The JAX scheduler evicts the compiled-plan cache
-on a device error; the port has no plan cache until ROADMAP queue 1
-item 2, so ``plans`` must be None.
+``is_device_error``); on such an error the plans bound to the failing
+device are evicted from the plan cache (``plans``, serve/plancache)
+before the retry.
 
 One daemon thread runs the serving loop:
 
@@ -21,8 +21,8 @@ Execution semantics:
     max_retries, then surface as a failed/timeout job status.  A job
     failing never stops the loop.
 
-The coalesced batch shares one bucket, so a batch executor (none in
-the port yet) can run it as one stacked call.
+The coalesced batch shares one bucket, so the batch executor
+(serve/batchexec.StackedBatchExecutor) runs it as one stacked chain.
 """
 
 from __future__ import annotations
@@ -109,10 +109,6 @@ class Scheduler:
                  cfg: Optional[SchedulerConfig] = None, events=None,
                  latency=None, batch_executor: Optional[Callable] = None,
                  obs=None, plans=None, park: Optional[Callable] = None):
-        if plans is not None:
-            raise NotImplementedError(
-                "Scheduler(plans=...): the compiled-plan cache comes with "
-                "ROADMAP queue 1 item 2")
         if obs is None:
             from presto_tpu_torch.obs import Observability, ObsConfig
             obs = Observability(ObsConfig(enabled=True))
@@ -123,6 +119,7 @@ class Scheduler:
         self.events = events
         self.latency = latency
         self.obs = obs
+        self.plans = plans          # PlanCache, for device-error evict
         # fleet seam: park(job) -> bool re-admits a retrying job into
         # the shared job ledger when the local queue is closed
         # (shutdown), so a scheduler retry during drain is handed to
@@ -412,7 +409,19 @@ class Scheduler:
         timed_out = isinstance(exc, JobTimeout)
         job.error = "%s: %s" % (type(exc).__name__, exc)
         if is_device_error(exc):
+            # a CUDA failure may leave the plans bound to that device
+            # (their banks and maps on the card) unusable: flush them
+            # before the retry, which rebuilds fresh ones
+            # (plancache_evictions_total{reason="device_error"})
             self._c_deverr.inc()
+            if self.plans is not None:
+                from presto_tpu_torch.obs import devtel
+                n = self.plans.evict_bucket(
+                    device=devtel.current_device_id(),
+                    reason="device_error")
+                if self.events is not None:
+                    self.events.emit("plan-evict", job=job.job_id,
+                                     evicted=n, error=job.error)
         if job.attempts <= self.cfg.max_retries:
             delay = min(
                 self.cfg.backoff_base_s * 2.0 ** (job.attempts - 1),
@@ -484,9 +493,9 @@ class Scheduler:
             "degrades": int(self._c_degrades.value),
             "batch_occupancy": (self._c_batched.value / batches
                                 if batches else 0.0),
-            # stacked cross-job execution (the JAX package's
-            # serve/batchexec.py registers these; 0 in the port until
-            # ROADMAP queue 1 item 2)
+            # stacked cross-job execution (serve/batchexec.py
+            # registers these on the same registry; 0 when the
+            # executor is off)
             "stacked_batches": _reg("serve_stacked_batches_total"),
             "stacked_jobs": _reg("serve_stacked_jobs_total"),
         }

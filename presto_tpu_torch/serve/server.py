@@ -1,26 +1,34 @@
 """SearchService + threaded HTTP front end (serve layer).
 
-Host copy of ``presto_tpu/serve/server.py`` for the PyTorch port: the
-service's lifecycle, its bounded queue, event log, latency accounting
-and scheduler, in-process callable jobs (the live stream's deadline-lane
-ticks) and the HTTP front end.  What needs ROADMAP queue 1 item 2 is
-refused, never accepted silently: a survey job (``build_job``/``submit``
-and ``POST /submit``: NotImplementedError, HTTP 501) and the
-constructor's ``plan_store_dir``, ``mesh`` and ``stacked=True``; a
-discovery-DAG node job needs item 3.  ``metrics()`` and ``readyz()``
-keep the JAX package's keys, with the values of an empty plan cache,
-no plan store and no harvested kernel costs.
+PyTorch counterpart of ``presto_tpu/serve/server.py``: the composition
+root owning the bounded queue, the plan cache (serve/plancache), the
+event log, the latency accounting and the micro-batching scheduler.  A
+survey job runs as one restartable ``pipeline.survey.run_survey`` on
+the service's ``device`` (default "cuda"; a CPU service must be asked
+for) in the job's own workdir, so every result is byte-identical to
+what run_survey writes on its own; same-bucket jobs coalesced into one
+batch run through the stacked executor (serve/batchexec,
+``stacked=True``, the default) and degrade to per-job runs on any
+failure.  A
+``plan_store_dir`` (serve/plancache.PlanStore) records every plan built
+and keeps the kernel libraries for the card, so a second service on the
+same store prewarms (``prewarm``, readyz's ``plan_warm_fraction``).
+In-process callable jobs (the live stream's deadline-lane ticks) share
+the scheduler.  A discovery-DAG node job is refused (NotImplementedError,
+HTTP 501): it needs ROADMAP queue 1 item 3.
 
 The wire protocol is plain HTTP + JSON over stdlib `http.server`
 (ThreadingHTTPServer; one thread per connection, the scheduler thread
 does the device work):
 
-  POST /submit            {"rawfiles": [...], "config": {...}}
-                          -> 501 until survey jobs are ported
+  POST /submit            {"rawfiles": [...], "config": {...},
+                           "priority": int}      -> 202 {job_id, ...}
+                          429 when the queue applies backpressure
   GET  /jobs/<id>         job status snapshot
   GET  /jobs/<id>/result  terminal result payload (409 until terminal)
   GET  /healthz           liveness: queue + scheduler state
-  GET  /readyz            readiness: draining / scheduler alive
+  GET  /readyz            readiness: draining / scheduler alive / plan
+                          warm fraction
   GET  /metrics           queue/scheduler/latency snapshot (JSON), or
                           Prometheus text for `Accept: text/plain`
   GET  /events?n=100      tail of the structured event log
@@ -34,26 +42,35 @@ import json
 import os
 import threading
 import time
+from dataclasses import fields as dataclass_fields
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
 from urllib.parse import urlparse, parse_qs
 
 from presto_tpu_torch.serve.events import EventLog
+from presto_tpu_torch.serve.plancache import (PlanCache, PlanStore,
+                                              SearcherProvider, bucket_key)
 from presto_tpu_torch.serve.queue import (Job, JobQueue, JobStatus,
                                           QueueClosed, QueueFull)
 from presto_tpu_torch.serve.scheduler import Scheduler, SchedulerConfig
-from presto_tpu_torch.utils.timing import LatencyStats
+from presto_tpu_torch.utils.timing import LatencyStats, StageTimer
 
-#: what a survey job needs before the port's service can run one
-SURVEY_JOBS_ITEM = ("survey jobs on the port's SearchService need the "
-                    "compiled-plan cache, the survey's plan_provider/obs "
-                    "hooks and serve/batchexec: ROADMAP queue 1 item 2")
 DAG_JOBS_ITEM = ("discovery-DAG node jobs need serve/dag and the job "
                  "ledger: ROADMAP queue 1 item 3")
 
 
 class BadRequest(ValueError):
     """Malformed submission (HTTP 400)."""
+
+
+def _allowed_config_fields():
+    """SurveyConfig fields settable over the wire: everything except the
+    object-valued hooks (plan_provider, sift_policy, fault_injector,
+    obs: in-process only)."""
+    from presto_tpu_torch.pipeline.survey import SurveyConfig
+    blocked = {"plan_provider", "sift_policy", "fault_injector", "obs"}
+    return {f.name for f in dataclass_fields(SurveyConfig)
+            if f.name not in blocked}
 
 
 class SearchService:
@@ -67,15 +84,13 @@ class SearchService:
                  max_retry_depth: Optional[int] = 8, obs=None,
                  obs_config=None, heartbeat_s: float = 0.0,
                  plan_store_dir: Optional[str] = None,
-                 stacked: Optional[bool] = None):
+                 stacked: Optional[bool] = None, device="cuda"):
         from presto_tpu_torch.obs import Observability, ObsConfig
-        for what, given in (("plan_store_dir", plan_store_dir),
-                            ("mesh", mesh), ("stacked=True", stacked)):
-            if given:
-                raise NotImplementedError(
-                    "SearchService(%s): %s" % (what, SURVEY_JOBS_ITEM))
         os.makedirs(workroot, exist_ok=True)
         self.workroot = os.path.abspath(workroot)
+        #: the device survey jobs run on (resolved when one is admitted,
+        #: so a service of callable jobs needs no card)
+        self.device = device
         # a resident service is always observed (a server without
         # /metrics is blind); pass `obs`/`obs_config` to share or tune
         # the handle — e.g. a trace_dir for span export
@@ -88,15 +103,35 @@ class SearchService:
         self.latency = LatencyStats(registry=self.obs.metrics)
         self.queue = JobQueue(maxdepth=queue_depth,
                               max_retry_depth=max_retry_depth)
-        #: the plan cache's bound, reported by metrics() (no cache yet)
-        self.plan_capacity = int(plan_capacity)
+        self.plans = PlanCache(capacity=plan_capacity, events=self.events,
+                               obs=self.obs)
+        # persistent plan tier: every plan built is recorded, and the
+        # kernel libraries are kept for the card, for a later prewarm
+        self.plan_store: Optional[PlanStore] = None
+        if plan_store_dir:
+            self.plan_store = PlanStore(plan_store_dir, obs=self.obs)
+            self.plan_store.enable()
+        self.provider = SearcherProvider(self.plans, mesh=mesh,
+                                         store=self.plan_store,
+                                         device=device)
         self.scheduler = Scheduler(self.queue, self._execute_job,
                                    cfg=scheduler_cfg,
                                    events=self.events,
                                    latency=self.latency,
-                                   obs=self.obs)
-        #: no stacked cross-job executor until serve/batchexec is ported
-        self.stacked = False
+                                   obs=self.obs, plans=self.plans)
+        # cross-job stacked execution (serve/batchexec.py), the default:
+        # a coalesced same-bucket batch runs its device chain as one
+        # stacked call set, degrading to per-job runs on any
+        # incompatibility or failure; off with stacked=False, or when a
+        # subclass overrides job execution
+        if stacked is None:
+            stacked = (type(self)._execute_job
+                       is SearchService._execute_job)
+        self.stacked = bool(stacked)
+        if self.stacked:
+            from presto_tpu_torch.serve.batchexec import \
+                StackedBatchExecutor
+            self.scheduler.batch_executor = StackedBatchExecutor(self)
         self._jobs: Dict[str, Job] = {}
         self._jobs_lock = threading.Lock()  # presto-lint: guards(_jobs)
         self._ids = itertools.count(1)
@@ -112,6 +147,8 @@ class SearchService:
     def stop(self) -> None:
         self.queue.close()
         self.scheduler.stop()
+        if self.plan_store is not None:
+            self.plan_store.disable()
         self.events.close()
         self.obs.flush()
         self.obs.tracer.close()
@@ -128,19 +165,38 @@ class SearchService:
         self.stop()
         return report
 
+    # ---- plan warm-up --------------------------------------------------
+
+    def prewarm(self, limit: Optional[int] = None) -> int:
+        """Rebuild the plan store's recorded plans into the in-memory
+        cache (0 without a store)."""
+        return self.provider.prewarm(limit=limit)
+
     def warm_fraction(self) -> float:
-        """Persistently-known plans resident in memory: 1.0, as the
-        JAX service answers without a plan store."""
-        return 1.0
+        """Persistently-known plans resident in memory (1.0 without a
+        store: nothing to wait for)."""
+        if self.plan_store is None:
+            return 1.0
+        return self.plan_store.warm_fraction(self.plans)
 
     # ---- job admission ------------------------------------------------
 
     def build_job(self, spec: dict, job_id: Optional[str] = None,
                   workdir: Optional[str] = None) -> Job:
-        """Validate one survey submission spec into a Job: refused in
-        the port (NotImplementedError naming the ROADMAP item) after the
-        checks that need no survey (a JSON object; rawfiles a non-empty
-        list of existing files), which stay BadRequest."""
+        """Validate one submission spec into a Job (not yet queued).
+        spec:
+
+          rawfiles  [str, ...]  (required; must exist)
+          config    {SurveyConfig field: value}   (optional)
+          priority  int (optional; lower runs first)
+          job_id    str (optional; must be unique)
+
+        Raises BadRequest on malformed specs; a discovery-DAG node spec
+        (``kind`` sift/fold/toa) raises NotImplementedError (ROADMAP
+        queue 1 item 3); a service on "cuda" with no card raises
+        RuntimeError.  ``job_id``/``workdir`` override the spec."""
+        from presto_tpu_torch.pipeline.survey import SurveyConfig
+        from presto_tpu_torch.search.accel import resolve_device
         if not isinstance(spec, dict):
             raise BadRequest("spec must be a JSON object")
         if str(spec.get("kind", "survey") or "survey") != "survey":
@@ -148,11 +204,39 @@ class SearchService:
         rawfiles = spec.get("rawfiles")
         if not rawfiles or not isinstance(rawfiles, (list, tuple)):
             raise BadRequest("spec.rawfiles must be a non-empty list")
-        missing = [f for f in rawfiles
-                   if not os.path.exists(os.path.abspath(str(f)))]
+        rawfiles = [os.path.abspath(str(f)) for f in rawfiles]
+        missing = [f for f in rawfiles if not os.path.exists(f)]
         if missing:
             raise BadRequest("rawfiles not found: %s" % missing)
-        raise NotImplementedError(SURVEY_JOBS_ITEM)
+        cfg_dict = spec.get("config") or {}
+        if not isinstance(cfg_dict, dict):
+            raise BadRequest("spec.config must be a JSON object")
+        unknown = set(cfg_dict) - _allowed_config_fields()
+        if unknown:
+            raise BadRequest("unknown config fields: %s" % sorted(unknown))
+        resolve_device(self.device)
+        cfg = SurveyConfig(**cfg_dict)
+        cfg.plan_provider = self.provider
+        cfg.obs = self.obs          # job telemetry -> service registry
+        if "durable_stages" not in cfg_dict:
+            # serve jobs default to the fused tier (no .dat/.fft round
+            # trips); a retried job is flipped back to the durable tier
+            # by the scheduler; clients may pin either
+            cfg.durable_stages = False
+        job_id = str(job_id or spec.get("job_id")
+                     or "job-%06d" % next(self._ids))
+        with self._jobs_lock:
+            old = self._jobs.get(job_id)
+            if old is not None and old.status not in JobStatus.SETTLED:
+                raise BadRequest("duplicate job_id %r" % job_id)
+        try:
+            bucket = bucket_key(rawfiles, cfg)
+        except Exception as e:
+            raise BadRequest("unreadable observation header: %s" % e)
+        return Job(job_id=job_id, rawfiles=rawfiles, cfg=cfg,
+                   workdir=workdir or os.path.join(self.workroot, job_id),
+                   priority=int(spec.get("priority", 10)),
+                   bucket=bucket, spec=dict(spec))
 
     def enqueue_job(self, job: Job) -> dict:
         """Admit a built Job into the local queue (may raise
@@ -195,11 +279,26 @@ class SearchService:
     # ---- job execution (scheduler thread) -----------------------------
 
     def _execute_job(self, job: Job) -> dict:
-        """Run one job on the scheduler thread: an in-process callable
-        (the only kind the port admits)."""
-        if job.run is None:
-            raise NotImplementedError(SURVEY_JOBS_ITEM)
-        return job.run(job) or {}
+        """Run one job on the scheduler thread: an in-process callable,
+        or a restartable survey in the job's workdir feeding the shared
+        per-stage latency percentiles."""
+        if job.run is not None:
+            return job.run(job) or {}
+        from presto_tpu_torch.pipeline.survey import run_survey
+        timer = StageTimer(stats=self.latency, obs=self.obs)
+        res = run_survey(job.rawfiles, job.cfg, workdir=job.workdir,
+                         timer=timer, device=self.device)
+        return {
+            "workdir": res.workdir,
+            "candfile": res.candfile,
+            "n_datfiles": len(res.datfiles),
+            "n_cands": (len(res.sifted) if res.sifted is not None
+                        else 0),
+            "folded": list(res.folded),
+            "sp_events": res.sp_events,
+            "stage_seconds": {k: round(v, 4)
+                              for k, v in timer.stages.items()},
+        }
 
     # ---- introspection ------------------------------------------------
 
@@ -250,15 +349,20 @@ class SearchService:
     def readyz(self) -> dict:
         """Readiness: should a router send this replica work?  False
         while draining (shutdown in progress) or dead.  The JAX
-        service's keys: no plan store (``plan_store`` None, warm
-        fraction 1.0) and no fleet lease (``lease`` None) in the port."""
+        service's keys; ``plan_store`` describes the persistent tier
+        (``xla_entries``: the kernel libraries it holds), and ``lease`` is
+        None (no fleet in the port)."""
         ready = bool(self.scheduler.alive) and not self.draining
         return {
             "ready": ready,
             "draining": bool(self.draining),
             "scheduler_alive": bool(self.scheduler.alive),
             "plan_warm_fraction": round(self.warm_fraction(), 4),
-            "plan_store": None,
+            "plan_store": (None if self.plan_store is None else {
+                "supported": self.plan_store.supported,
+                "known_plans": len(self.plan_store.known()),
+                "xla_entries": self.plan_store.xla_entries(),
+            }),
             "queue_depth": len(self.queue),
             "queue_capacity": self.queue.maxdepth,
             "lease": None,
@@ -266,25 +370,23 @@ class SearchService:
 
     def metrics(self) -> dict:
         """The JAX service's JSON metrics shape, every number read off
-        the shared registry; ``plans`` holds an empty cache's values and
-        ``kernel_costs`` is empty (no plan cache, no cost book: ROADMAP
-        queue 1 item 2)."""
+        the shared registry: ``plans`` the plan cache, ``kernel_costs``
+        the per-kind analytic cost book (obs/costmodel)."""
         with self._jobs_lock:
             by_status: Dict[str, int] = {}
             for job in self._jobs.values():
                 by_status[job.status] = by_status.get(job.status, 0) + 1
+        from presto_tpu_torch.obs import costmodel
         return {
             "uptime_s": round(time.time() - self._t0, 3),
             "queue": {"depth": len(self.queue),
                       "capacity": self.queue.maxdepth},
             "jobs": by_status,
             "scheduler": self.scheduler.stats(),
-            "plans": {"size": 0, "capacity": self.plan_capacity,
-                      "hits": 0, "misses": 0, "evictions": 0,
-                      "compile_s": 0.0, "hit_rate": 0.0},
+            "plans": self.plans.stats(),
             "latency": self.latency.snapshot(),
             "events": self.events.counts(),
-            "kernel_costs": {},
+            "kernel_costs": costmodel.snapshot(self.obs),
         }
 
     def metrics_prometheus(self) -> str:

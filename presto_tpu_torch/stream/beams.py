@@ -67,6 +67,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from presto_tpu_torch.io.quality import DataQualityReport
+from presto_tpu_torch.obs import costmodel, devtel
 from presto_tpu_torch.ops import dedispersion as dd
 from presto_tpu_torch.pipeline.leaseledger import LeaseLedger
 from presto_tpu_torch.search.accel import resolve_device
@@ -494,11 +495,16 @@ class BeamMultiplexer:
     # ---- setup (assembler thread) -------------------------------------
 
     def _resolve_stack(self, nbeams: int) -> int:
-        """Beams a stacked step: the explicit ``stack``, else up to 64
-        (a tuned ``beam_stack_size`` comes with ROADMAP queue 1 item
-        2)."""
+        """Beams a stacked step: the explicit ``stack``, else the tuning
+        DB's ``beam_stack_size`` when tuning is active, else up to 64."""
         if self.stack > 0:
             return min(self.stack, nbeams)
+        from presto_tpu_torch import tune
+        if tune.enabled():
+            best = tune.best("beam_stack_size", tune.GLOBAL_KEY,
+                             obs=self.obs)
+            if best and int(best.get("stack", 0)) > 0:
+                return min(int(best["stack"]), nbeams)
         return min(nbeams, 64)
 
     def _setup(self) -> None:
@@ -803,7 +809,14 @@ class BeamMultiplexer:
         # ONE stacked dispatch chain per group, O(1) in beam count
         series_by_lane: Dict[int, Optional[np.ndarray]] = {}
         for rolling, idxs in self.groups:
-            out, dispatched = rolling.feed(bundle["data"][idxs])
+            data = bundle["data"][idxs]
+            out, dispatched = rolling.feed(data)
+            if dispatched:
+                costmodel.probe(self.obs, "beam_dedisp",
+                                numdms=int(rolling._dm_bins.shape[0]),
+                                nsub=rolling.nsub, nchan=data.shape[2],
+                                numpts=data.shape[1], beams=len(idxs))
+                devtel.note_dispatch(self.obs, "beam_dedisp", dispatched)
             self.dispatches += dispatched
             for j, i in enumerate(idxs):
                 series_by_lane[i] = (out[j] if out is not None

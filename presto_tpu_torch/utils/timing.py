@@ -74,18 +74,32 @@ class StageTimer:
     """Accumulates named per-stage wall times; prints a summary table.
     ``mark`` closes the current stage and opens the next; ``stage`` is a
     context manager for a named interval inside one (reported under the
-    stage that was open when it first ran)."""
+    stage that was open when it first ran).  With ``stats`` (a
+    LatencyStats) every closed stage also records a latency sample (a
+    resident service's per-stage percentiles); with ``obs`` (an enabled
+    Observability) every ``mark``ed stage is a ``stage:<name>`` span and
+    a ``survey_stage_seconds{stage=...}`` sample."""
 
-    def __init__(self):
+    def __init__(self, stats: Optional[LatencyStats] = None, obs=None):
         self.stages: Dict[str, float] = {}
         self.samples: Dict[str, List[float]] = {}
         self._inner: Dict[str, Optional[str]] = {}
         self._t0 = time.time()
         self._cur: Optional[tuple] = None
+        self._stats = stats
+        self._obs = obs if (obs is not None
+                            and getattr(obs, "enabled", False)) else None
+        self._span = None
 
     def _close(self, name: str, dt: float) -> None:
         self.stages[name] = self.stages.get(name, 0.0) + dt
         self.samples.setdefault(name, []).append(dt)
+        if self._stats is not None:
+            self._stats.record(name, dt)
+        if self._obs is not None:
+            self._obs.metrics.histogram(
+                "survey_stage_seconds", "Survey stage wall time",
+                ("stage",)).labels(stage=name).observe(dt)
 
     def mark(self, name: Optional[str]) -> None:
         """Sequential accounting: close the current stage (if any) and
@@ -94,7 +108,12 @@ class StageTimer:
         if self._cur is not None:
             cname, t0 = self._cur
             self._close(cname, now - t0)
+        if self._span is not None:
+            self._span.finish()
+            self._span = None
         self._cur = (name, now) if name else None
+        if name and self._obs is not None:
+            self._span = self._obs.span("stage:" + name, stage=name)
 
     @contextmanager
     def stage(self, name: str):

@@ -301,6 +301,9 @@ def test_mux_veto_off_equals_independent_streams(tmp_path):
     ticks = max(lane.ticks for lane in mux.lanes)
     totals = mux.summary_totals()
     assert 1 <= totals["dispatches"] <= ticks
+    # the summary's count is the registry's beam_dedisp dispatch counter
+    assert totals["dispatches"] == mux.obs.metrics.get(
+        "jax_dispatches_total").labels(kind="beam_dedisp").value
     assert deadline_ticks >= 1
     for row in mux.summary()["per_beam"]:
         assert row["spectra"] == hdr.N and row["state"] == "done"

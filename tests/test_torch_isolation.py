@@ -20,7 +20,8 @@ for m in pkgutil.walk_packages(presto_tpu_torch.__path__, "presto_tpu_torch."):
 assert len(mods) >= 20, mods
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
-             or m == "presto_tpu" or m.startswith("presto_tpu."))
+             or m == "presto_tpu" or m.startswith("presto_tpu.")
+             or m == "tools" or m.startswith("tools."))
 assert not bad, bad
 if not torch.cuda.is_available():
     import numpy as np
@@ -290,6 +291,58 @@ def test_stream_and_serve_modules_stand_alone_and_need_cuda(tmp_path):
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "STREAM ISOLATED" in out.stdout
+
+
+SERVE_SCRIPT = r"""
+import sys
+import torch
+from presto_tpu_torch import cuda_build, tune
+from presto_tpu_torch.obs import costmodel, devtel, roofline
+from presto_tpu_torch.pipeline import survey
+from presto_tpu_torch.serve import batchexec, plancache, server
+from presto_tpu_torch.tune import db, runner, space
+from presto_tpu_torch.search.accel import AccelConfig
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "presto_tpu" or m.startswith("presto_tpu.")
+             or m == "tools" or m.startswith("tools."))
+assert not bad, bad
+for name in ("PRESTO_TPU_STACKED", "PRESTO_TPU_COST", "PRESTO_TPU_TUNE",
+             "PRESTO_TPU_TUNE_DB"):
+    for mod in (batchexec, costmodel, tune, db, server, plancache):
+        assert name not in open(mod.__file__).read(), (name, mod.__name__)
+if not torch.cuda.is_available():
+    svc = server.SearchService("serve_isolation_work")
+    prov = plancache.SearcherProvider(plancache.PlanCache())
+    for call in (lambda: svc.build_job({"rawfiles": [db.__file__]}),
+                 lambda: prov.searcher(AccelConfig(zmax=0), 1.0, 4096),
+                 lambda: runner.TuneRunner(),
+                 lambda: roofline.measure_peaks(),
+                 lambda: survey.run_survey_stacked([])):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError("an entry point ran without CUDA")
+print("SERVE ISOLATED")
+"""
+
+
+def test_serve_tune_obs_modules_stand_alone_and_need_cuda(tmp_path):
+    """The plan cache, the stacked executor, the tuning DB, runner and
+    spaces, and the dispatch telemetry, cost book and roofline import
+    neither jax, presto_tpu nor tools/, read none of the JAX package's
+    environment switches, and their entry points (a survey job on a
+    "cuda" service, a searcher plan, the tuning runner, the peaks, the
+    stacked survey) raise without a card."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", SERVE_SCRIPT],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "SERVE ISOLATED" in out.stdout
 
 
 def test_port_imports_no_jax_and_needs_cuda():

@@ -48,7 +48,7 @@ from presto_tpu_torch.serve import (EventLog, Job, JobQueue, JobTimeout,
                                     SchedulerConfig, SearchService,
                                     is_device_error, start_http)
 from presto_tpu_torch.serve.queue import RetryBudgetExceeded
-from presto_tpu_torch.serve.server import SURVEY_JOBS_ITEM
+from presto_tpu_torch.serve.plancache import PlanCache
 from presto_tpu_torch.testing.chaos import TransientFaults
 from presto_tpu_torch.utils.timing import LatencyStats
 
@@ -373,7 +373,8 @@ def test_is_device_error_on_accelerator_error_and_entry_points():
 def test_scheduler_retries_counts_device_errors_and_gives_up():
     """A callable that fails with a CUDA device error twice then works
     is retried with backoff and counted on serve_device_errors_total; a
-    poisoned job fails after its retries; plans= is refused."""
+    poisoned job fails after its retries; plans= takes the plan cache
+    whose device's plans a device error evicts."""
     q = JobQueue()
     calls = []
 
@@ -410,8 +411,8 @@ def test_scheduler_retries_counts_device_errors_and_gives_up():
         assert dev.value == 2
     finally:
         sched.stop()
-    with pytest.raises(NotImplementedError, match="item 2"):
-        Scheduler(JobQueue(), lambda j: None, plans=object())
+    cache = PlanCache(capacity=2)
+    assert Scheduler(JobQueue(), lambda j: None, plans=cache).plans is cache
 
 
 def test_scheduler_job_timeout():
@@ -476,9 +477,11 @@ def test_submit_callable_runs_on_the_deadline_lane(tmp_path):
 
 def test_http_front_end(tmp_path):
     """/healthz, /readyz, /metrics (JSON and Prometheus), /events with
-    since=, /jobs over start_http; POST /submit of a survey answers 501
-    naming ROADMAP queue 1 item 2, a malformed one 400."""
-    svc = SearchService(str(tmp_path), heartbeat_s=0.05).start()
+    since=, /jobs over start_http; POST /submit of a survey whose file
+    has no filterbank header answers 400, a DAG node job 501 naming
+    ROADMAP queue 1 item 3, a malformed one 400."""
+    svc = SearchService(str(tmp_path), heartbeat_s=0.05,
+                        device="cpu").start()
     httpd = start_http(svc)
     base = "http://%s:%d" % httpd.server_address[:2]
     try:
@@ -508,7 +511,10 @@ def test_http_front_end(tmp_path):
         assert all(e["seq"] > first["cursor"] for e in resumed["events"])
         code, out = _post(base + "/submit",
                           json.dumps({"rawfiles": [__file__]}).encode())
-        assert code == 501 and "queue 1 item 2" in out["error"]
+        assert code == 400 and "observation header" in out["error"]
+        code, out = _post(base + "/submit", json.dumps(
+            {"kind": "fold", "parents": []}).encode())
+        assert code == 501 and "queue 1 item 3" in out["error"]
         code, out = _post(base + "/submit", b"{not json")
         assert code == 400
         code, out = _post(base + "/submit", json.dumps(
@@ -526,21 +532,24 @@ def test_http_front_end(tmp_path):
 
 
 def test_survey_and_dag_jobs_and_item2_arguments_refused(tmp_path):
+    """ROADMAP queue 1 item 2's arguments are taken (plan_store_dir,
+    mesh, stacked=True); a survey job on a "cuda" service raises without
+    a card (nothing falls back to the CPU); a DAG node job is refused,
+    naming item 3."""
     svc = SearchService(str(tmp_path))
-    with pytest.raises(NotImplementedError) as ei:
-        svc.submit({"rawfiles": [__file__], "config": {"lodm": 10}})
-    assert str(ei.value) == SURVEY_JOBS_ITEM
-    assert "ROADMAP queue 1 item 2" in SURVEY_JOBS_ITEM
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            svc.submit({"rawfiles": [__file__], "config": {"lodm": 10}})
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         svc.build_job({"kind": "fold", "parents": []})
-    for kw in (dict(plan_store_dir=str(tmp_path / "p")),
-               dict(mesh=("cpu", "cpu")), dict(stacked=True)):
-        with pytest.raises(NotImplementedError, match="item 2"):
-            SearchService(str(tmp_path), **kw)
+    store = SearchService(str(tmp_path), plan_store_dir=str(tmp_path / "p"),
+                          device="cpu")
+    assert store.plan_store is not None and store.readyz()["plan_store"][
+        "supported"] is True
+    assert SearchService(str(tmp_path), mesh=("cpu", "cpu"),
+                         device="cpu").provider.mesh == ("cpu", "cpu")
+    assert SearchService(str(tmp_path), stacked=True).stacked is True
     assert SearchService(str(tmp_path), stacked=False).stacked is False
-    job = _job("survey-shaped")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        svc._execute_job(job)
 
 
 def test_metrics_and_readyz_keep_the_jax_shape(tmp_path):

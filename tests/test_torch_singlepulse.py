@@ -304,14 +304,22 @@ def test_resident_overflow_matches_jax(edge):
 
 
 def test_resident_takes_the_seam_tensor_and_refuses_obs():
+    """The seam tensor and a host array give the same events; ``obs``
+    (once refused) is taken: the same events, and the call's sp_search
+    unit cost probed on the handle's book."""
+    from presto_tpu_torch.obs import Observability, ObsConfig, costmodel
     x = np.random.default_rng(1).normal(size=(2, 9000)).astype(np.float32)
     ts = _port_search()
     a = ts.search_many_resident(torch.as_tensor(x), DT, [0.0, 1.0])
     b = ts.search_many_resident(x, DT, [0.0, 1.0])
     assert [[str(c) for c in r[0]] for r in a] == \
         [[str(c) for c in r[0]] for r in b]
-    with pytest.raises(NotImplementedError):
-        ts.search_many_resident(x, DT, [0.0, 1.0], obs=object())
+    obs = Observability(ObsConfig(enabled=True))
+    c = ts.search_many_resident(x, DT, [0.0, 1.0], obs=obs)
+    assert [[str(e) for e in r[0]] for r in c] == \
+        [[str(e) for e in r[0]] for r in b]
+    unit = costmodel.book(obs).unit("sp_search")
+    assert unit is not None and unit.flops > 0 and unit.hbm_bytes > 0
 
 
 @pytest.mark.parametrize("feed", [1000, 3777, 50000])

@@ -657,12 +657,16 @@ def test_stream_service_tick_failure_skips_no_block(tmp_path, monkeypatch,
         stream = StreamService(svc, src, cfg, device="cpu").start()
         src.set_header(hdr)
         raw = _wire_spectra(hdr, wire)
-        for lo in range(0, hdr.N, 4096):
+        reg = svc.obs.metrics
+        for k, lo in enumerate(range(0, hdr.N, 4096)):
             src.push_spectra(raw[lo:lo + 4096])
-            time.sleep(0.02)           # one block a tick
+            if lo + 4096 <= hdr.N:
+                # one block a tick: the next block is pushed only once
+                # this one's tick job has completed (after its retry,
+                # for the injected failure) or the stream has failed
+                _wait_tick_done(svc, stream, k + 1)
         src.eof()
         assert stream.wait(60.0)
-        reg = svc.obs.metrics
         blocks = reg.get("stream_blocks_total").value
         kinds = [e["kind"] for e in svc.events.tail(100000)]
         if where == "before-tick":
@@ -729,6 +733,19 @@ def _chaos_setup(workdir, seed, seconds, npulses, stall_timeout_s=None,
     prod = SocketProducer(src).start() if use_socket else None
     stream = StreamService(svc, src, cfg, device="cpu").start()
     return hdr, wire, truth, svc, src, prod, stream
+
+
+def _wait_tick_done(svc, stream, n, timeout=30.0):
+    """Wait until n of the stream's tick jobs have completed, or the
+    stream has failed; the wait fails past its deadline."""
+    deadline = time.time() + timeout
+    while stream.failed is None:
+        done = sum(1 for e in svc.events.tail(100000)
+                   if e["kind"] == "complete" and "-tick-" in e["job"])
+        if done >= n:
+            return
+        assert time.time() < deadline, "tick %d never completed" % n
+        time.sleep(0.005)
 
 
 def _hits(svc, truth, tol=0.2):
