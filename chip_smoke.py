@@ -79,17 +79,20 @@ Phases (any failure exits non-zero before the final line):
              rows), then through -elastic with one killed at a shard's
              commit point, the survivor finishing; every .dat of both
              byte-equal to the unsharded run's;
-  6d. serve  survey jobs on the port's SearchService (plan store,
-             stacked=True, HTTP front end): two POST /submit specs of the
-             beam with the main phase's configuration run as one stacked
-             batch (one schedule event of occupancy 2, no degrade), each
-             job's .dat, .singlepulse, ACCEL files, cands_sifted.txt and
-             .pfd equal to the main run's; a second service on the store
-             prewarms (warm fraction 1.0) and a third job alone hits the
-             plan cache; metrics() with the kernel cost book; the card's
-             roofline peaks measured beside the nominal ones; the stacked
-             batch's wall beside two jobs alone; a smoke-shape tuning
-             sweep into a DB, read back through tune.best;
+  6d. serve  survey jobs on the port's SearchService, four services on
+             one plan store: two POST /submit specs of the beam with the
+             main phase's configuration run as one stacked batch (one
+             schedule event of occupancy 2, no degrade), each job's .dat,
+             .singlepulse, ACCEL files, cands_sifted.txt and .pfd equal
+             to the main run's; then, each prewarmed from the store
+             (warm fraction 1.0, plan hits, no plan build), two jobs one
+             after the other (stacked=False), two jobs as one stacked
+             batch again (the pair timed against the pair alone, both
+             warm), and one job over a mesh of two logical shards of the
+             card (each shard's plane_build and stage_reduce launches);
+             metrics() with the kernel cost book; the card's roofline
+             peaks measured beside the nominal ones; a smoke-shape
+             tuning sweep into a DB, read back through tune.best;
   7. small   spectra of 2^15 and 3000 bins searched on the card and on
              the CPU (the second on the non-aligned plane geometry);
   8. singlepulse  the JAX package's single-pulse bench shape (bench.py's
@@ -2488,25 +2491,33 @@ SERVE_COST_KINDS = ("plane_build", "stage_reduce", "rfft_batch",
                     "accel_search")
 
 
-def phase_serve(raw, workdir, mwork, main_res, device="cuda"):
-    """Survey jobs on the port's SearchService on the card: a service
-    with a plan store, stacked=True and its HTTP front end takes two
-    POST /submit specs of the beam with the main phase's configuration
-    (two workdirs, one bucket): one schedule event of occupancy 2, no
-    degrade, each job's files equal to the main run's.  A second service
-    on the same store prewarms (>= 1 plan, warm fraction 1.0), and a
-    third job runs alone with a plan hit and no plan build.  metrics():
-    the plan cache and the kernel cost book (non-zero flops and bytes
-    for plane_build, stage_reduce, rfft_batch, accel_search); the card's
-    roofline peaks measured (obs/roofline) beside the nominal ones; the
-    stacked batch's wall beside two jobs run alone (the main phase's
-    run_survey and the third job).  Then a smoke-shape TuneRunner sweep
-    of serve_batch_geometry and pipeline_inflight_depth into a DB, read
-    back through tune.best, and its provenance written.  (``device``
-    "cpu" rehearses the phase's control flow at a small size.)"""
+def phase_serve(raw, workdir, mwork, device="cuda"):
+    """Survey jobs on the port's SearchService on the card, four services
+    on one plan store, each with its jobs admitted before its scheduler
+    starts: (1) stacked=True with its HTTP front end takes two POST
+    /submit specs of the beam with the main phase's configuration (two
+    workdirs, one bucket): one schedule event of occupancy 2, no
+    degrade, each job's files equal to the main run's; (2) stacked=False
+    prewarms from the store (>= 1 plan, warm fraction 1.0) and runs two
+    jobs one after the other, each a plan hit and no plan build; (3)
+    stacked=True prewarmed runs two jobs as one stacked batch again, so
+    the stacked pair and the pair alone are timed on equally warm
+    services; (4) a service with a mesh of two logical shards of the
+    card runs one job with its rows placed over the mesh: each shard's
+    plane_build and stage_reduce launches on its device.  metrics(): the
+    plan cache and the kernel cost book (non-zero flops and bytes for
+    plane_build, stage_reduce, rfft_batch, accel_search); the card's
+    roofline peaks measured (obs/roofline) beside the nominal ones.
+    Then a smoke-shape TuneRunner sweep of serve_batch_geometry and
+    pipeline_inflight_depth into a DB, read back through tune.best, and
+    its provenance written.  (``device`` "cpu" rehearses the phase's
+    control flow at a small size.)"""
     import dataclasses
     from presto_tpu_torch import tune
     from presto_tpu_torch.obs import roofline
+    from presto_tpu_torch.parallel import sharded
+    from presto_tpu_torch.parallel.mesh import Mesh
+    from presto_tpu_torch.search.accel import resolve_device
     from presto_tpu_torch.serve.server import SearchService, start_http
     from presto_tpu_torch.tune import space
     from presto_tpu_torch.tune.db import TuneDB
@@ -2517,75 +2528,103 @@ def phase_serve(raw, workdir, mwork, main_res, device="cuda"):
               if f.name in ("lodm", "hidm", "nsub", "zmax", "numharm",
                             "fold_top", "durable_stages")}
     store = os.path.join(workdir, "store")
-    svc = SearchService(os.path.join(workdir, "svc"), plan_store_dir=store,
-                        stacked=True, device=device)
-    httpd = start_http(svc)
-    base = "http://%s:%d" % httpd.server_address[:2]
-    try:
-        posted = [_http("POST", base + "/submit",
-                        {"rawfiles": [raw], "config": config,
-                         "job_id": "serve-%d" % i}) for i in range(2)]
-        ids = [body.get("job_id") for _code, body in posted]
-        sub_ok = all(code == 202 for code, _b in posted)
+
+    def run(svc, name, njobs, base=None):
+        """njobs specs of the beam admitted (POSTed when ``base``), then
+        the scheduler started: {ok, seconds, schedule occupancies,
+        degrades, stacked per job, files equal, plan stats before and
+        after}."""
+        spec = [{"rawfiles": [raw], "config": config,
+                 "job_id": "%s-%d" % (name, i)} for i in range(njobs)]
+        if base is not None:
+            posted = [_http("POST", base + "/submit", s) for s in spec]
+            admitted = all(code == 202 for code, _b in posted)
+            ids = [body.get("job_id") for _code, body in posted]
+        else:
+            ids = [svc.submit(s)["job_id"] for s in spec]
+            admitted = True
+        before = svc.plans.stats()
         t0 = time.time()
         svc.start()
         done = svc.wait(ids, timeout=600.0)
         if device == "cuda":
             torch.cuda.synchronize()
-        stacked_s = time.time() - t0
-        views = [_http("GET", base + "/jobs/%s/result" % j)[1] for j in ids]
+        seconds = time.time() - t0
         evs = svc.events.tail(100000)
-        scheds = [e for e in evs if e["kind"] == "schedule"]
-        degrades = [e for e in evs if e["kind"] == "degrade"]
-        files = {j: _job_files_equal(svc.get_job(j).workdir, mwork)
-                 for j in ids}
-        files_ok = all(ok and n > 0 for f in files.values()
-                       for ok, n in f.values())
-        stack_ok = (sub_ok and done and len(scheds) == 1
-                    and scheds[0]["occupancy"] == 2 and not degrades
-                    and all(v.get("status") == "done" for v in views)
-                    and all(v["result"].get("stacked") == 2 for v in views))
-        log("serve: POST /submit x2 -> %s; schedule events %s, degrades %d; "
-            "stacked batch %.3f s; files equal to the main run's %s %s"
-            % ([c for c, _b in posted], [e["occupancy"] for e in scheds],
-               len(degrades), stacked_s, json.dumps(files),
-               "ok" if stack_ok and files_ok else "FAIL"))
+        jobs = [svc.get_job(j) for j in ids]
+        files = {j.job_id: _job_files_equal(j.workdir, mwork) for j in jobs}
+        out = dict(seconds=seconds, before=before, after=svc.plans.stats(),
+                   occupancy=[e["occupancy"] for e in evs
+                              if e["kind"] == "schedule"],
+                   degrades=sum(e["kind"] == "degrade" for e in evs),
+                   stacked=[(j.result or {}).get("stacked") for j in jobs],
+                   files=files,
+                   files_ok=all(ok and n > 0 for f in files.values()
+                                for ok, n in f.values()))
+        out["ok"] = (admitted and done and out["files_ok"]
+                     and all(j.status == "done" for j in jobs))
+        log("serve: %s: %d job(s) %.3f s; schedule occupancy %s, degrades "
+            "%d, stacked %s; plan hits %d -> %d, builds %d -> %d; files "
+            "equal to the main run's %s %s"
+            % (name, njobs, seconds, out["occupancy"], out["degrades"],
+               out["stacked"], before["hits"], out["after"]["hits"],
+               before["misses"], out["after"]["misses"], json.dumps(files),
+               "ok" if out["ok"] else "FAIL"))
+        return out
+
+    # (1) a cold service, the pair POSTed over HTTP, one stacked batch
+    svc = SearchService(os.path.join(workdir, "svc1"), plan_store_dir=store,
+                        stacked=True, device=device)
+    httpd = start_http(svc)
+    try:
+        cold = run(svc, "stacked-cold", 2,
+                   base="http://%s:%d" % httpd.server_address[:2])
         m1 = svc.metrics()
         readyz1 = svc.readyz()
     finally:
         httpd.shutdown()
         svc.stop()
-    # a second service on the same store: prewarm, then one job alone
-    svc2 = SearchService(os.path.join(workdir, "svc2"),
-                         plan_store_dir=store, stacked=True, device=device)
-    try:
-        warmed = svc2.prewarm()
-        warm = svc2.warm_fraction()
-        before = svc2.plans.stats()
-        jid = svc2.submit({"rawfiles": [raw], "config": config,
-                           "job_id": "serve-alone"})["job_id"]
-        t0 = time.time()
-        svc2.start()
-        done2 = svc2.wait([jid], timeout=600.0)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        alone_s = time.time() - t0
-        after = svc2.plans.stats()
-        files3 = _job_files_equal(svc2.get_job(jid).workdir, mwork)
-        readyz2 = svc2.readyz()
-        m2 = svc2.metrics()
-    finally:
-        svc2.stop()
-    warm_ok = (warmed >= 1 and warm == 1.0 and done2
-               and after["hits"] > before["hits"]
-               and after["misses"] == before["misses"]
-               and all(ok and n > 0 for ok, n in files3.values()))
-    log("serve: second service prewarmed %d plan(s) from the store (warm "
-        "fraction %.3f, store %s); third job alone %.3f s: plan hits %d -> "
-        "%d, builds %d -> %d, files equal %s %s"
-        % (warmed, warm, json.dumps(readyz2["plan_store"]), alone_s,
-           before["hits"], after["hits"], before["misses"], after["misses"],
-           json.dumps(files3), "ok" if warm_ok else "FAIL"))
+    stack_ok = (cold["ok"] and cold["occupancy"] == [2]
+                and not cold["degrades"] and cold["stacked"] == [2, 2])
+    warm = {}
+    for name, stacked, mesh, njobs in (
+            ("alone", False, None, 2), ("stacked", True, None, 2),
+            ("mesh", True, 2, 1)):
+        dev = resolve_device(device)
+        svc = SearchService(os.path.join(workdir, name),
+                            plan_store_dir=store, stacked=stacked,
+                            device=device,
+                            mesh=Mesh((dev,) * mesh) if mesh else None)
+        try:
+            prewarmed = svc.prewarm()
+            fraction = svc.warm_fraction()
+            sharded.shard_launches.clear()
+            warm[name] = run(svc, name, njobs)
+            warm[name].update(
+                prewarmed=prewarmed, warm_fraction=fraction,
+                shards={k: dict(v) for k, v
+                        in sorted(sharded.shard_launches.items())},
+                plan_store=svc.readyz()["plan_store"],
+                plans=svc.metrics()["plans"])
+        finally:
+            svc.stop()
+        r = warm[name]
+        r["ok"] = (r["ok"] and prewarmed >= 1 and fraction == 1.0
+                   and r["after"]["hits"] > r["before"]["hits"]
+                   and r["after"]["misses"] == r["before"]["misses"]
+                   and r["occupancy"] == [njobs] and not r["degrades"])
+        log("serve: %s: prewarmed %d plan(s) (warm fraction %.3f, store "
+            "%s); shards %s"
+            % (name, prewarmed, fraction, json.dumps(r["plan_store"]),
+               json.dumps(r["shards"])))
+    warm["stacked"]["ok"] &= warm["stacked"]["stacked"] == [2, 2]
+    per = {k: v for k, v in warm["mesh"]["shards"].items()}
+    counted = device != "cuda" or all(
+        v["plane_build"] > 0 and v["stage_reduce"] > 0 for v in per.values())
+    warm["mesh"]["ok"] &= (sorted(per) == [0, 1] and counted and all(
+        v["device"] == str(resolve_device(device)) and v["trials"] > 0
+        for v in per.values()))
+    warm_ok = all(r["ok"] for r in warm.values())
     costs = m1["kernel_costs"].get("kinds", {})
     cost_rows = {k: {x: costs.get(k, {}).get(x) for x in (
         "dispatches", "flops_per_dispatch", "hbm_bytes_per_dispatch",
@@ -2626,20 +2665,22 @@ def phase_serve(raw, workdir, mwork, main_res, device="cuda"):
         % (json.dumps({n: [[k, c, m] for k, c, m in v]
                        for n, v in tuned.items()}), json.dumps(best),
            prov, "ok" if tune_ok else "FAIL"))
-    two_alone = main_res["stages"]["run_survey_s"] + alone_s
-    log("serve: stacked batch of 2 %.3f s beside two jobs alone %.3f s "
-        "(the main phase's run_survey %.3f s + the third job %.3f s; host "
-        "clock, one call, no claim)"
-        % (stacked_s, two_alone, main_res["stages"]["run_survey_s"],
-           alone_s))
-    ok = stack_ok and files_ok and warm_ok and costs_ok and tune_ok
-    return dict(ok=ok, stacked_s=stacked_s, alone_s=alone_s,
-                two_alone_s=two_alone, files=files, files_alone=files3,
-                occupancy=[e["occupancy"] for e in scheds],
-                degrades=len(degrades), prewarmed=warmed, warm_fraction=warm,
-                plans=m1["plans"], plans_second=m2["plans"],
-                plan_store=readyz1["plan_store"], kernel_costs=cost_rows,
-                peaks=peaks, roofline=rows, tuned=tuned, tune_best=best)
+    stacked_s, alone_s = warm["stacked"]["seconds"], warm["alone"]["seconds"]
+    log("serve: on prewarmed services, a stacked batch of 2 %.3f s beside "
+        "the same 2 jobs run one after the other %.3f s (%.3fx; cold "
+        "stacked batch %.3f s; host clock, one call, no claim)"
+        % (stacked_s, alone_s, stacked_s / alone_s, cold["seconds"]))
+    ok = stack_ok and warm_ok and costs_ok and tune_ok
+    return dict(ok=ok, stacked_s=stacked_s, two_alone_s=alone_s,
+                stacked_cold_s=cold["seconds"], files=cold["files"],
+                occupancy=cold["occupancy"], degrades=cold["degrades"],
+                warm={k: {x: v[x] for x in (
+                    "ok", "seconds", "occupancy", "degrades", "stacked",
+                    "files", "prewarmed", "warm_fraction", "shards",
+                    "plans")} for k, v in warm.items()},
+                plans=m1["plans"], plan_store=readyz1["plan_store"],
+                kernel_costs=cost_rows, peaks=peaks, roofline=rows,
+                tuned=tuned, tune_best=best)
 
 
 def _free_port():
@@ -3372,8 +3413,7 @@ def main():
                                 main_res["maskfile"])
         torch.cuda.empty_cache()
         read = launch_counts()
-        serve = phase_serve(raw, os.path.join(work, "serve"), mwork,
-                            main_res)
+        serve = phase_serve(raw, os.path.join(work, "serve"), mwork)
         serve["launches"] = read()
         torch.cuda.empty_cache()
     finally:

@@ -10,12 +10,10 @@ arch=compute_90a,code=sm_90a -O3 -shared``; each ``csrc/<name>.cpp``
 use; ``build_all`` starts one compiler per source at once.  A missing
 toolchain raises: nothing falls back to another implementation.
 
-``set_store(dir)`` (serve/plancache.PlanStore's executable tier, one
-directory per card fingerprint) keeps a copy of every library built or
-loaded: a library the store holds is copied in instead of compiled, so
-a second service on the same store starts without nvcc runs.  Each
-compile is booked through obs/devtel (``jax_compiles_total{kind=
-"nvcc:<name>"}``).
+Each compile is booked through obs/devtel (``jax_compiles_total{kind=
+"nvcc:<name>"}``); ``is_built`` answers whether a source's library is
+current in the build directory (serve/plancache.PlanStore counts the
+plan libraries with it).
 """
 
 from __future__ import annotations
@@ -37,44 +35,6 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
-_store_dir = None
-
-
-def set_store(path) -> None:
-    """Keep built libraries in ``path`` as well (None: no store); the
-    libraries this process has loaded already are copied there now."""
-    global _store_dir
-    with _lock:
-        if path is not None:
-            os.makedirs(path, exist_ok=True)
-        _store_dir = path
-        for name in _libs:
-            out = _target(name)
-            kept = _stored(out)
-            if kept is not None and not os.path.exists(kept):
-                _copy_pair(out, kept)
-
-
-def store() -> str:
-    """The current library store (None: no store)."""
-    return _store_dir
-
-
-def _stored(out: str):
-    """The store's copy of a library's target path (None: no store)."""
-    if _store_dir is None:
-        return None
-    return os.path.join(_store_dir, os.path.basename(out))
-
-
-def _copy_pair(src: str, dst: str) -> None:
-    """Copy a library and its compiler log, the library last (its
-    presence marks a whole pair), each through a temporary name."""
-    os.makedirs(os.path.dirname(dst), exist_ok=True)
-    for ext in (".txt", ""):
-        tmp = "%s.%d.tmp" % (dst + ext, os.getpid())
-        shutil.copyfile(src + ext, tmp)
-        os.replace(tmp, dst + ext)
 
 
 def nvcc() -> str:
@@ -119,18 +79,20 @@ def _target(name: str) -> str:
     return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, digest[:12]))
 
 
+def is_built(name: str) -> bool:
+    """Is the library of the current ``csrc/<name>`` source (and its
+    compiler log) in the build directory?"""
+    out = _target(name)
+    return os.path.exists(out) and os.path.exists(out + ".txt")
+
+
 def _start(name: str):
     """Start the compiler for one source (None when the library is
     current)."""
+    if is_built(name):
+        return None
     out = _target(name)
-    if os.path.exists(out) and os.path.exists(out + ".txt"):
-        return None
     os.makedirs(BUILD_DIR, exist_ok=True)
-    kept = _stored(out)
-    if kept is not None and os.path.exists(kept) \
-            and os.path.exists(kept + ".txt"):
-        _copy_pair(kept, out)
-        return None
     tmp = "%s.%d.%d.tmp" % (out, os.getpid(), threading.get_ident())
     proc = subprocess.Popen(_command(_source(name), tmp),
                             stdout=subprocess.PIPE,
@@ -202,11 +164,7 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             t0 = time.time()
             _finish(name, _start(name))
-            out = _target(name)
-            kept = _stored(out)
-            if kept is not None and not os.path.exists(kept):
-                _copy_pair(out, kept)
-            lib = ctypes.CDLL(out)
+            lib = ctypes.CDLL(_target(name))
             lib.build_seconds = time.time() - t0
             _libs[name] = lib
     return lib

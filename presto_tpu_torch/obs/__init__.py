@@ -106,8 +106,9 @@ class Observability:
 
     def flush(self, default_dir: Optional[str] = None) -> None:
         """Export buffered spans as a Perfetto/Chrome trace into
-        cfg.trace_dir (or `default_dir`).  Safe to call repeatedly;
-        never raises."""
+        cfg.trace_dir (or `default_dir`), then the kernel-cost book as
+        kernel_costs.json.  Safe to call repeatedly; a failed trace
+        export is dropped, a failed cost-book write raises."""
         if not self.enabled:
             return
         d = self.cfg.trace_dir or default_dir
@@ -129,12 +130,12 @@ class Observability:
                         "".join(_json.dumps(s.to_json(),
                                             sort_keys=True) + "\n"
                                 for s in spans))
-            # the kernel-cost book -> kernel_costs.json (no-op when
-            # nothing was probed; runs no device work)
-            from presto_tpu_torch.obs import costmodel
-            costmodel.write_costs(self, d)
         except Exception:
             pass
+        # the kernel-cost book -> kernel_costs.json (no-op when nothing
+        # was probed; runs no device work)
+        from presto_tpu_torch.obs import costmodel
+        costmodel.write_costs(self, d)
 
 
 # ----------------------------------------------------------------------

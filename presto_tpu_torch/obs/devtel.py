@@ -54,8 +54,12 @@ def device_id(device=None) -> str:
         return "cpu_0"
     d = torch.device(device)
     if d.type == "cuda":
-        idx = d.index if d.index is not None else \
-            torch.cuda.current_device()
+        idx = d.index
+        if idx is None:
+            # the current device; with no card visible no plan can be
+            # bound to one, and the first card's identity names it
+            idx = (torch.cuda.current_device()
+                   if torch.cuda.is_available() else 0)
         return "cuda_%d" % idx
     return "%s_%d" % (d.type, d.index or 0)
 

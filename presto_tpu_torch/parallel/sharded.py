@@ -35,10 +35,11 @@ import torch
 from presto_tpu_torch.ops import dedispersion as dd
 from presto_tpu_torch.parallel.mesh import Mesh, shard_row_ranges
 
-#: by shard index, over the sharded_accel_search_many calls on CUDA
-#: tensors (every non-jerk search_many; a one-device search is shard 0):
-#: the shard's device, its trials and the launches of each kernel it
-#: made (cleared by callers that count)
+#: by shard index, over the sharded_accel_search_many calls (every
+#: non-jerk search_many; a one-device search is shard 0): the shard's
+#: device, its trials and the launches of each kernel it made (none on
+#: the CPU, where the wrappers run the plain versions; cleared by
+#: callers that count)
 shard_launches: Dict[int, dict] = {}
 
 
@@ -317,12 +318,12 @@ def sharded_accel_search_many(searcher, pairs_batch, mesh: Mesh,
                 done = torch.cuda.Event()
                 done.record()
             comp = host
-            rec = shard_launches.setdefault(shard, {
-                "device": str(d), "trials": 0, "plane_build": 0,
-                "stage_reduce": 0})
-            rec["trials"] += x.shape[0]
-            rec["plane_build"] += build_cuda.launches - before[0]
-            rec["stage_reduce"] += accel_cuda.launches - before[1]
+        rec = shard_launches.setdefault(shard, {
+            "device": str(d), "trials": 0, "plane_build": 0,
+            "stage_reduce": 0})
+        rec["trials"] += x.shape[0]
+        rec["plane_build"] += build_cuda.launches - before[0]
+        rec["stage_reduce"] += accel_cuda.launches - before[1]
         pend.append((packs, comp, done))
     out: List[list] = []
     for packs, comp, done in pend:

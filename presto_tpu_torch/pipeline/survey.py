@@ -923,15 +923,36 @@ class _StackManifest:
         return stale
 
 
-def _merged_seam(ctxs, obs, manifest) -> fusion.StageSeam:
+def _place_over_mesh(block: fusion.SeamBlock, mesh) -> fusion.SeamBlock:
+    """A merged block's rows over ``mesh`` (parallel/mesh.batch_sharding;
+    a mesh entry that would get no row is left out): a ShardedSeamBlock
+    whose k-th shard holds its rows on its device, where the FFT, the
+    search and the single-pulse stage then run them."""
+    from presto_tpu_torch.parallel import mesh as pmesh
+    shards = [(d, (lo, hi)) for d, (lo, hi) in
+              pmesh.batch_sharding(mesh, len(block.names)) if hi > lo]
+    return fusion.ShardedSeamBlock(
+        names=block.names, infos=block.infos, dms=block.dms,
+        series_dev=[block.series_dev[lo:hi].to(d)
+                    for d, (lo, hi) in shards],
+        series_host=block.series_host, valid=block.valid,
+        numout=block.numout, dt=block.dt,
+        row_ranges=[r for _d, r in shards],
+        mesh=pmesh.Mesh(tuple(d for d, _r in shards)))
+
+
+def _merged_seam(ctxs, obs, manifest, mesh=None) -> fusion.StageSeam:
     """One StageSeam over every stacked job's deposited blocks: blocks of
     one geometry (padded length, valid span, sample time) concatenated on
     the batch axis into one [sum(numdms), numout] device tensor, so the
     FFT, search and single-pulse stages make one batched call where N
     per-job runs made N.  Per-trial math does not depend on the batch, so
-    every artifact matches the per-job run.  Source blocks hand their
-    device tensor to the merged copy (each job's seam keeps its host copy
-    for spills and folds)."""
+    every artifact matches the per-job run.  With a ``mesh`` each merged
+    block's rows are placed over it (_place_over_mesh); a one-job stack
+    keeps the blocks prepsubband sharded over every card as they are,
+    and a stack of several refuses them (StackedSeamError).  Source blocks
+    hand their device tensor to the merged copy (each job's seam keeps
+    its host copy for spills and folds)."""
     cfg0 = ctxs[0]["cfg"]
     seam = fusion.StageSeam(ctxs[0]["workdir"],
                             durable=cfg0.durable_stages is not False,
@@ -941,8 +962,13 @@ def _merged_seam(ctxs, obs, manifest) -> fusion.StageSeam:
     for c in ctxs:
         for b in c["seam"].blocks:
             if fusion.is_sharded(b):
-                raise StackedSeamError("mesh-sharded seam blocks cannot be "
-                                       "stacked across jobs")
+                if len(ctxs) > 1:
+                    raise StackedSeamError("mesh-sharded seam blocks "
+                                           "cannot be stacked across jobs")
+                # one job's block prepsubband sharded over every card:
+                # its rows stay where they were dedispersed
+                groups[("sharded", len(groups))] = [b]
+                continue
             groups.setdefault((int(b.numout), int(b.valid), float(b.dt)),
                               []).append(b)
     for key, blocks in groups.items():
@@ -957,6 +983,9 @@ def _merged_seam(ctxs, obs, manifest) -> fusion.StageSeam:
                 series_host=np.concatenate([b.series_host
                                             for b in blocks]),
                 valid=key[1], numout=key[0], dt=key[2])
+        if mesh is not None and not fusion.is_sharded(mb):
+            mb = _place_over_mesh(mb, mesh)
+        if mb is not blocks[0]:
             for b in blocks:
                 b.series_dev = None
         seam.blocks.append(mb)
@@ -965,9 +994,10 @@ def _merged_seam(ctxs, obs, manifest) -> fusion.StageSeam:
     return seam
 
 
-def _stacked_device_stages(ctxs, device) -> None:
+def _stacked_device_stages(ctxs, device, mesh=None) -> None:
     """The merged middle for one sub-stack: every job's seam blocks
-    concatenated, one _device_search_stages pass over the union."""
+    concatenated (and placed over ``mesh``), one _device_search_stages
+    pass over the union."""
     cfg0 = ctxs[0]["cfg"]
     obs0 = ctxs[0]["obs"]
     manifest = _StackManifest([(c["workdir"], c["manifest"]) for c in ctxs])
@@ -977,14 +1007,14 @@ def _stacked_device_stages(ctxs, device) -> None:
     if injectors and (len(injectors) > 1
                       or injectors[0] is not cfg0.fault_injector):
         cfg_m = replace(cfg0, fault_injector=_FanInjector(injectors))
-    seam = _merged_seam(ctxs, obs0, manifest)
+    seam = _merged_seam(ctxs, obs0, manifest, mesh=mesh)
     disk_only = [f for c in ctxs for f in c["disk_only"]]
     _device_search_stages(seam, disk_only, cfg_m,
                           _FanTimer([c["timer"] for c in ctxs]), manifest,
                           device, obs0)
 
 
-def run_survey_stacked(jobs, stack_planner=None, device="cuda"):
+def run_survey_stacked(jobs, stack_planner=None, device="cuda", mesh=None):
     """Run N same-geometry surveys with the device middle stacked:
     per-job heads (rfifind -> DDplan -> prepsubband) deposit N seams, the
     merged DM fan-outs cross stage 9a and the rFFT -> accelsearch chain
@@ -997,6 +1027,10 @@ def run_survey_stacked(jobs, stack_planner=None, device="cuda"):
     stack_planner: callable(per-job chain bytes) -> sub-stack sizes
     summing to N (serve/batchexec's tuned plan with the memory clamp);
     None = one stack of every job.
+    mesh: a parallel/mesh.Mesh the merged DM fan-out's rows are placed
+    over (batch_sharding): each device runs the FFT, plane_build and
+    stage_reduce and the single-pulse search of its rows.  None = the
+    rows stay on ``device``.  One job is a stack of one.
 
     Every artifact is byte-identical to N independent run_survey calls;
     any failure propagates (the scheduler redoes the batch per job, and
@@ -1036,7 +1070,7 @@ def run_survey_stacked(jobs, stack_planner=None, device="cuda"):
                                        % (sizes, len(ctxs)))
             i = 0
             for size in sizes:
-                _stacked_device_stages(ctxs[i:i + size], device)
+                _stacked_device_stages(ctxs[i:i + size], device, mesh)
                 i += size
             for c in ctxs:
                 _finish_survey_stages(c["rawfiles"], c["cfg"], c["workdir"],

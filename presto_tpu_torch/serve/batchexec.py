@@ -118,7 +118,8 @@ def resolve_stack_geometry(per_job_bytes: Optional[List[int]] = None,
 class StackedBatchExecutor:
     """The scheduler's cross-job ``batch_executor``: callable(jobs) ->
     per-job result dicts, the whole same-bucket batch through one
-    stacked device chain on the service's device."""
+    stacked device chain on the service's device (its rows over the
+    service's mesh when it has one)."""
 
     def __init__(self, service):
         self.service = service
@@ -194,7 +195,8 @@ class StackedBatchExecutor:
             results = run_survey_stacked(
                 [(job.rawfiles, job.cfg, job.workdir, timer)
                  for job, timer in zip(jobs, timers)],
-                stack_planner=self._plan, device=self.service.device)
+                stack_planner=self._plan, device=self.service.device,
+                mesh=self.service.mesh)
         except Exception as e:
             span.finish("error: %s" % type(e).__name__)
             raise

@@ -17,10 +17,12 @@ lengths differ by a few percent land in the same bucket.  Two layers:
 
 ``PlanStore`` is the persistent tier, one directory per card
 fingerprint (tune/db.py): a recipe sidecar of every plan built, merged
-under a lock by concurrent services, and an executable tier holding the
-built CUDA kernel libraries (cuda_build.set_store) in place of XLA's
-compilation cache, so a second service on the same store rebuilds its
-plans from the recipes and loads its kernels without an nvcc run.
+under a lock by concurrent services, so a second service on the same
+store rebuilds its plans from the recipes.  The executable tier, XLA's
+compilation cache in the JAX package, is cuda_build's own build
+directory: a kernel library is kept there per source hash across
+processes, and a prewarm loads the plans' libraries from it without an
+nvcc run once they are built.
 """
 
 from __future__ import annotations
@@ -258,10 +260,9 @@ class SearcherProvider:
     an AccelSearch on the provider's ``device``.  With a PlanStore every
     plan built is recorded (its rebuild recipe lands in the store)."""
 
-    def __init__(self, cache: PlanCache, mesh=None,
+    def __init__(self, cache: PlanCache,
                  store: Optional["PlanStore"] = None, device="cuda"):
         self.cache = cache
-        self.mesh = mesh
         self.store = store
         self.device = torch.device(device)
 
@@ -289,9 +290,10 @@ class SearcherProvider:
 
     def prewarm(self, limit: Optional[int] = None) -> int:
         """Rebuild every plan the store knows for this fingerprint into
-        the cache, and on a card load the plans' kernel libraries (from
-        the store's executable tier when it holds them).  Returns the
-        number of plans warmed; a recipe that does not rebuild raises."""
+        the cache, and on a card load the plans' kernel libraries (built
+        first when cuda_build's directory does not hold them yet).
+        Returns the number of plans warmed; a recipe that does not
+        rebuild raises."""
         if self.store is None:
             return 0
         from presto_tpu_torch.search.accel import AccelConfig, \
@@ -324,12 +326,12 @@ STORE_SCHEMA = 1
 class PlanStore:
     """Persistent plan tier keyed by the card's fingerprint.
 
-      * **The executable tier** (``enable()``): cuda_build keeps every
-        kernel library it builds or loads under ``<root>/<fingerprint>/
-        xla/``, and a later build of the same source for the same card
-        copies it from there instead of running nvcc.  ``xla_entries``
-        counts the libraries held there (readyz's key keeps the JAX
-        package's name).
+      * **The executable tier** is cuda_build's build directory, which
+        keeps each kernel library per source hash across processes (a
+        change of the sources is a change of the fingerprint's
+        kernel_hash).  ``xla_entries`` counts the plan libraries
+        (PLAN_LIBRARIES) built there for the current sources (readyz's
+        key keeps the JAX package's name).
       * **A plan-recipe sidecar** (``plankeys.json``): every plan built
         is recorded with what rebuilds it (SearcherProvider.prewarm),
         merged atomically under a lock directory so concurrent services
@@ -347,7 +349,6 @@ class PlanStore:
         fp_id = hashlib.sha1(self.fingerprint.encode()).hexdigest()[:16]
         self.root = os.path.abspath(root)
         self.dir = os.path.join(self.root, fp_id)
-        self.xla_dir = os.path.join(self.dir, "xla")
         self.sidecar = os.path.join(self.dir, "plankeys.json")
         from presto_tpu_torch.pipeline.leaseledger import _LockDir
         self._lock = _LockDir(self.sidecar + ".lock")
@@ -367,28 +368,18 @@ class PlanStore:
 
     # -- executable tier ------------------------------------------------
     def enable(self) -> bool:
-        """Point cuda_build's library store at this fingerprint's
-        directory (process-wide).  A directory that cannot be made
-        raises."""
-        from presto_tpu_torch import cuda_build
-        cuda_build.set_store(self.xla_dir)
+        """The executable tier needs no set-up on the card (cuda_build
+        keeps the libraries): marks the store supported."""
         self.supported = True
         return True
 
-    def disable(self) -> None:
-        """Stop keeping libraries here (when this store is the current
-        one)."""
+    @staticmethod
+    def xla_entries() -> int:
+        """The plan libraries (PLAN_LIBRARIES) built for the current
+        kernel sources."""
         from presto_tpu_torch import cuda_build
-        if cuda_build.store() == self.xla_dir:
-            cuda_build.set_store(None)
-
-    def xla_entries(self) -> int:
-        """Kernel libraries held in the executable tier."""
-        try:
-            return sum(1 for n in os.listdir(self.xla_dir)
-                       if n.endswith(".so"))
-        except OSError:
-            return 0
+        return sum(1 for name in PLAN_LIBRARIES
+                   if cuda_build.is_built(name))
 
     # -- recipe sidecar ------------------------------------------------
     def _load_sidecar(self) -> dict:

@@ -2,9 +2,9 @@
 
 Host copy of ``presto_tpu/serve/scheduler.py`` for the PyTorch port.
 Its device-error rule names what a CUDA failure raises in torch (see
-``is_device_error``); on such an error the plans bound to the failing
-device are evicted from the plan cache (``plans``, serve/plancache)
-before the retry.
+``is_device_error``); on such an error the plans bound to the device
+the jobs run on (``plan_device``, the service's) are evicted from the
+plan cache (``plans``, serve/plancache) before the retry.
 
 One daemon thread runs the serving loop:
 
@@ -108,7 +108,8 @@ class Scheduler:
     def __init__(self, queue: JobQueue, executor: Callable,
                  cfg: Optional[SchedulerConfig] = None, events=None,
                  latency=None, batch_executor: Optional[Callable] = None,
-                 obs=None, plans=None, park: Optional[Callable] = None):
+                 obs=None, plans=None, park: Optional[Callable] = None,
+                 plan_device=None):
         if obs is None:
             from presto_tpu_torch.obs import Observability, ObsConfig
             obs = Observability(ObsConfig(enabled=True))
@@ -120,6 +121,9 @@ class Scheduler:
         self.latency = latency
         self.obs = obs
         self.plans = plans          # PlanCache, for device-error evict
+        #: the device the plans are bound to, whose plans a device
+        #: error evicts (None: the scheduler thread's current device)
+        self.plan_device = plan_device
         # fleet seam: park(job) -> bool re-admits a retrying job into
         # the shared job ledger when the local queue is closed
         # (shutdown), so a scheduler retry during drain is handed to
@@ -417,7 +421,7 @@ class Scheduler:
             if self.plans is not None:
                 from presto_tpu_torch.obs import devtel
                 n = self.plans.evict_bucket(
-                    device=devtel.current_device_id(),
+                    device=devtel.device_id(self.plan_device),
                     reason="device_error")
                 if self.events is not None:
                     self.events.emit("plan-evict", job=job.job_id,

@@ -10,9 +10,13 @@ what run_survey writes on its own; same-bucket jobs coalesced into one
 batch run through the stacked executor (serve/batchexec,
 ``stacked=True``, the default) and degrade to per-job runs on any
 failure.  A
-``plan_store_dir`` (serve/plancache.PlanStore) records every plan built
-and keeps the kernel libraries for the card, so a second service on the
-same store prewarms (``prewarm``, readyz's ``plan_warm_fraction``).
+``mesh`` (parallel/mesh.Mesh) places the rows of every survey job's
+device middle over its devices (run_survey_stacked: a stacked batch's
+merged fan-out, or one job's), each device running the FFT, the search
+kernels and the single-pulse search of its rows.  A
+``plan_store_dir`` (serve/plancache.PlanStore) records every plan built,
+so a second service on the same store prewarms (``prewarm``, readyz's
+``plan_warm_fraction``).
 In-process callable jobs (the live stream's deadline-lane ticks) share
 the scheduler.  A discovery-DAG node job is refused (NotImplementedError,
 HTTP 501): it needs ROADMAP queue 1 item 3.
@@ -73,6 +77,23 @@ def _allowed_config_fields():
             if f.name not in blocked}
 
 
+def _checked_mesh(mesh, device):
+    """``mesh`` when it is a parallel/mesh.Mesh of the service's device
+    type (None passes); anything else raises ValueError."""
+    import torch
+    from presto_tpu_torch.parallel.mesh import Mesh
+    if mesh is None:
+        return None
+    if not isinstance(mesh, Mesh):
+        raise ValueError("SearchService: mesh must be a parallel/mesh.Mesh "
+                         "(got %r)" % (mesh,))
+    kind = torch.device(device).type
+    if any(torch.device(d).type != kind for d in mesh.devices):
+        raise ValueError("SearchService: a mesh over %s for a service on %s"
+                         % ([str(d) for d in mesh.devices], device))
+    return mesh
+
+
 class SearchService:
     """The always-on search service (in-process API; server-agnostic).
     """
@@ -105,20 +126,23 @@ class SearchService:
                               max_retry_depth=max_retry_depth)
         self.plans = PlanCache(capacity=plan_capacity, events=self.events,
                                obs=self.obs)
-        # persistent plan tier: every plan built is recorded, and the
-        # kernel libraries are kept for the card, for a later prewarm
+        # persistent plan tier: every plan built is recorded for a
+        # later prewarm
         self.plan_store: Optional[PlanStore] = None
         if plan_store_dir:
             self.plan_store = PlanStore(plan_store_dir, obs=self.obs)
             self.plan_store.enable()
-        self.provider = SearcherProvider(self.plans, mesh=mesh,
-                                         store=self.plan_store,
+        #: the devices a survey job's rows are placed over (None: the
+        #: service's device alone)
+        self.mesh = _checked_mesh(mesh, device)
+        self.provider = SearcherProvider(self.plans, store=self.plan_store,
                                          device=device)
         self.scheduler = Scheduler(self.queue, self._execute_job,
                                    cfg=scheduler_cfg,
                                    events=self.events,
                                    latency=self.latency,
-                                   obs=self.obs, plans=self.plans)
+                                   obs=self.obs, plans=self.plans,
+                                   plan_device=device)
         # cross-job stacked execution (serve/batchexec.py), the default:
         # a coalesced same-bucket batch runs its device chain as one
         # stacked call set, degrading to per-job runs on any
@@ -147,8 +171,6 @@ class SearchService:
     def stop(self) -> None:
         self.queue.close()
         self.scheduler.stop()
-        if self.plan_store is not None:
-            self.plan_store.disable()
         self.events.close()
         self.obs.flush()
         self.obs.tracer.close()
@@ -281,13 +303,20 @@ class SearchService:
     def _execute_job(self, job: Job) -> dict:
         """Run one job on the scheduler thread: an in-process callable,
         or a restartable survey in the job's workdir feeding the shared
-        per-stage latency percentiles."""
+        per-stage latency percentiles (a stack of one over the service's
+        mesh when it has one)."""
         if job.run is not None:
             return job.run(job) or {}
-        from presto_tpu_torch.pipeline.survey import run_survey
+        from presto_tpu_torch.pipeline.survey import (run_survey,
+                                                      run_survey_stacked)
         timer = StageTimer(stats=self.latency, obs=self.obs)
-        res = run_survey(job.rawfiles, job.cfg, workdir=job.workdir,
-                         timer=timer, device=self.device)
+        if self.mesh is not None:
+            res = run_survey_stacked(
+                [(job.rawfiles, job.cfg, job.workdir, timer)],
+                device=self.device, mesh=self.mesh)[0]
+        else:
+            res = run_survey(job.rawfiles, job.cfg, workdir=job.workdir,
+                             timer=timer, device=self.device)
         return {
             "workdir": res.workdir,
             "candfile": res.candfile,
@@ -350,8 +379,9 @@ class SearchService:
         """Readiness: should a router send this replica work?  False
         while draining (shutdown in progress) or dead.  The JAX
         service's keys; ``plan_store`` describes the persistent tier
-        (``xla_entries``: the kernel libraries it holds), and ``lease`` is
-        None (no fleet in the port)."""
+        (``xla_entries``: the plan libraries built for the current
+        kernel sources), and ``lease`` is None (no fleet in the
+        port)."""
         ready = bool(self.scheduler.alive) and not self.draining
         return {
             "ready": ready,

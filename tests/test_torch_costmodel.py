@@ -169,6 +169,18 @@ def test_snapshot_and_costs_file_keep_the_jax_schema(tmp_path):
     assert costmodel.load_costs(str(tmp_path / "flush")) is not None
 
 
+def test_flush_raises_when_the_cost_book_cannot_be_written(tmp_path):
+    """A cost book that cannot be written fails the flush (nothing goes
+    on without it); with nothing probed there is no book to write."""
+    blocker = tmp_path / "file"
+    blocker.write_text("not a directory")
+    _obs().flush(default_dir=str(blocker))
+    obs = _obs()
+    costmodel.probe(obs, "rfft_batch", rows=3, n=512)
+    with pytest.raises(OSError):
+        obs.flush(default_dir=str(blocker))
+
+
 # ----------------------------------------------------------------------
 # roofline
 # ----------------------------------------------------------------------
@@ -239,8 +251,12 @@ def test_devtel_names_and_snapshot_equal_jaxtel():
         jaxtel.transfer_snapshot(JObservability(JObsConfig()))
     assert devtel.device_id("cpu") == "cpu_0"
     assert devtel.sample_live_buffers(obs, "cpu") is None
+    assert devtel.device_id("cuda:1") == "cuda_1"
     if not torch.cuda.is_available():
         assert devtel.current_device_id() == "cpu_0"
+        # a cuda service's plans are named without a card (the scheduler
+        # evicts by it on an injected device error)
+        assert devtel.device_id("cuda") == "cuda_0"
 
 
 def test_build_telemetry_books_an_nvcc_run():

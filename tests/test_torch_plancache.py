@@ -135,65 +135,52 @@ def test_store_sidecar_matches_jax_and_prewarms(tmp_path):
     store = pc.PlanStore(str(tmp_path / "store"), obs=obs)
     jstore = jpc.PlanStore(str(tmp_path / "jstore"), fingerprint="fp")
     assert store.enable() is True and store.supported is True
-    try:
-        prov = pc.SearcherProvider(pc.PlanCache(obs=obs), store=store,
-                                   device="cpu")
-        jprov = jpc.SearcherProvider(jpc.PlanCache(), store=jstore)
-        for z, T, nb in ((0, 8.192, 2048), (4, 16.384, 4096)):
-            prov.searcher(AccelConfig(zmax=z, numharm=2), T, nb)
-            jprov.searcher(JAccelConfig(zmax=z, numharm=2), T, nb)
-        known, jknown = store.known(), jstore.known()
-        assert sorted(known) == sorted(jknown)
-        for k in known:
-            for f in ("kind", "T", "numbins"):
-                assert known[k][f] == jknown[k][f]
-            assert known[k]["acfg"]["zmax"] == jknown[k]["acfg"]["zmax"]
-        raw = json.load(open(store.sidecar))
-        assert raw["schema"] == pc.STORE_SCHEMA == jpc.STORE_SCHEMA
-        cold = pc.SearcherProvider(pc.PlanCache(obs=obs), store=store,
-                                   device="cpu")
-        assert store.warm_fraction(cold.cache) == 0.0
-        assert cold.prewarm() == 2
-        assert store.warm_fraction(cold.cache) == 1.0
-        assert obs.metrics.get("plancache_warm_fraction").value == 1.0
-        # the executable tier: the libraries the process has loaded
-        assert cuda_build.store() == store.xla_dir
-        assert store.xla_entries() == len([
-            n for n in os.listdir(store.xla_dir) if n.endswith(".so")])
-    finally:
-        store.disable()
-    assert cuda_build.store() is None
+    prov = pc.SearcherProvider(pc.PlanCache(obs=obs), store=store,
+                               device="cpu")
+    jprov = jpc.SearcherProvider(jpc.PlanCache(), store=jstore)
+    for z, T, nb in ((0, 8.192, 2048), (4, 16.384, 4096)):
+        prov.searcher(AccelConfig(zmax=z, numharm=2), T, nb)
+        jprov.searcher(JAccelConfig(zmax=z, numharm=2), T, nb)
+    known, jknown = store.known(), jstore.known()
+    assert sorted(known) == sorted(jknown)
+    for k in known:
+        for f in ("kind", "T", "numbins"):
+            assert known[k][f] == jknown[k][f]
+        assert known[k]["acfg"]["zmax"] == jknown[k]["acfg"]["zmax"]
+    raw = json.load(open(store.sidecar))
+    assert raw["schema"] == pc.STORE_SCHEMA == jpc.STORE_SCHEMA
+    cold = pc.SearcherProvider(pc.PlanCache(obs=obs), store=store,
+                               device="cpu")
+    assert store.warm_fraction(cold.cache) == 0.0
+    assert cold.prewarm() == 2
+    assert store.warm_fraction(cold.cache) == 1.0
+    assert obs.metrics.get("plancache_warm_fraction").value == 1.0
     with open(store.sidecar, "w") as f:
         f.write("{not json")
     assert store.known() == {} and store.warm_fraction(
         pc.PlanCache(obs=obs)) == 1.0
 
 
-def test_store_keeps_and_serves_built_libraries(tmp_path, monkeypatch):
-    """A library the store holds is copied into the build directory in
-    place of a compile; a library built or loaded while a store is set is
-    copied into it (the executable tier, on the native IO library, the
-    one source g++ builds here)."""
+def test_store_counts_the_plan_libraries_built(tmp_path, monkeypatch):
+    """The executable tier is cuda_build's build directory: xla_entries
+    counts the plan libraries (plane_build, stage_reduce) built there for
+    the current sources, and a library outside the plan is not one."""
     build = tmp_path / "build"
     monkeypatch.setattr(cuda_build, "BUILD_DIR", str(build))
     monkeypatch.setattr(cuda_build, "_libs", {})
-    store = tmp_path / "store"
-    cuda_build.set_store(str(store))
-    try:
-        lib = cuda_build.load("native_io")
-        assert lib is not None
-        kept = sorted(os.listdir(store))
-        assert any(n.startswith("libnative_io-") and n.endswith(".so")
-                   for n in kept)
-        # a fresh build directory is served from the store: no compiler
-        monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "b2"))
-        monkeypatch.setattr(cuda_build, "_libs", {})
-        monkeypatch.setattr(cuda_build, "gxx", lambda: (_ for _ in ()).throw(
-            AssertionError("compiled despite the store")))
-        cuda_build.load("native_io")
-        assert sorted(os.listdir(tmp_path / "b2")) == kept
-    finally:
-        cuda_build.set_store(None)
+    store = pc.PlanStore(str(tmp_path / "store"),
+                         obs=Observability(ObsConfig(enabled=True)))
+    assert store.xla_entries() == 0
+    assert cuda_build.load("native_io") is not None
+    assert cuda_build.is_built("native_io")
+    assert store.xla_entries() == 0
+    for name in pc.PLAN_LIBRARIES:
+        out = cuda_build._target(name)
+        for path in (out, out + ".txt"):
+            open(path, "w").close()
+    assert store.xla_entries() == len(pc.PLAN_LIBRARIES) == 2
+    os.remove(cuda_build._target("stage_reduce") + ".txt")
+    assert store.xla_entries() == 1
 
 
 def test_batch_sharding_ranges():

@@ -533,7 +533,7 @@ def test_http_front_end(tmp_path):
 
 def test_survey_and_dag_jobs_and_item2_arguments_refused(tmp_path):
     """ROADMAP queue 1 item 2's arguments are taken (plan_store_dir,
-    mesh, stacked=True); a survey job on a "cuda" service raises without
+    a mesh of the service's device type, stacked=True); a survey job on a "cuda" service raises without
     a card (nothing falls back to the CPU); a DAG node job is refused,
     naming item 3."""
     svc = SearchService(str(tmp_path))
@@ -546,8 +546,13 @@ def test_survey_and_dag_jobs_and_item2_arguments_refused(tmp_path):
                           device="cpu")
     assert store.plan_store is not None and store.readyz()["plan_store"][
         "supported"] is True
-    assert SearchService(str(tmp_path), mesh=("cpu", "cpu"),
-                         device="cpu").provider.mesh == ("cpu", "cpu")
+    from presto_tpu_torch.parallel.mesh import Mesh
+    cpu2 = Mesh((torch.device("cpu"),) * 2)
+    assert SearchService(str(tmp_path), mesh=cpu2, device="cpu").mesh is cpu2
+    # a mesh is a parallel/mesh.Mesh of the service's device type
+    for bad, dev in ((("cpu", "cpu"), "cpu"), (cpu2, "cuda")):
+        with pytest.raises(ValueError, match="mesh"):
+            SearchService(str(tmp_path), mesh=bad, device=dev)
     assert SearchService(str(tmp_path), stacked=True).stacked is True
     assert SearchService(str(tmp_path), stacked=False).stacked is False
 

@@ -19,6 +19,7 @@ the cache."""
 import glob
 import json
 import os
+import time
 import urllib.error
 import urllib.request
 
@@ -333,6 +334,103 @@ def test_device_error_evicts_the_devices_plans(tmp_path, arms):
         assert artifact_digests(job.workdir) == arms["refdig"]
     finally:
         svc.stop()
+
+
+def test_device_error_evicts_the_plans_of_the_service_device(tmp_path):
+    """The eviction takes the device the service's plans are bound to,
+    not the scheduler thread's current one: on a service on cuda:1 a
+    device error evicts the cuda_1 plans and keeps a cuda_0 plan."""
+    from presto_tpu_torch.serve.plancache import PlanKey
+    svc = SearchService(str(tmp_path / "svc"), stacked=False,
+                        device="cuda:1",
+                        scheduler_cfg=SchedulerConfig(backoff_base_s=0.01))
+    keys = {dev: PlanKey("accel", 0, n, "float32", (), 0, 2)
+            for n, dev in ((2048, "cuda_0"), (4096, "cuda_1"))}
+    for dev, key in keys.items():
+        svc.plans.get(key, lambda: object(), device=dev)
+    calls = []
+
+    def tick(job):
+        calls.append(job.attempts)
+        if len(calls) == 1:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+        return {}
+    try:
+        job = svc.submit_callable(tick)
+        svc.start()
+        deadline = time.time() + 30.0
+        while job.status != "done" and time.time() < deadline:
+            time.sleep(0.01)
+        assert job.status == "done" and len(calls) == 2
+        assert svc.plans.contains(keys["cuda_0"])
+        assert not svc.plans.contains(keys["cuda_1"])
+        fam = svc.obs.metrics.get("plancache_evictions_total")
+        assert fam.labels(reason="device_error").value == 1
+    finally:
+        svc.stop()
+
+
+@pytest.mark.parametrize("nshards", [2, 4])
+def test_service_mesh_places_the_rows_over_its_devices(tmp_path, arms,
+                                                       nshards):
+    """A service with a mesh (logical CPU shards) places a stacked
+    batch's merged fan-out, and a job alone, over the mesh by
+    batch_sharding: every shard searches its rows (12 merged trials, 6
+    alone), and every artifact is byte-equal to run_survey's."""
+    from presto_tpu_torch.parallel import sharded
+    from presto_tpu_torch.parallel.mesh import Mesh, batch_sharding
+    mesh = Mesh((torch.device("cpu"),) * nshards)
+    svc = SearchService(str(tmp_path / "svc"), stacked=True, device="cpu",
+                        mesh=mesh)
+    try:
+        sharded.shard_launches.clear()
+        jobs = _run_arm(svc, [_spec(arms["beam"]), _spec(arms["beam"])])
+        stacked_shards = {k: v["trials"]
+                          for k, v in sharded.shard_launches.items()}
+        sharded.shard_launches.clear()
+        jobs += _run_arm(svc, [_spec(arms["beam"])])
+        alone_shards = {k: v["trials"]
+                        for k, v in sharded.shard_launches.items()}
+        kinds = _kinds(svc)
+    finally:
+        svc.stop()
+    assert [j.status for j in jobs] == ["done"] * 3
+    assert "degrade" not in kinds
+    assert [j.result.get("stacked") for j in jobs] == [2, 2, None]
+    for trials, got in ((12, stacked_shards), (6, alone_shards)):
+        want = {k: hi - lo for k, (_d, (lo, hi))
+                in enumerate(batch_sharding(mesh, trials)) if hi > lo}
+        assert got == want and sum(got.values()) == trials
+    for job in jobs:
+        assert artifact_digests(job.workdir) == arms["refdig"]
+
+
+def test_service_mesh_with_a_sharded_deposit(tmp_path, arms):
+    """With two logical devices visible prepsubband deposits a DM-sharded
+    block: a stacked pair refuses it (StackedSeamError) and degrades to
+    per-job runs (which resume from the journal: the trials are on disk
+    by then), and a job alone over the service's mesh keeps the block's
+    shards as they are; every artifact byte-equal to run_survey's."""
+    from presto_tpu_torch.parallel import sharded
+    from presto_tpu_torch.parallel.mesh import Mesh, set_logical_devices
+    cpu = torch.device("cpu")
+    with set_logical_devices(2, "cpu"):
+        svc = SearchService(str(tmp_path / "svc"), stacked=True,
+                            device="cpu", mesh=Mesh((cpu,) * 2))
+        try:
+            jobs = _run_arm(svc, [_spec(arms["beam"]), _spec(arms["beam"])])
+            kinds = _kinds(svc)
+            sharded.shard_launches.clear()
+            jobs += _run_arm(svc, [_spec(arms["beam"])])
+            shards = {k: v["trials"]
+                      for k, v in sharded.shard_launches.items()}
+        finally:
+            svc.stop()
+    assert [j.status for j in jobs] == ["done"] * 3
+    assert "degrade" in kinds
+    assert shards == {0: 3, 1: 3}
+    for job in jobs:
+        assert artifact_digests(job.workdir) == arms["refdig"]
 
 
 def test_prewarm_from_the_plan_store(tmp_path, arms):
