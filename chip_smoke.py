@@ -93,6 +93,22 @@ Phases (any failure exits non-zero before the final line):
              metrics() with the kernel cost book; the card's roofline
              peaks measured beside the nominal ones; a smoke-shape
              tuning sweep into a DB, read back through tune.best;
+  6e. fleet  a discovery DAG of the beam (search -> sift -> triage ->
+             2 folds -> toa, the main configuration) POSTed to the
+             port's router (in this process, loopback HTTP) with
+             weights from presto-triage train --synthetic on the card;
+             two replica processes (python3 -m
+             presto_tpu_torch.apps.serve -fleet), the one that leases
+             the search node SIGKILLed, the other finishing: every node
+             done once (one usage row, one result.json, redos 1 on the
+             search node), the search node's files and both
+             cands_sifted.txt byte-equal to the main run's, the triage
+             selection equal to TriagePolicy.select over the main run,
+             each .pfd byte-equal to a CPU refold and to the main run's
+             fold of the same candidate, one TOA a fold, the committed
+             counter over the snapshots equal to the survivor's commits,
+             both kernels launched by it; times from usage.jsonl, /scale
+             and /fleet/metrics printed;
   7. small   spectra of 2^15 and 3000 bins searched on the card and on
              the CPU (the second on the non-aligned plane geometry);
   8. singlepulse  the JAX package's single-pulse bench shape (bench.py's
@@ -138,8 +154,8 @@ Phases (any failure exits non-zero before the final line):
              at 1 and 13 beams; the stacked step's device ms at 13 beams
              beside 13 one-beam steps; the real-time factor;
  12. summary the kernels line (launches of the main path, the sharded
-             main path, by shard too, the serve path, the jerk paths and
-             the live paths; each kernel's bound also at the measured
+             main path, by shard too, the serve path, the fleet path, the
+             jerk paths and the live paths; each kernel's bound also at the measured
              peaks),
              the card, and the final ok line.
 
@@ -3327,6 +3343,307 @@ def phase_beams(workdir, device="cuda"):
     return res
 
 
+# the fleet phase: the triage budget cuts the heuristic's 3 folds to 2;
+# short heartbeats so the reaper re-admits the killed replica's lease
+# within seconds; the lease TTL outlasts the search node
+FLEET_TRIAGE_BUDGET = 2
+FLEET_REPLICA_ARGS = ("-hb-interval", "0.5", "-hb-timeout", "4",
+                      "-lease-ttl", "900", "-snapshot-interval", "1",
+                      "-inflight", "2")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _start_replica(fleetdir, name, workdir, device):
+    """``python3 -m presto_tpu_torch.apps.serve -fleet`` as its own process
+    (output to <workdir>/<name>.log): (Popen, log path)."""
+    logp = os.path.join(workdir, name + ".log")
+    with open(logp, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "presto_tpu_torch.apps.serve",
+             "-fleet", fleetdir, "-replica", name, "-port", "0",
+             "-workdir", os.path.join(workdir, "w-" + name),
+             "-device", str(device)] + list(FLEET_REPLICA_ARGS),
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=out, stderr=subprocess.STDOUT)
+    return proc, logp
+
+
+def _until(cond, timeout, poll=0.05):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if cond():
+            return True
+        time.sleep(poll)
+    return False
+
+
+def _snapshot_launches(fleetdir, name):
+    """cuda_kernel_launches_total{kernel} of one replica's last published
+    snapshot (<fleet>/obs/<name>.json), 0 for a kernel it never
+    launched."""
+    from presto_tpu_torch.obs import fleetagg
+    out = {"plane_build": 0, "stage_reduce": 0}
+    snap = fleetagg.load_snapshots(fleetdir).get(name)
+    if snap is not None:
+        merged = fleetagg.merge_states({name: snap["metrics"]})
+        out.update({k: int(v) for k, v in fleetagg.counter_rollup(
+            merged, "cuda_kernel_launches_total", "kernel").items()})
+    return out
+
+
+def _pfd_named_as(src, like):
+    """src's .pfd bytes with its embedded names (file, candidate, device)
+    taken from the .pfd ``like`` (the fleet folds embed basenames, the
+    main phase's folds the paths it was given)."""
+    from presto_tpu_torch.io import pfd as pfdio
+    p, q = pfdio.read_pfd(src), pfdio.read_pfd(like)
+    for f in ("filenm", "candnm", "pgdev"):
+        setattr(p, f, getattr(q, f))
+    tmp = like + ".renamed"
+    pfdio.write_pfd(tmp, p)
+    with open(tmp, "rb") as f:
+        out = f.read()
+    os.remove(tmp)
+    return out
+
+
+def phase_fleet(raw, workdir, mwork, device="cuda", config=None,
+                fold_top=3, zmax=200):
+    """A discovery DAG on a fleet of two replica processes on the card.
+    Weights from ``presto-triage train --synthetic`` (timed); the port's
+    router in this process (loopback HTTP, a ready replica required);
+    replica r1 started, the DAG POSTed (search -> sift -> triage ->
+    folds -> toa over the beam with the main phase's configuration),
+    r1 SIGKILLed right after it leases the search node, r2 started; the
+    reaper re-admits the node and r2 runs the whole DAG, then SIGTERM
+    drains it.  Checks: every node done once (one usage row and one
+    result.json a node, r2's; redos 1 on the search node, 0 elsewhere);
+    the search node's .dat, .singlepulse, ACCEL and .cand files and both
+    cands_sifted.txt byte-equal to the main phase's; the triage
+    selection equal to TriagePolicy.select on the card over the main
+    phase's sifted list with the same weights; each fold's .pfd
+    byte-equal to a CPU refold of its candidate and, where the main
+    phase folded that candidate, to that .pfd (names aside); one TOA a
+    fold in the .tim; fleet_jobs_committed_total summed over the
+    snapshots by obs/fleetagg equal to r2's commits; both kernels
+    launched by r2.  ``device`` "cpu" (replicas run with -device cpu)
+    rehearses the phase at a small size, with ``config`` the survey
+    fields, ``fold_top`` and ``zmax`` of its main run."""
+    from presto_tpu_torch.apps import triage as triage_cli
+    from presto_tpu_torch.apps.prepfold import DatFoldSpec, fold_dat_cands
+    from presto_tpu_torch.obs import fleetagg
+    from presto_tpu_torch.pipeline.sifting import (select_fold_candidates,
+                                                   sift_candidates)
+    from presto_tpu_torch.serve.jobledger import JobLedger
+    from presto_tpu_torch.serve.router import (FleetRouter, RouterConfig,
+                                               start_http)
+    from presto_tpu_torch.triage import TriagePolicy
+    if config is None:
+        cfg = main_cfg()
+        config = dict(lodm=cfg.lodm, hidm=cfg.hidm, nsub=cfg.nsub,
+                      zmax=cfg.zmax, numharm=cfg.numharm)
+    os.makedirs(workdir, exist_ok=True)
+    fleetdir = os.path.join(workdir, "fleet")
+    weights = os.path.join(workdir, "triage_weights.json")
+    t0 = time.time()
+    train_rc = triage_cli.main(["train", "--synthetic", "-o", weights],
+                               device=device)
+    train_s = time.time() - t0
+    log("fleet: presto-triage train --synthetic on %s: rc %d, %.3f s"
+        % (device, train_rc, train_s))
+    router = FleetRouter(RouterConfig(fleetdir=fleetdir, poll_s=0.25,
+                                      heartbeat_timeout=4.0)).start()
+    httpd = start_http(router)
+    base = "http://%s:%d" % httpd.server_address[:2]
+    led = JobLedger(fleetdir)
+    procs = {}
+    res = dict(train_s=train_s)
+    try:
+        procs["r1"] = _start_replica(fleetdir, "r1", workdir, device)
+        p1 = procs["r1"][0]
+        ready = _until(lambda: "r1" in router.ready_replicas()
+                       or p1.poll() is not None, 300)
+        res["r1_ready_s"] = time.time() - t0 - train_s
+        spec = {"rawfiles": [raw], "config": config,
+                "fold": {"fold_top": fold_top}, "toa": {"ntoa": 1},
+                "triage": {"weights": weights,
+                           "budget": FLEET_TRIAGE_BUDGET}}
+        t_admit = time.time()
+        code, out = _http("POST", base + "/dag", spec)
+        if code != 202:
+            raise RuntimeError("POST /dag answered %d: %s" % (code, out))
+        dag_id, nodes = out["dag_id"], out["nodes"]
+        sid = nodes["search"]
+
+        def leased_by_r1():
+            v = led.view(sid)
+            return v["state"] == "leased" and v["owner"] == "r1"
+        leased = _until(lambda: leased_by_r1() or p1.poll() is not None,
+                        300, poll=0.01)
+        res["r1_launches_last_snapshot"] = _snapshot_launches(fleetdir,
+                                                              "r1")
+        t_kill = time.time()
+        p1.kill()
+        res["r1_rc"] = p1.wait(60)
+        log("fleet: r1 leased the search node %.3f s after the admit; "
+            "SIGKILL -> rc %d" % (t_kill - t_admit, res["r1_rc"]))
+        procs["r2"] = _start_replica(fleetdir, "r2", workdir, device)
+        p2 = procs["r2"][0]
+        finished = _until(lambda: led.all_terminal()
+                          or p2.poll() is not None, 1200, poll=0.1)
+        t_done = time.time()
+        p2.terminate()
+        res["r2_rc"] = p2.wait(300)
+        _c, res["scale"] = _http("GET", base + "/scale")
+        _c, fm = _http("GET", base + "/fleet/metrics")
+    finally:
+        for proc, _logp in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(60)
+        httpd.shutdown()
+        router.stop()
+    for name, (_p, logp) in sorted(procs.items()):
+        with open(logp) as f:
+            tail = f.read()[-1500:]
+        log("fleet: %s log tail: %s" % (name, tail.replace("\n", " | ")))
+    state = led.read()
+    rows = {jid: r for jid, r in state["jobs"].items()
+            if r.get("dag") == dag_id}
+    dv = led.dag_view(dag_id)
+    res.update(admit_to_done_s=t_done - t_admit,
+               relet_after_kill_s=float(rows[sid].get("leased_at") or 0.0)
+               - t_kill, dag_state=dv["state"], nodes=sorted(rows))
+    # exactly once: one usage row, one result.json (r2's) a node
+    usage = led.usage.raw_rows()
+    per = {jid: [u for u in usage if u["job_id"] == jid] for jid in rows}
+    details = {}
+    for jid in rows:
+        p = os.path.join(fleetdir, "jobs", jid, "result.json")
+        details[jid] = json.load(open(p)) if os.path.exists(p) else None
+    results_json = glob.glob(os.path.join(fleetdir, "jobs", "*", "*.json"))
+    once = (dv["state"] == "done"
+            and all(r["state"] == "done" for r in rows.values())
+            and all(len(v) == 1 for v in per.values())
+            and all(d is not None and d["replica"] == "r2"
+                    for d in details.values())
+            and len(results_json) == len(rows)
+            and rows[sid]["redos"] == 1
+            and all(r["redos"] == 0 for j, r in rows.items() if j != sid))
+    res["usage_phases"] = {jid[len(dag_id) + 1:]: (
+        per[jid][-1]["phases"] if per[jid] else {}) for jid in sorted(rows)}
+    for jid in sorted(rows):
+        u = per[jid][-1]["phases"] if per[jid] else {}
+        log("fleet: %-28s %-7s redos %d; admit->lease %.3f s, execute "
+            "%.3f s, commit %.3f s, total %.3f s"
+            % (jid, rows[jid]["state"], rows[jid]["redos"],
+               u.get("lease_wait", -1), u.get("execute", -1),
+               u.get("commit", -1), u.get("total", -1)))
+
+    def cdir(jid):
+        return os.path.join(fleetdir, "jobs", jid,
+                            details[jid]["attempt_dir"])
+    # the search node's files against the main phase's
+    sdir = cdir(sid)
+    same = {}
+    for pat in ("*.dat", "*.singlepulse", "*_ACCEL_*", "cands_sifted.txt"):
+        same.update(_same_files(mwork, sdir, pat))
+    same["sift:cands_sifted.txt"] = open(os.path.join(
+        cdir(nodes["sift"]), "cands_sifted.txt"), "rb").read() == open(
+        os.path.join(mwork, "cands_sifted.txt"), "rb").read()
+    search_ok = (len(same) > 3 and all(same.values())
+                 and any(k.endswith(".dat") for k in same))
+    # the triage node against TriagePolicy.select over the main run
+    cl = sift_candidates(sorted(glob.glob(os.path.join(
+        mwork, "*_ACCEL_%d" % zmax))), numdms_min=2, low_DM_cutoff=2.0)
+    heur = select_fold_candidates(cl, fold_top=fold_top, pass_zmaxes=[zmax])
+    want, acct = TriagePolicy(weights_path=weights,
+                              budget=FLEET_TRIAGE_BUDGET, datdir=mwork,
+                              device=device).select(heur)
+    scores = json.load(open(os.path.join(cdir(nodes["triage"]),
+                                         "triage_scores.json")))
+    got = [(c["filename"], c["candnum"]) for c in scores["candidates"]
+           if c["selected"]]
+    tres = details[nodes["triage"]]
+    tsum = json.load(open(os.path.join(fleetdir, "jobs", nodes["triage"],
+                                       "result.json")))["result"]
+    triage_ok = (scores["mode"] == acct["mode"] == "triage"
+                 and got == [(c.filename, c.candnum) for c in want])
+    log("fleet: triage %s: scored %d, folded %d, avoided %d; selection %s, "
+        "TriagePolicy.select on the main run %s %s"
+        % (tsum["mode"], tsum["scored"], tsum["folds"],
+           tsum["folds_avoided"], got,
+           [(c.filename, c.candnum) for c in want],
+           "ok" if triage_ok else "FAIL"))
+    # each fold against a CPU refold and the main phase's fold
+    folds = sorted(j for j in rows if "-fold-" in j)
+    heur_keys = [(c.filename, c.candnum) for c in heur]
+    fold_eq = {}
+    for fid in folds:
+        f = rows[fid]["spec"]["fold"]
+        pfd = os.path.join(cdir(fid), f["outname"] + ".pfd")
+        ref = os.path.join(workdir, "refold", f["outname"])
+        os.makedirs(os.path.dirname(ref), exist_ok=True)
+        fold_dat_cands([DatFoldSpec(
+            datfile=os.path.join(sdir, f["datfile"]),
+            accelfile=os.path.join(sdir, f["accelfile"]),
+            candnum=int(f["candnum"]), outbase=ref, dm=float(f["dm"]))],
+            device="cpu")
+        cpu_eq = open(pfd, "rb").read() == open(ref + ".pfd", "rb").read()
+        key = (f["accelfile"][:-len(".cand")], int(f["candnum"]))
+        main_eq = None
+        if key in heur_keys:
+            mp = os.path.join(mwork, "fold_cand%d.pfd"
+                              % (heur_keys.index(key) + 1))
+            if os.path.exists(mp):
+                main_eq = _pfd_named_as(mp, pfd) == open(pfd, "rb").read()
+        fold_eq[fid] = dict(cpu=cpu_eq, main=main_eq)
+    folds_ok = (len(folds) == min(FLEET_TRIAGE_BUDGET, len(heur))
+                and all(v["cpu"] and v["main"] is not False
+                        for v in fold_eq.values()))
+    tim = [ln for ln in open(os.path.join(cdir(nodes["toa"]), "toas.tim"))
+           if ln.strip() and not ln.startswith("FORMAT")]
+    toa_ok = len(tim) == len(folds)
+    # the committed counter over the snapshots
+    agg = fleetagg.aggregate(fleetdir)
+    committed = sum(fleetagg.counter_rollup(
+        agg["merged"], "fleet_jobs_committed_total", "").values())
+    by_r2 = sum(1 for d in details.values() if d and d["replica"] == "r2")
+    counter_ok = committed == by_r2 == len(rows)
+    res["r2_launches"] = _snapshot_launches(fleetdir, "r2")
+    launched = device != "cuda" or (
+        res["r2_launches"].get("plane_build", 0) > 0
+        and res["r2_launches"].get("stage_reduce", 0) > 0)
+    log("fleet: %d nodes done once %s; search files equal to the main "
+        "run's %s (%d files); folds %s; toas %d for %d folds; committed "
+        "counter over the snapshots %d, r2 committed %d; launches r1 (last "
+        "snapshot before the kill) %s, r2 %s; replica rc r1 %d r2 %d"
+        % (len(rows), once, search_ok, len(same), json.dumps(fold_eq),
+           len(tim), len(folds), committed, by_r2,
+           json.dumps(res["r1_launches_last_snapshot"]),
+           json.dumps(res["r2_launches"]), res["r1_rc"], res["r2_rc"]))
+    log("fleet: admit -> done %.3f s; kill -> search node re-leased "
+        "%.3f s; r1 ready %.3f s after the start" % (
+            res["admit_to_done_s"], res["relet_after_kill_s"],
+            res["r1_ready_s"]))
+    log("fleet: GET /scale %s" % json.dumps(res["scale"]))
+    log("fleet: GET /fleet/metrics replicas %s, job_e2e %s, jobs %s"
+        % (json.dumps(fm.get("replicas")), json.dumps(fm.get("job_e2e")),
+           json.dumps(fm.get("jobs"))))
+    res.update(once=once, search_files=same, triage=dict(
+        selected=got, scored=tsum["scored"], folded=tsum["folds"],
+        avoided=tsum["folds_avoided"]), folds=fold_eq, toas=len(tim),
+        committed_counter=committed, r2_committed=by_r2,
+        fleet_metrics_jobs=fm.get("jobs"), job_e2e=fm.get("job_e2e"))
+    res["phase_s"] = time.time() - t0
+    res["ok"] = bool(train_rc == 0 and ready and leased and finished
+                     and res["r1_rc"] == -9 and res["r2_rc"] == 0 and once
+                     and search_ok and triage_ok and folds_ok and toa_ok
+                     and counter_ok and launched)
+    log("fleet: %s" % ("ok" if res["ok"] else "FAIL"))
+    return res
+
+
 def launch_counts():
     """Both kernel wrappers' launch counters, set to zero (read them again
     after the path to count its launches)."""
@@ -3416,6 +3733,8 @@ def main():
         serve = phase_serve(raw, os.path.join(work, "serve"), mwork)
         serve["launches"] = read()
         torch.cuda.empty_cache()
+        fleet = phase_fleet(raw, os.path.join(work, "fleet"), mwork)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     small = phase_small_reference(gen)
@@ -3433,7 +3752,8 @@ def main():
     results.update(plane_build=k1, stage_reduce=k2, polish=pol,
                    main=main_res, ingest=ingest, fold=fold,
                    toas=toas, singlepulse=spb, jerk=jerk, sharded=shard,
-                   cluster=cluster, serve=serve, small_reference=small,
+                   cluster=cluster, serve=serve, fleet=fleet,
+                   small_reference=small,
                    **live,
                    total_s=time.time() - t_start)
     # launches: the main path's (run_survey, and run_survey on the DM
@@ -3451,7 +3771,9 @@ def main():
              jerk["pulsar"]["stage_reduce_planes"])):
         by_path = {"run_survey": main_res["launches"][name],
                    "run_survey_sharded": shard["launches"][name],
-                   "serve": serve["launches"][name]}
+                   "serve": serve["launches"][name],
+                   "fleet": sum(fleet[r].get(name, 0) for r in (
+                       "r1_launches_last_snapshot", "r2_launches"))}
         for path, counts in zip(("jerk_bench", "accelsearch_wmax",
                                  "stream", "beams"),
                                 jl + [live["stream"]["launches"],
@@ -3492,6 +3814,7 @@ def main():
                               ("sharded", shard["ok"]),
                               ("cluster", cluster["ok"]),
                               ("serve", serve["ok"]),
+                              ("fleet", fleet["ok"]),
                               ("stream", live["stream"]["ok"]),
                               ("beams", live["beams"]["ok"])) if not ok]
     if failed:

@@ -517,13 +517,15 @@ def fold_geometry(datfile: str, f: float, fd: float = 0.0,
     return N, dt, proflen, subdiv
 
 
-def fold_dat_cands(specs, device="cuda"):
+def fold_dat_cands(specs, device="cuda", obs=None):
     """Fold accelsearch candidates from .dat series on ``device``, single
     or stacked: same-geometry items (fold_stack_key) share one drizzle
     and one profile-total.  Each .pfd/.bestprof is byte-identical to the
     CLI's (see the module docstring); the labels in the artifacts
-    (filenm, pgdev, datnm) are basenames.  Returns one result dict per
-    spec (pfd path, best p/pd/redchi, stack size)."""
+    (filenm, pgdev, datnm) are basenames.  The folds' dispatches are
+    booked on ``obs`` (obs/devtel: ``fold``/``fold_batch``/
+    ``fold_total``), as the JAX package books them.  Returns one result
+    dict per spec (pfd path, best p/pd/redchi, stack size)."""
     device = resolve_device(device)
     prepped = []
     for spec in specs:
@@ -551,8 +553,8 @@ def fold_dat_cands(specs, device="cuda"):
         items = [(e["data"], e["info"].dt, e["f"], e["fd"], e["fdd"],
                   e["cfg"], e["info"].dm, e["info"].mjd)
                  for e in ents]
-        results = fold_series_batch(items, device=device)
-        finish_fold_nosearch(results, device=device)
+        results = fold_series_batch(items, device=device, obs=obs)
+        finish_fold_nosearch(results, device=device, obs=obs)
         for e, res in zip(ents, results):
             res.numchan = 1
             e["res"] = res

@@ -111,8 +111,12 @@ def _finish(name: str, job) -> str:
     if proc.returncode != 0:
         raise RuntimeError("build failed for %s:\n%s"
                            % (os.path.basename(_source(name)), log))
-    with open(out + ".txt", "w") as f:
+    # the log lands by rename too (and before the library, which
+    # is_built reads last), so a process sharing the build directory
+    # never reads a torn log
+    with open(tmp + ".txt", "w") as f:
         f.write(log)
+    os.replace(tmp + ".txt", out + ".txt")
     os.replace(tmp, out)
     from presto_tpu_torch.obs import devtel
     devtel.note_build(name, time.time() - t0)

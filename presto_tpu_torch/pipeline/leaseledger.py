@@ -1,29 +1,36 @@
-"""Generic leased-item ledger: lease, heartbeat and epoch fencing (host).
+"""Generic leased-item ledger: the lease / heartbeat / epoch-fencing
+core shared by the elastic DM-shard ledger and the fleet job ledger.
 
-Host copy of ``presto_tpu/pipeline/leaseledger.py``, without its
-flight-recorder events and without the fleet job ledger's policies
-(the port has no serve layer yet); the elastic DM-shard ledger
-(pipeline/shardledger.py) binds it to DM shards.
+Host copy of ``presto_tpu/pipeline/leaseledger.py`` for the PyTorch
+port, with its flight-recorder events (``obs=``; the elastic DM-shard
+ledger, pipeline/shardledger.py, binds it to DM shards and the fleet's
+job ledger, serve/jobledger.py, to serve jobs):
 
   * **Items** are leased rows in one JSON ledger file.  Every public
     mutator is transactional: take the lock directory, reload the
-    ledger from disk, apply, write the whole file back atomically, so
-    concurrent hosts always act on the latest accepted state and a kill
-    mid-mutation loses nothing but that mutation.
-  * **Heartbeats** are small per-host atomic files (liveness never
-    contends with the ledger lock).  A host may write a *tombstone*
-    heartbeat on a graceful exit, so the reaper treats it as dead at
-    once instead of waiting out the TTL.
+    ledger from disk, apply, write the whole file back atomically —
+    concurrent hosts always act on the latest accepted state and a
+    kill mid-mutation loses nothing but that mutation.
+  * **Heartbeats** are small per-host atomic files (1 Hz liveness
+    never contends with the ledger lock).  A host may also write a
+    *tombstone* heartbeat on graceful shutdown, so the reaper treats
+    it as dead immediately instead of waiting out the TTL.
   * **Epoch fencing**: the ledger carries an epoch, bumped whenever
     membership changes.  Every lease records the epoch it was granted
-    under; `complete()` is accepted only while the item is still leased
-    to that owner under that epoch, so a zombie host (declared dead, its
-    process lingering) never lands a late write: its staged outputs are
-    deleted before they can replace a journaled artifact.
-  * **Staged commits**: workers never write final artifact names.  They
-    stage outputs beside the targets and hand the staged map to
-    `complete()`, which does fence check -> rename -> size + CRC journal
-    *under the ledger lock*.
+    under; `complete()` is accepted only while the item is still
+    leased to that owner under that epoch, so a zombie host — one
+    declared dead whose process lingers — can never land a late
+    write: its staged output files are deleted before they can
+    replace a journaled artifact.
+  * **Staged commits**: workers never write final artifact names
+    directly.  They stage outputs next to the targets and hand the
+    staged map to `complete()`, which performs fence-check -> rename
+    -> size+CRC journal *under the ledger lock*.
+
+Subclasses declare the domain vocabulary (ledger filename, JSON items
+key, event-kind names — see `ShardLedger` and `JobLedger`) and may
+override `_pick_pending` to change the lease scheduling policy (the
+job ledger's weighted round-robin over tenants).
 
 State machine per item::
 
@@ -32,7 +39,12 @@ State machine per item::
        |   (lease expiry, owner death,      | (artifact fails
        |    explicit fail)                  |  size+CRC verify)
        +---------------- reap --------------+
+
+(`JobLedger` adds a fence-checked terminal `failed` state for jobs
+whose retry budget is exhausted — a poisoned job must terminate, not
+cycle the fleet forever.)
 """
+
 from __future__ import annotations
 
 import contextlib
@@ -75,7 +87,7 @@ class StaleLeaseError(LedgerError):
 class ItemLease:
     """A granted item lease (what the worker computes against).
     `data` is a copy of the item's extra row fields (e.g. the shard's
-    DM rows)."""
+    DM rows, or the job's submitted spec)."""
     item_id: str
     epoch: int                     # fence token for complete()
     expires: float
@@ -145,21 +157,31 @@ class LeaseLedger:
       LEDGER_NAME   ledger filename inside the workdir
       ITEMS_KEY     JSON key the item table lives under (kept
                     distinct per domain so the on-disk schemas of the
-                    ledgers stay self-describing)
+                    shard and job ledgers stay self-describing)
       ERROR / STALE exception classes raised by this ledger
+      EV_*          event-kind names for the flight recorder (None
+                    disables that event)
     """
 
     LEDGER_NAME = "items.json"
     ITEMS_KEY = "items"
     ERROR = LedgerError
     STALE = StaleLeaseError
+    EV_LEASE: Optional[str] = None
+    EV_DONE: Optional[str] = None
+    EV_REDO: Optional[str] = None
+    EV_STALE: Optional[str] = None
+    EV_HOST_DEAD: Optional[str] = None
+    EV_EPOCH_BUMP: Optional[str] = None
 
-    def __init__(self, workdir: str, name: Optional[str] = None):
+    def __init__(self, workdir: str, name: Optional[str] = None,
+                 obs=None):
         self.workdir = os.path.abspath(workdir)
         os.makedirs(self.workdir, exist_ok=True)
         self.path = os.path.join(self.workdir,
                                  name or self.LEDGER_NAME)
         self._lock = _LockDir(self.path + ".lock", error=self.ERROR)
+        self.obs = obs
 
     # -- raw state ----------------------------------------------------
     def _load(self) -> dict:
@@ -190,6 +212,14 @@ class LeaseLedger:
     @property
     def epoch(self) -> int:
         return int(self._load()["epoch"])
+
+    # -- event plumbing ----------------------------------------------
+    def _event(self, kind: Optional[str], **fields) -> None:
+        if kind is None:
+            return
+        if self.obs is not None and getattr(self.obs, "enabled",
+                                            False):
+            self.obs.event(kind, **fields)
 
     # -- membership ---------------------------------------------------
     def join(self, host: str, addr: Optional[str] = None,
@@ -334,8 +364,13 @@ class LeaseLedger:
             row["owner"] = host
             row["lease_epoch"] = int(state["epoch"])
             row["lease_expires"] = now + ttl
+            # grant timestamp: the admit->lease wait half of the
+            # job_e2e_seconds decomposition (obs/fleetagg.py) and the
+            # fleet report's critical-path attribution read this
             row["leased_at"] = now
             self._save(state)
+            self._event(self.EV_LEASE, item=iid, host=host,
+                        epoch=int(state["epoch"]))
             return self._make_lease(iid, row, int(state["epoch"]))
 
     def renew(self, lease, host: str, ttl: float,
@@ -374,6 +409,9 @@ class LeaseLedger:
         for tmp in staged.values():
             with contextlib.suppress(OSError):
                 os.remove(tmp)
+        self._event(self.EV_STALE, item=lease.item_id, host=host,
+                    epoch=int(lease.epoch),
+                    cluster_epoch=int(state["epoch"]), why=why)
         raise self.STALE(lease.item_id, host, int(lease.epoch),
                          int(state["epoch"]), why)
 
@@ -381,7 +419,7 @@ class LeaseLedger:
                     staged: Dict[str, str], row: dict, now: float,
                     extra: Optional[dict] = None) -> Dict[str, dict]:
         """The commit body shared by complete() and subclass commit
-        transactions: rename each
+        transactions (JobLedger.complete_and_expand): rename each
         staged file onto its final path, journal size+CRC, and flip
         the row to done.  Must run under the ledger lock, AFTER the
         fence check; the caller saves the state."""
@@ -410,7 +448,7 @@ class LeaseLedger:
         file onto its final path, journal size+CRC — all under the
         ledger lock.  `staged` maps final absolute path -> staged
         temp path; `extra` fields are merged into the accepted row
-        (a result summary).  Raises the STALE error
+        (e.g. the job's result summary).  Raises the STALE error
         (after deleting the staged files) when the lease was fenced
         off; a journaled artifact is then never overwritten."""
         now = time.time() if now is None else now
@@ -423,6 +461,8 @@ class LeaseLedger:
             arts = self._commit_row(state, lease, host, staged, row,
                                     now, extra)
             self._save(state)
+            self._event(self.EV_DONE, item=lease.item_id, host=host,
+                        artifacts=len(arts))
             return arts
 
     def fail(self, lease, host: str) -> None:
@@ -436,6 +476,8 @@ class LeaseLedger:
                     and int(row["lease_epoch"]) == int(lease.epoch)):
                 self._readmit(row)
                 self._save(state)
+                self._event(self.EV_REDO, item=lease.item_id,
+                            why="released", host=host)
 
     def readmit_owned(self, host: str) -> List[str]:
         """Re-admit every lease held by `host` — called by a
@@ -455,6 +497,9 @@ class LeaseLedger:
             if redone:
                 state["epoch"] = int(state["epoch"]) + 1
             self._save(state)
+        for iid in redone:
+            self._event(self.EV_REDO, item=iid, why="owner-restart",
+                        host=host)
         return redone
 
     @staticmethod
@@ -510,6 +555,15 @@ class LeaseLedger:
                 report.bumped = True
             report.epoch = int(state["epoch"])
             self._save(state)
+        for host in report.dead_hosts:
+            self._event(self.EV_HOST_DEAD, host=host,
+                        epoch=report.epoch)
+        for iid in report.redone:
+            self._event(self.EV_REDO, item=iid, why="reaped",
+                        epoch=report.epoch)
+        if report.bumped:
+            self._event(self.EV_EPOCH_BUMP, epoch=report.epoch,
+                        dead=report.dead_hosts, redone=report.redone)
         return report
 
     def verify_done(self) -> List[str]:
@@ -543,6 +597,8 @@ class LeaseLedger:
                 self._readmit(row)
                 redone.append(iid)
             self._save(state)
+        for iid in redone:
+            self._event(self.EV_REDO, item=iid, why="verify-failed")
         return redone
 
     # -- progress -----------------------------------------------------

@@ -63,6 +63,12 @@ class ShardLedger(LeaseLedger):
     ITEMS_KEY = "shards"
     ERROR = ShardLedgerError
     STALE = StaleEpochError
+    EV_LEASE = "shard-lease"
+    EV_DONE = "shard-done"
+    EV_REDO = "shard-redo"
+    EV_STALE = "stale-write-rejected"
+    EV_HOST_DEAD = "host-dead"
+    EV_EPOCH_BUMP = "epoch-bump"
 
     # -- shard bookkeeping --------------------------------------------
     def ensure_shards(self, specs: Sequence[Tuple[str, int, int]],

@@ -138,7 +138,6 @@ class SurveyResult:
 def _refuse_unported(cfg: SurveyConfig) -> None:
     asks = {
         "zapbirds": cfg.zaplist,
-        "triage": cfg.triage,
         "barycentring": cfg.bary,
     }
     for what, on in asks.items():
@@ -803,18 +802,49 @@ def fold_argv(c, num: int, workdir: str):
              datfile], datfile, outbase)
 
 
+def resolve_triage_policy(spec, datdir, device="cuda"):
+    """cfg.triage -> a sifting policy callable (or None).
+
+    Accepts None/False (off), True (defaults), a dict with any of
+    {"budget", "budget_frac", "weights", "borderline_frac"}, or an
+    already-built triage.TriagePolicy (returned as-is, datdir filled
+    if unset).  A policy built here scores on ``device``."""
+    if not spec:
+        return None
+    from presto_tpu_torch.triage import TriagePolicy
+    if isinstance(spec, TriagePolicy):
+        if spec.datdir is None:
+            spec.datdir = datdir
+        return spec
+    kw = spec if isinstance(spec, dict) else {}
+    return TriagePolicy(weights_path=kw.get("weights"),
+                        budget=kw.get("budget"),
+                        budget_frac=kw.get("budget_frac"),
+                        borderline_frac=kw.get("borderline_frac", 0.25),
+                        datdir=datdir, device=device)
+
+
 def fold_candidates(cl, cfg: SurveyConfig, workdir: str, seam, res,
                     manifest, device) -> None:
     """Stage 8: prepfold (-nosearch, on ``device``) of the candidates
-    select_fold_candidates picks, each from its trial's .dat (spilled
-    from the seam on demand) and its ACCEL .cand, into
-    fold_candN.pfd/.bestprof; a journaled .pfd is not folded again.  A
-    fold that exits (SystemExit) is reported and skipped, as in the JAX
-    package."""
+    select_fold_candidates picks (through the ``cfg.triage`` policy when
+    one is set), each from its trial's .dat (spilled from the seam on
+    demand) and its ACCEL .cand, into fold_candN.pfd/.bestprof; a
+    journaled .pfd is not folded again.  A fold that exits (SystemExit)
+    is reported and skipped, as in the JAX package."""
+    accounting = {}
     top = select_fold_candidates(
         cl, fold_top=cfg.fold_top, fold_sigma=cfg.fold_sigma,
         max_folds=cfg.max_folds, max_folds_per_pass=cfg.max_folds_per_pass,
-        pass_zmaxes=[z for (z, _nh, _sg, _flo) in cfg.all_passes])
+        pass_zmaxes=[z for (z, _nh, _sg, _flo) in cfg.all_passes],
+        policy=resolve_triage_policy(cfg.triage, workdir, device),
+        accounting=accounting)
+    tacct = accounting.get("triage")
+    if tacct:
+        print("survey: triage %s: scored %d, folding %d (%d avoided)"
+              % (tacct.get("mode"), tacct.get("scored", 0),
+                 tacct.get("selected", len(top)),
+                 tacct.get("folds_avoided", 0)))
     for i, c in enumerate(top):
         argv, datfile, outbase = fold_argv(c, i + 1, workdir)
         seam.ensure_dat(datfile)

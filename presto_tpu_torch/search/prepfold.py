@@ -247,7 +247,7 @@ def fold_events(events_sec: np.ndarray, f: float, fd: float = 0.0,
 # Stacked folding
 # ----------------------------------------------------------------------
 
-def fold_series_batch(items, device="cuda") -> List[FoldResult]:
+def fold_series_batch(items, device="cuda", obs=None) -> List[FoldResult]:
     """Fold J one-dimensional series in stacked drizzles on ``device``.
 
     ``items``: [(series, dt, f, fd, fdd, cfg, fold_dm, tepoch)]; every
@@ -255,14 +255,20 @@ def fold_series_batch(items, device="cuda") -> List[FoldResult]:
     drizzle subdivision (the fold stack signature).  One drizzle folds
     all the data rows, one more the occupancy rows, and the per-item
     bookkeeping is fold_subband_series itself (its ``precomputed``
-    seam), so each FoldResult is bit-identical to the unbatched call."""
+    seam), so each FoldResult is bit-identical to the unbatched call.
+    The two drizzles are booked on ``obs`` (obs/devtel) as the JAX
+    package books its two dispatches: ``fold`` alone, ``fold_batch``
+    stacked."""
+    from presto_tpu_torch.obs import devtel
     plans = [fo.plan_fold(np.asarray(s).shape[-1], dt, f, fd, fdd,
                           proflen=cfg.proflen, npart=cfg.npart)
              for (s, dt, f, fd, fdd, cfg, _dm, _ep) in items]
     if len(items) == 1:
         (s, dt, f, fd, fdd, cfg, dm, ep) = items[0]
+        devtel.note_dispatch(obs, "fold", 2)
         return [fold_subband_series(s, dt, f, fd, fdd, cfg, fold_dm=dm,
                                     tepoch=ep, device=device)]
+    devtel.note_dispatch(obs, "fold_batch", 2)
     cubes = fo.fold_data_batch([s for (s, *_rest) in items], plans, device)
     occs = fo.fold_data_batch(
         [np.ones(np.asarray(s).shape[-1], np.float32)
@@ -277,12 +283,14 @@ def fold_series_batch(items, device="cuda") -> List[FoldResult]:
 
 
 def finish_fold_nosearch(results: List[FoldResult],
-                         device="cuda") -> List[FoldResult]:
+                         device="cuda", obs=None) -> List[FoldResult]:
     """search_fold's ``-nosearch`` endgame for a whole stack: one stacked
     profile-total fills every result's best summed profile; the other
     search fields take the single-trial values search_fold sets when
     every axis is off (best_* = fold values, one-entry period/pdot/dm
-    arrays).  The chi2 surfaces are left at zeros."""
+    arrays).  The chi2 surfaces are left at zeros.  The profile-total is
+    booked on ``obs`` as ``fold_total``."""
+    from presto_tpu_torch.obs import devtel
     if not results:
         return results
     for res in results:
@@ -301,6 +309,7 @@ def finish_fold_nosearch(results: List[FoldResult],
         res.pdots = np.array([res.best_pd])
     profs = np.stack([r.cube[:, 0, :] for r in results])
     shifts = np.zeros((len(results), results[0].npart), np.float32)
+    devtel.note_dispatch(obs, "fold_total")
     totals = _trial_total(profs, shifts, device)
     for res, tot in zip(results, totals):
         res.best_prof = tot.astype(np.float64)

@@ -16,8 +16,25 @@ scheduler thread does the device work, fed by a bounded two-lane queue.
   batchexec.py  the stacked cross-job batch executor
   events.py     structured JSON event log with a resumable cursor
 
-The fleet (job ledger, replicas, router, DAGs) comes with ROADMAP queue
-1 item 3.
+Fleet scale (N replicas, one shared on-disk job ledger, the JAX
+package's files):
+
+  jobledger.py  durable job ledger (pipeline/leaseledger core: leases,
+                heartbeats, epoch fencing, staged fence-checked
+                commits) + tenant WRR fairness and quotas + job
+                dependencies (blocked_on, fenced dynamic fan-out)
+  usage.py      the per-tenant usage journal (usage.jsonl)
+  fleet.py      FleetReplica: the lease-and-execute pump around one
+                SearchService, with graceful drain and chaos points
+  router.py     front-door admission (shedding with Retry-After, typed
+                tenant-quota rejections, /dag, /campaign, /scale)
+  dag.py        discovery DAGs: search -> sift -> (triage) -> folds ->
+                toa as one submitted unit (POST /dag), with stacked
+                same-geometry folds
+  campaign.py   campaign ledgers: waves of DAGs over a manifest
+
+The control loop (supervisor) and federation come with ROADMAP queue 1
+item 3b.
 """
 
 from presto_tpu_torch.serve.events import EventLog
@@ -28,9 +45,23 @@ from presto_tpu_torch.serve.scheduler import (JobTimeout, Scheduler,
                                               is_device_error)
 from presto_tpu_torch.serve.server import (SearchService, ServeHTTPServer,
                                            start_http)
+from presto_tpu_torch.serve.jobledger import (JobLedger, JobLedgerError,
+                                              StaleResultError,
+                                              TenantQuotaExceeded)
+from presto_tpu_torch.serve.dag import (build_node_job, execute_node,
+                                        plan_dag, run_folds_stacked)
+from presto_tpu_torch.serve.fleet import (FleetConfig, FleetReplica,
+                                          artifact_digests)
+from presto_tpu_torch.serve.router import (FleetBusy, FleetRouter,
+                                           NoReadyReplica, RouterConfig)
 
 __all__ = [
-    "EventLog", "Job", "JobQueue", "JobStatus", "JobTimeout", "Lanes",
-    "QueueClosed", "QueueFull", "Scheduler", "SchedulerConfig",
-    "SearchService", "ServeHTTPServer", "is_device_error", "start_http",
+    "EventLog", "FleetBusy", "FleetConfig", "FleetReplica",
+    "FleetRouter", "Job", "JobLedger", "JobLedgerError", "JobQueue",
+    "JobStatus", "JobTimeout", "Lanes", "NoReadyReplica",
+    "QueueClosed", "QueueFull", "RouterConfig", "Scheduler",
+    "SchedulerConfig", "SearchService", "ServeHTTPServer",
+    "StaleResultError", "TenantQuotaExceeded", "artifact_digests",
+    "build_node_job", "execute_node", "is_device_error", "plan_dag",
+    "run_folds_stacked", "start_http",
 ]

@@ -19,10 +19,10 @@ Contracts:
     DB's ``serve_batch_geometry`` entry (max stack x scheme), clamped by
     the card's free memory so a deep stack cannot run it out.
 
-Fold-batch stacking (the JAX package's discovery-DAG fold arm) comes
-with serve/dag, ROADMAP queue 1 item 3: a fold batch is refused here
-and runs per job.  There is no environment switch: a service turns the
-executor off with ``SearchService(stacked=False)``.
+A coalesced batch of same-bucket discovery-DAG fold jobs runs through
+the fold arm instead (serve/dag.run_folds_stacked: one stacked drizzle
+set on the service's device).  There is no environment switch: a
+service turns the executor off with ``SearchService(stacked=False)``.
 """
 
 from __future__ import annotations
@@ -147,13 +147,19 @@ class StackedBatchExecutor:
     @staticmethod
     def check_stackable(jobs: List[Job]) -> None:
         """Raise StackIncompatible unless this batch may share one
-        stacked chain: two or more same-bucket survey jobs with one
-        search signature, none callable or elastic."""
+        stacked chain.  Two stackable families exist, never mixed: two
+        or more same-bucket survey jobs with one search signature (none
+        callable or elastic), and same-bucket DAG fold jobs (the stacked
+        drizzle, serve/dag)."""
         if len(jobs) < 2:
             raise StackIncompatible("nothing to stack")
         kinds = {getattr(job, "kind", "survey") or "survey" for job in jobs}
+        if kinds == {"fold"}:
+            if any(job.bucket != jobs[0].bucket for job in jobs[1:]):
+                raise StackIncompatible("mixed fold stack buckets")
+            return
         if kinds != {"survey"}:
-            raise StackIncompatible("only survey batches stack in the port "
+            raise StackIncompatible("only survey or fold batches stack "
                                     "(got %s)" % sorted(kinds))
         for job in jobs:
             if job.run is not None or job.cfg is None:
@@ -169,10 +175,47 @@ class StackedBatchExecutor:
                 raise StackIncompatible(
                     "same bucket but different search configs")
 
+    def _fold_batch(self, jobs: List[Job]) -> List[dict]:
+        """The fold arm: a coalesced same-bucket DAG fold batch runs as
+        one stacked drizzle set on the service's device (serve/dag),
+        byte-identical to per-job folds; a failure propagates to the
+        scheduler's per-job degradation like the survey arm's."""
+        from presto_tpu_torch.serve.dag import run_folds_stacked
+        injector = self.service.scheduler.cfg.fault_injector
+        for job in jobs:
+            job.status = JobStatus.RUNNING
+            if not job.started:
+                job.started = time.time()
+            self.service.events.emit("execute", job=job.job_id,
+                                     attempt=job.attempts + 1,
+                                     stacked=True)
+            if injector is not None:
+                injector(job, job.attempts + 1)
+        span = self.service.obs.span("serve:stacked-batch",
+                                     jobs=len(jobs), kind="fold",
+                                     bucket=repr(jobs[0].bucket))
+        self._h_occupancy.observe(len(jobs))
+        t0 = time.time()
+        try:
+            results = run_folds_stacked(self.service, jobs)
+        except Exception as e:
+            span.finish("error: %s" % type(e).__name__)
+            raise
+        span.finish()
+        self._c_batches.inc()
+        self._c_jobs.inc(len(jobs))
+        if self.service.latency is not None:
+            self.service.latency.record("job_exec", time.time() - t0)
+        for job in jobs:
+            job.attempts += 1
+        return results
+
     def __call__(self, jobs: List[Job]) -> List[dict]:
         from presto_tpu_torch.pipeline.survey import run_survey_stacked
         from presto_tpu_torch.utils.timing import StageTimer
         self.check_stackable(jobs)
+        if all(getattr(j, "kind", "survey") == "fold" for j in jobs):
+            return self._fold_batch(jobs)
         injector = self.service.scheduler.cfg.fault_injector
         timers = []
         for job in jobs:

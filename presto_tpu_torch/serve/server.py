@@ -18,8 +18,10 @@ kernels and the single-pulse search of its rows.  A
 so a second service on the same store prewarms (``prewarm``, readyz's
 ``plan_warm_fraction``).
 In-process callable jobs (the live stream's deadline-lane ticks) share
-the scheduler.  A discovery-DAG node job is refused (NotImplementedError,
-HTTP 501): it needs ROADMAP queue 1 item 3.
+the scheduler.  A discovery-DAG node job (``kind`` sift, triage, fold
+or toa) runs its serve/dag executor on the service's device; a
+serve/fleet.FleetReplica wrapped around the service leases survey and
+node jobs from a fleet's job ledger.
 
 The wire protocol is plain HTTP + JSON over stdlib `http.server`
 (ThreadingHTTPServer; one thread per connection, the scheduler thread
@@ -32,7 +34,7 @@ does the device work):
   GET  /jobs/<id>/result  terminal result payload (409 until terminal)
   GET  /healthz           liveness: queue + scheduler state
   GET  /readyz            readiness: draining / scheduler alive / plan
-                          warm fraction
+                          warm fraction / fleet lease state
   GET  /metrics           queue/scheduler/latency snapshot (JSON), or
                           Prometheus text for `Accept: text/plain`
   GET  /events?n=100      tail of the structured event log
@@ -58,9 +60,6 @@ from presto_tpu_torch.serve.queue import (Job, JobQueue, JobStatus,
                                           QueueClosed, QueueFull)
 from presto_tpu_torch.serve.scheduler import Scheduler, SchedulerConfig
 from presto_tpu_torch.utils.timing import LatencyStats, StageTimer
-
-DAG_JOBS_ITEM = ("discovery-DAG node jobs need serve/dag and the job "
-                 "ledger: ROADMAP queue 1 item 3")
 
 
 class BadRequest(ValueError):
@@ -161,6 +160,9 @@ class SearchService:
         self._ids = itertools.count(1)
         self._t0 = time.time()
         self.draining = False
+        #: set by serve/fleet.FleetReplica when this service is a
+        #: fleet member (readiness then reports the lease state)
+        self.fleet = None
 
     # ---- lifecycle ----------------------------------------------------
 
@@ -178,11 +180,16 @@ class SearchService:
     def shutdown(self, drain: bool = True,
                  timeout: float = 60.0) -> dict:
         """Graceful termination (the SIGTERM path): flip readiness off,
-        drain in-flight and queued jobs, then stop.  Returns a small
-        shutdown report."""
+        drain in-flight and queued jobs, hand the fleet leases back
+        (drained jobs commit; undrained ones are released for another
+        replica), then stop.  Returns a small shutdown report."""
         self.draining = True
         report = {"drained": True, "parked": 0, "released": 0}
-        if drain:
+        if self.fleet is not None:
+            # the fleet drain owns the whole sequence: stop leasing,
+            # wait out in-flight work, release leftovers, tombstone
+            report.update(self.fleet.drain(timeout=timeout))
+        elif drain:
             report["drained"] = self.scheduler.drain(timeout=timeout)
         self.stop()
         return report
@@ -213,16 +220,24 @@ class SearchService:
           priority  int (optional; lower runs first)
           job_id    str (optional; must be unique)
 
-        Raises BadRequest on malformed specs; a discovery-DAG node spec
-        (``kind`` sift/fold/toa) raises NotImplementedError (ROADMAP
-        queue 1 item 3); a service on "cuda" with no card raises
-        RuntimeError.  ``job_id``/``workdir`` override the spec."""
+        Raises BadRequest on malformed specs; a service on "cuda" with
+        no card raises RuntimeError.  ``job_id``/``workdir`` override
+        the spec (the fleet replica pins both to the ledger job id and
+        its epoch-stamped attempt directory).
+
+        Discovery-DAG node specs (``kind`` sift/triage/fold/toa) are
+        validated by serve/dag.build_node_job instead: they carry no
+        rawfiles; their inputs are the parents' committed attempt
+        dirs."""
         from presto_tpu_torch.pipeline.survey import SurveyConfig
         from presto_tpu_torch.search.accel import resolve_device
         if not isinstance(spec, dict):
             raise BadRequest("spec must be a JSON object")
         if str(spec.get("kind", "survey") or "survey") != "survey":
-            raise NotImplementedError(DAG_JOBS_ITEM)
+            from presto_tpu_torch.serve.dag import build_node_job
+            resolve_device(self.device)
+            return build_node_job(self, spec, job_id=job_id,
+                                  workdir=workdir)
         rawfiles = spec.get("rawfiles")
         if not rawfiles or not isinstance(rawfiles, (list, tuple)):
             raise BadRequest("spec.rawfiles must be a non-empty list")
@@ -302,11 +317,15 @@ class SearchService:
 
     def _execute_job(self, job: Job) -> dict:
         """Run one job on the scheduler thread: an in-process callable,
-        or a restartable survey in the job's workdir feeding the shared
-        per-stage latency percentiles (a stack of one over the service's
-        mesh when it has one)."""
+        a DAG node (its serve/dag executor), or a restartable survey in
+        the job's workdir feeding the shared per-stage latency
+        percentiles (a stack of one over the service's mesh when it has
+        one)."""
         if job.run is not None:
             return job.run(job) or {}
+        if getattr(job, "kind", "survey") != "survey":
+            from presto_tpu_torch.serve.dag import execute_node
+            return execute_node(self, job)
         from presto_tpu_torch.pipeline.survey import (run_survey,
                                                       run_survey_stacked)
         timer = StageTimer(stats=self.latency, obs=self.obs)
@@ -380,8 +399,8 @@ class SearchService:
         while draining (shutdown in progress) or dead.  The JAX
         service's keys; ``plan_store`` describes the persistent tier
         (``xla_entries``: the plan libraries built for the current
-        kernel sources), and ``lease`` is None (no fleet in the
-        port)."""
+        kernel sources), and ``lease`` the fleet lease state (None
+        outside a fleet)."""
         ready = bool(self.scheduler.alive) and not self.draining
         return {
             "ready": ready,
@@ -395,7 +414,8 @@ class SearchService:
             }),
             "queue_depth": len(self.queue),
             "queue_capacity": self.queue.maxdepth,
-            "lease": None,
+            "lease": (None if self.fleet is None
+                      else self.fleet.lease_state()),
         }
 
     def metrics(self) -> dict:
@@ -554,8 +574,6 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(202, self.service.submit(spec))
         except BadRequest as e:
             self._json(400, {"error": str(e)})
-        except NotImplementedError as e:
-            self._json(501, {"error": str(e)})
         except QueueFull as e:
             self._json(429, {"error": str(e)})
         except QueueClosed as e:

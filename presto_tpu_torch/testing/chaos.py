@@ -147,6 +147,14 @@ class TransientFaults:
 # schedule beam kills without importing the stream layer.
 BEAM_KILL_POINTS = ("beam-tick", "beam-commit", "beam-handoff")
 
+# Fleet replica kill points (serve/fleet.FleetReplica fires these when
+# its ``kill_on`` names one): a lease granted, a batch lease granted, a
+# leased job in the local queue, a fold or triage node leased, the DAG
+# fan-out computed but not committed, the fan-out committed.
+FLEET_KILL_POINTS = ("job-leased", "batch-leased", "job-enqueued",
+                     "mid-fold", "mid-triage", "fold-fanout",
+                     "post-sift-commit")
+
 
 class StreamFaults:
     """Live-feed fault schedule: the producer-side chaos seam for

@@ -353,3 +353,64 @@ def test_port_imports_no_jax_and_needs_cuda():
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "ISOLATED" in out.stdout
+
+
+FLEET_SCRIPT = r"""
+import sys
+import torch
+from presto_tpu_torch.apps import campaign, pipeline, serve, triage
+from presto_tpu_torch.obs import fleetagg, slo
+from presto_tpu_torch.pipeline import leaseledger, survey
+from presto_tpu_torch.serve import (batchexec, campaign as scampaign, dag,
+                                    fleet, jobledger, router, server, usage)
+from presto_tpu_torch.triage import calibrate, features, model
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "presto_tpu" or m.startswith("presto_tpu."))
+assert not bad, bad
+assert not hasattr(server, "DAG_JOBS_ITEM")
+survey._refuse_unported(survey.SurveyConfig(triage={"budget": 1}))
+for refused in ({"zaplist": "z.txt"}, {"bary": True}):
+    try:
+        survey._refuse_unported(survey.SurveyConfig(**refused))
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("survey no longer refuses %s" % refused)
+if not torch.cuda.is_available():
+    import numpy as np
+    m = model.TriageModel(w=[0.0] * 14, b=0.0, mean=[0.0] * 14,
+                          scale=[1.0] * 14)
+    svc = server.SearchService("w_iso")
+    for call in (lambda: m.score(np.zeros((2, 14))),
+                 lambda: model.train_model(np.zeros((4, 14)),
+                                           np.zeros(4)),
+                 lambda: triage.main(["train", "--synthetic", "-o", "w.json"]),
+                 lambda: serve.main(["-fleet", "f_iso"]),
+                 lambda: pipeline.main(["missing.fil"]),
+                 lambda: svc.build_job({"kind": "fold", "fold": {}})):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError("an entry point ran without CUDA")
+print("FLEET ISOLATED")
+"""
+
+
+def test_fleet_and_triage_modules_stand_alone_and_need_cuda(tmp_path):
+    """The fleet and triage modules (serve/{jobledger, usage, dag, fleet,
+    router, campaign}, obs/{slo, fleetagg}, triage/, apps/{serve, triage,
+    pipeline, campaign}) import neither jax nor presto_tpu; the survey
+    takes cfg.triage and still refuses zapbirds and barycentring; the
+    triage score and training, the presto-triage, presto-serve and
+    pipeline CLIs and a DAG node job on a default service raise without
+    a card."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", FLEET_SCRIPT],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FLEET ISOLATED" in out.stdout

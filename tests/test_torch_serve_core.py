@@ -478,8 +478,9 @@ def test_submit_callable_runs_on_the_deadline_lane(tmp_path):
 def test_http_front_end(tmp_path):
     """/healthz, /readyz, /metrics (JSON and Prometheus), /events with
     since=, /jobs over start_http; POST /submit of a survey whose file
-    has no filterbank header answers 400, a DAG node job 501 naming
-    ROADMAP queue 1 item 3, a malformed one 400."""
+    has no filterbank header answers 400, a DAG node job of an unknown
+    kind 400 and a fold node job 202 (serve/dag runs it), a malformed
+    one 400."""
     svc = SearchService(str(tmp_path), heartbeat_s=0.05,
                         device="cpu").start()
     httpd = start_http(svc)
@@ -513,8 +514,11 @@ def test_http_front_end(tmp_path):
                           json.dumps({"rawfiles": [__file__]}).encode())
         assert code == 400 and "observation header" in out["error"]
         code, out = _post(base + "/submit", json.dumps(
+            {"kind": "bogus", "parents": []}).encode())
+        assert code == 400 and "dag node kind" in out["error"]
+        code, out = _post(base + "/submit", json.dumps(
             {"kind": "fold", "parents": []}).encode())
-        assert code == 501 and "queue 1 item 3" in out["error"]
+        assert code == 202 and out["job_id"].startswith("fold-")
         code, out = _post(base + "/submit", b"{not json")
         assert code == 400
         code, out = _post(base + "/submit", json.dumps(
@@ -533,15 +537,23 @@ def test_http_front_end(tmp_path):
 
 def test_survey_and_dag_jobs_and_item2_arguments_refused(tmp_path):
     """ROADMAP queue 1 item 2's arguments are taken (plan_store_dir,
-    a mesh of the service's device type, stacked=True); a survey job on a "cuda" service raises without
-    a card (nothing falls back to the CPU); a DAG node job is refused,
-    naming item 3."""
+    a mesh of the service's device type, stacked=True); a survey job or
+    a DAG node job on a "cuda" service raises without a card (nothing
+    falls back to the CPU); on a CPU service a DAG node job builds (item
+    3 took the refusal away) and an unknown node kind is a bad
+    request."""
+    from presto_tpu_torch.serve.server import BadRequest
     svc = SearchService(str(tmp_path))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             svc.submit({"rawfiles": [__file__], "config": {"lodm": 10}})
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        svc.build_job({"kind": "fold", "parents": []})
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            svc.build_job({"kind": "fold", "parents": []})
+    cpu = SearchService(str(tmp_path), device="cpu")
+    node = cpu.build_job({"kind": "fold", "parents": []})
+    assert node.kind == "fold" and node.rawfiles == []
+    with pytest.raises(BadRequest, match="dag node kind"):
+        cpu.build_job({"kind": "bogus"})
     store = SearchService(str(tmp_path), plan_store_dir=str(tmp_path / "p"),
                           device="cpu")
     assert store.plan_store is not None and store.readyz()["plan_store"][

@@ -299,11 +299,15 @@ def test_check_stackable_and_stack_plans():
         return Job(job_id="j%d" % i, rawfiles=[], cfg=c, workdir="/tmp",
                    bucket=bucket, run=run, kind=kind)
     StackedBatchExecutor.check_stackable([job(0), job(1)])
+    # same-bucket DAG fold jobs stack through the fold arm
+    StackedBatchExecutor.check_stackable([job(0, kind="fold"),
+                                          job(1, kind="fold")])
     other = SurveyConfig(**dict(CFG, sp_threshold=6.5))
     assert stack_signature(other) != stack_signature(cfg)
     for bad in ([job(0)], [job(0), job(1, run=lambda j: {})],
                 [job(0), job(1, c=other)], [job(0), job(1, bucket="c")],
-                [job(0, kind="fold"), job(1, kind="fold")],
+                [job(0, kind="fold"), job(1, kind="fold", bucket="c")],
+                [job(0), job(1, kind="fold")],
                 [job(0, c=SurveyConfig(**dict(CFG, elastic=True))),
                  job(1, c=SurveyConfig(**dict(CFG, elastic=True)))]):
         with pytest.raises(StackIncompatible):
