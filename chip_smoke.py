@@ -109,6 +109,25 @@ Phases (any failure exits non-zero before the final line):
              counter over the snapshots equal to the survivor's commits,
              both kernels launched by it; times from usage.jsonl, /scale
              and /fleet/metrics printed;
+  6f. federation  two supervised fleets behind the port's federation
+             router (in this process, loopback HTTP): each fleet the
+             port's router and presto-supervise (1-2 replica processes
+             on the card) as processes of their own; survey job J1 of
+             the beam (the main configuration) placed on fleet A (it
+             holds the beam), A's router, supervisor and replica
+             SIGKILLed once A's replica leases J1, J1 re-admitted on B,
+             J2 after it so that B's /scale wants 2 and B's supervisor
+             spawns a second replica, then drains it by SIGTERM when
+             idle: each job committed once by the federation, its files
+             equal to the main run's, the committed counter over B's
+             snapshots 2, the supervisor events carrying the advisory
+             inputs, /fed, /fleet/metrics, /slo, /usage and /scale
+             answering, presto-report -fleet rendering B's supervisor
+             timeline, the phase's times as one perf-ledger episode read
+             back by the federation's pricing by the card's fingerprint;
+             presto-tune --families accel_column_slab into a temporary
+             DB keyed by the card's fingerprint, --device-report listing
+             it; kill to re-admit, spawn to up and admit to done timed;
   7. small   spectra of 2^15 and 3000 bins searched on the card and on
              the CPU (the second on the non-aligned plane geometry);
   8. singlepulse  the JAX package's single-pulse bench shape (bench.py's
@@ -155,7 +174,8 @@ Phases (any failure exits non-zero before the final line):
              beside 13 one-beam steps; the real-time factor;
  12. summary the kernels line (launches of the main path, the sharded
              main path, by shard too, the serve path, the fleet path, the
-             jerk paths and the live paths; each kernel's bound also at the measured
+             federation path (A's last snapshot and B's replicas'), the
+             tune sweep, the jerk paths and the live paths; each kernel's bound also at the measured
              peaks),
              the card, and the final ok line.
 
@@ -3644,6 +3664,429 @@ def phase_fleet(raw, workdir, mwork, device="cuda", config=None,
     return res
 
 
+#: the federation phase's control plane: the routers' /scale advisory
+#: prices a job of a bucket never run at obs/slo.ScaleConfig's
+#: default_job_s (5 s) and wants the backlog drained in FED_DRAIN_S, so
+#: one beam job wants one replica and two want two; each supervisor keeps
+#: 1-2 replicas, acts after 2 polls that want more (4 that want fewer)
+#: at FED_POLL_S, with FED_COOLDOWN_S between actions; the federation
+#: reaps a fleet whose router has not answered for FED_HB_TTL_S
+FED_DRAIN_S = 6.0
+FED_POLL_S = 0.25
+FED_COOLDOWN_S = 2.0
+FED_HB_TTL_S = 3.0
+#: the federation's wire timeout: a member router's first POST /submit
+#: imports the survey's modules (~3.4 s on the CPU); a dead router
+#: refuses at once, so the reap does not wait on it
+FED_HTTP_TIMEOUT_S = 15.0
+FED_REPLICA_ARGS = ("-lease-ttl", "900", "-snapshot-interval", "1",
+                    "-inflight", "1")
+#: presto-tune's sweep in the phase: the column slab at the main path's
+#: shape (zmax 200, numharm 8, 2^21 bins), 3 steady reps a slab
+FED_TUNE_BUDGET_S = 60
+
+
+def _start_proc(argv, logp):
+    """One control-plane process from the repository root (output to
+    logp): its Popen."""
+    with open(logp, "w") as out:
+        return subprocess.Popen([sys.executable, "-m"] + list(argv),
+                                cwd=ROOT, env=dict(os.environ,
+                                                   PYTHONPATH=ROOT),
+                                stdout=out, stderr=subprocess.STDOUT)
+
+
+def _pid_alive(pid):
+    """A pid that still runs (a zombie is not running)."""
+    try:
+        with open("/proc/%d/stat" % int(pid)) as f:
+            return f.read().split(")")[-1].split()[0] != "Z"
+    except (OSError, ValueError):
+        return False
+
+
+def _supervisor_events(fleetdir):
+    from presto_tpu_torch.serve import supervisor as suplib
+    p = suplib.events_path(fleetdir)
+    if not os.path.exists(p):
+        return []
+    return [json.loads(ln) for ln in open(p) if ln.strip()]
+
+
+def _fleet_launches(fleetdir):
+    """{replica: {kernel: launches}} from every replica snapshot of a
+    fleet (cuda_kernel_launches_total at its last publication)."""
+    from presto_tpu_torch.obs import fleetagg
+    return {name: _snapshot_launches(fleetdir, name)
+            for name in sorted(fleetagg.load_snapshots(fleetdir))}
+
+
+def phase_federation(raw, workdir, mwork, device="cuda", config=None):
+    """Two supervised fleets behind the federation, fleet A SIGKILLed
+    whole.  Each fleet: the port's router (python -m
+    presto_tpu_torch.serve.router) and presto-supervise (python -m
+    presto_tpu_torch.apps.supervise, 1-2 replicas of -device ``device``)
+    as processes of their own; each supervisor spawns its first replica.
+    The federation router runs in this process (start_fed_http,
+    loopback).  Survey job J1 (the beam, the main configuration) goes to
+    the federation, which places it on A (A holds the beam); once A's
+    replica has leased J1 in A's ledger, A's router, supervisor and
+    replica are SIGKILLed; the federation reaps A and re-admits J1 on
+    B.  J2 follows, B's /scale wants 2 replicas and B's supervisor spawns
+    a second; idle again, B drains back to 1 by SIGTERM.  Checks: one
+    federated commit each (fleets.json), each job's .dat, .singlepulse,
+    ACCEL, .cand, cands_sifted.txt and (rebased) .pfd equal to the main
+    phase's; fleet_jobs_committed_total over B's snapshots 2; B's
+    supervisor-spawn events carry the advisory inputs, its drain ends in
+    supervisor-drained without a timeout; /fed, /fleet/metrics, /slo,
+    /usage and /scale answer; apps/report -fleet renders B's supervisor
+    timeline; the phase's times go as one episode into a perf ledger in
+    the phase's directory, which the federation's pricing reads back by
+    the card's fingerprint; presto-tune sweeps accel_column_slab into a
+    temporary DB keyed by the card's fingerprint (launches counted) and
+    --device-report lists it.  ``device`` "cpu" (with ``config``)
+    rehearses the phase at a small size."""
+    import contextlib
+    import io
+    import signal
+    from presto_tpu_torch.apps import report as report_cli
+    from presto_tpu_torch.apps import tune as tune_cli
+    from presto_tpu_torch.obs import fleetagg, perfledger, slo
+    from presto_tpu_torch.serve import supervisor as suplib
+    from presto_tpu_torch.serve.federation import (FederationConfig,
+                                                   FederationRouter,
+                                                   FleetMember,
+                                                   start_fed_http)
+    from presto_tpu_torch.serve.jobledger import JobLedger
+    from presto_tpu_torch.tune.db import fingerprint_key
+    if config is None:
+        cfg = main_cfg()
+        config = dict(lodm=cfg.lodm, hidm=cfg.hidm, nsub=cfg.nsub,
+                      zmax=cfg.zmax, numharm=cfg.numharm,
+                      fold_top=cfg.fold_top,
+                      durable_stages=cfg.durable_stages)
+    os.makedirs(workdir, exist_ok=True)
+    t0 = time.time()
+    res = dict(scale=dict(target_drain_s=FED_DRAIN_S,
+                          default_job_s=slo.ScaleConfig().default_job_s,
+                          max_replicas=2),
+               supervisor=dict(poll_s=FED_POLL_S, scale_up_after=2,
+                               scale_down_after=4,
+                               cooldown_s=FED_COOLDOWN_S),
+               heartbeat_ttl_s=FED_HB_TTL_S)
+    fleets, procs = {}, {}
+    for name in ("A", "B"):
+        fdir = os.path.join(workdir, "fleet" + name)
+        port = _free_port()
+        url = "http://127.0.0.1:%d" % port
+        procs["router" + name] = _start_proc(
+            ["presto_tpu_torch.serve.router", "-fleetdir", fdir, "-port",
+             str(port), "-poll", str(FED_POLL_S), "-hb-timeout", "4",
+             "-scale-drain", str(FED_DRAIN_S), "-scale-max", "2"],
+            os.path.join(workdir, "router%s.log" % name))
+        procs["supervisor" + name] = _start_proc(
+            ["presto_tpu_torch.apps.supervise", "-fleet", fdir, "-router",
+             url, "-poll", str(FED_POLL_S), "-scale-up-after", "2",
+             "-scale-down-after", "4", "-cooldown", str(FED_COOLDOWN_S),
+             "-min", "1", "-max", "2", "-drain-timeout", "120",
+             "-spawn-timeout", "300", "-hb-timeout", "60",
+             "-replica-prefix", name.lower(), "-device", str(device),
+             "-teardown"] + ["-replica-arg=%s" % a
+                             for a in FED_REPLICA_ARGS],
+            os.path.join(workdir, "supervisor%s.log" % name))
+        fleets[name] = dict(dir=fdir, url=url)
+    fp = fingerprint_key()
+    ledger_path = os.path.join(workdir, "perf_ledger.json")
+    members = [FleetMember(name=n, fleetdir=fleets[n]["dir"],
+                           url=fleets[n]["url"], fingerprint=fp,
+                           data_roots=((os.path.dirname(os.path.abspath(
+                               raw)),) if n == "A" else ()))
+               for n in ("A", "B")]
+    fed = httpd = None
+    ok_http, jobs = {}, {}
+
+    def ready(n):
+        try:
+            code, sc = _http("GET", fleets[n]["url"] + "/scale", timeout=5)
+        except OSError:
+            return False
+        return code == 200 and sc["inputs"]["ready_replicas"] >= 1
+
+    def fed_row(jid):
+        return fed.fedledger.placements().get(jid) or {}
+    try:
+        started = _until(lambda: ready("A") and ready("B"), 300, poll=0.2)
+        res["fleets_ready_s"] = time.time() - t0
+        if not started:
+            raise RuntimeError("federation: a fleet has no ready replica "
+                               "after 300 s")
+        up = {n: [e for e in _supervisor_events(fleets[n]["dir"])
+                  if e["kind"] == "supervisor-up"] for n in fleets}
+        res["spawn_to_up_s"] = {n: [e["warmup_s"] for e in v]
+                                for n, v in up.items()}
+        log("federation: both fleets ready %.3f s after the start (%s)"
+            % (res["fleets_ready_s"], started))
+        fed = FederationRouter(FederationConfig(
+            feddir=os.path.join(workdir, "fed"), fleets=members,
+            poll_s=FED_POLL_S, heartbeat_ttl=FED_HB_TTL_S,
+            http_timeout=FED_HTTP_TIMEOUT_S, perf_workload="federation",
+            perf_ledger_path=ledger_path)).start()
+        httpd = start_fed_http(fed)
+        base = "http://%s:%d" % httpd.server_address[:2]
+        spec = {"rawfiles": [raw], "config": config}
+        t_admit = {"J1": time.time()}
+        code, out = _http("POST", base + "/submit",
+                          dict(spec, job_id="fed-j1"))
+        jobs["J1"] = dict(code=code, placed=out.get("placement", {}))
+        if code != 202:
+            raise RuntimeError("federation: POST /submit answered %d: %s "
+                               "(push errors %s)" % (code, out, [
+                                   e for e in fed.events.tail(50)
+                                   if e["kind"] == "fed-push-error"]))
+        aled = JobLedger(fleets["A"]["dir"])
+        leased = _until(lambda: (aled.view("fed-j1") or {}).get("state")
+                        == "leased", 300, poll=0.01)
+        reg = suplib.load_registry(fleets["A"]["dir"])["replicas"]
+        pids = [int(r["pid"]) for r in reg.values() if r.get("pid")]
+        t_kill = time.time()
+        for key in ("routerA", "supervisorA"):
+            procs[key].kill()
+        for pid in pids:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        rcs = {k: procs[k].wait(30) for k in ("routerA", "supervisorA")}
+        dead = _until(lambda: not any(_pid_alive(p) for p in pids), 30)
+        res["kill"] = dict(rcs=rcs, replica_pids=pids, replicas_dead=dead,
+                           leased_before_kill_s=t_kill - t_admit["J1"])
+        log("federation: J1 placed on %s (%s), leased in A's ledger %.3f s "
+            "after the admit; SIGKILL A's router, supervisor and replica "
+            "%s -> %s, replicas gone %s"
+            % (jobs["J1"]["placed"].get("fleet"),
+               jobs["J1"]["placed"].get("source"),
+               t_kill - t_admit["J1"], pids, rcs, dead))
+        readmitted = _until(lambda: fed_row("fed-j1").get("owner") == "B"
+                            and fed_row("fed-j1").get("state")
+                            in ("leased", "done"), 120, poll=0.02)
+        res["kill_to_readmit_s"] = (float(fed_row("fed-j1").get(
+            "leased_at") or 0.0) - t_kill)
+        t_admit["J2"] = time.time()
+        code, out = _http("POST", base + "/submit",
+                          dict(spec, job_id="fed-j2"))
+        jobs["J2"] = dict(code=code, placed=out.get("placement", {}))
+        done = _until(lambda: all(fed_row(j).get("state") == "done"
+                                  for j in ("fed-j1", "fed-j2")),
+                      900, poll=0.2)
+        for name, jid in (("J1", "fed-j1"), ("J2", "fed-j2")):
+            jobs[name]["admit_to_done_s"] = (float(fed_row(jid).get(
+                "completed_at") or 0.0) - t_admit[name])
+        # the federation's own errors (seconds after the kill), A's
+        # refused probes counted apart: what a slow re-admission waited on
+        errs = [e for e in fed.events.tail(4096)
+                if e["kind"] in ("fed-push-error", "fed-probe-error")]
+        res["fed_errors"] = [
+            (e["kind"], e.get("fleet"), e.get("item"),
+             round(e["ts"] - t_kill, 3), e.get("detail") or e.get("error"))
+            for e in errs if not (e["kind"] == "fed-probe-error"
+                                  and e.get("fleet") == "A")]
+        res["a_probe_errors"] = len(errs) - len(res["fed_errors"])
+        drained = _until(lambda: any(
+            e["kind"] == "supervisor-drained"
+            for e in _supervisor_events(fleets["B"]["dir"])), 180, poll=0.2)
+        for path in ("/fed", "/fleet/metrics", "/slo", "/usage", "/scale"):
+            c, body = _http("GET", base + path)
+            ok_http[path] = c == 200 and isinstance(body, dict)
+        res["fed_view"] = _http("GET", base + "/fed")[1]
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+        if fed is not None:
+            fed.stop()
+        for key in ("supervisorB", "routerB", "supervisorA", "routerA"):
+            p = procs.get(key)
+            if p is not None and p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(150)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(30)
+        for n in fleets:
+            for r in suplib.load_registry(fleets[n]["dir"])[
+                    "replicas"].values():
+                if r.get("pid") and _pid_alive(r["pid"]):
+                    os.kill(int(r["pid"]), signal.SIGKILL)
+    for key in sorted(procs):
+        with open(os.path.join(workdir, key + ".log")) as f:
+            log("federation: %s log tail: %s" % (
+                key, f.read()[-800:].replace("\n", " | ")))
+    res["jobs"] = jobs
+    # one federated commit each, both on B
+    state = fed.fedledger.read()
+    rows = {j: state["placements"].get(j, {}) for j in ("fed-j1",
+                                                        "fed-j2")}
+    once = (all(r.get("state") == "done" and r.get("owner") == "B"
+                for r in rows.values())
+            and rows["fed-j1"].get("redos") == 1
+            and rows["fed-j2"].get("redos") == 0
+            and fed.obs.metrics.get("fed_commits_total").value == 2
+            and fed.obs.metrics.get("fed_stale_commits_total").value == 0
+            and sorted(os.listdir(os.path.join(
+                workdir, "fed", "results"))) == ["fed-j1.json",
+                                                 "fed-j2.json"]
+            and jobs["J1"]["placed"].get("fleet") == "A"
+            and jobs["J2"]["placed"].get("fleet") == "B")
+    # the files against the main phase's
+    bdir = fleets["B"]["dir"]
+    bled = JobLedger(bdir)
+    files = {}
+    for jid in ("fed-j1", "fed-j2"):
+        p = os.path.join(bdir, "jobs", jid, "result.json")
+        if os.path.exists(p):
+            d = json.load(open(p))
+            files[jid] = _job_files_equal(os.path.join(
+                bdir, "jobs", jid, d["attempt_dir"]), mwork)
+            files[jid]["replica"] = d.get("replica")
+    want = ["dat", "accel", "sifted"] + (
+        ["singlepulse"] if config.get("singlepulse", True) else []) + (
+        ["pfd"] if config.get("fold_top", 3) > 0 else [])
+    files_ok = len(files) == 2 and all(
+        all(f[k][0] for k in want) for f in files.values())
+    bview = {j: (bled.view(j) or {}).get("state") for j in rows}
+    usage = bled.usage.raw_rows()
+    usage_ids = sorted(u["job_id"] for u in usage)
+    res["usage_phases"] = {u["job_id"]: u.get("phases") for u in usage}
+    # the committed counter over B's snapshots
+    agg = fleetagg.aggregate(bdir)
+    committed = sum(fleetagg.counter_rollup(
+        agg["merged"], "fleet_jobs_committed_total", "").values())
+    # B's supervisor: spawn (with the advisory inputs), up, drain, drained
+    bev = _supervisor_events(bdir)
+    kinds = [e["kind"] for e in bev]
+    spawns = [e for e in bev if e["kind"] == "supervisor-spawn"]
+    scale_up = [e for e in spawns if e.get("why") == "scale-up"
+                and e.get("wanted") == 2]
+    res["b_supervisor"] = dict(
+        kinds={k: kinds.count(k) for k in sorted(set(kinds))},
+        spawns=[{k: e.get(k) for k in ("replica", "why", "wanted",
+                                       "advice_reason", "inputs")}
+                for e in spawns],
+        warmup_s=[e["warmup_s"] for e in bev
+                  if e["kind"] == "supervisor-up"])
+    scaled = (len(scale_up) >= 1
+              and scale_up[0]["inputs"].get("backlog_jobs", 0) >= 2
+              and kinds.count("supervisor-up") >= 2
+              and "supervisor-drain" in kinds and drained
+              and "supervisor-drain-timeout" not in kinds
+              and "supervisor-replace" not in kinds)
+    # the report's supervisor timeline
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        report_rc = report_cli.main(["-fleet", bdir])
+    text = out.getvalue()
+    report_ok = (report_rc == 0 and "Supervisor (supervisor.json" in text
+                 and "timeline" in text and " drained " in text
+                 and (device != "cuda" or "CUDA kernel launches" in text))
+    # launches: A's last snapshot and B's replicas'
+    launches = {"A": _fleet_launches(fleets["A"]["dir"]),
+                "B": _fleet_launches(bdir)}
+    res["launches_by_replica"] = launches
+    res["launches"] = {k: sum(r.get(k, 0) for f in launches.values()
+                              for r in f.values())
+                       for k in ("plane_build", "stage_reduce")}
+    b_sum = {k: sum(r.get(k, 0) for r in launches["B"].values())
+             for k in ("plane_build", "stage_reduce")}
+    launched = device != "cuda" or all(v > 0 for v in b_sum.values())
+    # the phase's numbers as one episode; the federation's pricing reads
+    # it back for a fleet with no usage of its own (A) by the fingerprint
+    eps = {"kill_to_readmit_s": ([res["kill_to_readmit_s"]], "s", "lower"),
+           "j1_admit_to_done_s": ([jobs["J1"].get("admit_to_done_s", 0.0)],
+                                  "s", "lower"),
+           "j2_admit_to_done_s": ([jobs["J2"].get("admit_to_done_s", 0.0)],
+                                  "s", "lower"),
+           "spawn_to_up_s": (res["b_supervisor"]["warmup_s"] or [0.0], "s",
+                             "lower"),
+           "jobs_per_hour": ([2 * 3600.0 / max(max(
+               jobs[j].get("admit_to_done_s", 0.0) for j in jobs), 1e-9)],
+               "jobs/h", "higher")}
+    led = perfledger.PerfLedger()
+    led.append(perfledger.make_episode(
+        {k: perfledger.metric_from_samples(v, u, d)
+         for k, (v, u, d) in eps.items()}, fingerprint=fp,
+        workload="federation", source="chip_smoke.py",
+        meta={"card": torch.cuda.get_device_name(0)
+              if device == "cuda" else "cpu"}))
+    led.save(ledger_path)
+    back = perfledger.PerfLedger.load(ledger_path).select(
+        fingerprint=fp, workload="federation")
+    price = fed.price_fleet(members[0], None)
+    res["pricing"] = dict(episodes=len(back), price_s=price[0],
+                          source=price[1])
+    priced = len(back) == 1 and price[1] == "perf-ledger"
+    # presto-tune: accel_column_slab at the main path's shape
+    tdb = os.path.join(workdir, "tune.json")
+    read = launch_counts()
+    t_tune = time.time()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        tune_rc = tune_cli.main(
+            ["--families", "accel_column_slab", "--budget",
+             str(FED_TUNE_BUDGET_S), "--k", "3", "--db", tdb, "-device",
+             str(device)] + (["--smoke"] if device != "cuda" else []))
+    res["tune_s"] = time.time() - t_tune
+    res["tune_launches"] = read()
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        tune_cli.main(["--device-report", "--db", tdb])
+    rep = json.loads(out.getvalue())
+    res["tune"] = dict(rc=tune_rc, summary=summary.get("families"),
+                       fingerprint=rep["fingerprint"],
+                       this_device=rep["this_device"])
+    tuned = (tune_rc == 0 and "accel_column_slab" in rep["this_device"]
+             and rep["fingerprint_key"] == fp
+             and summary["fingerprint"] == fp
+             and (device != "cuda" or (
+                 rep["fingerprint"]["platform"] == "cuda"
+                 and "H100" in rep["fingerprint"]["device_kind"]
+                 and res["tune_launches"]["plane_build"] > 0
+                 and res["tune_launches"]["stage_reduce"] > 0)))
+    log("federation: J1 %s, J2 %s; kill -> re-admit on B %.3f s; B "
+        "replicas up %s s after their spawns; one federated commit each %s "
+        "(B ledger %s, usage %s); files equal %s; committed counter over "
+        "B's snapshots %d; B supervisor %s; report timeline %s"
+        % (json.dumps(jobs["J1"], default=str),
+           json.dumps(jobs["J2"], default=str), res["kill_to_readmit_s"],
+           res["b_supervisor"]["warmup_s"], once, bview, usage_ids,
+           json.dumps(files), committed,
+           json.dumps(res["b_supervisor"]["kinds"]), report_ok))
+    log("federation: B scale-up spawn %s; usage phases on B %s; the "
+        "federation's errors after the kill (kind, fleet, item, s, "
+        "detail) %s, and %d probes of A refused"
+        % (json.dumps(scale_up[:1]), json.dumps(res["usage_phases"]),
+           json.dumps(res["fed_errors"]), res["a_probe_errors"]))
+    log("federation: GET %s all answered %s; launches %s; pricing from "
+        "the perf ledger %s; tune %.1f s rc %d, launches %s, DB %s"
+        % (sorted(ok_http), all(ok_http.values()) and len(ok_http) == 5,
+           json.dumps(launches), json.dumps(res["pricing"]), res["tune_s"],
+           tune_rc, json.dumps(res["tune_launches"]),
+           json.dumps(rep["this_device"].get("accel_column_slab"))))
+    res.update(once=once, files=files, committed_counter=committed,
+               http=ok_http, report_ok=report_ok)
+    res["phase_s"] = time.time() - t0
+    res["ok"] = bool(started and leased and readmitted and done and once
+                     and files_ok and committed == 2
+                     and bview == {"fed-j1": "done", "fed-j2": "done"}
+                     and usage_ids == ["fed-j1", "fed-j2"] and scaled
+                     and len(ok_http) == 5 and all(ok_http.values())
+                     and report_ok and launched and priced and tuned
+                     and res["kill"]["replicas_dead"])
+    log("federation: %s (%.1f s)" % ("ok" if res["ok"] else "FAIL",
+                                     res["phase_s"]))
+    return res
+
+
 def launch_counts():
     """Both kernel wrappers' launch counters, set to zero (read them again
     after the path to count its launches)."""
@@ -3735,6 +4178,9 @@ def main():
         torch.cuda.empty_cache()
         fleet = phase_fleet(raw, os.path.join(work, "fleet"), mwork)
         torch.cuda.empty_cache()
+        feder = phase_federation(raw, os.path.join(work, "federation"),
+                                 mwork)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     small = phase_small_reference(gen)
@@ -3753,6 +4199,7 @@ def main():
                    main=main_res, ingest=ingest, fold=fold,
                    toas=toas, singlepulse=spb, jerk=jerk, sharded=shard,
                    cluster=cluster, serve=serve, fleet=fleet,
+                   federation=feder,
                    small_reference=small,
                    **live,
                    total_s=time.time() - t_start)
@@ -3773,7 +4220,9 @@ def main():
                    "run_survey_sharded": shard["launches"][name],
                    "serve": serve["launches"][name],
                    "fleet": sum(fleet[r].get(name, 0) for r in (
-                       "r1_launches_last_snapshot", "r2_launches"))}
+                       "r1_launches_last_snapshot", "r2_launches")),
+                   "federation": feder["launches"][name],
+                   "tune": feder["tune_launches"][name]}
         for path, counts in zip(("jerk_bench", "accelsearch_wmax",
                                  "stream", "beams"),
                                 jl + [live["stream"]["launches"],
@@ -3815,6 +4264,7 @@ def main():
                               ("cluster", cluster["ok"]),
                               ("serve", serve["ok"]),
                               ("fleet", fleet["ok"]),
+                              ("federation", feder["ok"]),
                               ("stream", live["stream"]["ok"]),
                               ("beams", live["beams"]["ok"])) if not ok]
     if failed:

@@ -33,8 +33,15 @@ package's files):
                 same-geometry folds
   campaign.py   campaign ledgers: waves of DAGs over a manifest
 
-The control loop (supervisor) and federation come with ROADMAP queue 1
-item 3b.
+The control plane above the fleets:
+
+  supervisor.py FleetSupervisor: the actuator that spawns and drains
+                replica processes from the router's /scale advisory
+                (hysteresis, cooldown, repair, crash-only registry,
+                preempt_fraction); apps/supervise.py is its CLI
+  federation.py FederationRouter over N fleets: priced placement,
+                spill-over, whole-fleet failover through FedLedger's
+                epoch fence, federated metric/SLO/usage folds, presto-fed
 """
 
 from presto_tpu_torch.serve.events import EventLog
@@ -54,14 +61,20 @@ from presto_tpu_torch.serve.fleet import (FleetConfig, FleetReplica,
                                           artifact_digests)
 from presto_tpu_torch.serve.router import (FleetBusy, FleetRouter,
                                            NoReadyReplica, RouterConfig)
+from presto_tpu_torch.serve.supervisor import (FleetSupervisor,
+                                               SupervisorConfig)
+from presto_tpu_torch.serve.federation import (FederationConfig,
+                                               FederationRouter, FedLedger,
+                                               FleetMember, start_fed_http)
 
 __all__ = [
-    "EventLog", "FleetBusy", "FleetConfig", "FleetReplica",
-    "FleetRouter", "Job", "JobLedger", "JobLedgerError", "JobQueue",
-    "JobStatus", "JobTimeout", "Lanes", "NoReadyReplica",
+    "EventLog", "FedLedger", "FederationConfig", "FederationRouter",
+    "FleetBusy", "FleetConfig", "FleetMember", "FleetReplica",
+    "FleetRouter", "FleetSupervisor", "Job", "JobLedger", "JobLedgerError",
+    "JobQueue", "JobStatus", "JobTimeout", "Lanes", "NoReadyReplica",
     "QueueClosed", "QueueFull", "RouterConfig", "Scheduler",
     "SchedulerConfig", "SearchService", "ServeHTTPServer",
-    "StaleResultError", "TenantQuotaExceeded", "artifact_digests",
-    "build_node_job", "execute_node", "is_device_error", "plan_dag",
-    "run_folds_stacked", "start_http",
+    "StaleResultError", "SupervisorConfig", "TenantQuotaExceeded",
+    "artifact_digests", "build_node_job", "execute_node", "is_device_error",
+    "plan_dag", "run_folds_stacked", "start_fed_http", "start_http",
 ]

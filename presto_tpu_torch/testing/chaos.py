@@ -147,6 +147,13 @@ class TransientFaults:
 # schedule beam kills without importing the stream layer.
 BEAM_KILL_POINTS = ("beam-tick", "beam-commit", "beam-handoff")
 
+# Federation kill points (serve/federation.py fires these through its
+# FaultInjector hook).  The authoritative runtime copy lives next to the
+# code that fires them; re-exported here so chaos harnesses can kill
+# whole fleets without importing the serve layer.
+FED_KILL_POINTS = ("fleet-dead", "pre-readmit", "post-readmit",
+                   "zombie-fleet-commit")
+
 # Fleet replica kill points (serve/fleet.FleetReplica fires these when
 # its ``kill_on`` names one): a lease granted, a batch lease granted, a
 # leased job in the local queue, a fold or triage node leased, the DAG

@@ -414,3 +414,56 @@ def test_fleet_and_triage_modules_stand_alone_and_need_cuda(tmp_path):
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FLEET ISOLATED" in out.stdout
+
+
+CONTROL_SCRIPT = r"""
+import json, os, sys
+import torch
+from presto_tpu_torch.apps import report, supervise, tune as tune_cli
+from presto_tpu_torch.obs import perfledger, taxonomy
+from presto_tpu_torch.serve import federation, supervisor
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "presto_tpu" or m.startswith("presto_tpu.")
+             or m == "tools" or m.startswith("tools."))
+assert not bad, bad
+for mod in (report, supervise, tune_cli, perfledger, taxonomy, federation,
+            supervisor):
+    src = open(mod.__file__).read()
+    for name in ("PRESTO_TPU_PERF_LEDGER", "PRESTO_TPU_TUNE_DB",
+                 "PERF_LEDGER.json", "PERF_LEDGER.jsonl"):
+        assert name not in src, (name, mod.__name__)
+assert "presto_tpu_torch" in perfledger.default_ledger_path()
+# the control plane runs no device work: the federation, the report and
+# the perf ledger work without a card
+assert report.main(["-fleet", "missing_fleet"]) == 1
+assert tune_cli.main(["--list"]) == 0
+if not torch.cuda.is_available():
+    for call in (lambda: supervise.main(["-fleet", "f_iso", "-router",
+                                         "http://127.0.0.1:1"]),
+                 lambda: tune_cli.main(["--smoke", "--db", "t_iso.json"])):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError("an entry point ran without CUDA")
+    assert not os.path.exists("f_iso") and not os.path.exists("t_iso.json")
+print("CONTROL ISOLATED")
+"""
+
+
+def test_control_loop_and_federation_modules_stand_alone(tmp_path):
+    """The supervisor, the federation, the perf ledger, the catalog and
+    the report and tune CLIs import neither jax, presto_tpu nor tools/,
+    name neither the JAX package's environment switches nor a repository
+    ledger file; presto-supervise (cuda replicas by default) and
+    presto-tune --smoke raise without a card before writing anything,
+    while the report and the tune catalog need none."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", CONTROL_SCRIPT],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "CONTROL ISOLATED" in out.stdout

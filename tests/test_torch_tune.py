@@ -273,3 +273,63 @@ def test_column_slab_family_same_lists_at_every_slab():
                       for t in res])
     assert len(lists) == 2 and lists[0] == lists[1]
     assert any(lists[0])
+
+
+# ----------------------------------------------------------------------
+# presto-tune (apps/tune)
+# ----------------------------------------------------------------------
+
+def test_presto_tune_list_and_device_report(tmp_path, capsys, monkeypatch):
+    """--list names the port's families (the JAX CLI's line format);
+    --device-report prints the card fingerprint (here the CPU's) and
+    this fingerprint's DB entries, from --db; PRESTO_TPU_TUNE_DB is never
+    read."""
+    from presto_tpu_torch.apps import tune as tune_cli
+    monkeypatch.setenv("PRESTO_TPU_TUNE_DB", str(tmp_path / "never.json"))
+    assert tune_cli.main(["--list"]) == 0
+    listed = [ln.split()[0] for ln in capsys.readouterr().out.splitlines()]
+    assert listed == sorted(space.FAMILIES)
+    db_path = str(tmp_path / "tune.json")
+    fp = fingerprint_key()
+    db = TuneDB()
+    db.record(fp, "plancache_bucket", "*", {"scheme": "pow2"}, 1.0)
+    db.save(db_path)
+    assert tune_cli.main(["--device-report", "--db", db_path]) == 0
+    rep = json.loads(capsys.readouterr().out)
+    assert rep["fingerprint"] == device_fingerprint()
+    assert rep["fingerprint_key"] == fp
+    assert rep["this_device"]["plancache_bucket"]["*"]["config"] == \
+        {"scheme": "pow2"}
+    assert rep["db_path"] == db_path
+    assert not os.path.exists(str(tmp_path / "never.json"))
+    # no --db: the port's default path, never the variable's
+    assert tune_cli.main(["--device-report"]) == 0
+    assert json.loads(capsys.readouterr().out)["db_path"] == \
+        default_db_path()
+    src = open(tune_cli.__file__).read()
+    assert "os.environ" not in src and "getenv" not in src
+
+
+def test_presto_tune_smoke_on_the_cpu(tmp_path, capsys):
+    """--smoke -device cpu sweeps the column slab (the plain versions)
+    and a modeled family into a temp DB, keyed by this machine's
+    fingerprint; without -device it needs a card."""
+    from presto_tpu_torch.apps import tune as tune_cli
+    db_path = str(tmp_path / "tune.json")
+    rc = tune_cli.main(["--smoke", "-device", "cpu", "--db", db_path,
+                        "--families", "accel_column_slab,plancache_bucket"])
+    assert rc == 0
+    summary = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert summary["device"] == "cpu" and summary["smoke"]
+    assert summary["fingerprint"] == fingerprint_key()
+    assert set(summary["families"]) == {"accel_column_slab",
+                                        "plancache_bucket"}
+    db = TuneDB.load(db_path)
+    assert db.lookup(fingerprint_key(), "accel_column_slab",
+                     "numbins=4096,numharm=2,numz=8")["slab"] in (1024,
+                                                                  4096)
+    assert db.size() == (1, 2)
+    assert tune_cli.main(["--families", "nope", "--db", db_path]) == 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tune_cli.main(["--smoke", "--db", db_path])
