@@ -172,11 +172,30 @@ Phases (any failure exits non-zero before the final line):
              pulse kept); the kernels of one tick (torch.profiler) equal
              at 1 and 13 beams; the stacked step's device ms at 13 beams
              beside 13 one-beam steps; the real-time factor;
+  6g. recipe  the survey as users run it: the beam's samples under a
+             header with the Crab's position (GBT, MJD 59000), GBNCC's
+             recipe (the default zaplist, the lo pass zmax 0 / numharm 16
+             / flo 2 and the hi pass zmax 50 / numharm 8 / flo 1, its sift
+             policy, 20 + 10 fold caps) through run_survey with bary=True
+             and durable stages over DM 20-24: launches read around it
+             (2 passes x 24 trials); every .inf barycentred at the plan's
+             epoch; every .dat/.inf byte-equal to a staged prepsubband on
+             the card (no -nobary, the survey's mask); for two DMs the
+             spilled .fft equal to the card's rFFT of the .dat batch,
+             downloaded and zapped by zap_pairs_batch; an injected
+             pulsar first in cands_sifted.txt, the 40.3 Hz pulsar's
+             strongest sifted candidate within one trial of DM 22, and
+             its DM-22 hi-pass candidate within RECIPE_FREQ_TOL_BINS of
+             f (1 + avgvoverc); the folds
+             within the caps; both kernels against their plain versions
+             at the two passes' geometries on the DM-22 spectrum; the
+             host seconds of the resample and the zap, the stage times;
  12. summary the kernels line (launches of the main path, the sharded
              main path, by shard too, the serve path, the fleet path, the
              federation path (A's last snapshot and B's replicas'), the
-             tune sweep, the jerk paths and the live paths; each kernel's bound also at the measured
-             peaks),
+             tune sweep, the recipe path, the jerk paths and the live
+             paths; each kernel's bound also at the measured peaks, and
+             its numbers at the recipe's two pass geometries),
              the card, and the final ok line.
 
 Prints the full results as one JSON line (``results: {...}``).  Imports
@@ -4087,6 +4106,296 @@ def phase_federation(raw, workdir, mwork, device="cuda", config=None):
     return res
 
 
+# the recipe phase's beam: the main beam's samples under a header with
+# the JAX package's synth position (the Crab, presto_tpu/models/synth.py),
+# GBT and MJD 59000, so prepsubband barycentres it
+RECIPE_POSITION = dict(src_raj=53431.97, src_dej=220052.1, telescope_id=6,
+                       tstart=59000.0)
+# the GBNCC recipe's fold caps, lo pass and hi pass
+RECIPE_FOLD_CAPS = (20, 10)
+# the pulsar's barycentric frequency, predicted f (1 + avgvoverc), and
+# the topocentric one lie 0.57 Fourier bins apart on the beam; the
+# measured one must sit within this many bins of the prediction
+RECIPE_FREQ_TOL_BINS = 0.3
+
+
+def positioned_beam(raw, path):
+    """The beam's samples under RECIPE_POSITION's header."""
+    from presto_tpu_torch.io.sigproc import (FilterbankFile,
+                                             write_filterbank_header)
+    with FilterbankFile(raw) as fb:
+        hdr = copy.copy(fb.header)
+        start = fb.header.headerlen
+    for k, v in RECIPE_POSITION.items():
+        setattr(hdr, k, v)
+    with open(path, "wb") as out, open(raw, "rb") as src:
+        write_filterbank_header(hdr, out)
+        src.seek(start)
+        shutil.copyfileobj(src, out, 1 << 24)
+    return path
+
+
+def _inf_bytes(path):
+    """A .inf's text with its data-file-name line dropped (the names of
+    two runs differ by directory)."""
+    return [ln for ln in open(path).read().splitlines()
+            if not ln.startswith(" Data file name")]
+
+
+def recipe_kernels(pcfg, T, nbins, pairs, gen, label, device="cuda"):
+    """Both kernels at one recipe pass's geometry (zmax, numharm) on the
+    recipe run's spectrum: the plane builder against its plain version
+    (plane_case), then the stage reducer on that plane, bit-equal to its
+    plain version, kernel and plain times and the bound."""
+    from presto_tpu_torch.search import accel, accel_cuda, build_cuda
+    s = accel.AccelSearch(accel.AccelConfig(zmax=pcfg.zmax,
+                                            numharm=pcfg.numharm,
+                                            sigma=pcfg.sigma, flo=pcfg.flo),
+                          T=T, numbins=nbins, device=device)
+    pb, S = plane_case(s, nbins, gen, label, pairs=pairs)
+    nblocks, nb_pad, numr = s.plane_geom()
+    plane = build_cuda.build_plane(S, s._kbank, s.numz_pad, nb_pad,
+                                   s.cfg.uselen, s.hw_eff * 2)
+    del S
+    slab, _k, start_cols = s.slab_plan(numr)
+    scols = torch.tensor(start_cols, dtype=torch.int32, device=device)
+    nst = s.cfg.numharmstages
+    args = (plane, scols, s._zinds, slab, nst)
+    gm, gz = accel_cuda.reduce_stages(*args)
+    wm, wz = accel_cuda.reduce_stages_plain(*args)
+    torch.cuda.synchronize()
+    err = float((gm - wm).abs().max())
+    ok = err == 0.0 and bool((gz == wz).all())
+    del gm, gz, wm, wz
+    bms, by, nbytes, flops = reducer_bound(plane, scols, s._zinds, slab,
+                                           nst)
+    ms = cuda_time_ms(lambda: accel_cuda.reduce_stages(*args), 10)
+    plain_ms = cuda_time_ms(lambda: accel_cuda.reduce_stages_plain(*args),
+                            1)
+    log("stage_reduce %s: plane %s, %d slabs of %d, %d stages; max_abs_err "
+        "%.3g; kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s) %s"
+        % (label, tuple(plane.shape), len(start_cols), slab, nst, err, ms,
+           plain_ms, bms, by, "ok" if ok else "FAIL"))
+    del plane, s
+    torch.cuda.empty_cache()
+    sr = dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+              library_ms=None, bound_ms=bms, bound_by=by, bytes=nbytes,
+              flops=flops, stages=nst, tolerance="exact")
+    return pb, sr
+
+
+def phase_recipe(raw, workdir, main_res=None, device="cuda"):
+    """The survey as users run it: the beam barycentred (its samples
+    under RECIPE_POSITION's header), GBNCC's recipe (the default
+    zaplist, the lo and hi accel passes, its sift policy and 20 + 10
+    fold caps) through run_survey with bary=True and durable stages:
+    the launches read around it; every .inf barycentred at the plan's
+    epoch; every .dat/.inf byte-equal to a staged prepsubband on the card
+    (no -nobary, the survey's mask); for two DMs the spilled .fft equal
+    to the card's rFFT of the .dat batch, downloaded and zapped by
+    zap_pairs_batch; an injected pulsar first in cands_sifted.txt (the
+    7.13 Hz one, summed over 16 harmonics in the lo pass, outranks the
+    40.3 Hz one), the 40.3 Hz pulsar's strongest sifted candidate within
+    one trial of DM 22, and its DM-22 hi-pass candidate at f (1 +
+    avgvoverc); the folds within the caps; both kernels against their
+    plain versions at the two passes' geometries on the DM-22 spectrum;
+    the host seconds of the resample and the zap; the stage times."""
+    from presto_tpu_torch.apps import common, prepsubband, zapbirds
+    from presto_tpu_torch.io import datfft
+    from presto_tpu_torch.io.infodata import read_inf
+    from presto_tpu_torch.ops import fftpack
+    from presto_tpu_torch.pipeline import fusion, survey
+    from presto_tpu_torch.pipeline.recipes import get_recipe
+    from presto_tpu_torch.pipeline.sifting import select_fold_candidates
+    from presto_tpu_torch.utils.timing import StageTimer
+    b = BEAM
+    t_phase = time.time()
+    os.makedirs(workdir, exist_ok=True)
+    t0 = time.time()
+    braw = positioned_beam(raw, os.path.join(workdir, "psrb.fil"))
+    copy_s = time.time() - t0
+    cfg = get_recipe("gbncc").to_config(20.0, 24.0, nsub=32)
+    cfg.bary = True
+    cfg.durable_stages = True
+    work = os.path.join(workdir, "survey")
+    timer = StageTimer()
+    read = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = survey.run_survey([braw], cfg, work, timer=timer, device=device)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = read()
+    ndms = len(res.datfiles)
+    npass = len(cfg.all_passes)
+    stages = {k: round(v, 4) for k, v in timer.stages.items()}
+    log("recipe: gbncc over DM 20-24, bary, zaplist %s: run_survey %.1f s; "
+        "stages %s; launches %s" % (os.path.basename(cfg.zaplist), run_s,
+                                   json.dumps(stages), json.dumps(launches)))
+    launches_ok = (ndms == 24 and launches["plane_build"] == npass * ndms
+                   and launches["stage_reduce"] == npass * ndms)
+    # the barycentring plan of the beam, as prepsubband made it
+    fb = common.open_raw(braw)
+    plan = common.make_bary_plan(fb, b["dt"], "DE405")
+    fb.close()
+    infos = [read_inf(f[:-4]) for f in res.datfiles]
+    bary_ok = plan is not None and all(
+        i.bary == 1 and i.mjd_i == int(plan.blotoa)
+        and abs(i.mjd_f - plan.blotoa % 1.0) < 1e-12 for i in infos)
+    log("recipe: avgvoverc %.6e, %d diffbins (%d dropped), blotoa %.12f; "
+        "every .inf barycentred at it %s"
+        % (plan.avgvoverc, plan.diffbins.size,
+           int((plan.diffbins < 0).sum()), plan.blotoa,
+           "ok" if bary_ok else "FAIL"))
+    # the staged prepsubband on the card, no -nobary, the survey's mask
+    staged = os.path.join(workdir, "staged")
+    os.makedirs(staged)
+    argv = [a for a in method_argv(braw, cfg, os.path.join(staged, "psrb"))
+            if a != "-nobary"] + ["-mask", res.maskfile]
+    t0 = time.time()
+    prepsubband.main(argv + [braw], device=device)
+    staged_s = time.time() - t0
+    same = []
+    for f in res.datfiles:
+        g = os.path.join(staged, os.path.basename(f))
+        same.append(open(f, "rb").read() == open(g, "rb").read()
+                    and _inf_bytes(f[:-4] + ".inf")
+                    == _inf_bytes(g[:-4] + ".inf"))
+    dat_ok = len(same) == 24 and all(same)
+    log("recipe: staged prepsubband on the card %.1f s; .dat/.inf of %d "
+        "DMs byte-equal to the survey's: %d %s"
+        % (staged_s, len(same), sum(same), "ok" if dat_ok else "FAIL"))
+    # the host resample's seconds (the schedule applied to every row) and
+    # the zap's, on this run's series and spectra
+    rows = np.stack([datfft.read_dat(f) for f in res.datfiles])
+    numout = rows.shape[1]
+    t0 = time.time()
+    for r in rows:
+        plan.apply(r[:numout - plan.diffbins.size])
+    resample_s = time.time() - t0
+    n = numout & ~1
+    dev_rows = torch.from_numpy(rows[:, :n]).to(device)
+    del rows
+    host = fusion.fused_rfft_batch(dev_rows).cpu().numpy()
+    del dev_rows
+    T = numout * fusion.inf_float(infos[0].dt)
+    t0 = time.time()
+    zapped = zapbirds.zap_pairs_batch(host, cfg.zaplist, T, numout)
+    zap_s = time.time() - t0
+    i22 = [k for k, f in enumerate(res.datfiles) if "_DM22.00" in f][0]
+    fft_same = {}
+    for k in (0, i22):
+        f = res.datfiles[k][:-4] + ".fft"
+        fft_same[os.path.basename(f)] = (
+            open(f, "rb").read()
+            == fftpack.np_pairs_to_complex64(zapped[k]).tobytes())
+    fft_ok = len(fft_same) == 2 and all(fft_same.values())
+    log("recipe: spilled .fft equal to the card's rFFT zapped on the host "
+        "%s %s; host resample %.3f s (24 rows), host zap %.3f s (24 "
+        "spectra, %.2f GB each way)" % (json.dumps(fft_same),
+                                        "ok" if fft_ok else "FAIL",
+                                        resample_s, zap_s,
+                                        zapped.nbytes / 1e9))
+    # the pulsars: an injected one first; the 40.3 Hz pulsar's strongest
+    # sifted candidate within one trial of DM 22; its frequency from the
+    # DM-22 trial's hi pass (its fdot is inside zmax 50, and a zmax-0
+    # candidate's r of a chirping signal is no frequency estimate) at
+    # f (1 + avgvoverc)
+    from presto_tpu_torch.apps.accelsearch import read_cand_file
+    injected = [b["f0"]] + [o[0] for o in b["others"]]
+
+    def harmonic_of(f, f0):
+        h = max(1, round(f / f0))
+        return h if abs(f / h - f0) < 0.1 else 0
+
+    ranked = list(res.sifted)
+    first = ranked[0] if ranked else None
+    first_ok = first is not None and any(harmonic_of(first.f, f0)
+                                         for f0 in injected)
+    psr = [(k, c) for k, c in enumerate(ranked)
+           if harmonic_of(c.f, b["f0"])]
+    rank, top = psr[0] if psr else (None, None)
+    hi = [c for c in read_cand_file(res.datfiles[i22][:-4] + "_ACCEL_%d.cand"
+                                    % cfg.all_passes[-1][0])
+          if harmonic_of(c.r / T, b["f0"])]
+    hc = max(hi, key=lambda c: c.sigma) if hi else None
+    f = hc.r / T if hc is not None else 0.0
+    h = harmonic_of(f, b["f0"]) if hc is not None else 1
+    f_topo = b["f0"] + b["fdot"] * b["N"] * b["dt"] / 2.0
+    f_bary = f_topo * (1.0 + plan.avgvoverc)
+    off_bins = (f / h - f_bary) * T
+    pulsar_ok = (first_ok and top is not None and hc is not None
+                 and abs(top.DM - b["dm"]) <= 0.21
+                 and abs(off_bins) < RECIPE_FREQ_TOL_BINS)
+    main_f = (main_res or {}).get("top_freq")
+    log("recipe: %d sifted; the first 8: %s" % (len(ranked), json.dumps(
+        [[c.filename, c.DM, round(c.f, 6), c.sigma, c.numharm]
+         for c in ranked[:8]])))
+    log("recipe: first %s (an injected pulsar: %s); the 40.3 Hz pulsar's "
+        "strongest sifted candidate at rank %s: %s, DM %.2f, sigma %.2f; "
+        "the DM-22 hi pass's: f %.9f Hz (harmonic %d), z %.2f, sigma %.2f; "
+        "predicted f (1 + avgvoverc) %.9f Hz, off by %.3f bins "
+        "(topocentric %.9f Hz: %.3f bins; the main run's top %s Hz) %s"
+        % (first.filename if first else None, first_ok, rank,
+           top.filename if top else None, top.DM if top else 0,
+           top.sigma if top else 0, f, h, hc.z if hc else 0,
+           hc.sigma if hc else 0, f_bary, off_bins, f_topo,
+           (f / h - f_topo) * T, "%.9f" % main_f if main_f else "n/a",
+           "ok" if pulsar_ok else "FAIL"))
+    # the folds, within the recipe's caps
+    zmaxes = [z for (z, _nh, _sg, _flo) in cfg.all_passes]
+    picked = select_fold_candidates(
+        res.sifted, fold_top=cfg.fold_top, fold_sigma=cfg.fold_sigma,
+        max_folds=cfg.max_folds, max_folds_per_pass=cfg.max_folds_per_pass,
+        pass_zmaxes=zmaxes)
+    per_pass = [sum(1 for c in picked
+                    if c.filename.split(":")[0].endswith("_ACCEL_%d" % z))
+                for z in zmaxes]
+    folds_ok = (0 < len(res.folded) == len(picked) <= sum(RECIPE_FOLD_CAPS)
+                and all(p <= c for p, c in zip(per_pass, RECIPE_FOLD_CAPS))
+                and all(os.path.exists(q + ".bestprof") for q in res.folded))
+    log("recipe: %d folds (per pass %s, caps %s) %s"
+        % (len(res.folded), per_pass, list(RECIPE_FOLD_CAPS),
+           "ok" if folds_ok else "FAIL"))
+    # both kernels at the two passes' geometries on the DM-22 spectrum
+    gen = torch.Generator(device=device)
+    gen.manual_seed(BEAM_SEED)
+    pairs = torch.from_numpy(np.ascontiguousarray(
+        zapped[i22])).to(device)
+    del host, zapped
+    kern = {}
+    for label, pcfg in zip(("lo", "hi"), survey._pass_configs(cfg)):
+        kern[label] = recipe_kernels(
+            pcfg, T, n // 2, pairs, gen,
+            "recipe %s pass (zmax %d, numharm %d)"
+            % (label, pcfg.zmax, pcfg.numharm), device)
+    del pairs
+    torch.cuda.empty_cache()
+    kern_ok = all(pb["ok"] and sr["ok"] for pb, sr in kern.values())
+    ok = (launches_ok and bary_ok and dat_ok and fft_ok and pulsar_ok
+          and folds_ok and kern_ok)
+    phase_s = time.time() - t_phase
+    log("recipe: %s (%.1f s: beam copy %.1f, run_survey %.1f, staged %.1f)"
+        % ("ok" if ok else "FAIL", phase_s, copy_s, run_s, staged_s))
+    return dict(ok=ok, launches=launches, ndms=ndms, stages=stages,
+                run_survey_s=run_s, staged_prepsubband_s=staged_s,
+                resample_host_s=resample_s, zap_host_s=zap_s,
+                zap_bytes_each_way=int(n // 2 * 8 * ndms),
+                avgvoverc=plan.avgvoverc, diffbins=int(plan.diffbins.size),
+                dat_inf_equal=sum(same), fft_equal=fft_same,
+                first=first.filename if first else None,
+                first_freq=first.f if first else None,
+                first_sigma=first.sigma if first else None,
+                pulsar_rank=rank, pulsar_dm=top.DM if top else None,
+                pulsar_sigma=top.sigma if top else None, pulsar_freq=f,
+                predicted_freq=f_bary, off_bins=off_bins,
+                sifted=len(res.sifted), folds=len(res.folded),
+                folds_per_pass=per_pass,
+                plane_build={k: v[0] for k, v in kern.items()},
+                stage_reduce={k: v[1] for k, v in kern.items()},
+                phase_s=phase_s)
+
+
 def launch_counts():
     """Both kernel wrappers' launch counters, set to zero (read them again
     after the path to count its launches)."""
@@ -4181,6 +4490,8 @@ def main():
         feder = phase_federation(raw, os.path.join(work, "federation"),
                                  mwork)
         torch.cuda.empty_cache()
+        recipe = phase_recipe(raw, os.path.join(work, "recipe"), main_res)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     small = phase_small_reference(gen)
@@ -4199,7 +4510,7 @@ def main():
                    main=main_res, ingest=ingest, fold=fold,
                    toas=toas, singlepulse=spb, jerk=jerk, sharded=shard,
                    cluster=cluster, serve=serve, fleet=fleet,
-                   federation=feder,
+                   federation=feder, recipe=recipe,
                    small_reference=small,
                    **live,
                    total_s=time.time() - t_start)
@@ -4222,7 +4533,8 @@ def main():
                    "fleet": sum(fleet[r].get(name, 0) for r in (
                        "r1_launches_last_snapshot", "r2_launches")),
                    "federation": feder["launches"][name],
-                   "tune": feder["tune_launches"][name]}
+                   "tune": feder["tune_launches"][name],
+                   "recipe": recipe["launches"][name]}
         for path, counts in zip(("jerk_bench", "accelsearch_wmax",
                                  "stream", "beams"),
                                 jl + [live["stream"]["launches"],
@@ -4249,7 +4561,11 @@ def main():
                             "bound_by", "library_ms")},
                         "accelsearch_wmax": {x: pk[x] for x in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms")}})
+                            "bound_by", "library_ms")},
+                        **{"recipe_" + ps: {x: recipe[name][ps][x] for x in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}
+                           for ps in ("lo", "hi")}})
     log("results: %s" % json.dumps(results, default=float))
     failed = [n for n, ok in (("build", build["ok"]),
                               ("plane_build", k1["ok"]),
@@ -4265,6 +4581,7 @@ def main():
                               ("serve", serve["ok"]),
                               ("fleet", fleet["ok"]),
                               ("federation", feder["ok"]),
+                              ("recipe", recipe["ok"]),
                               ("stream", live["stream"]["ok"]),
                               ("beams", live["beams"]["ok"])) if not ok]
     if failed:

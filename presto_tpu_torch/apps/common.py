@@ -5,9 +5,10 @@ prepsubband streaming loop, rfifind, accelsearch and prepfold use: the
 raw-data flags, open_raw_args, obs_metadata, BlockPrep (mask
 substitution, clipping on by default, zero-DM, running average,
 ignorechan) and block_prep, stream_blocklen, pad_to_good_N, set_onoff,
-fil_to_inf, load_timeseries, load_spectrum and CLIResume (the app
-CLIs' -resume).  The port reads SIGPROC filterbanks only;
-PSRFITS input and barycentring are left for later slices.
+fil_to_inf, make_bary_plan and set_bary_epoch (barycentring),
+load_timeseries, load_spectrum and CLIResume (the app CLIs' -resume).
+The port reads SIGPROC filterbanks only; PSRFITS input is left for a
+later slice.
 """
 
 from __future__ import annotations
@@ -273,6 +274,42 @@ def sigproc_coord_to_str(coord: float) -> str:
     mm = int((c - hh * 10000.0) / 100.0)
     ss = c - hh * 10000.0 - mm * 100.0
     return "%s%.2d:%.2d:%07.4f" % (sign, hh, mm, ss)
+
+
+def make_bary_plan(fb, dsdt: float, ephem: str = "DE405",
+                   skip_spectra: int = 0):
+    """Build the barycentering plan for an open observation, or return
+    None (with a warning) when the file carries no usable position —
+    silently barycentering RA=DEC=0 junk would corrupt the output while
+    claiming bary=1.  Shared by prepsubband and its survey callers
+    (the TEMPO-call setup of prepsubband.c:420-505)."""
+    from presto_tpu_torch.astro.bary import parse_dec, parse_ra
+    from presto_tpu_torch.astro.baryshift import BaryPlan
+    from presto_tpu_torch.astro.observatory import telescope_to_tempocode
+    hdr = fb.header
+    tel, ra_str, dec_str = obs_metadata(fb)
+    obscode, _ = telescope_to_tempocode(tel)
+    if parse_ra(ra_str) == 0.0 and parse_dec(dec_str) == 0.0:
+        print("WARNING: no source position in the raw data header -- "
+              "writing topocentric output (bary=0). Use real "
+              "coordinates or -nobary to silence this.")
+        return None
+    if obscode == "EC" and tel.strip().lower() != "geocenter":
+        print("WARNING: unrecognized telescope %r -- barycentering "
+              "from the geocenter (up to ~21 ms Roemer error)." % tel)
+    tstart = hdr.tstart + skip_spectra * hdr.tsamp / 86400.0
+    plan = BaryPlan(tstart,
+                    (float(hdr.N) - skip_spectra) * hdr.tsamp, dsdt,
+                    ra_str, dec_str, obscode, ephem)
+    print("Average topocentric velocity (c) = %.7g" % plan.avgvoverc)
+    return plan
+
+
+def set_bary_epoch(info: InfoData, plan) -> None:
+    """Stamp the barycentric epoch of the first sample into the .inf."""
+    info.bary = 1
+    info.mjd_i = int(plan.blotoa)
+    info.mjd_f = plan.blotoa % 1.0
 
 
 def fil_to_inf(fb: FilterbankFile, outbase: str, N: int,

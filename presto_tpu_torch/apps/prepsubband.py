@@ -26,8 +26,19 @@ multi-process run must take it (numdms not dividing raises): each
 process reads the file, dedisperses its own rows on its own devices and
 writes only those rows' files.
 
-Not in this slice (they raise NotImplementedError): -sub, barycentring
-(run with -nobary) and PSRFITS input.
+Barycentring is the default, as in the reference (-nobary turns it
+off): the delays are planned at the Doppler-shifted frequencies of the
+observation's mean v/c, and the finished series get the diffbin
+schedule (astro/baryshift: single bins added or dropped on the host,
+the mean of a float32 window filling each added bin, so the bytes equal
+the JAX package's) before the padding; the .inf carries bary = 1 and
+the barycentric epoch of the first sample.  At the seam the fan-out is
+downloaded once, resampled on the host and re-deposited once (per shard
+on a mesh).  A header without a source position stays topocentric, with
+a warning.
+
+Not in this slice (they raise NotImplementedError): -sub and PSRFITS
+input.
 """
 
 from __future__ import annotations
@@ -41,9 +52,10 @@ import torch
 
 from presto_tpu_torch.apps.common import (CLIResume, add_common_flags,
                                           add_raw_flags, block_prep,
-                                          fil_to_inf, good_numout, open_raw,
-                                          pad_to_good_N, set_onoff,
-                                          start_skip_spectra,
+                                          fil_to_inf, good_numout,
+                                          make_bary_plan, open_raw,
+                                          pad_to_good_N, set_bary_epoch,
+                                          set_onoff, start_skip_spectra,
                                           stream_blocklen)
 from presto_tpu_torch.io.datfft import write_dat
 from presto_tpu_torch.obs import costmodel, devtel
@@ -71,6 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-clip", type=float, default=6.0)
     p.add_argument("-zerodm", action="store_true")
     p.add_argument("-nobary", action="store_true")
+    p.add_argument("-ephem", type=str, default="DE405")
     p.add_argument("-numout", type=int, default=0)
     p.add_argument("-runavg", action="store_true")
     p.add_argument("-sub", action="store_true")
@@ -107,19 +120,23 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def plan_delays(hdr, args):
+def plan_delays(hdr, args, avgvoverc=0.0):
     """Two-level delays: channel->subband at the center DM (or -subdm),
-    then per-DM subband offsets (prepsubband.c:353-372)."""
+    then per-DM subband offsets (prepsubband.c:353-372); a barycentred
+    run computes them at the Doppler-shifted frequencies
+    (prepsubband.c:477-498)."""
     nchan, dt = hdr.nchans, hdr.tsamp
     dms = args.lodm + np.arange(args.numdms) * args.dmstep
     center_dm = args.lodm + 0.5 * (args.numdms - 1) * args.dmstep
     if getattr(args, "subdm", None) is not None:
         center_dm = args.subdm
     chan_del = dd.subband_search_delays(nchan, args.nsub, center_dm,
-                                        hdr.lofreq, abs(hdr.foff))
+                                        hdr.lofreq, abs(hdr.foff),
+                                        voverc=avgvoverc)
     chan_bins = dd.delays_to_bins(chan_del, dt)
     sub_del = np.stack([dd.subband_delays(nchan, args.nsub, dm,
-                                          hdr.lofreq, abs(hdr.foff))
+                                          hdr.lofreq, abs(hdr.foff),
+                                          voverc=avgvoverc)
                         for dm in dms])
     sub_del -= sub_del.min()
     dm_bins = dd.delays_to_bins(sub_del, dt)
@@ -127,9 +144,7 @@ def plan_delays(hdr, args):
 
 
 def _refuse_unported(args) -> None:
-    for flag, on in (("-sub", args.sub),
-                     ("barycentring (pass -nobary)", not args.nobary),
-                     ("-psrfits", args.psrfits)):
+    for flag, on in (("-sub", args.sub), ("-psrfits", args.psrfits)):
         if on:
             raise NotImplementedError(
                 "prepsubband: %s comes in a later slice of the port"
@@ -141,9 +156,11 @@ def _refuse_unported(args) -> None:
 class _Setup:
     """What every execution path (the streamed mesh run and the elastic
     shard loop) derives from the args and the raw header: the open
-    reader and the FULL-range delay plan and geometry.  A shard must use
-    the full-range plan (centre DM, delay normalization, blocklen, valid
-    length), or its rows would not be byte-equal to an unsharded run's."""
+    reader, the barycentring plan ``bary`` (None with -nobary or without
+    a source position) and the FULL-range delay plan and geometry.  A
+    shard must use the full-range plan (centre DM, delay normalization,
+    blocklen, valid length), or its rows would not be byte-equal to an
+    unsharded run's."""
 
     def __init__(self, args):
         self.fb = open_raw(args.rawfiles)
@@ -151,7 +168,12 @@ class _Setup:
         self.nchan, self.dt = hdr.nchans, hdr.tsamp
         self.skip = start_skip_spectra(args, int(hdr.N))
         self.Neff = int(hdr.N) - self.skip
-        self.dms, self.chan_bins, self.dm_bins = plan_delays(hdr, args)
+        self.bary = (None if args.nobary else
+                     make_bary_plan(self.fb, self.dt * args.downsamp,
+                                    args.ephem, skip_spectra=self.skip))
+        self.dms, self.chan_bins, self.dm_bins = plan_delays(
+            hdr, args, self.bary.avgvoverc if self.bary is not None
+            else 0.0)
         self.maxd = int(self.chan_bins.max()) + int(self.dm_bins.max())
         blocklen = stream_blocklen(
             self.nchan, max(int(self.chan_bins.max()),
@@ -163,7 +185,9 @@ class _Setup:
 
     def trial_inf(self, args, name, numout, valid, dmval):
         info = fil_to_inf(self.fb, name, numout, dm=float(dmval))
-        if self.skip:
+        if self.bary is not None:
+            set_bary_epoch(info, self.bary)
+        elif self.skip:
             info.mjd_f += self.skip * self.dt / 86400.0
             info.mjd_i += int(info.mjd_f)
             info.mjd_f %= 1.0
@@ -172,6 +196,13 @@ class _Setup:
         info.name = name
         info.N = numout
         return info
+
+    def resample(self, rows: np.ndarray) -> np.ndarray:
+        """The diffbin schedule applied to every row of a host [rows,
+        valid] array (the rows unchanged when there is none)."""
+        if self.bary is None or not self.bary.diffbins.size:
+            return rows
+        return np.stack([self.bary.apply(r) for r in rows])
 
 
 def _trial_names(args):
@@ -293,7 +324,7 @@ def run(args, device="cuda", seam: fusion.StageSeam = None):
                              names, sharded=use_mesh)
     host = fusion.gather_shards([p[:, :s.valid] for p in parts],
                                 plan.row_ranges)
-    result, valid, numout = pad_to_good_N(host, args.numout)
+    result, valid, numout = pad_to_good_N(s.resample(host), args.numout)
     for row, i in enumerate(range(lo, hi)):
         write_dat(names[i] + ".dat", result[row],
                   s.trial_inf(args, names[i], numout, valid, s.dms[i]))
@@ -315,15 +346,24 @@ def _seam_handoff(args, s: _Setup, seam, parts, plan, outbase, names,
     host copy; the pad tail is computed on the host with pad_to_good_N's
     NumPy semantics and written into each shard's spare columns, so the
     device series equal the .dat bytes bit for bit.  Each part is
-    [rows_k, >= max(valid, numout)] with the data in [:, :valid].  On the
-    mesh the deposit is a ShardedSeamBlock whose shards stay where they
-    were dedispersed."""
+    [rows_k, >= max(valid, numout)] with the data in [:, :valid].  A
+    barycentred run whose schedule adds or drops bins resamples the host
+    copy (the staged path's exact semantics) and re-deposits each shard's
+    padded rows on its device: one download and one upload.  On the mesh
+    the deposit is a ShardedSeamBlock whose shards stay where they were
+    dedispersed."""
     nvalid = s.valid
-    host, valid, numout = pad_to_good_N(
-        fusion.gather_shards([p[:, :nvalid] for p in parts],
-                             plan.row_ranges), args.numout)
+    host = fusion.gather_shards([p[:, :nvalid] for p in parts],
+                                plan.row_ranges)
+    resampled = s.bary is not None and s.bary.diffbins.size > 0
+    host, valid, numout = pad_to_good_N(s.resample(host), args.numout)
     devs = []
     for p, (lo, hi) in zip(parts, plan.row_ranges):
+        if resampled:
+            devs.append(torch.from_numpy(np.ascontiguousarray(
+                host[lo:hi])).to(p.device))
+            devtel.note_put(seam.obs, host[lo:hi].nbytes)
+            continue
         if numout > nvalid:
             p[:, nvalid:numout] = torch.from_numpy(
                 np.ascontiguousarray(host[lo:hi, nvalid:]))
@@ -383,8 +423,8 @@ def _elastic_run(args, device):
                                  args.downsamp, s.chan_bins,
                                  s.dm_bins[lo:hi])
         out = _dedisperse(s, args, plan, s.valid)[0]
-        result, valid, numout = pad_to_good_N(out.cpu().numpy(),
-                                              args.numout)
+        result, valid, numout = pad_to_good_N(
+            s.resample(out.cpu().numpy()), args.numout)
         staged = {}
         for k, i in enumerate(range(lo, hi)):
             name = names[i]

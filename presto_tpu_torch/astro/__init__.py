@@ -1,3 +1,4 @@
-"""astro layer of the PyTorch port (mirrors presto_tpu/astro): the time
-scales and the observatory table the TOA lines need.  Barycentring and
-polycos come in a later slice."""
+"""astro layer of the PyTorch port (mirrors presto_tpu/astro): time
+scales, the observatory table, the solar-system ephemerides (EPV2000,
+tables, JPL SPK kernels read and written) and barycentring.  Polycos
+come in a later slice."""

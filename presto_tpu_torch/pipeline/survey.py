@@ -36,8 +36,13 @@ lookups (presto_tpu_torch/tune) and writes ``tuned.json``.
 ``run_survey_stacked`` runs N same-geometry surveys with their device
 middle stacked (serve/batchexec's executor).
 
-Not in this slice (a config that asks for them raises
-NotImplementedError): zapbirds, barycentring and triage.
+``cfg.bary`` barycentres the dedispersed series (prepsubband without
+-nobary: the seam's host resample and re-deposit).  ``cfg.zaplist``
+zaps its birdies from every spectrum before the search: on the seam,
+one download of each FFT chunk, zap_pairs_batch on the host and one
+upload; on disk, the staged rFFT -> zapbirds -> accelsearch flow with
+the journal's "zapbirds" tag as the checkpoint.  A survey without a
+zaplist keeps its spectra on the device.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ import torch
 
 from presto_tpu_torch import tune as _tune
 from presto_tpu_torch.apps import (prepfold, prepsubband, rfifind,
-                                   single_pulse_search)
+                                   single_pulse_search, zapbirds)
 from presto_tpu_torch.apps.accelsearch import refine, write_results
 from presto_tpu_torch.apps.common import open_raw
 from presto_tpu_torch.io import datfft
@@ -133,17 +138,6 @@ class SurveyResult:
     sp_events: int = 0
     sifted: Optional[object] = None      # sifting.Candlist
     quality: Optional[DataQualityReport] = None   # rfifind's ingest report
-
-
-def _refuse_unported(cfg: SurveyConfig) -> None:
-    asks = {
-        "zapbirds": cfg.zaplist,
-        "barycentring": cfg.bary,
-    }
-    for what, on in asks.items():
-        if on:
-            raise NotImplementedError(
-                "survey: %s comes in a later slice of the port" % what)
 
 
 def _chaos(cfg: SurveyConfig, point: str) -> None:
@@ -236,7 +230,6 @@ def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
     skipped: its trials are left on disk, outside the seam.  ``res``
     receives the mask path and the quality report; ``timer`` the rfifind
     and prepsubband stages; ``obs`` the dedispersion steps' dispatches."""
-    _refuse_unported(cfg)
     resolve_device(device)
     os.makedirs(workdir, exist_ok=True)
     if isinstance(rawfiles, str):
@@ -280,7 +273,9 @@ def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
             continue
         argv = ["-lodm", str(m.lodm), "-dmstep", str(m.ddm),
                 "-numdms", str(m.numdms), "-nsub", str(cfg.nsub),
-                "-downsamp", str(m.downsamp), "-o", base, "-nobary"]
+                "-downsamp", str(m.downsamp), "-o", base]
+        if not cfg.bary:
+            argv += ["-nobary"]
         if maskfile and os.path.exists(maskfile):
             argv += ["-mask", maskfile]
         if cfg.elastic:
@@ -384,12 +379,34 @@ def _search_and_write(pairs, names, T, cfg, device, manifest, timer,
         _record(manifest, arts, stage)
 
 
-def _write_ffts(pairs, names, manifest, stage, obs=None) -> None:
-    """The .fft of each trial of a batch of device spectra (a tensor, or
-    the per-shard list: one copy down a shard)."""
+def _download_pairs(pairs, obs=None) -> np.ndarray:
+    """The host copy of a batch of device spectra (a tensor, or the
+    per-shard list: one copy down a shard)."""
     host = (np.concatenate([p.cpu().numpy() for p in pairs])
             if isinstance(pairs, list) else pairs.cpu().numpy())
     devtel.note_get(obs, host.nbytes)
+    return host
+
+
+def _upload_like(host: np.ndarray, pairs, obs=None):
+    """``host``'s rows back where ``pairs`` (a tensor, or the per-shard
+    list) were: one copy up a shard."""
+    devtel.note_put(obs, host.nbytes)
+    if not isinstance(pairs, list):
+        return torch.from_numpy(host).to(pairs.device)
+    out, r0 = [], 0
+    for p in pairs:
+        out.append(torch.from_numpy(host[r0:r0 + p.shape[0]]).to(p.device))
+        r0 += p.shape[0]
+    return out
+
+
+def _write_ffts(pairs, names, manifest, stage, obs=None,
+                host=None) -> None:
+    """The .fft of each trial of a batch of device spectra, from their
+    host copy ``host`` when the caller has it."""
+    if host is None:
+        host = _download_pairs(pairs, obs)
     for name, pr in zip(names, host):
         datfft.write_fft(name + ".fft", fftpack.np_pairs_to_complex64(pr))
     _record(manifest, [name + ".fft" for name in names], stage)
@@ -409,22 +426,38 @@ def seam_fft_search(seam: fusion.StageSeam, cfg: SurveyConfig,
     before the previous sharded chunk's search collects (at most
     seam.depth in flight; a one-device chunk is searched at once).  A
     partially resumed sharded block moves its rows to ``device`` and
-    takes the one-device path.  ``obs`` books the rFFT and search
-    dispatches and the copies.  Returns {ACCEL path: final candidates}
-    for the trials searched."""
-    _refuse_unported(cfg)
+    takes the one-device path.  With ``cfg.zaplist`` each chunk's
+    spectra are downloaded (a copy down a shard), zapped on the host by
+    apps/zapbirds.zap_pairs_batch (its median and phase bytes fix the
+    result) and re-uploaded where they were before the search; the
+    durable tier's .fft is then journaled at its zapped state (stage
+    "zapbirds"), and a trial whose .fft is already journaled so is left
+    to the disk consumers (zapping twice is not byte-stable).  ``obs``
+    books the rFFT and search dispatches and the copies.  Returns
+    {ACCEL path: final candidates} for the trials searched."""
     dev = resolve_device(device)
     out: Dict[str, List[AccelCand]] = {}
     pending = []
+
+    zap = bool(cfg.zaplist)
 
     def collect(ent) -> None:
         block, chunk, pairs, mesh = ent
         T = block.numout * fusion.inf_float(block.dt)
         names = [block.names[r] for r in chunk]
+        host = None
+        if zap:
+            host = zapbirds.zap_pairs_batch(_download_pairs(pairs, obs),
+                                            cfg.zaplist, T, block.numout)
+            pairs = _upload_like(host, pairs, obs)
+            _chaos(cfg, "zapbirds-file")
         _search_and_write(pairs, names, T, cfg, device, manifest, timer,
-                          out, "fft+accel", mesh=mesh, obs=obs)
+                          out, "accel" if zap else "fft+accel", mesh=mesh,
+                          obs=obs)
         if seam.durable:
-            _write_ffts(pairs, names, manifest, "fft+accel", obs=obs)
+            _write_ffts(pairs, names, manifest,
+                        "zapbirds" if zap else "fft+accel", obs=obs,
+                        host=host)
         devtel.sample_live_buffers(obs, dev)
         _chaos(cfg, "fused-chunk")
         if mesh is not None:
@@ -437,10 +470,11 @@ def seam_fft_search(seam: fusion.StageSeam, cfg: SurveyConfig,
                     for a in _accel_names(name, cfg)]
             _drop_stale(manifest, arts)
             rows = [row for row, name in enumerate(block.names)
-                    if not all(_valid(manifest, a)
-                               for a in _accel_names(name, cfg))
-                    or (seam.durable
-                        and not _valid(manifest, name + ".fft"))]
+                    if not (zap and _zapped(manifest, name + ".fft"))
+                    and (not all(_valid(manifest, a)
+                                 for a in _accel_names(name, cfg))
+                         or (seam.durable
+                             and not _valid(manifest, name + ".fft")))]
             if not rows:
                 seam.release(block)
                 continue
@@ -484,6 +518,13 @@ def seam_fft_search(seam: fusion.StageSeam, cfg: SurveyConfig,
     return out
 
 
+def _zapped(manifest, fft: str) -> bool:
+    """The journal holds ``fft`` at its zapped state (zapping is not
+    idempotent: the stage tag is the checkpoint)."""
+    return (manifest is not None and manifest.valid(fft)
+            and manifest.stage_of(fft) == "zapbirds")
+
+
 def _length_groups(files, item_bytes):
     """Group files by payload length (dict length -> file list)."""
     by_len: Dict[int, List[str]] = {}
@@ -497,18 +538,13 @@ def _trial_T(first_file: str) -> float:
     return info.N * info.dt
 
 
-def _fused_fft_search(datfiles, cfg, device, manifest, timer,
-                      obs=None) -> None:
-    """Disk trials (outside the seam) with no verified .fft: batched
-    rFFT on the device, search, .fft + ACCEL files for the first pass.
-    Trials with a verified .fft are left to _batched_accelsearch."""
-    _drop_stale(manifest, [f[:-4] + ".fft" for f in datfiles])
-    todo = [f for f in datfiles if not _valid(manifest, f[:-4] + ".fft")]
-    if not todo:
-        return
+def _disk_rffts(datfiles, device, obs=None):
+    """Batched rFFT of disk trials on the device, one same-length chunk at
+    a time (at most FFT_CHUNK_BYTES of series): yields (trial names,
+    device spectra, T)."""
     dev = resolve_device(device)
-    first = _pass_configs(cfg)[0]
-    for n, files in _length_groups(todo, lambda sz: (sz // 4) & ~1).items():
+    for n, files in _length_groups(datfiles,
+                                   lambda sz: (sz // 4) & ~1).items():
         T = _trial_T(files[0])
         per = max(1, FFT_CHUNK_BYTES // max(n * 4, 1))
         for g0 in range(0, len(files), per):
@@ -517,13 +553,31 @@ def _fused_fft_search(datfiles, cfg, device, manifest, timer,
             devtel.note_put(obs, arr.nbytes)
             costmodel.probe(obs, "rfft_batch", rows=len(chunk), n=n)
             devtel.note_dispatch(obs, "rfft_batch")
-            pairs = fftpack.realfft_packed_pairs(
-                torch.as_tensor(arr, device=dev))
-            names = [f[:-4] for f in chunk]
-            _write_ffts(pairs, names, manifest, "fft+accel", obs=obs)
-            _search_and_write(pairs, names, T, first, device, manifest,
-                              timer, {}, "fft+accel", obs=obs)
-            _chaos(cfg, "fused-chunk")
+            yield ([f[:-4] for f in chunk], fftpack.realfft_packed_pairs(
+                torch.as_tensor(arr, device=dev)), T)
+
+
+def _without_fft(datfiles, manifest) -> List[str]:
+    """The trials of ``datfiles`` whose .fft does not verify (a stale one
+    is dropped first)."""
+    _drop_stale(manifest, [f[:-4] + ".fft" for f in datfiles])
+    return [f for f in datfiles if not _valid(manifest, f[:-4] + ".fft")]
+
+
+def _fused_fft_search(datfiles, cfg, device, manifest, timer,
+                      obs=None) -> None:
+    """Disk trials (outside the seam) with no verified .fft: batched
+    rFFT on the device, search, .fft + ACCEL files for the first pass.
+    Trials with a verified .fft are left to _batched_accelsearch."""
+    todo = _without_fft(datfiles, manifest)
+    if not todo:
+        return
+    first = _pass_configs(cfg)[0]
+    for names, pairs, T in _disk_rffts(todo, device, obs):
+        _write_ffts(pairs, names, manifest, "fft+accel", obs=obs)
+        _search_and_write(pairs, names, T, first, device, manifest, timer,
+                          {}, "fft+accel", obs=obs)
+        _chaos(cfg, "fused-chunk")
     print("survey: fused realfft+accelsearch over %d disk trials"
           % len(todo))
 
@@ -564,7 +618,6 @@ def run_survey(rawfiles: Sequence[str], cfg: SurveyConfig,
     With ``cfg.obs`` enabled the run is one ``survey`` span, a death
     leaves a flight-recorder dump in the workdir, and the spans and the
     kernel-cost book are written there on exit."""
-    _refuse_unported(cfg)
     resolve_device(device)
     obs = resolve_obs(cfg.obs)
     os.makedirs(workdir, exist_ok=True)
@@ -582,8 +635,8 @@ def run_survey(rawfiles: Sequence[str], cfg: SurveyConfig,
         with _tune.scoped(cfg.tune):
             seam, disk_only = _head_stage(rawfiles, cfg, workdir, res,
                                           timer, manifest, device, obs)
-            _device_search_stages(seam, disk_only, cfg, timer, manifest,
-                                  device, obs)
+            _device_search_stages(seam, disk_only, res.datfiles, cfg,
+                                  timer, manifest, device, obs)
             _finish_survey_stages(rawfiles, cfg, workdir, res, timer,
                                   manifest, device, seam)
         root.finish()
@@ -621,15 +674,37 @@ def _head_stage(rawfiles, cfg, workdir, res, timer, manifest, device,
     return seam, disk_only
 
 
-def _device_search_stages(seam, disk_only, cfg, timer, manifest, device,
-                          obs) -> None:
+def _device_search_stages(seam, disk_only, datfiles, cfg, timer, manifest,
+                          device, obs) -> None:
     """The device middle: stage 9a on the seam, then the FFT and every
-    accel pass over the seam and the disk trials."""
+    accel pass over the seam and the disk trials.  With ``cfg.zaplist``
+    the seam trials are zapped on the seam (seam_fft_search) and the
+    disk trials take the staged flow: rFFT to .fft, zapbirds on each
+    .fft not yet journaled zapped, then every accel pass over the
+    zapped files (and over any seam trial's zapped .fft on disk)."""
     if cfg.singlepulse and len(seam):
         # before the FFT stage releases the blocks' device series
         timer.mark("single_pulse")
         seam_singlepulse(seam, cfg, device=device, manifest=manifest,
                          obs=obs)
+    if cfg.zaplist:
+        timer.mark("realfft")
+        if len(seam):
+            timer.mark("realfft+accelsearch (fused)")
+            seam_fft_search(seam, cfg, device=device, manifest=manifest,
+                            timer=timer, obs=obs)
+            timer.mark("realfft")
+        _staged_fft(disk_only, device, manifest, obs=obs)
+        fftfiles = sorted({f[:-4] + ".fft" for f in disk_only}
+                          | {f[:-4] + ".fft" for f in datfiles
+                             if os.path.exists(f[:-4] + ".fft")})
+        timer.mark("zapbirds")
+        zapbirds_stage(fftfiles, cfg, manifest)
+        timer.mark("accelsearch")
+        for pcfg in _pass_configs(cfg):
+            _batched_accelsearch(fftfiles, pcfg, device, manifest, timer,
+                                 obs=obs)
+        return
     timer.mark("realfft+accelsearch (fused)")
     if len(seam):
         seam_fft_search(seam, cfg, device=device, manifest=manifest,
@@ -640,6 +715,33 @@ def _device_search_stages(seam, disk_only, cfg, timer, manifest, device,
         # trials whose .fft was already on disk
         _batched_accelsearch([f[:-4] + ".fft" for f in disk_only], pcfg,
                              device, manifest, timer, obs=obs)
+
+
+def _staged_fft(datfiles, device, manifest, obs=None) -> None:
+    """Disk trials with no verified .fft: batched rFFT on the device,
+    the .fft written and journaled under "realfft" (the staged flow
+    zapbirds intervenes in).  An .fft the journal marks "zapbirds" is a
+    zapped spectrum: valid, and never made again."""
+    todo = _without_fft(datfiles, manifest)
+    for names, pairs, _T in _disk_rffts(todo, device, obs):
+        _write_ffts(pairs, names, manifest, "realfft", obs=obs)
+    if todo:
+        print("survey: realfft over %d series (batched)" % len(todo))
+
+
+def zapbirds_stage(fftfiles, cfg: SurveyConfig, manifest=None) -> None:
+    """Stage 5: ``zapbirds -zap -zapfile cfg.zaplist`` on every .fft of
+    ``fftfiles`` whose journal entry does not already say "zapbirds"
+    (zapping rewrites the file and is not idempotent, so the stage tag
+    is the checkpoint: a rerun never zaps twice).  As in the JAX
+    package, the zaplist's topocentric frequencies are not shifted to
+    a barycentred spectrum's frame (no -baryv)."""
+    for f in fftfiles:
+        if _zapped(manifest, f):
+            continue
+        zapbirds.main(["-zap", "-zapfile", cfg.zaplist, f])
+        _record(manifest, [f], "zapbirds")
+        _chaos(cfg, "zapbirds-file")
 
 
 def _finish_survey_stages(rawfiles, cfg, workdir, res, timer, manifest,
@@ -690,7 +792,6 @@ def seam_singlepulse(seam: fusion.StageSeam, cfg: SurveyConfig,
     sharded block's rows moved to ``device``), each journaled under
     "singlepulse".  ``obs`` books each batch as one sp_search dispatch
     with its cost.  Returns the number of events written."""
-    _refuse_unported(cfg)
     dev = resolve_device(device)
     searchers: Dict[torch.device, SinglePulseSearch] = {}
 
@@ -1039,7 +1140,8 @@ def _stacked_device_stages(ctxs, device, mesh=None) -> None:
         cfg_m = replace(cfg0, fault_injector=_FanInjector(injectors))
     seam = _merged_seam(ctxs, obs0, manifest, mesh=mesh)
     disk_only = [f for c in ctxs for f in c["disk_only"]]
-    _device_search_stages(seam, disk_only, cfg_m,
+    datfiles = [f for c in ctxs for f in c["res"].datfiles]
+    _device_search_stages(seam, disk_only, datfiles, cfg_m,
                           _FanTimer([c["timer"] for c in ctxs]), manifest,
                           device, obs0)
 
@@ -1068,7 +1170,6 @@ def run_survey_stacked(jobs, stack_planner=None, device="cuda", mesh=None):
     resolve_device(device)
     ctxs = []
     for (rawfiles, cfg, workdir, timer) in jobs:
-        _refuse_unported(cfg)
         obs = resolve_obs(cfg.obs)
         os.makedirs(workdir, exist_ok=True)
         cleanup_stale_tmp(workdir)

@@ -151,7 +151,7 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 cfg = survey.SurveyConfig(fold_top=0)
 assert cfg.singlepulse is True
-survey._refuse_unported(cfg)
+assert not hasattr(survey, "_refuse_unported")
 if not torch.cuda.is_available():
     for call in (lambda: singlepulse.SinglePulseSearch(),
                  lambda: single_pulse_search.main(["-p", "missing.dat"]),
@@ -170,9 +170,9 @@ print("SP ISOLATED")
 def test_single_pulse_modules_stand_alone_and_need_cuda():
     """The single-pulse modules (search, CLI, survey stages 9a/9, the
     grouping, waterfaller and .spd toolchain, rrattrap and make_spd)
-    import neither jax nor presto_tpu; the survey no longer refuses
-    singlepulse=True; the search, the CLI and the survey's stages called
-    without device= raise without a card."""
+    import neither jax nor presto_tpu; the survey refuses no config
+    (singlepulse=True among them); the search, the CLI and the survey's
+    stages called without device= raise without a card."""
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT
     out = subprocess.run([sys.executable, "-c", SP_SCRIPT], cwd=ROOT,
@@ -198,7 +198,7 @@ with mesh.set_logical_devices(4, "cpu"):
     assert mesh.make_mesh(device="cpu").size == 4
 cfg = survey.SurveyConfig(fold_top=0, elastic=True,
                           fault_injector=chaos.FaultInjector(mode="off"))
-survey._refuse_unported(cfg)
+assert not hasattr(survey, "_refuse_unported")
 if not torch.cuda.is_available():
     argv = ["-coordinator", "localhost:1", "-nproc", "2", "-procid", "0",
             "-nobary", "missing.fil"]
@@ -220,10 +220,11 @@ print("PARALLEL ISOLATED")
 
 def test_parallel_modules_stand_alone_and_need_cuda():
     """The sharding, elastic, ledger and chaos modules import neither jax
-    nor presto_tpu; the survey no longer refuses elastic runs or a fault
-    injector; make_mesh() (and visible_devices, the logical-shard
-    context) and prepsubband -coordinator (and -elastic) called without
-    device= raise without a card, before joining any process group."""
+    nor presto_tpu; the survey refuses no config (elastic runs, a fault
+    injector, bary, a zaplist); make_mesh() (and visible_devices, the
+    logical-shard context) and prepsubband -coordinator (and -elastic)
+    called without device= raise without a card, before joining any
+    process group."""
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT
     out = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=ROOT,
@@ -231,6 +232,60 @@ def test_parallel_modules_stand_alone_and_need_cuda():
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "PARALLEL ISOLATED" in out.stdout
+
+
+BARY_SCRIPT = r"""
+import sys
+import torch
+from presto_tpu_torch.apps import (bary, drift_prep, pipeline, prepsubband,
+                                   zapbirds)
+from presto_tpu_torch.astro import (bary as abary, baryshift, ephem, kernels,
+                                    spk, spkwrite)
+from presto_tpu_torch.pipeline import driftprep, recipes, survey
+from presto_tpu_torch import cuda_build
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "presto_tpu" or m.startswith("presto_tpu."))
+assert not bad, bad
+assert not cuda_build._libs, "a library was built at import"
+assert ephem.EPV_PATH.startswith(sys.argv[1])
+assert kernels.default_cache_dir().endswith("presto_tpu_torch")
+assert not hasattr(kernels, "fetch_kernel")
+assert isinstance(ephem.get_ephemeris(), ephem.EpvEphemeris)
+if not torch.cuda.is_available():
+    cfg = recipes.get_recipe("gbncc").to_config(20.0, 24.0)
+    cfg.bary = True
+    assert cfg.zaplist and cfg.accel_passes
+    for call in (lambda: prepsubband.main(["missing.fil"]),
+                 lambda: pipeline.main(["--recipe", "gbncc",
+                                        "missing.fil"]),
+                 lambda: survey.run_survey(["missing.fil"], cfg, ".")):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError("an entry point ran without CUDA")
+print("BARY ISOLATED")
+"""
+
+
+def test_bary_zapbirds_recipe_modules_stand_alone_and_need_cuda(tmp_path):
+    """Barycentring, zapbirds, the recipes and drift prep import neither
+    jax nor presto_tpu and build nothing at import; the ephemeris reads
+    the port's own epv.npz and the kernel cache is the port's own (no
+    download path); prepsubband without -nobary, pipeline --recipe and a
+    barycentred zaplist survey called without device= raise without a
+    card, before touching any file."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", BARY_SCRIPT,
+                          os.path.join(ROOT, "presto_tpu_torch")],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "BARY ISOLATED" in out.stdout
+    assert os.listdir(str(tmp_path)) == []
 
 
 STREAM_SCRIPT = r"""
@@ -369,14 +424,7 @@ bad = sorted(m for m in sys.modules
              or m == "presto_tpu" or m.startswith("presto_tpu."))
 assert not bad, bad
 assert not hasattr(server, "DAG_JOBS_ITEM")
-survey._refuse_unported(survey.SurveyConfig(triage={"budget": 1}))
-for refused in ({"zaplist": "z.txt"}, {"bary": True}):
-    try:
-        survey._refuse_unported(survey.SurveyConfig(**refused))
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("survey no longer refuses %s" % refused)
+assert not hasattr(survey, "_refuse_unported")
 if not torch.cuda.is_available():
     import numpy as np
     m = model.TriageModel(w=[0.0] * 14, b=0.0, mean=[0.0] * 14,
@@ -403,8 +451,8 @@ def test_fleet_and_triage_modules_stand_alone_and_need_cuda(tmp_path):
     """The fleet and triage modules (serve/{jobledger, usage, dag, fleet,
     router, campaign}, obs/{slo, fleetagg}, triage/, apps/{serve, triage,
     pipeline, campaign}) import neither jax nor presto_tpu; the survey
-    takes cfg.triage and still refuses zapbirds and barycentring; the
-    triage score and training, the presto-triage, presto-serve and
+    refuses no config (cfg.triage, zapbirds, barycentring); the triage
+    score and training, the presto-triage, presto-serve and
     pipeline CLIs and a DAG node job on a default service raise without
     a card."""
     env = dict(os.environ)
