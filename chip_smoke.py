@@ -188,8 +188,10 @@ Phases (any failure exits non-zero before the final line):
              its DM-22 hi-pass candidate within RECIPE_FREQ_TOL_BINS of
              f (1 + avgvoverc); the folds
              within the caps; both kernels against their plain versions
-             at the two passes' geometries on the DM-22 spectrum; the
-             host seconds of the resample and the zap, the stage times;
+             at the two passes' geometries on the DM-22 spectrum (each
+             bound counts the plane's numz real rows, not its zero pad
+             rows); the stage times, with the host resample and zap as
+             run_survey's StageTimer booked them;
  12. summary the kernels line (launches of the main path, the sharded
              main path, by shard too, the serve path, the fleet path, the
              federation path (A's last snapshot and B's replicas'), the
@@ -201,11 +203,15 @@ Phases (any failure exits non-zero before the final line):
 Prints the full results as one JSON line (``results: {...}``).  Imports
 no JAX and nothing of the JAX package.  ``--live-only`` runs phases 10 and
 11 alone (no build, no kernels line, no final ok line).
+``--keep-recipe-cands DIR`` writes the recipe phase's sift input (ACCEL
+tables, .cand and .inf files) and cands_sifted.txt to
+DIR/recipe_cands.tar.xz.
 """
 
 import argparse
 import copy
 import glob
+import hashlib
 import json
 import os
 import re
@@ -344,8 +350,10 @@ def plane_case(s, nbins, gen, label, Kc=None, pairs=None):
         % (label, tuple(S.shape), tuple(Kc.shape), s.numz_pad, numr, err,
            scale, pads_zero, "ok" if ok else "FAIL"))
     from presto_tpu_torch.obs import costmodel
+    # the bound writes only the numz rows the search reads; the kernel
+    # also writes the zero pad rows up to numz_pad (7 of 8 at zmax 0)
     nbytes, flops = costmodel.plane_build_work(nblocks, numz, n,
-                                               s.cfg.uselen, s.numz_pad, numr)
+                                               s.cfg.uselen, numz, numr)
     bms, by = bound_ms(nbytes, flops)
     ms = cuda_time_ms(lambda: build_cuda.build_plane(*args), 10)
     plain_ms = cuda_time_ms(lambda: build_cuda.build_plane_plain(*args), 3)
@@ -425,16 +433,17 @@ def reducer_design_bytes(zinds, nrows, slab, nslabs, nstages):
                                           nslabs, nstages, threads, zc)
 
 
-def reducer_bound(plane, scols, zinds, slab, nst):
-    """The stage reducer's bound on these inputs: the plane, start
-    columns and z maps read once, colmax and colz written once; one add
-    a term and one compare a stage per plane element of the slabs
+def reducer_bound(plane, scols, zinds, slab, nst, numz):
+    """The stage reducer's bound on these inputs: the plane's numz real
+    rows (not its zero pad rows), the start columns and those rows' z
+    maps read once, colmax and colz written once; one add a term and one
+    compare a stage per real plane element of the slabs
     (obs/costmodel.stage_reduce_work).  Returns (ms, "bytes" or
     "operations", bytes, operations)."""
     from presto_tpu_torch.obs import costmodel
     nbytes, flops = costmodel.stage_reduce_work(
-        plane.shape[0], plane.shape[1], scols.numel(), slab, nst,
-        zinds.numel())
+        numz, plane.shape[1], scols.numel(), slab, nst,
+        zinds.shape[0] * numz)
     ms, by = bound_ms(nbytes, flops)
     return ms, by, nbytes, flops
 
@@ -486,7 +495,8 @@ def check_stage_reduce(s, S, gen):
     ms16 = cuda_time_ms(lambda: accel_cuda.reduce_stages(*args16), 10)
     bytes16 = reducer_design_bytes(z16, plane.shape[0], slab,
                                    len(start_cols), 5)
-    bms16, by16, _, _ = reducer_bound(plane, scols, z16, slab, 5)
+    bms16, by16, _, _ = reducer_bound(plane, scols, z16, slab, 5,
+                                      c16.numz)
     log("stage_reduce numharm 16 (5 stages) on the bench plane: "
         "max_abs_err %.3g, colz equal %s; kernel %.3f ms, bound %.3f ms "
         "(%s), design bytes %.3f GB (%.1f%% of 3.35 TB/s) %s"
@@ -508,7 +518,7 @@ def check_stage_reduce(s, S, gen):
     log("stage_reduce ragged (5 stages, 32 rows, slabs of 1000): "
         "max_abs_err %.3g %s" % (rerr, "ok" if rok else "FAIL"))
     bms, by, nbytes, flops = reducer_bound(plane, scols, s._zinds, slab,
-                                           nst)
+                                           nst, s.cfg.numz)
     design = reducer_design_bytes(s._zinds, plane.shape[0], slab,
                                   len(start_cols), nst)
     ms = cuda_time_ms(lambda: accel_cuda.reduce_stages(*args), 10)
@@ -1994,24 +2004,24 @@ JERK_PSR = dict(N=1 << 21, dt=1e-3, f0=7.37, z=10.0, w=60.0, amp=0.15,
                       "-sigma", "5.0"])
 
 
-def reducer_planes_bound(planes, scols, zinds, slab, nst):
+def reducer_planes_bound(planes, scols, zinds, slab, nst, numz):
     """The multi-plane reducer's bound on these inputs: each distinct
-    plane read once over the cells the sums name (planes[0]: every row
-    of the slabs' columns; term i's plane: the rows of its z map at
-    the columns round_half_up(j h / htot)), the start columns and z maps
-    once, colmax and colz written once; one add a term and one compare
-    a stage per plane element of the slabs.  Returns (ms, "bytes" or
-    "operations", bytes)."""
+    plane read once over the cells the sums of its numz real rows name
+    (planes[0]: those rows at the slabs' columns; term i's plane: the
+    rows of their z map at the columns round_half_up(j h / htot)), the
+    start columns and those rows' z maps once, colmax and colz written
+    once; one add a term and one compare a stage per real plane element
+    of the slabs.  Returns (ms, "bytes" or "operations", bytes)."""
     from presto_tpu_torch.search import accel_cuda
     nrows, numr = planes[0].shape
     sc = scols.cpu().numpy().astype(np.int64)
     cols = np.unique((sc[:, None] + np.arange(slab)[None]).ravel())
     z = zinds.cpu().numpy()
     # per distinct plane: [(rows named, columns named)] of its reads
-    reads = {planes[0].data_ptr(): [(np.ones(nrows, bool), cols)]}
+    reads = {planes[0].data_ptr(): [(np.arange(nrows) < numz, cols)]}
     for i, (h, t) in enumerate(accel_cuda.stage_terms(nst)):
         rows = np.zeros(nrows, bool)
-        rows[z[i]] = True
+        rows[z[i][:numz]] = True
         reads.setdefault(planes[i + 1].data_ptr(), []).append(
             (rows, (cols // t) * h + ((cols % t) * h + (t >> 1)) // t))
     cells = 0
@@ -2025,10 +2035,10 @@ def reducer_planes_bound(planes, scols, zinds, slab, nst):
                 if g >> k & 1:
                     named[c] = True
             cells += int(named.sum()) * int((sig == g).sum())
-    nbytes = (cells + scols.numel() + zinds.numel()) * 4 \
+    nbytes = (cells + scols.numel() + zinds.shape[0] * numz) * 4 \
         + 2 * scols.numel() * nst * slab * 4
     nterms = (1 << (nst - 1)) - 1
-    ms, by = bound_ms(nbytes, sc.size * slab * nrows * (nterms + nst))
+    ms, by = bound_ms(nbytes, sc.size * slab * numz * (nterms + nst))
     return ms, by, nbytes
 
 
@@ -2063,7 +2073,8 @@ def jerk_kernels(s, nbins, gen, w, label, pairs=None):
     ms = cuda_time_ms(lambda: accel_cuda.reduce_stages_planes(*args), 10)
     plain_ms = cuda_time_ms(
         lambda: accel_cuda.reduce_stages_planes_plain(*args), 1)
-    bms, by, nbytes = reducer_planes_bound(planes, scols, s._zinds, slab, nst)
+    bms, by, nbytes = reducer_planes_bound(planes, scols, s._zinds, slab,
+                                           nst, s.cfg.numz)
     design = reducer_design_bytes(s._zinds, planes[0].shape[0], slab,
                                   len(start_cols), nst)
     share = design / (ms * 1e-3) / PEAK_BYTES_PER_S
@@ -4168,7 +4179,7 @@ def recipe_kernels(pcfg, T, nbins, pairs, gen, label, device="cuda"):
     ok = err == 0.0 and bool((gz == wz).all())
     del gm, gz, wm, wz
     bms, by, nbytes, flops = reducer_bound(plane, scols, s._zinds, slab,
-                                           nst)
+                                           nst, s.cfg.numz)
     ms = cuda_time_ms(lambda: accel_cuda.reduce_stages(*args), 10)
     plain_ms = cuda_time_ms(lambda: accel_cuda.reduce_stages_plain(*args),
                             1)
@@ -4184,7 +4195,7 @@ def recipe_kernels(pcfg, T, nbins, pairs, gen, label, device="cuda"):
     return pb, sr
 
 
-def phase_recipe(raw, workdir, main_res=None, device="cuda"):
+def phase_recipe(raw, workdir, main_res=None, device="cuda", keep=None):
     """The survey as users run it: the beam barycentred (its samples
     under RECIPE_POSITION's header), GBNCC's recipe (the default
     zaplist, the lo and hi accel passes, its sift policy and 20 + 10
@@ -4199,7 +4210,11 @@ def phase_recipe(raw, workdir, main_res=None, device="cuda"):
     one trial of DM 22, and its DM-22 hi-pass candidate at f (1 +
     avgvoverc); the folds within the caps; both kernels against their
     plain versions at the two passes' geometries on the DM-22 spectrum;
-    the host seconds of the resample and the zap; the stage times."""
+    the stage times, with the host resample and zap as run_survey timed
+    them.  ``keep``: a directory that receives recipe_cands.tar.xz, the
+    run's ACCEL tables, .cand files, .inf files and cands_sifted.txt
+    (tests/test_torch_recipes.py holds the JAX package's sift and sigma
+    of those candidates to the port's list)."""
     from presto_tpu_torch.apps import common, prepsubband, zapbirds
     from presto_tpu_torch.io import datfft
     from presto_tpu_torch.io.infodata import read_inf
@@ -4229,6 +4244,11 @@ def phase_recipe(raw, workdir, main_res=None, device="cuda"):
     ndms = len(res.datfiles)
     npass = len(cfg.all_passes)
     stages = {k: round(v, 4) for k, v in timer.stages.items()}
+    # the host resample (prepsubband's seam handoff) and the host zap
+    # (each FFT chunk in seam_fft_search), timed where they ran
+    resample_s = timer.stages.get("bary resample (host)", 0.0)
+    zap_s = timer.stages.get("zap (host)", 0.0)
+    zap_chunks = len(timer.samples.get("zap (host)", []))
     log("recipe: gbncc over DM 20-24, bary, zaplist %s: run_survey %.1f s; "
         "stages %s; launches %s" % (os.path.basename(cfg.zaplist), run_s,
                                    json.dumps(stages), json.dumps(launches)))
@@ -4265,23 +4285,16 @@ def phase_recipe(raw, workdir, main_res=None, device="cuda"):
     log("recipe: staged prepsubband on the card %.1f s; .dat/.inf of %d "
         "DMs byte-equal to the survey's: %d %s"
         % (staged_s, len(same), sum(same), "ok" if dat_ok else "FAIL"))
-    # the host resample's seconds (the schedule applied to every row) and
-    # the zap's, on this run's series and spectra
+    # the card's rFFT of the .dat batch, zapped on the host
     rows = np.stack([datfft.read_dat(f) for f in res.datfiles])
     numout = rows.shape[1]
-    t0 = time.time()
-    for r in rows:
-        plan.apply(r[:numout - plan.diffbins.size])
-    resample_s = time.time() - t0
     n = numout & ~1
     dev_rows = torch.from_numpy(rows[:, :n]).to(device)
     del rows
     host = fusion.fused_rfft_batch(dev_rows).cpu().numpy()
     del dev_rows
     T = numout * fusion.inf_float(infos[0].dt)
-    t0 = time.time()
     zapped = zapbirds.zap_pairs_batch(host, cfg.zaplist, T, numout)
-    zap_s = time.time() - t0
     i22 = [k for k, f in enumerate(res.datfiles) if "_DM22.00" in f][0]
     fft_same = {}
     for k in (0, i22):
@@ -4291,11 +4304,11 @@ def phase_recipe(raw, workdir, main_res=None, device="cuda"):
             == fftpack.np_pairs_to_complex64(zapped[k]).tobytes())
     fft_ok = len(fft_same) == 2 and all(fft_same.values())
     log("recipe: spilled .fft equal to the card's rFFT zapped on the host "
-        "%s %s; host resample %.3f s (24 rows), host zap %.3f s (24 "
-        "spectra, %.2f GB each way)" % (json.dumps(fft_same),
-                                        "ok" if fft_ok else "FAIL",
-                                        resample_s, zap_s,
-                                        zapped.nbytes / 1e9))
+        "%s %s; in run_survey: host resample %.3f s (24 rows, in the "
+        "prepsubband stage), host zap %.3f s (%d FFT chunks, 24 spectra, "
+        "%.2f GB each way, in the fused stage)"
+        % (json.dumps(fft_same), "ok" if fft_ok else "FAIL", resample_s,
+           zap_s, zap_chunks, zapped.nbytes / 1e9))
     # the pulsars: an injected one first; the 40.3 Hz pulsar's strongest
     # sifted candidate within one trial of DM 22; its frequency from the
     # DM-22 trial's hi pass (its fdot is inside zmax 50, and a zmax-0
@@ -4328,9 +4341,13 @@ def phase_recipe(raw, workdir, main_res=None, device="cuda"):
                  and abs(top.DM - b["dm"]) <= 0.21
                  and abs(off_bins) < RECIPE_FREQ_TOL_BINS)
     main_f = (main_res or {}).get("top_freq")
-    log("recipe: %d sifted; the first 8: %s" % (len(ranked), json.dumps(
-        [[c.filename, c.DM, round(c.f, 6), c.sigma, c.numharm]
-         for c in ranked[:8]])))
+    sifted_sha = hashlib.sha256(open(res.candfile, "rb").read()).hexdigest()
+    log("recipe: %d sifted (cands_sifted.txt sha256 %s); the first 8: %s"
+        % (len(ranked), sifted_sha, json.dumps(
+            [[c.filename, c.DM, round(c.f, 6), c.sigma, c.numharm]
+             for c in ranked[:8]])))
+    if keep is not None:
+        keep_cands(res, keep)
     log("recipe: first %s (an injected pulsar: %s); the 40.3 Hz pulsar's "
         "strongest sifted candidate at rank %s: %s, DM %.2f, sigma %.2f; "
         "the DM-22 hi pass's: f %.9f Hz (harmonic %d), z %.2f, sigma %.2f; "
@@ -4380,6 +4397,7 @@ def phase_recipe(raw, workdir, main_res=None, device="cuda"):
     return dict(ok=ok, launches=launches, ndms=ndms, stages=stages,
                 run_survey_s=run_s, staged_prepsubband_s=staged_s,
                 resample_host_s=resample_s, zap_host_s=zap_s,
+                zap_chunks=zap_chunks, sifted_sha256=sifted_sha,
                 zap_bytes_each_way=int(n // 2 * 8 * ndms),
                 avgvoverc=plan.avgvoverc, diffbins=int(plan.diffbins.size),
                 dat_inf_equal=sum(same), fft_equal=fft_same,
@@ -4394,6 +4412,23 @@ def phase_recipe(raw, workdir, main_res=None, device="cuda"):
                 plane_build={k: v[0] for k, v in kern.items()},
                 stage_reduce={k: v[1] for k, v in kern.items()},
                 phase_s=phase_s)
+
+
+def keep_cands(res, keep):
+    """recipe_cands.tar.xz in ``keep``: the survey's ACCEL tables, .cand
+    files and .inf files by base name, and its cands_sifted.txt."""
+    import tarfile
+    os.makedirs(keep, exist_ok=True)
+    work = res.workdir
+    names = sorted(f for f in os.listdir(work)
+                   if re.search(r"_ACCEL_\d+(\.cand)?$", f)
+                   or f.endswith(".inf"))
+    path = os.path.join(keep, "recipe_cands.tar.xz")
+    with tarfile.open(path, "w:xz") as tar:
+        for f in names + ["cands_sifted.txt"]:
+            tar.add(os.path.join(work, f), arcname=f)
+    log("recipe: %d files of the sift's input kept in %s (%d bytes)"
+        % (len(names) + 1, path, os.path.getsize(path)))
 
 
 def launch_counts():
@@ -4429,6 +4464,9 @@ def main():
     ap.add_argument("--live-only", action="store_true",
                     help="run the stream and beams phases alone (no build, "
                          "no kernels line, no final ok line)")
+    ap.add_argument("--keep-recipe-cands", metavar="DIR",
+                    help="write the recipe phase's sift input and output "
+                         "to DIR/recipe_cands.tar.xz")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4490,7 +4528,8 @@ def main():
         feder = phase_federation(raw, os.path.join(work, "federation"),
                                  mwork)
         torch.cuda.empty_cache()
-        recipe = phase_recipe(raw, os.path.join(work, "recipe"), main_res)
+        recipe = phase_recipe(raw, os.path.join(work, "recipe"), main_res,
+                              keep=opts.keep_recipe_cands)
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)

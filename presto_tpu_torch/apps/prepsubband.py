@@ -160,9 +160,11 @@ class _Setup:
     a source position) and the FULL-range delay plan and geometry.  A
     shard must use the full-range plan (centre DM, delay normalization,
     blocklen, valid length), or its rows would not be byte-equal to an
-    unsharded run's."""
+    unsharded run's.  ``timer`` (a utils/timing.StageTimer) books the
+    host resample as the stage "bary resample (host)"."""
 
-    def __init__(self, args):
+    def __init__(self, args, timer=None):
+        self.timer = timer
         self.fb = open_raw(args.rawfiles)
         hdr = self.hdr = self.fb.header
         self.nchan, self.dt = hdr.nchans, hdr.tsamp
@@ -202,7 +204,9 @@ class _Setup:
         valid] array (the rows unchanged when there is none)."""
         if self.bary is None or not self.bary.diffbins.size:
             return rows
-        return np.stack([self.bary.apply(r) for r in rows])
+        with (self.timer.stage("bary resample (host)")
+              if self.timer is not None else contextlib.nullcontext()):
+            return np.stack([self.bary.apply(r) for r in rows])
 
 
 def _trial_names(args):
@@ -252,14 +256,15 @@ def _dedisperse(s: _Setup, args, plan: ShardedDedispPlan, width: int,
     return outs
 
 
-def run(args, device="cuda", seam: fusion.StageSeam = None):
+def run(args, device="cuda", seam: fusion.StageSeam = None, timer=None):
     """Dedisperse ``args.rawfiles`` on ``device`` (split over the mesh of
     its visible devices, see the module docstring).  With a ``seam`` (a
     one-process run) the fan-out is deposited there (see _seam_handoff);
     otherwise the .dat and .inf files are written, by each process for
-    its own rows.  Returns (outbase, dms)."""
+    its own rows.  ``timer`` (a utils/timing.StageTimer) books the host
+    resample of a barycentred run.  Returns (outbase, dms)."""
     if args.elastic:
-        return _elastic_run(args, device)
+        return _elastic_run(args, device, timer)
     _refuse_unported(args)
     dev = resolve_device(device)
     nproc, rank = 1, 0
@@ -305,7 +310,7 @@ def run(args, device="cuda", seam: fusion.StageSeam = None):
                   "one device" % (ndev, "%s is set" % DISABLE_MESH_ENV
                                   if disabled else "numdms=%d is not "
                                   "divisible by %d" % (args.numdms, ndev)))
-    s = _Setup(args)
+    s = _Setup(args, timer)
     # this process's DM rows: all of them, or its share of a cluster run
     per = args.numdms // nproc
     lo, hi = rank * per, (rank + 1) * per
@@ -384,7 +389,7 @@ def _seam_handoff(args, s: _Setup, seam, parts, plan, outbase, names,
     return outbase, s.dms
 
 
-def _elastic_run(args, device):
+def _elastic_run(args, device, timer=None):
     """The worker-loss-tolerant DM fan-out: every DM shard is a leased row
     in the workdir's shard ledger, any process computes any shard on its
     own device with the full-range plan, and commits ride the ledger's
@@ -406,7 +411,7 @@ def _elastic_run(args, device):
         shard_rows=args.shard_rows)
     cluster = elastic.ElasticCluster(workdir, host, ecfg)
     cluster.join(args.coordinator, args.nproc, args.procid)
-    s = _Setup(args)
+    s = _Setup(args, timer)
     nproc = max(int(args.nproc or 1), 1)
     # auto shard size: ~2 shards a process, so one loss re-admits at most
     # half a process's work

@@ -286,13 +286,13 @@ def survey_head(rawfiles, cfg: SurveyConfig, workdir: str = ".",
             try:
                 prepsubband.run(prepsubband.build_parser().parse_args(
                     argv + _elastic_argv(cfg.elastic) + rawfiles),
-                    device=device)
+                    device=device, timer=timer)
             finally:
                 elastic.set_process_injector(None)
             _chaos(cfg, "elastic-method")
         else:
             prepsubband.run(prepsubband.build_parser().parse_args(
-                argv + rawfiles), device=device, seam=seam)
+                argv + rawfiles), device=device, seam=seam, timer=timer)
         done = _stage(dat_glob, workdir)
         _record(manifest, done + [f[:-4] + ".inf" for f in done],
                 "prepsubband")
@@ -447,8 +447,11 @@ def seam_fft_search(seam: fusion.StageSeam, cfg: SurveyConfig,
         names = [block.names[r] for r in chunk]
         host = None
         if zap:
-            host = zapbirds.zap_pairs_batch(_download_pairs(pairs, obs),
-                                            cfg.zaplist, T, block.numout)
+            host = _download_pairs(pairs, obs)
+            with (timer.stage("zap (host)") if timer is not None
+                  else contextlib.nullcontext()):
+                host = zapbirds.zap_pairs_batch(host, cfg.zaplist, T,
+                                                block.numout)
             pairs = _upload_like(host, pairs, obs)
             _chaos(cfg, "zapbirds-file")
         _search_and_write(pairs, names, T, cfg, device, manifest, timer,
@@ -681,7 +684,8 @@ def _device_search_stages(seam, disk_only, datfiles, cfg, timer, manifest,
     the seam trials are zapped on the seam (seam_fft_search) and the
     disk trials take the staged flow: rFFT to .fft, zapbirds on each
     .fft not yet journaled zapped, then every accel pass over the
-    zapped files (and over any seam trial's zapped .fft on disk)."""
+    zapped files (and over a seam trial's zapped .fft on disk that this
+    run did not search: a resumed run's)."""
     if cfg.singlepulse and len(seam):
         # before the FFT stage releases the blocks' device series
         timer.mark("single_pulse")
@@ -689,15 +693,21 @@ def _device_search_stages(seam, disk_only, datfiles, cfg, timer, manifest,
                          obs=obs)
     if cfg.zaplist:
         timer.mark("realfft")
+        searched = set()
         if len(seam):
             timer.mark("realfft+accelsearch (fused)")
-            seam_fft_search(seam, cfg, device=device, manifest=manifest,
-                            timer=timer, obs=obs)
+            found = seam_fft_search(seam, cfg, device=device,
+                                    manifest=manifest, timer=timer, obs=obs)
+            searched = {os.path.abspath(a[:a.rfind("_ACCEL_")]) + ".fft"
+                        for a in found}
             timer.mark("realfft")
         _staged_fft(disk_only, device, manifest, obs=obs)
-        fftfiles = sorted({f[:-4] + ".fft" for f in disk_only}
+        # the staged sweep: the disk trials, and a seam trial's zapped
+        # .fft on disk that this run did not search (a resumed run's)
+        fftfiles = sorted(f for f in {f[:-4] + ".fft" for f in disk_only}
                           | {f[:-4] + ".fft" for f in datfiles
-                             if os.path.exists(f[:-4] + ".fft")})
+                             if os.path.exists(f[:-4] + ".fft")}
+                          if os.path.abspath(f) not in searched)
         timer.mark("zapbirds")
         zapbirds_stage(fftfiles, cfg, manifest)
         timer.mark("accelsearch")

@@ -9,6 +9,10 @@ policy end to end on the synth beam (rfifind, the default zaplist, both
 accel passes, the sift policy, the 20 + 10 fold caps).
 The drift-scan pointings and their cut filterbanks are byte-equal to
 the JAX package's, and pipeline --driftprep runs one survey a pointing.
+The sift of chip_smoke.py's recipe phase on the H100 (its ACCEL tables
+and cands_sifted.txt, kept in tests/data/recipe_cands.tar.xz) is the
+JAX package's sift of the same candidates, and their sigmas the JAX
+package's.
 """
 
 import dataclasses
@@ -16,14 +20,21 @@ import glob
 import io
 import json
 import os
+import tarfile
 from contextlib import redirect_stdout
 
+import numpy as np
 import pytest
 
 from presto_tpu.apps import drift_prep as jdrift_app
+from presto_tpu.apps.accelsearch import read_cand_file as jread_cand_file
+from presto_tpu.io.infodata import read_inf as jread_inf
 from presto_tpu.models.synth import FakeSignal, fake_filterbank_file
+from presto_tpu.ops import stats as jstats
 from presto_tpu.pipeline import driftprep as jdrift
 from presto_tpu.pipeline import recipes as jrecipes
+from presto_tpu.pipeline import sifting as jsifting
+from presto_tpu.search import accel as jaccel
 from presto_tpu_torch.apps import drift_prep as tdrift_app
 from presto_tpu_torch.apps import pipeline as tpipeline
 from presto_tpu_torch.io.infodata import read_inf
@@ -31,6 +42,10 @@ from presto_tpu_torch.pipeline import driftprep as tdrift
 from presto_tpu_torch.pipeline import recipes as trecipes
 
 N, NCHAN, DT = 1 << 16, 32, 5e-4
+# chip_smoke.py --keep-recipe-cands on an NVIDIA H100: the recipe phase's
+# ACCEL tables, .cand and .inf files and its cands_sifted.txt
+RECIPE_CANDS = os.path.join(os.path.dirname(__file__), "data",
+                            "recipe_cands.tar.xz")
 
 
 def _fields(cfg):
@@ -115,6 +130,53 @@ def test_pipeline_recipe_gbncc_runs(beam, tmp_path):
                for z in (0, 50)]
     assert 1 <= len(folds) <= 30 and by_pass[0] <= 20 and by_pass[1] <= 10
     assert os.path.exists(os.path.join(work, "psr_rfifind.mask"))
+
+
+def test_card_recipe_sift_is_the_jax_sift(tmp_path):
+    """The card's recipe run (GBNCC over the barycentred, zapped beam:
+    24 DM trials, the zmax-0 and zmax-50 passes) ranks its candidates as
+    the JAX package does: the JAX sift of the same ACCEL tables, with
+    the recipe's policy, writes the card's cands_sifted.txt byte for
+    byte, and every .cand candidate's sigma is the JAX package's
+    candidate_sigma of its power over its pass's independent trials: the
+    .cand stores float32 power and sigma, so the sigma lies between the
+    JAX sigmas of the powers one float32 step either side, widened by
+    float32's rounding of the sigma (the sift reads sigma to 0.01 from
+    the ACCEL table)."""
+    with tarfile.open(RECIPE_CANDS) as tar:
+        tar.extractall(str(tmp_path))
+    cfg = jrecipes.get_recipe("gbncc").to_config(20.0, 24.0, nsub=32)
+    accs = sorted(f for (z, _nh, _sg, _flo) in cfg.all_passes
+                  for f in glob.glob(str(tmp_path / ("*_ACCEL_%d" % z))))
+    assert len(accs) == 2 * 24
+    cl = jsifting.sift_candidates(accs, numdms_min=cfg.min_dm_hits,
+                                  low_DM_cutoff=cfg.low_dm_cutoff,
+                                  policy=cfg.sift_policy)
+    jpath = str(tmp_path / "jax_sifted.txt")
+    cl.to_file(jpath)
+    card = open(str(tmp_path / "cands_sifted.txt")).read()
+    assert len(cl) > 0 and open(jpath).read() == card
+    ncands = 0
+    for (zmax, nh, sg, flo) in cfg.all_passes:
+        info = jread_inf(accs[0][:accs[0].rfind("_ACCEL")])
+        T = info.N * info.dt
+        numindep = jaccel.AccelSearch(
+            jaccel.AccelConfig(zmax=zmax, numharm=nh, sigma=sg, flo=flo),
+            T=T, numbins=(int(info.N) & ~1) // 2).numindep
+        for acc in accs:
+            if not acc.endswith("_ACCEL_%d" % zmax):
+                continue
+            for c in jread_cand_file(acc + ".cand"):
+                p = np.float32(c.power)
+                lo, hi = sorted(jstats.candidate_sigma(
+                    np.float64(np.nextafter(p, np.float32(d))), c.numharm,
+                    numindep[int(np.log2(c.numharm))])
+                    for d in (-np.inf, np.inf))
+                eps = np.finfo(np.float32).eps
+                assert (lo - abs(lo) * eps <= c.sigma
+                        <= hi + abs(hi) * eps), acc
+                ncands += 1
+    assert ncands >= len(cl)
 
 
 @pytest.fixture(scope="module")

@@ -215,6 +215,30 @@ def test_zaplist_survey_rerun_zaps_nothing_twice(zruns, tmp_path):
         assert after == before, path
 
 
+def test_zaplist_seam_without_journal_zaps_once(zruns, tmp_path):
+    """With no journal (verify_resume=False) the staged sweep leaves out
+    the trials the seam zapped and searched, so their spilled .fft are
+    zapped once: byte-equal to the journaled seam run's.  The survey's
+    StageTimer books the host resample and the host zap where they ran,
+    inside the prepsubband and fused stages."""
+    from presto_tpu_torch.utils.timing import StageTimer
+    raw, d, _seam, _disk = zruns
+    work = str(tmp_path / "w")
+    timer = StageTimer()
+    tsurvey.run_survey([raw], _cfg(tsurvey, verify_resume=False), work,
+                       timer=timer, device="cpu")
+    ffts = _names(str(d / "seam"), "psr_DM*.fft")
+    assert len(ffts) == 8 and _names(work, "psr_DM*.fft") == ffts
+    for f in ffts:
+        assert open(os.path.join(work, f), "rb").read() == open(
+            str(d / "seam" / f), "rb").read(), f
+    assert timer.stages["bary resample (host)"] > 0.0
+    assert len(timer.samples["bary resample (host)"]) == 1
+    assert timer.stages["zap (host)"] > 0.0
+    assert timer._inner["bary resample (host)"] == "prepsubband"
+    assert timer._inner["zap (host)"] == "realfft+accelsearch (fused)"
+
+
 def test_service_jobs_with_bary_and_zaplist(tmp_path):
     """Two jobs of one observation and two of two observations (MJD
     59000 and 59200: different diffbin schedules), bary and zaplist
