@@ -192,11 +192,25 @@ Phases (any failure exits non-zero before the final line):
              bound counts the plane's numz real rows, not its zero pad
              rows); the stage times, with the host resample and zap as
              run_survey's StageTimer booked them;
+  6h. psrfits  the beam's samples as two PSRFITS files (the port's
+             write_psrfits: 2^21 spectra each, rows of 2048, the .fil's
+             descending band, unit scales): the reader's stitched length
+             (2^22) and clean quality ledger; run_survey on the pair with
+             the main configuration, launches read around it (24 + 24),
+             its 24 .dat, .mask arrays, ACCEL tables and .cand files,
+             sifted list and three folds' profile cubes equal to the main
+             phase's .fil run, its rfifind and head beside the main
+             phase's; the PSRFITS ingest's host ms a 2^17-spectrum block
+             (read_spectra, the copy into a pinned buffer); prepsubband
+             -sub -subdm 22 on the pair and on the .fil, the .sub####
+             files byte-equal; prepfold -psrfits -mask -ignorechan 90
+             -nosearch of a.fits at the top candidate, its .pfd equal to
+             the CPU's; psrfits2fil of the pair, its samples the .fil's;
  12. summary the kernels line (launches of the main path, the sharded
              main path, by shard too, the serve path, the fleet path, the
              federation path (A's last snapshot and B's replicas'), the
-             tune sweep, the recipe path, the jerk paths and the live
-             paths; each kernel's bound also at the measured peaks, and
+             tune sweep, the recipe path, the psrfits path, the jerk paths
+             and the live paths; each kernel's bound also at the measured peaks, and
              its numbers at the recipe's two pass geometries),
              the card, and the final ok line.
 
@@ -817,7 +831,7 @@ def phase_main(raw, workdir):
     accel_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
-    with FoldClock("cuda") as clock:
+    with FoldClock("cuda") as clock, IngestWait() as wait:
         res = survey.run_survey([raw], cfg, workdir, timer=timer,
                                 device="cuda")
     torch.cuda.synchronize()
@@ -882,6 +896,8 @@ def phase_main(raw, workdir):
              else round(v, 4)) for k, v in stages.items()}))
     log("main: launches %s; ACCEL + .cand for %d of %d DMs"
         % (json.dumps(launches), len(accs), ndms))
+    log("main: ingest consumer wait per app (host s, IngestWait): %s"
+        % json.dumps(wait.by_app))
     log("main: per DM best polished sigma %s; its parabola peak %.3f "
         "(the 20-bin local power of each polished harmonic carries the "
         "noise of its DM trial, so this curve is not held to the DM)"
@@ -907,7 +923,7 @@ def phase_main(raw, workdir):
           and nbins == 1 << 21 and folds["ok"] and masks["ok"] and sp["ok"]
           and all(v == ndms > 0 for v in launches.values()))
     return dict(ok=ok, ndms=ndms, nbins=nbins, stages=stages, masks=masks,
-                singlepulse=sp,
+                singlepulse=sp, ingest_wait=wait.by_app,
                 maskfile=res.maskfile,
                 launches=launches, dm_curve=curve, dm_curve_peak=peak_dm,
                 polished_sigma_curve=sig_curve,
@@ -1713,6 +1729,52 @@ class FoldClock:
         for mod, name, fn in reversed(self._saved):
             setattr(mod, name, fn)
         self._saved = []
+
+
+class IngestWait:
+    """While installed, the host seconds the consumer of each streamed
+    pass (pipeline/fusion.DoubleBufferedIngest) waits for its next
+    block, and the blocks it pulls, summed per app that drives the pass
+    (the first frame outside fusion and contextlib: rfifind, the survey
+    head's prepsubband, prepfold's raw fold).  A wait near zero means
+    the ingest worker keeps ahead of the device loop; the worker's own
+    decode time is then hidden behind it.  A pass pulls its blocks and
+    one end marker."""
+
+    def __init__(self):
+        self.by_app = {}
+
+    def __enter__(self):
+        from presto_tpu_torch.pipeline import fusion
+        cls = fusion.DoubleBufferedIngest
+        self._saved = (cls, cls.__init__, cls.__next__)
+        orig_init, orig_next = cls.__init__, cls.__next__
+        by_app = self.by_app
+
+        def init(ing, *a, **k):
+            f = sys._getframe(1)
+            while f is not None and f.f_globals.get("__name__") in (
+                    fusion.__name__, "contextlib"):
+                f = f.f_back
+            name = (f.f_globals.get("__name__", "?") if f is not None
+                    else "?").rsplit(".", 1)[-1]
+            ing._wait = by_app.setdefault(name, dict(wait_s=0.0, pulls=0,
+                                                     passes=0))
+            ing._wait["passes"] += 1
+            orig_init(ing, *a, **k)
+
+        def next_(ing):
+            t0 = time.perf_counter()
+            try:
+                return orig_next(ing)
+            finally:
+                ing._wait["wait_s"] += time.perf_counter() - t0
+                ing._wait["pulls"] += 1
+        cls.__init__, cls.__next__ = init, next_
+        return self
+
+    def __exit__(self, *exc):
+        cls, cls.__init__, cls.__next__ = self._saved
 
 
 # the first fold's reduced chi2 must exceed this (a pulsar at sigma ~ 30
@@ -4414,6 +4476,265 @@ def phase_recipe(raw, workdir, main_res=None, device="cuda", keep=None):
                 phase_s=phase_s)
 
 
+# the beam's PSRFITS copy: rows of this many spectra, the first half of
+# the samples in a.fits and the second half in b.fits
+PSRFITS_NSBLK = 2048
+# the channel the psrfits phase's raw fold ignores (the 60 Hz one)
+PSRFITS_IGNORECHAN = BEAM_RFI["periodic_chan"]
+
+
+def beam_as_psrfits(raw, workdir):
+    """The beam's 8-bit samples, read back from the .fil, as two PSRFITS
+    files written by the port's write_psrfits: the .fil's descending
+    band, rows of PSRFITS_NSBLK spectra, scales 1, offsets 0, weights 1;
+    the first 2^21 spectra in a.fits, the rest in b.fits, whose start MJD
+    is a.fits' plus 2^21 dt."""
+    from presto_tpu_torch.io.psrfits import write_psrfits
+    from presto_tpu_torch.io.sigproc import FilterbankFile
+    with FilterbankFile(raw) as fb:
+        hdr = fb.header
+    samples = np.fromfile(raw, np.uint8, offset=hdr.headerlen).reshape(
+        hdr.N, hdr.nchans)
+    freqs = hdr.fch1 + np.arange(hdr.nchans) * hdr.foff
+    half = hdr.N // 2
+    pair = [os.path.join(workdir, "a.fits"), os.path.join(workdir, "b.fits")]
+    for path, lo, hi in ((pair[0], 0, half), (pair[1], half, hdr.N)):
+        write_psrfits(path, samples[lo:hi], hdr.tsamp, freqs,
+                      nsblk=PSRFITS_NSBLK,
+                      start_mjd=hdr.tstart + lo * hdr.tsamp / 86400.0,
+                      src_name=hdr.source_name)
+    return pair
+
+
+def split_psrfits(pair, blocklen, nblocks, pin=True):
+    """The PSRFITS ingest of the survey head, one block at a time: the
+    reader's read_spectra (the FITS rows read, decoded by the native
+    subint decoder, scrubbed and assembled, PSRFITS_NSBLK spectra a row)
+    and the copy of its block into a pinned upload buffer, which a
+    reader with a prefetching feeder (SIGPROC) decodes into directly."""
+    from presto_tpu_torch.io.psrfits import PsrfitsFile
+    buf = torch.empty((blocklen, BEAM["nchan"]), dtype=torch.float32,
+                      pin_memory=pin).numpy()
+    st = Steps()
+    with PsrfitsFile(pair) as pf:
+        st._t = time.perf_counter()
+        for k in range(nblocks):
+            blk = pf.read_spectra(k * blocklen, blocklen)
+            st.lap("read_decode")
+            np.copyto(buf, blk)
+            st.lap("copy_to_pinned")
+    return st.summary()
+
+
+def _sifted_rows(path, prefix):
+    """cands_sifted.txt as whitespace-split rows, ``prefix`` (the raw
+    file's base name) replaced by "psr" in the candidate names."""
+    return [[t.replace(prefix + "_DM", "psr_DM") for t in line.split()]
+            for line in open(path)]
+
+
+def phase_psrfits(raw, workdir, mwork, main_res=None, device="cuda"):
+    """The beam as a PSRFITS pair (beam_as_psrfits) through the port's
+    PSRFITS and multi-file path on the card: the reader's stitched length
+    and quality ledger; run_survey on the pair with the main phase's
+    configuration, launches read around it, held against the main
+    phase's run on the .fil in ``mwork`` (24/24 .dat bytes, the .mask
+    arrays, every ACCEL table and .cand, the sifted list with the names
+    aside, the three folds' profile cubes); its rfifind and survey head,
+    and the host seconds each streamed pass waited on its ingest worker
+    (IngestWait), beside the main phase's (``main_res``); the PSRFITS
+    ingest's host ms a block (split_psrfits, median of INGEST_REPEATS);
+    prepsubband -sub -subdm 22 on the pair and on the .fil, the .sub####
+    files byte-equal; prepfold -psrfits -mask <the run's mask>
+    -ignorechan PSRFITS_IGNORECHAN -nosearch of the top sifted candidate
+    on a.fits, its .pfd byte-equal to the same fold on the CPU;
+    psrfits2fil of the pair, its samples equal to the .fil's.  The card
+    work runs on ``device`` (a CPU rehearsal at a small beam passes
+    "cpu", its counts and timings then meaningless)."""
+    from presto_tpu_torch.apps import prepfold, prepsubband, psrfits2fil
+    from presto_tpu_torch.apps.common import stream_blocklen
+    from presto_tpu_torch.io.infodata import read_inf
+    from presto_tpu_torch.io.maskfile import read_mask
+    from presto_tpu_torch.io.pfd import read_pfd
+    from presto_tpu_torch.io.psrfits import PsrfitsFile
+    from presto_tpu_torch.io.sigproc import FilterbankFile
+    from presto_tpu_torch.pipeline import survey
+    from presto_tpu_torch.utils.timing import StageTimer
+    b = BEAM
+    t_phase = time.time()
+    os.makedirs(workdir, exist_ok=True)
+    t0 = time.time()
+    pair = beam_as_psrfits(raw, workdir)
+    write_s = time.time() - t0
+    with PsrfitsFile(pair) as pf:
+        stitched = dict(N=int(pf.nspectra), nsblk=pf.nsblk,
+                        rows=[m.nsubint for m in pf.meta],
+                        start_spec=[m.start_spec for m in pf.meta],
+                        ledger=pf.quality.to_json()["counts"])
+    reader_ok = (stitched["N"] == b["N"] and not stitched["ledger"]
+                 and stitched["start_spec"] == [0, b["N"] // 2])
+    log("psrfits: wrote %s (%.1f s, %d MB each); stitched N %d (rows %s, "
+        "file starts %s), quality ledger %s %s"
+        % ([os.path.basename(p) for p in pair], write_s,
+           os.path.getsize(pair[0]) >> 20, stitched["N"], stitched["rows"],
+           stitched["start_spec"], stitched["ledger"] or "clean",
+           "ok" if reader_ok else "FAIL"))
+    # the survey on the pair, counted and timed like the main phase's
+    cfg = main_cfg()
+    swork = os.path.join(workdir, "survey")
+    timer = StageTimer()
+    read = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with IngestWait() as wait:
+        res = survey.run_survey(pair, cfg, swork, timer=timer,
+                                device=device)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = read()
+    launches.pop("stage_reduce_planes")
+    ndms = len(res.datfiles)
+    st = timer.stages
+    stages = dict(run_survey_s=run_s, rfifind_s=st["rfifind"],
+                  survey_head_s=st["prepsubband"],
+                  fused_s=st["realfft+accelsearch (fused)"],
+                  prepfold_s=st["prepfold"])
+    mine = lambda pat: sorted(glob.glob(os.path.join(swork, pat)))
+    theirs = lambda p: os.path.join(mwork, "psr" + os.path.basename(p)[1:])
+    same_bytes = lambda a, c: open(a, "rb").read() == open(c, "rb").read()
+    dats = mine("a_DM*.dat")
+    dat_same = [same_bytes(p, theirs(p)) for p in dats]
+    accs = mine("a_DM*_ACCEL_%d" % cfg.zmax)
+    acc_same = [same_bytes(p, theirs(p)) and same_bytes(p + ".cand",
+                                                        theirs(p) + ".cand")
+                for p in accs]
+    ma, mb = (read_mask(p) for p in (res.maskfile,
+                                     os.path.join(mwork, "psr_rfifind.mask")))
+    mask_same = (ma.numint == mb.numint and ma.numchan == mb.numchan
+                 and np.array_equal(ma.zap_chans, mb.zap_chans)
+                 and np.array_equal(ma.zap_ints, mb.zap_ints)
+                 and all(np.array_equal(x, y) for x, y in
+                         zip(ma.chans_per_int, mb.chans_per_int)))
+    sift_same = (_sifted_rows(res.candfile, "a")
+                 == _sifted_rows(os.path.join(mwork, "cands_sifted.txt"),
+                                 "psr"))
+    folds_same = []
+    for q in res.folded:
+        pa, pb = read_pfd(q), read_pfd(os.path.join(mwork,
+                                                    os.path.basename(q)))
+        folds_same.append(bool(np.array_equal(pa.profs, pb.profs)
+                               and np.array_equal(pa.stats, pb.stats)))
+    quality_clean = res.quality is not None and res.quality.clean
+    survey_ok = (ndms == 24 and all(dat_same) and len(dat_same) == 24
+                 and len(accs) == 24 and all(acc_same) and mask_same
+                 and sift_same and len(folds_same) == 3 and all(folds_same)
+                 and quality_clean
+                 and all(v == ndms for v in launches.values()))
+    log("psrfits: run_survey on the pair %.1f s (stages %s); launches %s"
+        % (run_s, json.dumps({k: round(v, 3) for k, v in stages.items()}),
+           json.dumps(launches)))
+    if main_res is not None:
+        ms = main_res["stages"]
+        log("psrfits: the pair against the .fil (main phase): rfifind %.3f "
+            "against %.3f s, survey head %.3f against %.3f s, run_survey "
+            "%.1f against %.1f s"
+            % (stages["rfifind_s"], ms["rfifind_s"], stages["survey_head_s"],
+               ms["survey_head_s"], run_s, ms["run_survey_s"]))
+    log("psrfits: ingest consumer wait per app (host s, IngestWait) on the "
+        "pair %s; on the .fil (main phase) %s"
+        % (json.dumps(wait.by_app),
+           json.dumps((main_res or {}).get("ingest_wait"))))
+    log("psrfits: against the .fil run: .dat equal %d/%d, ACCEL + .cand "
+        "equal %d/%d, .mask arrays equal %s, sifted list equal %s, fold "
+        "profile cubes equal %s, rfifind quality clean %s %s"
+        % (sum(dat_same), len(dat_same), sum(acc_same), len(acc_same),
+           mask_same, sift_same, folds_same, quality_clean,
+           "ok" if survey_ok else "FAIL"))
+    # the PSRFITS ingest's host ms a block at the head's block length
+    blocklen = stream_blocklen(b["nchan"], 0, b["N"])
+    ingest = _median_of([split_psrfits(pair, blocklen, INGEST_BLOCKS,
+                                       pin=device != "cpu")
+                         for _ in range(INGEST_REPEATS)])
+    log("psrfits: ingest host ms a %d-spectrum block (per block, ms, "
+        "mean and max over %d blocks, median of %d, as ingest split_after): "
+        "%s" % (blocklen, INGEST_BLOCKS, INGEST_REPEATS, json.dumps(
+            {k: [round(v["mean_ms"], 3), round(v["max_ms"], 3)]
+             for k, v in ingest.items()})))
+    # prepsubband -sub on the pair and on the .fil
+    sub_argv = ["-lodm", "20", "-dmstep", "0.2", "-numdms", "24", "-nsub",
+                "32", "-nobary", "-sub", "-subdm", "22"]
+    sub_s = {}
+    for name, files in (("pair", ["-psrfits"] + pair), ("fil", [raw])):
+        d = os.path.join(workdir, "sub_" + name)
+        os.makedirs(d)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        prepsubband.main(sub_argv + ["-o", os.path.join(d, "s")] + files,
+                         device=device)
+        sub_s[name] = time.time() - t0
+    subs = sorted(os.listdir(os.path.join(workdir, "sub_pair")))
+    sub_same = (len(subs) == 33 and sorted(os.listdir(os.path.join(
+        workdir, "sub_fil"))) == subs and all(
+        same_bytes(os.path.join(workdir, "sub_pair", f),
+                   os.path.join(workdir, "sub_fil", f))
+        for f in subs if ".sub0" in f))
+    log("psrfits: prepsubband -sub -subdm 22 on the pair %.1f s, on the "
+        ".fil %.1f s; %d .sub#### files byte-equal %s"
+        % (sub_s["pair"], sub_s["fil"], len(subs) - 1, sub_same))
+    for name in ("sub_pair", "sub_fil"):
+        shutil.rmtree(os.path.join(workdir, name))
+    # the masked raw fold of a.fits, on the card and on the CPU
+    top = res.sifted[0]
+    info = read_inf(res.datfiles[0][:-4])
+    T = info.N * info.dt
+    out = os.path.join(workdir, "fold_fits")
+    fold_argv = ["-psrfits", "-mask", res.maskfile, "-ignorechan",
+                 str(PSRFITS_IGNORECHAN), "-nosearch", "-noplot",
+                 "-f", "%.12g" % (top.r / T), "-fd", "%.12g" % (top.z / T ** 2),
+                 "-dm", "%.2f" % top.DM, "-o", out, pair[0]]
+    fold_s = {}
+    for where, dev in (("card", device), ("cpu", "cpu")):
+        t0 = time.time()
+        prepfold.main(fold_argv, device=dev)
+        fold_s[where] = time.time() - t0
+        if where == "card":
+            card = open(out + ".pfd", "rb").read()
+            os.replace(out + ".pfd", out + ".card.pfd")
+    fold_same = open(out + ".pfd", "rb").read() == card
+    log("psrfits: prepfold -psrfits -mask -ignorechan %d -nosearch of %s "
+        "(f %.6f Hz, DM %.2f) on the card %.1f s, on the CPU %.1f s; .pfd "
+        "bytes equal %s" % (PSRFITS_IGNORECHAN, os.path.basename(pair[0]),
+                            top.r / T, top.DM, fold_s["card"],
+                            fold_s["cpu"], fold_same))
+    # psrfits2fil: the pair's samples back as a .fil, in ascending band
+    # order (the PSRFITS header's), so each spectrum is the .fil's reversed
+    t0 = time.time()
+    fil2 = os.path.join(workdir, "p2f.fil")
+    psrfits2fil.main(["-o", fil2] + pair)
+    p2f_s = time.time() - t0
+    with FilterbankFile(raw) as fa, FilterbankFile(fil2) as fb2:
+        ha, hb = fa.header, fb2.header
+    da = np.fromfile(raw, np.uint8, offset=ha.headerlen)
+    db = np.fromfile(fil2, np.uint8, offset=hb.headerlen)
+    p2f_same = (hb.N == ha.N and hb.foff == -ha.foff and np.array_equal(
+        db.reshape(hb.N, hb.nchans)[:, ::-1], da.reshape(ha.N, ha.nchans)))
+    del da, db
+    log("psrfits: psrfits2fil of the pair %.1f s; its samples equal to the "
+        ".fil's (band reversed) %s" % (p2f_s, p2f_same))
+    phase_s = time.time() - t_phase
+    ok = (reader_ok and survey_ok and sub_same and fold_same and p2f_same)
+    log("psrfits: phase %.1f s %s" % (phase_s, "ok" if ok else "FAIL"))
+    return dict(ok=ok, write_s=write_s, stitched=stitched, stages=stages,
+                launches=launches, dat_equal=sum(dat_same),
+                accel_equal=sum(acc_same), mask_equal=mask_same,
+                sifted_equal=sift_same, folds_equal=folds_same,
+                ingest=ingest, ingest_wait=wait.by_app,
+                blocklen=blocklen, sub_s=sub_s,
+                sub_equal=sub_same, fold_s=fold_s, fold_equal=fold_same,
+                psrfits2fil_s=p2f_s, psrfits2fil_equal=p2f_same,
+                phase_s=phase_s)
+
+
 def keep_cands(res, keep):
     """recipe_cands.tar.xz in ``keep``: the survey's ACCEL tables, .cand
     files and .inf files by base name, and its cands_sifted.txt."""
@@ -4531,6 +4852,9 @@ def main():
         recipe = phase_recipe(raw, os.path.join(work, "recipe"), main_res,
                               keep=opts.keep_recipe_cands)
         torch.cuda.empty_cache()
+        psrfits = phase_psrfits(raw, os.path.join(work, "psrfits"), mwork,
+                                main_res)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     small = phase_small_reference(gen)
@@ -4549,7 +4873,7 @@ def main():
                    main=main_res, ingest=ingest, fold=fold,
                    toas=toas, singlepulse=spb, jerk=jerk, sharded=shard,
                    cluster=cluster, serve=serve, fleet=fleet,
-                   federation=feder, recipe=recipe,
+                   federation=feder, recipe=recipe, psrfits=psrfits,
                    small_reference=small,
                    **live,
                    total_s=time.time() - t_start)
@@ -4573,7 +4897,8 @@ def main():
                        "r1_launches_last_snapshot", "r2_launches")),
                    "federation": feder["launches"][name],
                    "tune": feder["tune_launches"][name],
-                   "recipe": recipe["launches"][name]}
+                   "recipe": recipe["launches"][name],
+                   "psrfits": psrfits["launches"][name]}
         for path, counts in zip(("jerk_bench", "accelsearch_wmax",
                                  "stream", "beams"),
                                 jl + [live["stream"]["launches"],
@@ -4621,6 +4946,7 @@ def main():
                               ("fleet", fleet["ok"]),
                               ("federation", feder["ok"]),
                               ("recipe", recipe["ok"]),
+                              ("psrfits", psrfits["ok"]),
                               ("stream", live["stream"]["ok"]),
                               ("beams", live["beams"]["ok"])) if not ok]
     if failed:

@@ -1,14 +1,15 @@
-"""Shared app plumbing the slice needs (host copy, trimmed).
+"""Shared app plumbing (host copy, trimmed).
 
 Copy of the parts of ``presto_tpu/apps/common.py`` that the
 prepsubband streaming loop, rfifind, accelsearch and prepfold use: the
-raw-data flags, open_raw_args, obs_metadata, BlockPrep (mask
-substitution, clipping on by default, zero-DM, running average,
-ignorechan) and block_prep, stream_blocklen, pad_to_good_N, set_onoff,
-fil_to_inf, make_bary_plan and set_bary_epoch (barycentring),
-load_timeseries, load_spectrum and CLIResume (the app CLIs' -resume).
-The port reads SIGPROC filterbanks only; PSRFITS input is left for a
-later slice.
+raw-data flags, open_raw and open_raw_args (SIGPROC filterbanks and
+PSRFITS, one file or several as one observation: -psrfits/-filterbank
+beat the suffix and content sniffing of identify_datatype),
+obs_metadata, BlockPrep (mask substitution, clipping on by default,
+zero-DM, running average, ignorechan) and block_prep, stream_blocklen,
+pad_to_good_N, set_onoff, fil_to_inf, make_bary_plan and set_bary_epoch
+(barycentring), load_timeseries, load_spectrum and CLIResume (the app
+CLIs' -resume).
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import numpy as np
 from presto_tpu_torch.io import datfft
 from presto_tpu_torch.io.infodata import InfoData, read_inf
 from presto_tpu_torch.io.maskfile import determine_padvals, read_mask
-from presto_tpu_torch.io.sigproc import FilterbankFile
+from presto_tpu_torch.io.psrfits import PsrfitsFile
+from presto_tpu_torch.io.sigproc import FilterbankFile, FilterbankSet
 from presto_tpu_torch.ops.clipping import (clip_times, mask_block,
                                            remove_zerodm)
 from presto_tpu_torch.utils.psr import choose_N, good_fft_size
@@ -43,7 +45,13 @@ def add_raw_flags(p: argparse.ArgumentParser,
     p.add_argument("-filterbank", action="store_true",
                    help="Raw data in SIGPROC filterbank format")
     p.add_argument("-psrfits", action="store_true",
-                   help="Raw data in PSRFITS format (not in the port yet)")
+                   help="Raw data in PSRFITS format")
+    p.add_argument("-noweights", action="store_true",
+                   help="Do not apply PSRFITS weights")
+    p.add_argument("-noscales", action="store_true",
+                   help="Do not apply PSRFITS scales")
+    p.add_argument("-nooffsets", action="store_true",
+                   help="Do not apply PSRFITS offsets")
     p.add_argument("-invert", action="store_true",
                    help="For rawdata, flip (or invert) the band")
     p.add_argument("-noclip", action="store_true",
@@ -57,30 +65,68 @@ def add_raw_flags(p: argparse.ArgumentParser,
                             "fraction of the full obs")
 
 
-def open_raw(paths) -> FilterbankFile:
-    """Open one SIGPROC filterbank (the only format in this slice)."""
+def identify_datatype(path: str) -> str:
+    """Sniff the raw-data format (identify_psrdatatype,
+    backend_common.c:102-143: suffix first, then content)."""
+    if path.endswith((".fits", ".sf", ".fit")):
+        return "psrfits"
+    if path.endswith(".fil"):
+        return "sigproc"
+    with open(path, "rb") as f:
+        magic = f.read(80)
+    if magic.startswith(b"SIMPLE  ="):
+        return "psrfits"
+    return "sigproc"
+
+
+def _sniff_kind(paths) -> str:
+    kinds = {identify_datatype(p) for p in paths}
+    if len(kinds) > 1:
+        raise SystemExit("cannot mix raw data formats: %s" % kinds)
+    return kinds.pop()
+
+
+def open_raw_args(paths, args):
+    """Open one path or a list of paths as a single observation, honoring
+    the shared raw flags: explicit format selection (-psrfits/-filterbank
+    beat suffix sniffing, backend_common.c identify via cmd flags) and the
+    PSRFITS -noweights/-noscales/-nooffsets decode toggles.  Several
+    SIGPROC files are a FilterbankSet, PSRFITS files one PsrfitsFile."""
     if isinstance(paths, str):
         paths = [paths]
-    if len(paths) != 1:
-        raise NotImplementedError("multi-file observations come in a "
-                                  "later slice of the port")
-    if paths[0].endswith((".fits", ".sf", ".fit")):
-        raise NotImplementedError("PSRFITS input comes in a later slice "
-                                  "of the port")
-    return FilterbankFile(paths[0])
-
-
-def open_raw_args(paths, args) -> FilterbankFile:
-    """open_raw honoring the shared raw flags: -psrfits (not in the port
-    yet) is refused, -filterbank and the suffix both mean SIGPROC."""
+    force = None
     if getattr(args, "psrfits", False):
-        raise NotImplementedError("PSRFITS input comes in a later slice "
-                                  "of the port")
-    return open_raw(paths)
+        force = "psrfits"
+    elif getattr(args, "filterbank", False):
+        force = "sigproc"
+    kind = force or _sniff_kind(paths)
+    if kind == "psrfits":
+        kw = {}
+        if getattr(args, "noweights", False):
+            kw["apply_weight"] = False
+        if getattr(args, "noscales", False):
+            kw["apply_scale"] = False
+        if getattr(args, "nooffsets", False):
+            kw["apply_offset"] = False
+        return PsrfitsFile(paths, **kw)
+    if len(paths) == 1:
+        return FilterbankFile(paths[0])
+    return FilterbankSet(paths)
+
+
+def open_raw(paths):
+    """Open one path or a list of paths as a single observation.
+    Dispatches on format like read_rawdata_files
+    (backend_common.c:77-92)."""
+    return open_raw_args(paths, argparse.Namespace())
 
 
 def obs_metadata(fb) -> Tuple[str, str, str]:
-    """(telescope name, ra 'hh:mm:ss', dec 'dd:mm:ss') of a filterbank."""
+    """(telescope name, ra 'hh:mm:ss', dec 'dd:mm:ss') for any reader."""
+    if hasattr(fb, "ra_str"):  # PsrfitsFile carries strings natively
+        return (fb.telescope or "Unknown",
+                fb.ra_str or "00:00:00.0000",
+                fb.dec_str or "00:00:00.0000")
     hdr = fb.header
     tel = SIGPROC_TELESCOPES.get(getattr(hdr, "telescope_id", -1),
                                  "Unknown")
@@ -312,7 +358,7 @@ def set_bary_epoch(info: InfoData, plan) -> None:
     info.mjd_f = plan.blotoa % 1.0
 
 
-def fil_to_inf(fb: FilterbankFile, outbase: str, N: int,
+def fil_to_inf(fb, outbase: str, N: int,
                dm: float = 0.0, bary: int = 0) -> InfoData:
     hdr = fb.header
     tel, ra_str, dec_str = obs_metadata(fb)

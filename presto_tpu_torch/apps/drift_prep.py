@@ -6,10 +6,10 @@ analog, bin/GBT350_drift_prep.py:17-33).
     python -m presto_tpu_torch.apps.drift_prep -num 3 scan.fil   # one
     python -m presto_tpu_torch.apps.drift_prep -nmax scan.fil    # count
 
-Host copy of ``presto_tpu/apps/drift_prep.py`` for the PyTorch port:
-it reads what the port's open_raw reads (one SIGPROC filterbank for
-now) and computes per-pointing RA from the sidereal drift rate
-(pipeline/driftprep.py).
+Host copy of ``presto_tpu/apps/drift_prep.py`` for the PyTorch port.
+Unlike the Spigot-only reference script this reads anything open_raw
+can (SIGPROC/PSRFITS, multi-file scans) and computes per-pointing RA
+from the sidereal drift rate (pipeline/driftprep.py).
 """
 
 from __future__ import annotations

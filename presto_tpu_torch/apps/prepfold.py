@@ -12,9 +12,11 @@ of a fold with no search is byte-equal to the JAX package's.
 
 Not in the port yet (they raise NotImplementedError): ephemeris folds
 (-par, -timing, -polycos, -absphase, -barypolycos, -psr), binary orbits
-(-bin), -mask, -ignorechan, PSRFITS input and the diagnostic plot (give
--noplot).  A raw fold streams through pipeline/fusion.feed_blocks (the
-native feeder and decoder, the clip, the transpose on the device).
+(-bin) and the diagnostic plot (give -noplot).  A raw fold (SIGPROC or
+PSRFITS, apps/common.open_raw_args) streams through
+pipeline/fusion.feed_blocks (the native decoder, the -mask substitution
+with padding values from the .stats beside the mask, the clip and
+-ignorechan on the host, the transpose on the device).
 
 The stacked .dat candidate fold (fold_dat_cands) writes the bytes of
 ``prepfold -accelfile <acc>.cand -accelcand K -dm D -nosearch -noplot
@@ -24,18 +26,16 @@ The stacked .dat candidate fold (fold_dat_cands) writes the bytes of
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 import sys
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 from presto_tpu_torch.apps.common import (add_common_flags, add_raw_flags,
                                           block_prep, load_timeseries,
-                                          obs_metadata, open_raw,
-                                          open_raw_args, stream_blocklen)
+                                          obs_metadata, open_raw_args,
+                                          stream_blocklen)
 from presto_tpu_torch.io.infodata import read_inf
 from presto_tpu_torch.io.pfd import Pfd, write_bestprof, write_pfd
 from presto_tpu_torch.ops import dedispersion as dd
@@ -170,8 +170,6 @@ def _refuse_unported(args) -> None:
                      ("-absphase", args.absphase),
                      ("-barypolycos", args.barypolycos),
                      ("-psr", args.psr), ("-bin", args.binary),
-                     ("-mask", args.mask),
-                     ("-ignorechan", args.ignorechan),
                      ("the diagnostic plot (pass -noplot)",
                       not args.noplot)):
         if on:
@@ -344,29 +342,8 @@ def fold_raw(args, f, fd, fdd, device):
     chan_bins = dd.delays_to_bins(chan_del - chan_del.min(), dt)
     maxd = int(chan_bins.max())
     blocklen = stream_blocklen(nchan, maxd, nspec=int(hdr.N))
-    prep = block_prep(args, nchan, dt)
-    chan_bins_d = torch.as_tensor(chan_bins.astype(np.int64),
-                                  device=device)
-    nout = max(int(hdr.N) - maxd, 0)
-    # each block's subbands go straight into their columns of one
-    # device tensor, downloaded once at the end
-    out = torch.empty((nsub, nout), dtype=torch.float32, device=device)
-    pos, prev = 0, None
-    # the data blocks, then one zero flush block
-    nblocks = -(-int(hdr.N) // blocklen) + 1
-    with contextlib.closing(fusion.feed_blocks(
-            fb, prep, blocklen, nblocks, device)) as feed:
-        for _nread, cur in feed:
-            if prev is not None:
-                sub = dd.dedisp_subbands_block(prev, cur, chan_bins_d,
-                                               nsub)
-                take = min(sub.shape[1], nout - pos)
-                if take > 0:
-                    out[:, pos:pos + take] = sub[:, :take]
-                    pos += take
-            prev = cur
-    series = out.cpu().numpy()
-    del out, prev
+    series = fusion.stream_subbands(fb, block_prep(args, nchan, dt),
+                                    chan_bins, nsub, blocklen, device)
     lo, hi = _slice_fractions(args, series.shape[1])
     series = series[:, lo:hi]
     tepoch = hdr.tstart + lo * dt / 86400.0
@@ -430,7 +407,7 @@ def run(args, device="cuda"):
                 raise
             T, telescope = 1.0, None
     else:
-        fb0 = open_raw([args.infile])
+        fb0 = open_raw_args([args.infile], args)
         T = fb0.header.N * fb0.header.tsamp
         telescope, _, _ = obs_metadata(fb0)
         fb0.close()

@@ -37,8 +37,18 @@ downloaded once, resampled on the host and re-deposited once (per shard
 on a mesh).  A header without a source position stays topocentric, with
 a warning.
 
-Not in this slice (they raise NotImplementedError): -sub and PSRFITS
-input.
+The raw input is whatever apps/common.open_raw_args opens: SIGPROC or
+PSRFITS, one file or several as one observation (-psrfits/-filterbank
+choose the format; -noweights/-noscales/-nooffsets for PSRFITS).  A
+reader without the prefetching feeder (PSRFITS, several .fil files)
+feeds the same pinned ring through read_spectra.
+
+-sub writes the channels -> subbands stage alone (at -subdm, or the
+centre of the DM range): one streamed pass on one device, downloaded
+once, the bary diffbins applied to every subband, then truncated to
+int16 <outbase>_DM<subdm>.sub#### files and a .sub.inf (num_chan =
+nsub).  It takes neither the mesh, the seam, -resume nor several
+processes, as in the JAX package, and -elastic -sub is refused.
 """
 
 from __future__ import annotations
@@ -53,11 +63,12 @@ import torch
 from presto_tpu_torch.apps.common import (CLIResume, add_common_flags,
                                           add_raw_flags, block_prep,
                                           fil_to_inf, good_numout,
-                                          make_bary_plan, open_raw,
+                                          make_bary_plan, open_raw_args,
                                           pad_to_good_N, set_bary_epoch,
                                           set_onoff, start_skip_spectra,
                                           stream_blocklen)
 from presto_tpu_torch.io.datfft import write_dat
+from presto_tpu_torch.io.infodata import write_inf
 from presto_tpu_torch.obs import costmodel, devtel
 from presto_tpu_torch.ops import dedispersion as dd
 from presto_tpu_torch.parallel import mesh as pmesh
@@ -143,12 +154,7 @@ def plan_delays(hdr, args, avgvoverc=0.0):
     return dms, chan_bins, dm_bins
 
 
-def _refuse_unported(args) -> None:
-    for flag, on in (("-sub", args.sub), ("-psrfits", args.psrfits)):
-        if on:
-            raise NotImplementedError(
-                "prepsubband: %s comes in a later slice of the port"
-                % flag)
+def _check_args(args) -> None:
     if args.downsamp < 1:
         raise SystemExit("prepsubband: -downsamp must be >= 1")
 
@@ -165,7 +171,7 @@ class _Setup:
 
     def __init__(self, args, timer=None):
         self.timer = timer
-        self.fb = open_raw(args.rawfiles)
+        self.fb = open_raw_args(args.rawfiles, args)
         hdr = self.hdr = self.fb.header
         self.nchan, self.dt = hdr.nchans, hdr.tsamp
         self.skip = start_skip_spectra(args, int(hdr.N))
@@ -265,7 +271,7 @@ def run(args, device="cuda", seam: fusion.StageSeam = None, timer=None):
     resample of a barycentred run.  Returns (outbase, dms)."""
     if args.elastic:
         return _elastic_run(args, device, timer)
-    _refuse_unported(args)
+    _check_args(args)
     dev = resolve_device(device)
     nproc, rank = 1, 0
     if args.coordinator or args.nproc is not None:
@@ -276,7 +282,7 @@ def run(args, device="cuda", seam: fusion.StageSeam = None, timer=None):
               % (nproc, rank))
     outbase, names = _trial_names(args)
     resume = None
-    if args.resume and nproc == 1:
+    if args.resume and nproc == 1 and not args.sub:
         expected = [n + x for n in names for x in (".dat", ".inf")]
         resume = CLIResume(outbase, "prepsubband-cli")
         if resume.complete(expected):
@@ -287,14 +293,16 @@ def run(args, device="cuda", seam: fusion.StageSeam = None, timer=None):
     local = pmesh.visible_devices(dev)
     ndev = nproc * len(local)
     disabled = bool(os.environ.get(DISABLE_MESH_ENV))
-    use_mesh = ndev > 1 and args.numdms % ndev == 0 and not disabled
+    use_mesh = (ndev > 1 and args.numdms % ndev == 0 and not disabled
+                and not args.sub)
     if not use_mesh and nproc > 1:
         # the one-device fallback would have every process compute the
         # whole job and race on the same files
         raise SystemExit(
             "prepsubband: a multi-process run needs the DM-sharded path: "
-            "numdms (%d) must divide the run's device count (%d), and %s "
-            "must be unset" % (args.numdms, ndev, DISABLE_MESH_ENV))
+            "numdms (%d) must divide the run's device count (%d), -sub is "
+            "single-process only, and %s must be unset"
+            % (args.numdms, ndev, DISABLE_MESH_ENV))
     if use_mesh:
         mesh = pmesh.Mesh(tuple(local))
         where = (", ".join(str(d) for d in local)
@@ -305,12 +313,17 @@ def run(args, device="cuda", seam: fusion.StageSeam = None, timer=None):
                  if nproc > 1 else ""))
     else:
         mesh = pmesh.Mesh((dev,))
-        if ndev > 1:
+        if ndev > 1 and not args.sub:
             print("prepsubband: %d devices visible but %s — running on "
                   "one device" % (ndev, "%s is set" % DISABLE_MESH_ENV
                                   if disabled else "numdms=%d is not "
                                   "divisible by %d" % (args.numdms, ndev)))
     s = _Setup(args, timer)
+    if args.sub:
+        subs = fusion.stream_subbands(
+            s.fb, block_prep(args, s.nchan, s.dt), s.chan_bins, args.nsub,
+            s.blocklen, dev, skip=s.skip)
+        return _write_subbands(args, s, subs, outbase)
     # this process's DM rows: all of them, or its share of a cluster run
     per = args.numdms // nproc
     lo, hi = rank * per, (rank + 1) * per
@@ -389,18 +402,48 @@ def _seam_handoff(args, s: _Setup, seam, parts, plan, outbase, names,
     return outbase, s.dms
 
 
+def _write_subbands(args, s: _Setup, subs: np.ndarray, outbase: str):
+    """-sub output: one int16 stream a subband, <outbase>_DM<subdm>
+    .sub0000... (the short-int subband files read_PRESTO_subbands
+    consumes, prepsubband.c:825-846), the bary diffbins applied to every
+    subband first, and a .sub.inf sidecar carrying the subband layout
+    (num_chan = nsub).  Returns (the files' base name, dms)."""
+    subs = s.resample(subs)
+    valid = subs.shape[1]
+    subdm = (args.subdm if args.subdm is not None
+             else float(np.mean(s.dms)))
+    name = "%s_DM%.*f" % (outbase, args.dmprec, subdm)
+    for k in range(subs.shape[0]):
+        q = np.clip(np.trunc(subs[k]), -32768, 32767).astype("<i2")
+        q.tofile("%s.sub%04d" % (name, k))
+    info = fil_to_inf(s.fb, name, valid, dm=subdm)
+    if s.bary is not None:
+        set_bary_epoch(info, s.bary)
+    elif s.skip:
+        info.mjd_f += s.skip * s.dt / 86400.0
+        info.mjd_i += int(info.mjd_f)
+        info.mjd_f %= 1.0
+    info.dt = s.dt
+    info.num_chan = subs.shape[0]
+    info.chan_wid = abs(s.hdr.foff) * (s.hdr.nchans // subs.shape[0])
+    write_inf(info, name + ".sub.inf")
+    s.fb.close()
+    print("Wrote %d subbands x %d samples at subdm=%g to %s.sub****"
+          % (subs.shape[0], valid, subdm, name))
+    return name, s.dms
+
+
 def _elastic_run(args, device, timer=None):
     """The worker-loss-tolerant DM fan-out: every DM shard is a leased row
     in the workdir's shard ledger, any process computes any shard on its
     own device with the full-range plan, and commits ride the ledger's
     epoch fence, so a dead member costs a lease TTL, not the run."""
-    from presto_tpu_torch.io.infodata import write_inf
     from presto_tpu_torch.parallel import elastic
     from presto_tpu_torch.pipeline.shardledger import make_dm_shards
 
     if args.sub:
         raise SystemExit("prepsubband: -elastic does not support -sub")
-    _refuse_unported(args)
+    _check_args(args)
     dev = resolve_device(device)
     outbase, names = _trial_names(args)
     workdir = os.path.dirname(os.path.abspath(outbase)) or "."

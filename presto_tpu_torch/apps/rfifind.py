@@ -13,8 +13,11 @@ prefetching feeder and the pinned upload ring (pipeline/fusion
 
 The mask summary plot (the JAX package's plotting/rfiplot.py) is not in
 the port: a run without -noplot is refused.  -xwin, -rfips and -rfixwin
-only choose plot outputs and are refused with it.  PSRFITS input comes
-with a later slice.
+only choose plot outputs and are refused with it.  The raw input is
+whatever apps/common.open_raw_args opens: SIGPROC or PSRFITS, one file
+or several as one observation (-psrfits/-filterbank choose the format);
+-blocks sizes the intervals by the reader's block (NSBLK for PSRFITS,
+2400 spectra for SIGPROC).
 """
 
 from __future__ import annotations
@@ -121,8 +124,8 @@ def run(args, device="cuda"):
     hdr = fb.header
     zap_chans, zap_ints = _zaps(args)
     if args.blocks > 0:
-        # spectra_per_subint analog: 2400 for SIGPROC (rfifind.c:214,
-        # sigproc_fb.c:388)
+        # spectra_per_subint analog: NSBLK for PSRFITS, 2400 for
+        # SIGPROC (rfifind.c:214, sigproc_fb.c:388)
         ptsperint = args.blocks * int(fb.ptsperblk)
     else:
         ptsperint = max(1, int(args.time / hdr.tsamp + 0.5))

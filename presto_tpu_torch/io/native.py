@@ -9,10 +9,10 @@ pthread prefetching block feeder.
 
 The library is built from the package's own source by
 ``presto_tpu_torch.cuda_build`` (g++) at first use.  There is no
-fallback: a failure to build or load raises.  The NumPy decoder of
-``io/sigproc`` is the plain version the tests hold this one against
-(and the decoder of the widths this one does not take: 16 and 32 bits,
-or spectra that are not byte-aligned).
+fallback: a failure to build or load raises.  The NumPy decoders of
+``io/sigproc`` and ``io/psrfits`` are the plain versions the tests hold
+these against (and the decoders of the widths these do not take: 16 and
+32 bits, or spectra that are not byte-aligned).
 """
 
 from __future__ import annotations
@@ -116,8 +116,9 @@ def decode_subint(raw: np.ndarray, nspec: int, npol: int, nchan: int,
                   scl: Optional[np.ndarray], offs: Optional[np.ndarray],
                   wts: Optional[np.ndarray], pol_mode: int,
                   flip: bool) -> np.ndarray:
-    """Fused PSRFITS subint decode (psrfits.c:789-920 analog).  Unused
-    until the port reads PSRFITS.
+    """Fused PSRFITS subint decode (psrfits.c:789-920 analog): the
+    decoder of io/psrfits.PsrfitsFile for 1/2/4/8-bit rows, held against
+    io/psrfits.decode_row_numpy.
 
     pol_mode: >=0 select that pol, -2 sum the first two pols.
     scl/offs are [npol*nchan]; wts is [nchan]; any may be None.

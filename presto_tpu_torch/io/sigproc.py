@@ -13,12 +13,13 @@ Host code: the native decoder and prefetching feeder of io/native
 (built from csrc/native_io.cpp) for 1/2/4/8-bit data, NumPy for 16 and
 32 bits; the ingest quality report of io/quality.  The NumPy decoder
 (decode_spectra_numpy) is the plain version the tests hold the native
-one against.  Multi-file observations (FilterbankSet) come with a later
-slice.
+one against.  FilterbankSet presents several .fil files as one
+observation.
 """
 
 from __future__ import annotations
 
+import copy
 import io
 import os
 import struct
@@ -406,6 +407,96 @@ class FilterbankFile:
         finally:
             self.feeder_stats = feeder.stats()
             feeder.close()
+
+
+class FilterbankSet:
+    """Multiple .fil files presented as one time-contiguous observation
+    (the reference reads multi-file observations the same way: all
+    readers take N files and stitch them — read_filterbank_files,
+    sigproc_fb.c:338; the multifiles virtual-file idea, multifiles.c).
+
+    Files are ordered by start MJD; headers must agree on nchans/tsamp/
+    foff/nbits, or the set raises.  The files are concatenated: a gap
+    between them is NOT padded (the reference pads via start_spec
+    bookkeeping), as in the JAX package.
+    """
+
+    def __init__(self, paths):
+        if isinstance(paths, str):
+            paths = [paths]
+        self.files = [FilterbankFile(p) for p in paths]
+        self.files.sort(key=lambda fb: fb.header.tstart)
+        h0 = self.files[0].header
+        for fb in self.files[1:]:
+            h = fb.header
+            if (h.nchans != h0.nchans or h.nbits != h0.nbits
+                    or abs(h.tsamp - h0.tsamp) > 1e-12
+                    or abs(h.foff - h0.foff) > 1e-9):
+                self.close()
+                raise ValueError("filterbank files disagree: %s vs %s"
+                                 % (fb.path, self.files[0].path))
+        self.header = copy.copy(h0)
+        self.header.N = sum(fb.header.N for fb in self.files)
+        self.path = self.files[0].path
+        # absolute starting spectrum of each file within the set
+        self._starts = np.cumsum(
+            [0] + [fb.header.N for fb in self.files[:-1]])
+
+    @property
+    def quality(self) -> DataQualityReport:
+        """Merged member-file quarantine ledgers, shifted to the
+        stitched observation's spectrum indices."""
+        out = DataQualityReport(path=self.path,
+                                nspectra=int(self.header.N),
+                                nchan=self.header.nchans)
+        for fb, start in zip(self.files, self._starts):
+            out.scrubbed_samples += fb.quality.scrubbed_samples
+            for iv in fb.quality.intervals:
+                out.add(iv.start + int(start), iv.stop + int(start),
+                        iv.reason)
+        return out
+
+    def close(self):
+        for fb in self.files:
+            fb.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    @property
+    def nspectra(self) -> int:
+        return self.header.N
+
+    @property
+    def ptsperblk(self) -> int:
+        return 2400              # see FilterbankFile.ptsperblk
+
+    def read_spectra(self, start: int, count: int) -> np.ndarray:
+        out = np.zeros((count, self.header.nchans), dtype=np.float32)
+        got = 0
+        while got < count:
+            pos = start + got
+            i = int(np.searchsorted(self._starts, pos, side="right")) - 1
+            if i >= len(self.files):
+                break
+            fb = self.files[i]
+            local = pos - int(self._starts[i])
+            if local >= fb.header.N:
+                break             # past the last file: stay zero-padded
+            n = min(count - got, fb.header.N - local)
+            out[got:got + n] = fb.read_spectra(local, n)
+            got += n
+        return out
+
+    def iter_blocks(self, block_size: int,
+                    start: int = 0) -> Iterator[np.ndarray]:
+        pos = start
+        while pos < self.header.N:
+            yield self.read_spectra(pos, block_size)
+            pos += block_size
 
 
 def write_filterbank(path: str, hdr: FilterbankHeader,

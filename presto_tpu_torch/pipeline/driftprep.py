@@ -2,9 +2,7 @@
 overlapping per-pointing files.
 
 Host copy of ``presto_tpu/pipeline/driftprep.py`` for the PyTorch port,
-which imports nothing from the JAX package.  It reads what the port's
-``open_raw`` reads: one SIGPROC filterbank for now (a PSRFITS or
-multi-file scan raises NotImplementedError until io/psrfits is ported).
+which imports nothing from the JAX package.
 
 The reference pairs its drift survey driver with prep scripts that
 split a continuous drift scan into "beams"/pointings before the
@@ -17,9 +15,10 @@ output file is renamed after the sky coordinates at its start
 
 TPU-first differences from the reference scripts:
 
-* input is whatever ``open_raw`` can read, not the Spigot-FITS-only
-  path of the original; output is standard SIGPROC filterbank, the
-  drift-survey interchange format.
+* format-agnostic input — anything ``open_raw`` can read (SIGPROC
+  filterbank or PSRFITS, single file or a multi-file scan), not the
+  Spigot-FITS-only path of the original; output is standard SIGPROC
+  filterbank, the drift-survey interchange format.
 * the per-pointing coordinates are computed, not read from
   per-subfile headers: in a drift scan the telescope is parked, so
   the touched RA advances at the sidereal rate while Dec is fixed.

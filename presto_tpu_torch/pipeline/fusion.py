@@ -207,14 +207,19 @@ def _host_blocks(fb, prep, ring: UploadRing, blocklen: int, nblocks: int,
     spectrum ``skip`` (zeros past the data), each decoded and
     preprocessed (``prep(block, start)``) into a ring buffer; yields
     (start spectrum, buffer index).  Reads sequentially through the
-    reader's prefetching feeder when starting at spectrum 0."""
+    reader's prefetching feeder (``stream_blocks``, decoding into the
+    ring buffer) when starting at spectrum 0 and the reader has one (a
+    FilterbankFile); otherwise (a PsrfitsFile, a FilterbankSet, or a run
+    from spectrum ``skip`` > 0) each block is ``read_spectra`` and then
+    copied into its ring buffer, the same bytes either way."""
     N = fb.header.N
     slots = []
 
     def take():
         slots.append(ring.acquire())
         return ring.array(slots[-1])
-    blocks = fb.stream_blocks(blocklen, out=take) if skip == 0 else None
+    blocks = (fb.stream_blocks(blocklen, out=take)
+              if skip == 0 and hasattr(fb, "stream_blocks") else None)
     try:
         for k in range(nblocks):
             nread = skip + k * blocklen
@@ -259,6 +264,37 @@ def feed_blocks(fb, prep, blocklen: int, nblocks: int, device,
     finally:
         ring.close()
         ingest.close()
+
+
+def stream_subbands(fb, prep, chan_bins, nsub: int, blocklen: int,
+                    device, skip: int = 0) -> np.ndarray:
+    """The channels -> subbands stage alone over a streamed pass from
+    spectrum ``skip`` (feed_blocks, then ops/dedispersion
+    .dedisp_subbands_block at the [nchan] delays ``chan_bins``): each
+    block's subbands go straight into their columns of one device
+    tensor, downloaded once.  Returns host [nsub, N - skip - max delay]
+    float32 (prepfold's raw fold and prepsubband -sub)."""
+    from presto_tpu_torch.ops import dedispersion as dd
+    nspec = int(fb.header.N) - skip
+    nout = max(nspec - int(np.max(chan_bins)), 0)
+    chan_d = torch.as_tensor(np.asarray(chan_bins, np.int64), device=device)
+    out = torch.empty((nsub, nout), dtype=torch.float32, device=device)
+    pos, prev = 0, None
+    # the data blocks, then one zero flush block
+    nblocks = -(-nspec // blocklen) + 1
+    feed = feed_blocks(fb, prep, blocklen, nblocks, device, skip=skip)
+    try:
+        for _nread, cur in feed:
+            if prev is not None:
+                sub = dd.dedisp_subbands_block(prev, cur, chan_d, nsub)
+                take = min(sub.shape[1], nout - pos)
+                if take > 0:
+                    out[:, pos:pos + take] = sub[:, :take]
+                    pos += take
+            prev = cur
+    finally:
+        feed.close()
+    return out.cpu().numpy()
 
 
 @dataclass

@@ -234,11 +234,13 @@ def test_fold_dat_cands_byte_equal_to_cli(datdir):
 @pytest.mark.parametrize("flags", [
     ["-par", "x.par"], ["-timing", "x.par"], ["-polycos", "polyco.dat"],
     ["-absphase"], ["-barypolycos"], ["-psr", "B1937+21"],
-    ["-bin", "-pb", "1000", "-x", "1"], ["-mask", "x.mask"],
-    ["-ignorechan", "0:3"], []])
+    ["-bin", "-pb", "1000", "-x", "1"],
+    ["-mask", "x.mask", "-bin", "-pb", "1000", "-x", "1"],
+    ["-ignorechan", "0:3", "-psr", "B1937+21"], []])
 def test_unported_flags_are_refused(datdir, flags):
-    """Ephemeris folds, orbits, masks, ignorechan and (no -noplot) the
-    plot raise NotImplementedError before any work."""
+    """Ephemeris folds, orbits and (no -noplot) the plot raise
+    NotImplementedError before any work, beside -mask and -ignorechan
+    too (which the port takes)."""
     argv = flags + ["-f", "41.3", "-nosearch"] + \
         ([] if not flags else ["-noplot"]) + ["x.dat"]
     with pytest.raises(NotImplementedError, match="later slice"):

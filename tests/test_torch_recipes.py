@@ -228,8 +228,9 @@ def test_drift_prep_cli_equal(scan, tmp_path):
                              str(tmp_path / sub), scan]) == 0
         outs.append(buf.getvalue().replace(str(tmp_path / sub), ""))
     assert outs[1] == outs[0] and outs[0].splitlines()[0] == "6"
-    with pytest.raises(NotImplementedError, match="PSRFITS"):
-        tdrift.split_drift_scan([str(tmp_path / "scan.fits")])
+    for mod in (jdrift, tdrift):      # a PSRFITS scan that is not there
+        with pytest.raises(FileNotFoundError):
+            mod.split_drift_scan([str(tmp_path / "scan.fits")])
 
 
 def test_pipeline_driftprep_runs_a_survey_a_pointing(scan, tmp_path):
