@@ -206,12 +206,29 @@ Phases (any failure exits non-zero before the final line):
              files byte-equal; prepfold -psrfits -mask -ignorechan 90
              -nosearch of a.fits at the top candidate, its .pfd equal to
              the CPU's; psrfits2fil of the pair, its samples the .fil's;
+  6i. classic  the reference's documented command flow through the
+             port's CLIs on the card (phase_classic): prepdata -dm 22 of
+             the beam barycentred, its .dat/.inf byte-equal to the CPU's,
+             with its ingest wait and dedispersion device ms a block;
+             realfft in core (card) and -disk (host, out of core, many
+             slabs a pass), the spectra within CLASSIC_RTOL of the RMS,
+             realfft -inv back to the .dat within it; accelsearch on the
+             .fft (launches read around it) with the 40.3 Hz pulsar at f
+             (1 + avgvoverc), both kernels held to their plain versions
+             at its geometry; prepfold -par -nosearch (peak within a bin
+             of the -f/-fd fold, reduced chi2 >= FOLD_REDCHI_MIN),
+             -timing (accepted by pfd_for_timing) and -absphase;
+             prepfold -psr J0737-3039A on a barycentred series of the
+             binary made on the card, card against CPU by the fold
+             phase's chi2 rule, reduced chi2 >= FOLD_REDCHI_MIN with the
+             catalog's orbit and under it without;
  12. summary the kernels line (launches of the main path, the sharded
              main path, by shard too, the serve path, the fleet path, the
              federation path (A's last snapshot and B's replicas'), the
-             tune sweep, the recipe path, the psrfits path, the jerk paths
-             and the live paths; each kernel's bound also at the measured peaks, and
-             its numbers at the recipe's two pass geometries),
+             tune sweep, the recipe path, the psrfits path, the classic
+             path, the jerk paths and the live paths; each kernel's bound
+             also at the measured peaks, and its numbers at the recipe's
+             two pass geometries and at the classic accelsearch's),
              the card, and the final ok line.
 
 Prints the full results as one JSON line (``results: {...}``).  Imports
@@ -4735,6 +4752,371 @@ def phase_psrfits(raw, workdir, mwork, main_res=None, device="cuda"):
                 phase_s=phase_s)
 
 
+# the classic command flow (prepdata -> realfft -> accelsearch ->
+# prepfold -par / -psr) at DM 22 on the barycentred beam
+CLASSIC_DM = 22.0
+# block buffer of the out-of-core FFT (bytes): the beam's ~2^21-point
+# complex transform then runs in many slabs a pass (the default buffer,
+# 256 MB, would hold it in one)
+CLASSIC_OOC_MEM = 1 << 22
+# the in-core spectrum against the out-of-core one: the RMS of their
+# difference within this share of the spectrum's RMS (the norm-wise
+# fftpack bound; the series' mean puts |DC| = sqrt(n/2) x the RMS into
+# bin 0, whose float32 spacing alone is ~9e-5 of the RMS at the beam's
+# 2^21 bins, so no float32 spectrum meets it bin by bin); realfft -inv
+# of the card's .fft against the .dat: the largest difference within
+# this share of the series' RMS
+CLASSIC_RTOL = 1e-5
+# a barycentred series of J0737-3039A made on the card: 2^22 samples of
+# 1.28e-4 s (537 s, 16 MB), a gaussian pulse of `width` turns (FWHM)
+# and `amp` in unit noise, arriving late by the catalog orbit's Roemer
+# delay for the epoch (at MJD 59000 the orbit of 0.1023 d moves it by
+# 0.33 s, 14.5 turns, over the series; the phase prints it)
+CLASSIC_PSR = dict(name="J0737-3039A", N=1 << 22, dt=1.28e-4, mjd=59000.0,
+                   width=0.05, amp=0.5, seed=37)
+# the fold without the orbit (-p, -nosearch) smears flat: its reduced
+# chi2 must stay under FOLD_REDCHI_MIN
+CLASSIC_FLAT_P = "0.022699"
+
+
+def classic_psr_dat(path, device="cuda"):
+    """CLASSIC_PSR's .dat/.inf: psrepoch's spin and orbit at the epoch;
+    the orbit's Roemer delays (ops/orbit.orbit_delays, host float64)
+    subtracted from each sample time, the phase and pulse on ``device``
+    (float64 phase), unit gaussian noise from the pulsar's own seed; the
+    .inf barycentred, so no Doppler enters the fold."""
+    from presto_tpu_torch.io.datfft import write_dat
+    from presto_tpu_torch.io.infodata import InfoData
+    from presto_tpu_torch.ops.orbit import OrbitParams, orbit_delays
+    from presto_tpu_torch.utils.catalog import psrepoch
+    c = CLASSIC_PSR
+    pp = psrepoch(c["name"], c["mjd"])
+    orb = OrbitParams(p=pp.orb.p, e=pp.orb.e, x=pp.orb.x, w=pp.orb.w,
+                      t=pp.orb.t)
+    t = np.arange(c["N"]) * c["dt"]
+    delays = orbit_delays(t, orb)
+    te = torch.from_numpy(t - delays).to(device)
+    ph = torch.remainder(pp.f * te + 0.5 * pp.fd * te * te, 1.0)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(c["seed"])
+    x = (c["amp"] * torch.exp(-0.5 * ((ph - 0.5) / (c["width"] / 2.35482))
+                              ** 2)).float()
+    x = x + torch.randn(x.shape, generator=gen, device=device)
+    write_dat(path, x.cpu().numpy(), InfoData(
+        name=path[:-4], telescope="GBT", object=c["name"],
+        ra_str="07:37:51.25", dec_str="-30:39:40.71", N=float(c["N"]),
+        dt=c["dt"], mjd_i=int(c["mjd"]), mjd_f=c["mjd"] % 1.0, bary=1,
+        dm=pp.dm))
+    return dict(f=pp.f, fd=pp.fd, pb_s=pp.orb.p, x=pp.orb.x, e=pp.orb.e,
+                delay_span_s=float(delays.max() - delays.min()),
+                turns=float((delays.max() - delays.min()) * pp.f))
+
+
+def _peak_bin(prof):
+    return int(np.argmax(np.asarray(prof)))
+
+
+def _bin_distance(a, b, n):
+    d = abs(a - b) % n
+    return min(d, n - d)
+
+
+def phase_classic(raw, workdir, device="cuda"):
+    """The reference's documented command flow on the card, each step
+    through the port's CLI: prepdata -dm 22 of the beam barycentred (its
+    samples under RECIPE_POSITION's header), its .dat/.inf byte-equal to
+    the same command on the CPU, its ingest wait and dedispersion device
+    ms a block; realfft in core on the card and realfft -disk (host, out
+    of core, CLASSIC_OOC_MEM blocks), the RMS of the two spectra's
+    difference within CLASSIC_RTOL of the spectrum's RMS with the packed
+    layout exact, realfft -inv of the card's .fft back to the .dat
+    within CLASSIC_RTOL of its RMS; accelsearch
+    (zmax 200, numharm 8) on the card's .fft, launches read around it,
+    the 40.3 Hz pulsar among its candidates within RECIPE_FREQ_TOL_BINS
+    of f (1 + avgvoverc), and both kernels against their plain versions
+    at its geometry on its spectrum; prepfold -par -nosearch on the .dat
+    with a .par of the injection in the .dat's frame, its profile peak
+    within one bin of the -f/-fd fold's and its reduced chi2 at least
+    FOLD_REDCHI_MIN, then -timing (the .pfd accepted by pfd_for_timing)
+    and -absphase; prepfold -psr J0737-3039A (the default search, the
+    orbit from the catalog) of CLASSIC_PSR's series on the card and on
+    the CPU, the chi2 surfaces within CHI2_ATOL of their maximum and the
+    best trial equal unless a near-tie, its reduced chi2 at least
+    FOLD_REDCHI_MIN while the -p CLASSIC_FLAT_P -nosearch fold without
+    the orbit stays under it.  The card work runs on ``device`` (a CPU
+    rehearsal at a small beam passes "cpu", its counts and timings then
+    meaningless)."""
+    from presto_tpu_torch.apps import (accelsearch, common, pfd_for_timing,
+                                       prepdata, prepfold, realfft)
+    from presto_tpu_torch.io import datfft
+    from presto_tpu_torch.io.infodata import read_inf
+    from presto_tpu_torch.ops import dedispersion as dd
+    from presto_tpu_torch.ops import fftpack, oocfft
+    from presto_tpu_torch.search.accel import AccelConfig
+    b = BEAM
+    t_phase = time.time()
+    os.makedirs(workdir, exist_ok=True)
+    braw = positioned_beam(raw, os.path.join(workdir, "psrc.fil"))
+    fb = common.open_raw(braw)
+    plan = common.make_bary_plan(fb, b["dt"], "DE405")
+    fb.close()
+    v = plan.avgvoverc
+    same_bytes = lambda a, c: open(a, "rb").read() == open(c, "rb").read()
+
+    # 1. prepdata on the card and on the CPU
+    out = {}
+    prep_s = {}
+    for where, dev in (("card", device), ("cpu", "cpu")):
+        d = os.path.join(workdir, "prep_" + where)
+        os.makedirs(d)
+        out[where] = os.path.join(d, "psrc_DM%.2f" % CLASSIC_DM)
+        with IngestWait() as wait:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            prepdata.main(["-dm", "%.1f" % CLASSIC_DM, "-o", out[where],
+                           braw], device=dev)
+            torch.cuda.synchronize()
+            prep_s[where] = time.time() - t0
+        if where == "card":
+            prep_wait = wait.by_app.get("prepdata", {})
+    dat = out["card"] + ".dat"
+    prep_same = (same_bytes(dat, out["cpu"] + ".dat")
+                 and _inf_bytes(out["card"] + ".inf")
+                 == _inf_bytes(out["cpu"] + ".inf"))
+    info = read_inf(out["card"])
+    bary_ok = info.bary == 1 and info.mjd_i == int(plan.blotoa)
+    # the dedispersion of one block on the card, at prepdata's geometry
+    delays = dd.dedisp_delays(b["nchan"], CLASSIC_DM, b["lofreq"], b["cw"],
+                              voverc=v)
+    bins = dd.delays_to_bins(delays - delays.min(), b["dt"])
+    blocklen = common.stream_blocklen(b["nchan"], int(bins.max()), b["N"])
+    nblocks = -(-b["N"] // blocklen) + 1
+    g = torch.Generator(device=device)
+    g.manual_seed(BEAM_SEED)
+    prev, cur = (torch.randn((b["nchan"], blocklen), generator=g,
+                             device=device) for _ in range(2))
+    bins_d = torch.as_tensor(bins.astype(np.int64)[None], device=device)
+    dedisp_ms = cuda_time_ms(
+        lambda: dd.float_dedisp_many_block(prev, cur, bins_d), 10)
+    del prev, cur
+    log("classic: prepdata -dm %.1f of %s (barycentred, avgvoverc %.6e) "
+        "on the card %.2f s (ingest wait %.3f s over %d pulls; "
+        "dedispersion %.3f device ms a %d-spectrum block x %d blocks), on "
+        "the CPU %.2f s; %d samples, .dat/.inf equal to the CPU's %s, "
+        "barycentred %s"
+        % (CLASSIC_DM, os.path.basename(braw), v, prep_s["card"],
+           prep_wait.get("wait_s", 0.0), prep_wait.get("pulls", 0),
+           dedisp_ms, blocklen, nblocks - 1, prep_s["cpu"], int(info.N),
+           prep_same, bary_ok))
+    os.remove(out["cpu"] + ".dat")
+
+    # 2. realfft in core on the card, out of core on the host, inverse
+    base = out["card"]
+    t0 = time.time()
+    realfft.main(["-mem", dat], device=device)
+    incore_s = time.time() - t0
+    os.replace(base + ".fft", base + ".card.fft")
+    saved_mem = oocfft._DEF_MAX_MEM
+    oocfft._DEF_MAX_MEM = CLASSIC_OOC_MEM
+    try:
+        t0 = time.time()
+        realfft.main(["-disk", dat], device=device)
+        ooc_s = time.time() - t0
+    finally:
+        oocfft._DEF_MAX_MEM = saved_mem
+    series = datfft.read_dat(dat)
+    n = series.size & ~1
+    nc = n // 2
+    R, C = oocfft._split_n(nc)
+    passes = (-(-C // max(1, CLASSIC_OOC_MEM // (R * 32))),
+              -(-R // max(1, CLASSIC_OOC_MEM // (C * 32))))
+    card_fft = datfft.read_fft(base + ".card.fft")
+    disk_fft = datfft.read_fft(base + ".fft")
+    rms = float(np.sqrt(np.mean(np.abs(disk_fft.astype(np.complex128))
+                                ** 2)))
+    diff = np.abs(card_fft.astype(np.complex128) - disk_fft)
+    fft_err = float(np.sqrt(np.mean(diff ** 2))) / rms
+    fft_max = float(diff.max()) / rms
+    dc_err = float(diff[0]) / float(abs(complex(disk_fft[0])))
+    del diff
+    layout_ok = card_fft.shape == disk_fft.shape == (nc,)
+    x_d = torch.from_numpy(series[:n]).to(device)
+    fft_ms = cuda_time_ms(lambda: fftpack.realfft_packed_pairs(x_d), 10)
+    del x_d
+    inv_dir = os.path.join(workdir, "inv")
+    os.makedirs(inv_dir)
+    ibase = os.path.join(inv_dir, os.path.basename(base))
+    shutil.copy(base + ".card.fft", ibase + ".fft")
+    shutil.copy(base + ".inf", ibase + ".inf")
+    realfft.main(["-inv", ibase + ".fft"], device=device)
+    back = datfft.read_dat(ibase + ".dat")
+    srms = float(np.sqrt(np.mean(series[:n].astype(np.float64) ** 2)))
+    inv_err = float(np.abs(back.astype(np.float64)
+                           - series[:n]).max()) / srms
+    fft_ok = (layout_ok and fft_err <= CLASSIC_RTOL
+              and back.shape == (n,) and inv_err <= CLASSIC_RTOL)
+    log("classic: realfft of %d samples in core on the card %.2f s "
+        "(torch.fft %.3f device ms), -disk out of core %.2f s (host; "
+        "%d x %d two-pass split, %d + %d slabs of a %d-byte buffer); "
+        "in core - out of core: RMS / RMS %.3g (bound %g), max / RMS "
+        "%.3g, bin 0 / |bin 0| %.3g; realfft -inv of the card's .fft max "
+        "|x' - x| / RMS %.3g (bound %g); layout %s %s"
+        % (n, incore_s, fft_ms, ooc_s, R, C, passes[0], passes[1],
+           CLASSIC_OOC_MEM, fft_err, CLASSIC_RTOL, fft_max, dc_err,
+           inv_err, CLASSIC_RTOL, layout_ok, "ok" if fft_ok else "FAIL"))
+    os.replace(base + ".card.fft", base + ".fft")
+    shutil.rmtree(inv_dir)
+
+    # 3. accelsearch on the card's .fft
+    from presto_tpu_torch.apps.accelsearch import read_cand_file
+    read = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    accelsearch.main(["-zmax", "200", "-numharm", "8", base + ".fft"],
+                     device=device)
+    torch.cuda.synchronize()
+    accel_s = time.time() - t0
+    launches = read()
+    launches.pop("stage_reduce_planes")
+    T = info.N * info.dt
+    f_bary = (b["f0"] + b["fdot"] * b["N"] * b["dt"] / 2.0) * (1.0 + v)
+    cands = read_cand_file(base + "_ACCEL_200.cand")
+    hits = []
+    for c in cands:
+        h = max(1, round((c.r / T) / b["f0"]))
+        off = (c.r / T / h - f_bary) * T
+        if abs(off) < RECIPE_FREQ_TOL_BINS:
+            hits.append((c.sigma, h, off))
+    accel_ok = bool(hits) and all(k >= 1 for k in launches.values())
+    best = max(hits) if hits else (0.0, 0, 0.0)
+    log("classic: accelsearch -zmax 200 -numharm 8 on the card %.2f s, "
+        "launches %s; %d candidates, the 40.3 Hz pulsar among them: %d "
+        "within %.1f bins of f (1 + avgvoverc) = %.9f Hz (strongest sigma "
+        "%.2f, harmonic %d, %.3f bins off) %s"
+        % (accel_s, json.dumps(launches), len(cands), len(hits),
+           RECIPE_FREQ_TOL_BINS, f_bary, best[0], best[1], best[2],
+           "ok" if accel_ok else "FAIL"))
+    amps = datfft.read_fft(base + ".fft")
+    pairs = torch.from_numpy(fftpack.np_complex64_to_pairs(amps)).to(device)
+    del amps
+    kgen = torch.Generator(device=device)
+    kgen.manual_seed(BEAM_SEED)
+    kern = recipe_kernels(AccelConfig(zmax=200, numharm=8, sigma=2.0,
+                                      flo=1.0), T, nc, pairs, kgen,
+                          "classic accelsearch (zmax 200, numharm 8)",
+                          device)
+    del pairs
+    torch.cuda.empty_cache()
+    kern_ok = kern[0]["ok"] and kern[1]["ok"]
+
+    # 4. prepfold -par (the injection in the .dat's barycentric frame:
+    # F0 the injected 40.3 Hz times 1 + avgvoverc, the plan's mean
+    # Doppler; F1 the injected fdot; PEPOCH the .inf epoch, the
+    # barycentric MJD of the first sample; the Crab's position, as the
+    # header's), -f/-fd, -timing and -absphase, all -nosearch
+    f0 = b["f0"] * (1.0 + v)
+    par = os.path.join(workdir, "psrc.par")
+    with open(par, "w") as fh:
+        fh.write("PSRJ J0534+2200\nRAJ 05:34:31.97\nDECJ +22:00:52.1\n"
+                 "F0 %.15g\nF1 %.6g\nPEPOCH %.15g\nDM %.1f\n"
+                 % (f0, b["fdot"], info.mjd, CLASSIC_DM))
+    folds, fold_s = {}, {}
+    for name, flags in (
+            ("par", ["-par", par, "-nosearch"]),
+            ("f", ["-f", "%.15g" % f0, "-fd", "%.6g" % b["fdot"],
+                   "-nosearch"]),
+            ("timing", ["-timing", par]),
+            ("absphase", ["-par", par, "-absphase", "-nosearch"])):
+        t0 = time.time()
+        folds[name] = prepfold.run(prepfold.build_parser().parse_args(
+            flags + ["-noplot", "-o", base + "_" + name, dat]),
+            device=device)
+        fold_s[name] = time.time() - t0
+    nbin = folds["par"].proflen
+    peaks = {k: _peak_bin(r.best_prof) for k, r in folds.items()}
+    timing_ok = pfd_for_timing.main([base + "_timing.pfd"]) == 0
+    par_ok = (_bin_distance(peaks["par"], peaks["f"], nbin) <= 1
+              and _bin_distance(peaks["absphase"], peaks["par"], nbin) <= 1
+              and folds["par"].best_redchi >= FOLD_REDCHI_MIN
+              and timing_ok)
+    log("classic: prepfold -nosearch on the .dat (%d bins): -par f %.9f "
+        "Hz fd %.4g, peak bin %d, reduced chi2 %.1f (threshold %.0f); "
+        "-f/-fd peak %d, chi2 %.1f; -timing chi2 %.1f, pfd_for_timing "
+        "accepts it %s; -absphase peak %d; seconds %s %s"
+        % (nbin, folds["par"].fold_f, folds["par"].fold_fd, peaks["par"],
+           folds["par"].best_redchi, FOLD_REDCHI_MIN, peaks["f"],
+           folds["f"].best_redchi, folds["timing"].best_redchi, timing_ok,
+           peaks["absphase"], json.dumps({k: round(s, 2)
+                                          for k, s in fold_s.items()}),
+           "ok" if par_ok else "FAIL"))
+
+    # 5. prepfold -psr J0737-3039A, with and without its orbit
+    pdat = os.path.join(workdir, "j0737.dat")
+    t0 = time.time()
+    made = classic_psr_dat(pdat, device)
+    psr_make_s = time.time() - t0
+    psr, psr_s = {}, {}
+    for name, flags, dev in (
+            ("card", ["-psr", CLASSIC_PSR["name"]], device),
+            ("cpu", ["-psr", CLASSIC_PSR["name"]], "cpu"),
+            ("flat", ["-p", CLASSIC_FLAT_P, "-nosearch"], device)):
+        t0 = time.time()
+        psr[name] = prepfold.run(prepfold.build_parser().parse_args(
+            flags + ["-noplot", "-o", pdat[:-4] + "_" + name, pdat]),
+            device=dev)
+        psr_s[name] = time.time() - t0
+    errs, notes = {}, {}
+    agree_ok = True
+    for what in ("dm_chi2", "ppd_chi2"):
+        a = np.asarray(getattr(psr["card"], what))
+        c = np.asarray(getattr(psr["cpu"], what))
+        # a .dat fold searches no DM: its DM curve is one zero
+        scale = max(float(np.abs(c).max()), 1e-30)
+        atol = CHI2_ATOL * scale
+        errs[what] = float(np.abs(a - c).max()) / scale
+        agree, notes[what] = _argmax_agree(a, c, what, atol)
+        agree_ok = (agree_ok and a.shape == c.shape
+                    and errs[what] <= CHI2_ATOL and agree)
+    psr_ok = (agree_ok and psr["card"].best_redchi >= FOLD_REDCHI_MIN
+              and psr["flat"].best_redchi < FOLD_REDCHI_MIN)
+    log("classic: %s series made on the card %.2f s (f %.9f Hz, Pb %.1f "
+        "s, x %.4f lt-s, e %.4f; Roemer delay spans %.3f s, %.1f turns); "
+        "prepfold -psr on the card %.2f s: reduced chi2 %.1f, best p "
+        "%.12f s; on the CPU %.2f s; chi2 surfaces card vs CPU max |diff| "
+        "/ max %s (tolerance %g), best indices %s; -p %s -nosearch without "
+        "the orbit: reduced chi2 %.2f (under %.0f) %s"
+        % (CLASSIC_PSR["name"], psr_make_s, made["f"], made["pb_s"],
+           made["x"], made["e"], made["delay_span_s"], made["turns"],
+           psr_s["card"], psr["card"].best_redchi, psr["card"].best_p,
+           psr_s["cpu"],
+           json.dumps({k: float("%.3g" % e) for k, e in errs.items()}),
+           CHI2_ATOL, json.dumps(notes), CLASSIC_FLAT_P,
+           psr["flat"].best_redchi, FOLD_REDCHI_MIN,
+           "ok" if psr_ok else "FAIL"))
+    phase_s = time.time() - t_phase
+    ok = (prep_same and bary_ok and fft_ok and accel_ok and kern_ok
+          and par_ok and psr_ok)
+    log("classic: phase %.1f s %s" % (phase_s, "ok" if ok else "FAIL"))
+    return dict(ok=ok, avgvoverc=v, prepdata_s=prep_s,
+                prepdata_equal_cpu=prep_same, ingest_wait=prep_wait,
+                dedisp_ms_a_block=dedisp_ms, blocklen=blocklen,
+                nblocks=nblocks - 1, realfft_incore_s=incore_s,
+                fft_ms=fft_ms, realfft_ooc_s=ooc_s, ooc_split=[R, C],
+                ooc_slabs=list(passes), fft_rms_rel_err=fft_err,
+                fft_max_rel_err=fft_max, fft_dc_rel_err=dc_err,
+                inverse_rel_err=inv_err, accelsearch_s=accel_s,
+                launches=launches, pulsar_hits=len(hits),
+                pulsar_off_bins=best[2], plane_build=kern[0],
+                stage_reduce=kern[1],
+                par=dict(peak=peaks, redchi={k: r.best_redchi
+                                             for k, r in folds.items()},
+                         seconds=fold_s, timing_accepted=timing_ok),
+                psr=dict(made=made, made_s=psr_make_s, seconds=psr_s,
+                         redchi={k: r.best_redchi for k, r in psr.items()},
+                         chi2_rel_err=errs, best_index=notes),
+                phase_s=phase_s)
+
+
 def keep_cands(res, keep):
     """recipe_cands.tar.xz in ``keep``: the survey's ACCEL tables, .cand
     files and .inf files by base name, and its cands_sifted.txt."""
@@ -4855,6 +5237,8 @@ def main():
         psrfits = phase_psrfits(raw, os.path.join(work, "psrfits"), mwork,
                                 main_res)
         torch.cuda.empty_cache()
+        classic = phase_classic(raw, os.path.join(work, "classic"))
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     small = phase_small_reference(gen)
@@ -4874,7 +5258,7 @@ def main():
                    toas=toas, singlepulse=spb, jerk=jerk, sharded=shard,
                    cluster=cluster, serve=serve, fleet=fleet,
                    federation=feder, recipe=recipe, psrfits=psrfits,
-                   small_reference=small,
+                   classic=classic, small_reference=small,
                    **live,
                    total_s=time.time() - t_start)
     # launches: the main path's (run_survey, and run_survey on the DM
@@ -4898,7 +5282,8 @@ def main():
                    "federation": feder["launches"][name],
                    "tune": feder["tune_launches"][name],
                    "recipe": recipe["launches"][name],
-                   "psrfits": psrfits["launches"][name]}
+                   "psrfits": psrfits["launches"][name],
+                   "classic": classic["launches"][name]}
         for path, counts in zip(("jerk_bench", "accelsearch_wmax",
                                  "stream", "beams"),
                                 jl + [live["stream"]["launches"],
@@ -4929,7 +5314,10 @@ def main():
                         **{"recipe_" + ps: {x: recipe[name][ps][x] for x in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms")}
-                           for ps in ("lo", "hi")}})
+                           for ps in ("lo", "hi")},
+                        "classic": {x: classic[name][x] for x in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}})
     log("results: %s" % json.dumps(results, default=float))
     failed = [n for n, ok in (("build", build["ok"]),
                               ("plane_build", k1["ok"]),
@@ -4947,6 +5335,7 @@ def main():
                               ("federation", feder["ok"]),
                               ("recipe", recipe["ok"]),
                               ("psrfits", psrfits["ok"]),
+                              ("classic", classic["ok"]),
                               ("stream", live["stream"]["ok"]),
                               ("beams", live["beams"]["ok"])) if not ok]
     if failed:

@@ -4,19 +4,25 @@ event data, search (DM, p, pd), and write .pfd + .bestprof.
 PyTorch counterpart of ``presto_tpu/apps/prepfold.py``, with its flags
 (clig/prepfold_cmd.cli; src/prepfold.c): -p/-pd/-pdd | -f/-fd/-fdd |
 -accelcand/-accelfile, -dm, -n (proflen), -npart, -nsub, the search
-switches and steps, -start/-end, -events.  Raw data are dedispersed to
-nsub subbands at the fold DM on the device first (prepfold.c:1267-1330),
-so the DM search shifts whole subbands like the reference.  The fold
-and the trial search run on ``device`` (search/prepfold.py); the .pfd
-of a fold with no search is byte-equal to the JAX package's.
+switches and steps, -start/-end, -events, the ephemeris folds (-par,
+-timing, -polycos, -absphase, -barypolycos; polycos made by
+astro/polycos on the port's barycentring, collapsed to one cubic phase
+by fit_fold_params), -psr (utils/catalog's parameters at the epoch,
+with the orbit of a binary) and -bin with -pb -x -e -To -w -wdot
+(ops/orbit's Roemer delays fed to ops/fold.plan_fold).  Raw data are
+dedispersed to nsub subbands at the fold DM on the device first
+(prepfold.c:1267-1330), so the DM search shifts whole subbands like the
+reference.  The fold and the trial search run on ``device``
+(search/prepfold.py); the .pfd of a fold with no search is byte-equal
+to the JAX package's.  -barypolycos is parsed and, as in the JAX
+package, read by nothing.
 
-Not in the port yet (they raise NotImplementedError): ephemeris folds
-(-par, -timing, -polycos, -absphase, -barypolycos, -psr), binary orbits
-(-bin) and the diagnostic plot (give -noplot).  A raw fold (SIGPROC or
-PSRFITS, apps/common.open_raw_args) streams through
-pipeline/fusion.feed_blocks (the native decoder, the -mask substitution
-with padding values from the .stats beside the mask, the clip and
--ignorechan on the host, the transpose on the device).
+Not in the port yet (it raises NotImplementedError): the diagnostic
+plot (give -noplot).  A raw fold (SIGPROC or PSRFITS,
+apps/common.open_raw_args) streams through pipeline/fusion.feed_blocks
+(the native decoder, the -mask substitution with padding values from
+the .stats beside the mask, the clip and -ignorechan on the host, the
+transpose on the device).
 
 The stacked .dat candidate fold (fold_dat_cands) writes the bytes of
 ``prepfold -accelfile <acc>.cand -accelcand K -dm D -nosearch -noplot
@@ -32,14 +38,18 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from presto_tpu_torch.astro.polycos import (fit_fold_params, make_polycos,
+                                            read_polycos)
 from presto_tpu_torch.apps.common import (add_common_flags, add_raw_flags,
                                           block_prep, load_timeseries,
                                           obs_metadata, open_raw_args,
                                           stream_blocklen)
 from presto_tpu_torch.io.infodata import read_inf
+from presto_tpu_torch.io.parfile import Parfile
 from presto_tpu_torch.io.pfd import Pfd, write_bestprof, write_pfd
 from presto_tpu_torch.ops import dedispersion as dd
 from presto_tpu_torch.ops.fold import shift_prof, subband_fold_shifts
+from presto_tpu_torch.ops.orbit import OrbitParams, orbit_delays
 from presto_tpu_torch.pipeline import fusion
 from presto_tpu_torch.search.accel import resolve_device
 from presto_tpu_torch.search.prepfold import (FoldConfig, fold_errors,
@@ -48,6 +58,7 @@ from presto_tpu_torch.search.prepfold import (FoldConfig, fold_errors,
                                               fold_series_batch,
                                               fold_subband_series,
                                               search_fold)
+from presto_tpu_torch.utils.catalog import psrepoch
 from presto_tpu_torch.utils.psr import p_to_f
 
 
@@ -71,16 +82,18 @@ def build_parser():
     p.add_argument("-accelfile", "-rzwfile", dest="accelfile",
                    type=str, default=None)
     p.add_argument("-psr", type=str, default=None,
-                   help="Name of pulsar to fold (not in the port yet)")
+                   help="Name of pulsar to fold (catalog lookup)")
     p.add_argument("-par", dest="parfile", type=str, default=None,
-                   help="Fold using a .par ephemeris (not in the port "
-                        "yet)")
+                   help="Fold using an ephemeris from a .par file "
+                        "(polycos generated in-framework, no TEMPO)")
     p.add_argument("-timing", type=str, default=None,
-                   help="TOA-generation mode (not in the port yet)")
+                   help="TOA-generation mode: par file to fold with "
+                        "(implies -nosearch, -fine, npart=60)")
     p.add_argument("-polycos", type=str, default=None,
-                   help="Fold using a polyco.dat (not in the port yet)")
+                   help="Fold using an existing TEMPO polyco.dat")
     p.add_argument("-ephem", type=str, default="DE405",
-                   help="Ephemeris for -par/-timing polycos")
+                   help="Ephemeris for -par/-timing polycos: a DE name,"
+                        " a .npz table, or a JPL .bsp SPK kernel")
     p.add_argument("-absphase", action="store_true",
                    help="Use the absolute phase of the polycos")
     p.add_argument("-barypolycos", action="store_true",
@@ -136,7 +149,7 @@ def build_parser():
     p.add_argument("-ignorechan", type=str, default=None)
     # binary-orbit folding (prepfold.c:878-903 orbit delays)
     p.add_argument("-bin", dest="binary", action="store_true",
-                   help="Fold a binary pulsar (not in the port yet)")
+                   help="Fold a binary pulsar (give all orbit params)")
     p.add_argument("-pb", type=float, default=0.0,
                    help="Orbital period (s)")
     p.add_argument("-x", dest="asinic", type=float, default=0.0,
@@ -165,21 +178,22 @@ def build_parser():
 
 
 def _refuse_unported(args) -> None:
-    for flag, on in (("-par", args.parfile), ("-timing", args.timing),
-                     ("-polycos", args.polycos),
-                     ("-absphase", args.absphase),
-                     ("-barypolycos", args.barypolycos),
-                     ("-psr", args.psr), ("-bin", args.binary),
-                     ("the diagnostic plot (pass -noplot)",
-                      not args.noplot)):
-        if on:
-            raise NotImplementedError(
-                "prepfold: %s comes in a later slice of the port" % flag)
+    if not args.noplot:
+        raise NotImplementedError(
+            "prepfold: the diagnostic plot (pass -noplot) comes in a "
+            "later slice of the port")
 
 
 def apply_presets(args):
-    """The -slow/-fine/-coarse flag interactions (prepfold.c:103-137);
-    -timing is refused before this runs."""
+    """The -timing/-slow/-fine/-coarse flag interactions
+    (prepfold.c:103-137)."""
+    if args.timing:
+        args.parfile = args.timing
+        args.nosearch = True
+        args.nopsearch = args.nopdsearch = args.nodmsearch = True
+        if args.npart == 64:
+            args.npart = 60
+        args.fine = True
     if args.slow:
         args.fine = True
         if not args.proflen:
@@ -217,14 +231,84 @@ def accel_cand_fold_params(accelfile: str, candnum: int, T: float):
     return f0, fd0, fdd
 
 
-def _fold_params(args, T: float):
-    """Resolve (f, fd, fdd) from flags or an accelsearch .cand file."""
+def _ephemeris_fold_params(args, T: float, obs: dict):
+    """(f, fd, fdd) at the fold start from a .par (-par/-timing: polycos
+    made here, no TEMPO) or a TEMPO polyco.dat (-polycos); -absphase
+    keeps the polycos for _apply_absphase."""
+    mjd0 = obs.get("mjd", 0.0)
+    if args.polycos:
+        pcs = read_polycos(args.polycos)
+        if not args.dm and pcs.blocks:
+            args.dm = pcs.blocks[0].dm
+    else:
+        par = Parfile(args.parfile)
+        dur_min = T / 60.0 + 2.0
+        # barycentred .dat input: the timestamps are already bary MJDs,
+        # so the polycos are made in the bary frame (no double Doppler)
+        pcs = make_polycos(par, mjd0 - 1.0 / 1440.0, dur_min,
+                           telescope=obs.get("telescope", "GBT"),
+                           obsfreq=obs.get("obsfreq", 0.0),
+                           ephem=args.ephem,
+                           barytime=obs.get("bary", False))
+        if not args.dm:
+            args.dm = getattr(par, "DM", 0.0)
+    f, fd, fdd, rms = fit_fold_params(pcs, mjd0, T)
+    if rms > 0.01:
+        print("prepfold: WARNING polyco->polynomial fit rms = "
+              "%.2g rotations (obs too long for one cubic?)" % rms)
+    if args.absphase:
+        # pin profile bin 0 to the ephemeris' absolute phase 0, resolved
+        # at the fold's actual start epoch (_apply_absphase: -start
+        # moves it past the file start)
+        args._abs_pcs = pcs
+    print("prepfold: ephemeris fold  f=%.12g Hz  fd=%.4g  fdd=%.4g"
+          % (f, fd, fdd))
+    return f, fd, fdd
+
+
+def _catalog_fold_params(args, obs: dict):
+    """(f, fd, fdd) of catalog pulsar -psr at the observation epoch; a
+    binary's orbit switches -bin on with the catalog's elements."""
+    epoch = obs.get("mjd", 0.0)
+    if not epoch or epoch <= 0:      # .inf convention: -1 unknown
+        print("prepfold -psr: WARNING no valid epoch in the input "
+              "metadata; extrapolating catalog parameters to MJD 51000 "
+              "(orbital phase of binaries will be wrong)")
+        epoch = 51000.0
+    try:
+        # spin advanced by its derivatives, orb.p in SECONDS, orb.t in
+        # seconds since the last periastron (get_psr_at_epoch)
+        pp = psrepoch(args.psr, epoch)
+    except (KeyError, ValueError):
+        raise SystemExit("prepfold: pulsar %r not in catalog" % args.psr)
+    if not args.dm:
+        args.dm = pp.dm or 0.0
+    if pp.orb is not None and pp.orb.p and not args.binary:
+        args.binary = True
+        args.pb = pp.orb.p
+        args.asinic = pp.orb.x
+        args.ecc = pp.orb.e
+        args.wdeg = pp.orb.w
+        args.To = epoch - pp.orb.t / 86400.0
+    if pp.f:
+        return pp.f, pp.fd, pp.fdd
+    return p_to_f(pp.p, pp.pd, pp.pdd or 0.0)
+
+
+def _fold_params(args, T: float, obs=None):
+    """Resolve (f, fd, fdd) from an ephemeris (-par/-timing/-polycos),
+    an accelsearch .cand file, the catalog (-psr) or the flags."""
+    obs = obs or {}
+    if args.parfile or args.polycos:
+        return _ephemeris_fold_params(args, T, obs)
     if args.accelfile:
         try:
             return accel_cand_fold_params(args.accelfile, args.accelcand, T)
         except ValueError:
             raise SystemExit("accelcand %d not in %s"
                              % (args.accelcand, args.accelfile))
+    if args.psr:
+        return _catalog_fold_params(args, obs)
     if args.f > 0:
         return args.f, args.fd, args.fdd
     if args.p > 0:
@@ -241,6 +325,39 @@ def _auto_proflen(p_sec: float, dt: float) -> int:
     while n < raw / 2 and n < 256:
         n *= 2
     return n
+
+
+def _apply_absphase(args, tepoch: float) -> None:
+    """Fold-time half of -absphase: offset the profile by the polyco
+    rotation fraction at the fold start epoch (which -start moves past
+    the file start), pinning bin 0 to ephemeris phase 0."""
+    pcs = getattr(args, "_abs_pcs", None)
+    if pcs is None:
+        return
+    rot0 = pcs.get_rotation(int(tepoch), tepoch - int(tepoch))
+    args.phs = (args.phs + rot0) % 1.0
+    args._abs_pcs = None       # applied once
+    print("prepfold: -absphase offset = %.6f rotations" % (rot0 % 1.0))
+
+
+def _orbit_model(args, T, tepoch):
+    """(delays, delaytimes) from the -bin orbit parameters: Roemer
+    delays sampled across the fold span (the dorbint table,
+    prepfold.c:878-903), with the secular periastron advance; (None,
+    None) without -bin."""
+    if not args.binary:
+        return None, None
+    if not (args.pb > 0 and args.asinic > 0):
+        raise SystemExit("prepfold -bin: -pb and -x are required")
+    t_since_peri = (tepoch - args.To) * 86400.0 if args.To else 0.0
+    w = args.wdeg
+    if args.wdot:
+        w = w + args.wdot * ((tepoch - args.To) / 365.25)
+    orb = OrbitParams(p=args.pb, e=args.ecc, x=args.asinic, w=w,
+                      t=t_since_peri, wd=args.wdot)
+    delaytimes = np.linspace(0.0, T, 2049)
+    delays = np.asarray(orbit_delays(delaytimes, orb), np.float64)
+    return delays, delaytimes
 
 
 def _make_cfg(args, proflen, nsub, search_dm):
@@ -301,10 +418,13 @@ def fold_events_file(args, f, fd, fdd):
         raise SystemExit("prepfold -events: -start/-end window "
                          "contains no events")
     T = (float(ev.max()) or 1.0) + 1e-8
+    _apply_absphase(args, mjd0)
     proflen = args.proflen or _auto_proflen(1.0 / f, T / 1e6)
     cfg = _make_cfg(args, proflen, 1, search_dm=False)
+    delays, delaytimes = _orbit_model(args, T, mjd0)
     res = fold_events(ev, f, fd, fdd, cfg, fold_dm=args.dm,
-                      tepoch=mjd0, phs0=args.phs, T=T)
+                      tepoch=mjd0, phs0=args.phs, T=T,
+                      delays=delays, delaytimes=delaytimes)
     res.numchan = 1
     return res, cfg, candnm
 
@@ -315,11 +435,14 @@ def fold_dat(args, f, fd, fdd, device):
     lo, hi = _slice_fractions(args, data.size)
     data = data[lo:hi]
     tepoch = info.mjd + lo * dt / 86400.0
+    _apply_absphase(args, tepoch)
     proflen = args.proflen or _auto_proflen(1.0 / f, dt)
     cfg = _make_cfg(args, proflen, 1, search_dm=False)
+    delays, delaytimes = _orbit_model(args, data.size * dt, tepoch)
     res = fold_subband_series(data, dt, f, fd, fdd, cfg,
                               fold_dm=info.dm, tepoch=tepoch,
-                              phs0=args.phs, device=device)
+                              phs0=args.phs, delays=delays,
+                              delaytimes=delaytimes, device=device)
     res.numchan = 1
     return res, cfg, info.object or "PSR_CAND"
 
@@ -347,6 +470,7 @@ def fold_raw(args, f, fd, fdd, device):
     lo, hi = _slice_fractions(args, series.shape[1])
     series = series[:, lo:hi]
     tepoch = hdr.tstart + lo * dt / 86400.0
+    _apply_absphase(args, tepoch)
 
     proflen = args.proflen or _auto_proflen(1.0 / f, dt)
     cfg = _make_cfg(args, proflen, nsub,
@@ -354,9 +478,13 @@ def fold_raw(args, f, fd, fdd, device):
     chanpersub = nchan // nsub
     subfreqs = (hdr.lofreq + (np.arange(nsub) + 0.5) * chanpersub
                 * abs(hdr.foff) - 0.5 * abs(hdr.foff))
+    delays, delaytimes = _orbit_model(args, series.shape[1] * dt,
+                                      tepoch)
     res = fold_subband_series(series, dt, f, fd, fdd, cfg,
                               fold_dm=args.dm, subfreqs=subfreqs,
-                              tepoch=tepoch, phs0=args.phs, device=device)
+                              tepoch=tepoch, phs0=args.phs,
+                              delays=delays, delaytimes=delaytimes,
+                              device=device)
     res.lofreq = hdr.lofreq
     res.chan_wid = abs(hdr.foff)
     res.numchan = nchan
@@ -395,23 +523,35 @@ def run(args, device="cuda"):
     _refuse_unported(args)
     device = resolve_device(device)
     apply_presets(args)
+    if args.absphase and not (args.polycos or args.parfile):
+        raise SystemExit("prepfold: -absphase requires -polycos or "
+                         "-par/-timing (the reference errors too)")
     is_dat = args.infile.endswith(".dat") or args.events
-    # T turns an accelcand's (r, z) into (f, fd): read N*dt cheaply
+    # T turns an accelcand's (r, z) into (f, fd): read N*dt cheaply; the
+    # epoch, site and frequency feed the ephemeris and catalog folds
     if is_dat:
         try:
             info = read_inf(os.path.splitext(args.infile)[0])
             T = info.N * info.dt
-            telescope = info.telescope
+            obs = {"mjd": info.mjd, "telescope": info.telescope,
+                   "bary": bool(info.bary),
+                   "obsfreq": (0.0 if info.bary
+                               else info.freq + 0.5 * info.freqband)}
         except Exception:
             if not args.events:
                 raise
-            T, telescope = 1.0, None
+            T, obs = 1.0, {}
     else:
         fb0 = open_raw_args([args.infile], args)
-        T = fb0.header.N * fb0.header.tsamp
-        telescope, _, _ = obs_metadata(fb0)
+        hdr0 = fb0.header
+        T = hdr0.N * hdr0.tsamp
+        tel, _, _ = obs_metadata(fb0)
+        obs = {"mjd": hdr0.tstart, "telescope": tel,
+               "obsfreq": hdr0.lofreq + 0.5 * abs(hdr0.foff)
+               * hdr0.nchans}
         fb0.close()
-    f, fd, fdd = _fold_params(args, T)
+    telescope = obs.get("telescope")
+    f, fd, fdd = _fold_params(args, T, obs)
     # -pfact/-ffact are reciprocal, not independent: pfact beats ffact,
     # and all of f/fd/fdd scale by ffact (prepfold.c:845-861)
     if args.pfact == 0.0 or args.ffact == 0.0:

@@ -1,10 +1,8 @@
-"""zapbirds: excise periodic interference from .fft files.
+"""zapbirds + makezaplist: excise periodic interference from .fft files.
 
-Host copy of the zapbirds half of ``presto_tpu/apps/zapbirds.py`` for
-the PyTorch port, which imports nothing from the JAX package.  Zapping
-stays on the host: zap_bins' median, phase and the order of its ranges
-fix the bytes.  ``makezaplist`` is not in the port yet (it needs the
-pulsar catalog's epochs and binary velocities).
+Host copy of ``presto_tpu/apps/zapbirds.py`` for the PyTorch port,
+which imports nothing from the JAX package.  Zapping stays on the host:
+zap_bins' median, phase and the order of its ranges fix the bytes.
 
 Parity targets:
   zapbirds (src/zapbirds.c:205-):
@@ -17,6 +15,10 @@ Parity targets:
         interactive PGPLOT loop (process_bird, zapbirds.c:70-200); here
         the boundaries are found automatically by expanding around the
         peak while the locally-normalized power stays above threshold.
+  makezaplist.py (bin/makezaplist.py): .birds -> .zaplist expansion of
+    harmonic trains ('freq width numharm [grow [bary]]') and catalog
+    pulsars ('P name numharm', widened by utils/catalog.binary_velocity
+    for binaries).
 
 Frame conventions (birdzap.c:52-68, zapbirds.c:31-41): zapfile lines
 are topocentric unless 'B'-prefixed; a barycentered FFT needs topo
@@ -35,7 +37,8 @@ from presto_tpu_torch.io.infodata import read_inf
 from presto_tpu_torch.ops import fftpack
 from presto_tpu_torch.ops.rednoise import (birds_to_bin_ranges,
                                            read_birds_bary, zap_bins)
-from presto_tpu_torch.utils.catalog import default_birds_path
+from presto_tpu_torch.utils.catalog import (binary_velocity,
+                                            default_birds_path, psrepoch)
 
 
 def build_parser():
@@ -211,6 +214,109 @@ def main(argv=None):
                            args.baryv)
         print("zapbirds: wrote %d measured birdies to %s"
               % (nf, args.outzapfile))
+
+
+# ----------------------------------------------------------------- #
+# makezaplist: .birds -> .zaplist (bin/makezaplist.py)
+
+def makezaplist(birdsfile: str, min_psr_harm_bins: float = 40.0) -> str:
+    """Expand a .birds file into a sorted .zaplist.
+
+    Line formats (makezaplist.py:37-85):
+      'freq width'                     one birdie
+      'freq width numharm [grow [bary]]'  harmonic train; grow!=0
+                                       scales the width with harmonic
+      'P psrname numharm'              catalog pulsar: zap numharm
+                                       harmonics with a minimum width
+                                       of 40/T Hz (Doppler-broadened by
+                                       the orbit when the pulsar is in
+                                       a binary)
+    Requires <root>.inf beside the .birds file for T.
+    """
+    if not birdsfile.endswith(".birds"):
+        raise SystemExit("the birdie file must end in '.birds'")
+    root = birdsfile[:-len(".birds")]
+    info = read_inf(root)
+    T = info.dt * info.N
+    min_psr_width = min_psr_harm_bins / T
+    birds = []   # (freq, width, bary)
+    npsr = nfreq = ntrain = 0
+    with open(birdsfile) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            if line[0] == "P":
+                _, psrname, numharm = line.split()
+                birds.extend(_psr_birds(psrname, int(numharm),
+                                        info.mjd_i + info.mjd_f, T,
+                                        min_psr_width))
+                npsr += 1
+                continue
+            words = line.split()
+            if len(words) >= 3:
+                freq, width = float(words[0]), float(words[1])
+                numharm = int(words[2])
+                grow = int(words[3]) if len(words) >= 4 else 0
+                bary = int(words[4]) if len(words) >= 5 else 0
+                ntrain += 1
+                for harm in range(1, numharm + 1):
+                    w = width * harm if grow else width
+                    birds.append((freq * harm, w, bary))
+            else:
+                nfreq += 1
+                width = float(words[1]) if len(words) > 1 else 0.0
+                birds.append((float(words[0]), width, 0))
+    print("Read %d freqs, %d pulsars, and %d harmonic series."
+          % (nfreq, npsr, ntrain))
+    birds.sort()
+    out = root + ".zaplist"
+    with open(out, "w") as f:
+        f.write("# This file created automatically with makezaplist\n")
+        f.write("# Lines beginning with '#' are comments\n")
+        f.write("# Lines beginning with 'B' are barycentric freqs "
+                "(i.e. PSR freqs)\n")
+        f.write("# %20s  %20s\n" % ("Freq", "Width"))
+        f.write("# %s  %s\n" % ("-" * 20, "-" * 20))
+        for freq, width, bary in birds:
+            pre = "B" if bary else " "
+            f.write("%s %20.15g  %20.15g\n" % (pre, freq, width))
+    print("Wrote '%s'" % out)
+    return out
+
+
+def _psr_birds(psrname: str, numharm: int, epoch: float, T: float,
+               min_psr_width: float):
+    """Barycentric zap entries for a catalog pulsar's harmonics,
+    widened by the orbital Doppler range when binary
+    (makezaplist.py:44-62)."""
+    psr = psrepoch(psrname, epoch)
+    out = []
+    if psr.orb is not None and psr.orb.p:
+        minv, maxv = binary_velocity(T, psr.orb)
+        midv = 0.5 * (maxv + minv)
+        for harm in range(1, numharm + 1):
+            midf = (1.0 + midv) * psr.f * harm
+            width = (maxv - minv) * psr.f * harm
+            if 0.1 * width < min_psr_width:
+                width = width + min_psr_width
+            else:
+                width = width * 1.1
+            out.append((midf, width, 1))
+    else:
+        for harm in range(1, numharm + 1):
+            out.append((psr.f * harm, min_psr_width, 1))
+    return out
+
+
+def makezaplist_main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="makezaplist",
+        description="Turn a .birds file into a .zaplist")
+    p.add_argument("birdsfile", help="file ending in .birds; a matching"
+                   " .inf must exist")
+    args = p.parse_args(argv)
+    makezaplist(args.birdsfile)
 
 
 if __name__ == "__main__":

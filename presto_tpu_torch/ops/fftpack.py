@@ -1,16 +1,21 @@
 """Packed real FFT with PRESTO's layout, through ``torch.fft``.
 
-PyTorch counterpart of ``presto_tpu/ops/fftpack.py`` (realfft_packed,
-realfft_packed_pairs).  The reference's realfft (src/fastffts.c:198-270)
-is unnormalized with the e^{-2πi} convention and stores n/2 complex
-values with bin 0 holding (DC, Nyquist).  Spectra travel as float32
-[..., n//2, 2] pairs, the JAX package's boundary format.
+PyTorch counterpart of ``presto_tpu/ops/fftpack.py``.  The reference's
+realfft (src/fastffts.c:198-270) is unnormalized with the e^{-2πi}
+convention and stores n/2 complex values with bin 0 holding (DC,
+Nyquist); its inverse (isign=+1) returns the series itself.  Spectra
+travel as float32 [..., n//2, 2] pairs, the JAX package's boundary
+format.  Every transform runs through ``torch.fft`` on the tensor's
+device, at any length (cuFFT takes any n; the JAX package's realfft CLI
+sends lengths that are not 7-smooth to the host instead).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from presto_tpu_torch.utils.psr import good_fft_size
 
 
 def realfft_packed(x: torch.Tensor) -> torch.Tensor:
@@ -22,9 +27,60 @@ def realfft_packed(x: torch.Tensor) -> torch.Tensor:
                      dim=-1).to(torch.complex64)
 
 
+def irealfft_packed(packed: torch.Tensor, scale: bool = True
+                    ) -> torch.Tensor:
+    """Inverse of realfft_packed: complex [..., n//2] -> float32 [..., n].
+    With ``scale`` the series itself (the reference's isign=+1 path);
+    without, n times it (the unnormalized inverse)."""
+    n2 = packed.shape[-1]
+    dc = torch.complex(packed[..., 0].real,
+                       torch.zeros_like(packed[..., 0].real))
+    nyq = torch.complex(packed[..., 0].imag,
+                        torch.zeros_like(packed[..., 0].imag))
+    full = torch.cat([dc[..., None], packed[..., 1:], nyq[..., None]],
+                     dim=-1)
+    x = torch.fft.irfft(full, n=2 * n2)
+    if scale:
+        return x.to(torch.float32)
+    return (x * (2 * n2)).to(torch.float32)
+
+
+def complex_to_pairs(z: torch.Tensor) -> torch.Tensor:
+    """[...] complex -> [..., 2] float32."""
+    return torch.view_as_real(z.to(torch.complex64)).contiguous()
+
+
+def pairs_to_complex(p: torch.Tensor) -> torch.Tensor:
+    """[..., 2] float32 -> [...] complex64."""
+    return torch.view_as_complex(p.to(torch.float32).contiguous())
+
+
 def realfft_packed_pairs(x: torch.Tensor) -> torch.Tensor:
     """realfft_packed as float32 pairs [..., n//2, 2]."""
-    return torch.view_as_real(realfft_packed(x)).contiguous()
+    return complex_to_pairs(realfft_packed(x))
+
+
+def irealfft_packed_pairs(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of realfft_packed_pairs ([..., n//2, 2] float32 -> x)."""
+    return irealfft_packed(pairs_to_complex(p))
+
+
+def spectral_power(packed: torch.Tensor) -> torch.Tensor:
+    """|X_k|^2 for a packed spectrum, k = 0..n/2-1 (the DC power at k=0
+    uses only the DC part, as PRESTO's power spectra of .fft files)."""
+    p = packed.abs() ** 2
+    dc = packed[..., 0].real ** 2
+    return torch.cat([dc[..., None], p[..., 1:]], dim=-1)
+
+
+def fourier_freqs(n: int, dt: float) -> np.ndarray:
+    """Frequencies (Hz) of packed bins 0..n/2-1."""
+    return np.arange(n // 2) / (n * dt)
+
+
+def next_good_fftlen(n: int) -> int:
+    """Smallest even 7-smooth length >= n."""
+    return good_fft_size(n, multiple_of=2)
 
 
 def np_pairs_to_complex64(p: np.ndarray) -> np.ndarray:

@@ -266,35 +266,59 @@ def feed_blocks(fb, prep, blocklen: int, nblocks: int, device,
         ingest.close()
 
 
-def stream_subbands(fb, prep, chan_bins, nsub: int, blocklen: int,
-                    device, skip: int = 0) -> np.ndarray:
-    """The channels -> subbands stage alone over a streamed pass from
-    spectrum ``skip`` (feed_blocks, then ops/dedispersion
-    .dedisp_subbands_block at the [nchan] delays ``chan_bins``): each
-    block's subbands go straight into their columns of one device
-    tensor, downloaded once.  Returns host [nsub, N - skip - max delay]
-    float32 (prepfold's raw fold and prepsubband -sub)."""
-    from presto_tpu_torch.ops import dedispersion as dd
+def _stream_pass(fb, prep, step, rows: tuple, max_delay: int,
+                 blocklen: int, device, skip: int) -> np.ndarray:
+    """A streamed pass from spectrum ``skip`` (feed_blocks over the data
+    blocks and one zero flush block): ``step(prev, cur)`` of each pair of
+    consecutive device blocks, [*rows, blocklen], written into its
+    columns of one device tensor [*rows, N - skip - max_delay],
+    downloaded once."""
     nspec = int(fb.header.N) - skip
-    nout = max(nspec - int(np.max(chan_bins)), 0)
-    chan_d = torch.as_tensor(np.asarray(chan_bins, np.int64), device=device)
-    out = torch.empty((nsub, nout), dtype=torch.float32, device=device)
+    nout = max(nspec - max_delay, 0)
+    out = torch.empty(rows + (nout,), dtype=torch.float32, device=device)
     pos, prev = 0, None
-    # the data blocks, then one zero flush block
     nblocks = -(-nspec // blocklen) + 1
     feed = feed_blocks(fb, prep, blocklen, nblocks, device, skip=skip)
     try:
         for _nread, cur in feed:
             if prev is not None:
-                sub = dd.dedisp_subbands_block(prev, cur, chan_d, nsub)
-                take = min(sub.shape[1], nout - pos)
+                y = step(prev, cur)
+                take = min(y.shape[-1], nout - pos)
                 if take > 0:
-                    out[:, pos:pos + take] = sub[:, :take]
+                    out[..., pos:pos + take] = y[..., :take]
                     pos += take
             prev = cur
     finally:
         feed.close()
     return out.cpu().numpy()
+
+
+def stream_subbands(fb, prep, chan_bins, nsub: int, blocklen: int,
+                    device, skip: int = 0) -> np.ndarray:
+    """The channels -> subbands stage alone over a streamed pass from
+    spectrum ``skip`` (ops/dedispersion.dedisp_subbands_block at the
+    [nchan] delays ``chan_bins``).  Returns host [nsub, N - skip - max
+    delay] float32 (prepfold's raw fold and prepsubband -sub)."""
+    from presto_tpu_torch.ops import dedispersion as dd
+    chan_d = torch.as_tensor(np.asarray(chan_bins, np.int64), device=device)
+    return _stream_pass(
+        fb, prep, lambda p, c: dd.dedisp_subbands_block(p, c, chan_d, nsub),
+        (nsub,), int(np.max(chan_bins)), blocklen, device, skip)
+
+
+def stream_series(fb, prep, chan_bins, blocklen: int, device,
+                  skip: int = 0) -> np.ndarray:
+    """One DM's dedispersed series over a streamed pass from spectrum
+    ``skip``: every channel shifted by its delay in ``chan_bins`` and
+    summed in channel order (ops/dedispersion.float_dedisp_many_block
+    with one DM row, the JAX package's float_dedisp_block order).
+    Returns host [N - skip - max delay] float32 (prepdata)."""
+    from presto_tpu_torch.ops import dedispersion as dd
+    bins_d = torch.as_tensor(np.asarray(chan_bins, np.int64)[None],
+                             device=device)
+    return _stream_pass(
+        fb, prep, lambda p, c: dd.float_dedisp_many_block(p, c, bins_d)[0],
+        (), int(np.max(chan_bins)), blocklen, device, skip)
 
 
 @dataclass

@@ -48,13 +48,15 @@ def default_db_path() -> str:
 # device fingerprint
 # ----------------------------------------------------------------------
 
-#: files whose text feeds the kernel-source hash: the CUDA kernels and
-#: the wrappers that launch them (editing any re-tunes)
+#: files whose text feeds the kernel-source hash: the CUDA kernels, the
+#: wrappers that launch them and the out-of-core FFT whose block size is
+#: tuned (editing any re-tunes)
 _KERNEL_SOURCES = (
     "csrc/plane_build.cu",
     "csrc/stage_reduce.cu",
     "search/build_cuda.py",
     "search/accel_cuda.py",
+    "ops/oocfft.py",
 )
 
 

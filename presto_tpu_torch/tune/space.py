@@ -25,16 +25,22 @@ candidate on a device (or scores it, for a modeled family):
                       beam multiplexer (stream/beams.py)
   plancache_bucket    the serve plan cache's bucket edges (modeled:
                       builds + padding waste, no clock)
+  oocfft_block        block-buffer bytes of the out-of-core two-pass
+                      FFT (ops/oocfft; host, the same bytes at any
+                      block size)
 
 Not here (ROADMAP.md says why): ``harmonic_sum_layout`` (the port has
-one device engine for the harmonic sums), ``dedisp_dm_batch`` (the
-port's dedispersion has no DM-batch bound) and ``oocfft_block``
-(ops/oocfft is not ported).  Every family has a tiny ``smoke`` shape
-that runs on the CPU.
+one device engine for the harmonic sums) and ``dedisp_dm_batch`` (the
+port's dedispersion has no DM-batch bound).  Every family has a tiny
+``smoke`` shape that runs on the CPU.
 """
 
 from __future__ import annotations
 
+import atexit
+import os
+import shutil
+import tempfile
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
@@ -299,6 +305,39 @@ def _bucket_score(shape, config) -> float:
 
 
 # ----------------------------------------------------------------------
+# oocfft_block
+# ----------------------------------------------------------------------
+
+_scratch: Optional[str] = None
+
+
+def _scratch_dir() -> str:
+    global _scratch
+    if _scratch is None:
+        _scratch = tempfile.mkdtemp(prefix="presto-tune-")
+        atexit.register(shutil.rmtree, _scratch, True)
+    return _scratch
+
+
+def _oocfft_bench(shape, config, device):
+    """The out-of-core forward FFT of a seeded n-float series at one
+    block-buffer size (host: ``device`` is not used)."""
+    from presto_tpu_torch.ops.oocfft import realfft_ooc
+    n = int(shape.get("n", 1 << 20))
+    max_mem = int(config["max_mem"])
+    d = _scratch_dir()
+    src = os.path.join(d, "tune_%d.dat" % n)
+    if not os.path.exists(src) or os.path.getsize(src) != 4 * n:
+        rng = np.random.default_rng(9)
+        rng.normal(size=n).astype(np.float32).tofile(src)
+    dst = os.path.join(d, "tune_%d_%d.fft" % (n, max_mem))
+
+    def fn():
+        realfft_ooc(src, dst, forward=True, max_mem=max_mem, tmpdir=d)
+    return fn
+
+
+# ----------------------------------------------------------------------
 # the catalog
 # ----------------------------------------------------------------------
 
@@ -376,6 +415,18 @@ FAMILIES: Dict[str, Family] = {
                               {"scheme": "pow2_quarter"}],
         score=_bucket_score,
         shapes=lambda smoke: ([{"jobs": 64}] if smoke else [{"jobs": 512}]),
+    ),
+    "oocfft_block": Family(
+        name="oocfft_block",
+        doc="Block-buffer bytes of the out-of-core two-pass FFT",
+        shape_key=lambda s: tune.GLOBAL_KEY,
+        candidates=lambda s: [
+            {"max_mem": int(m)} for m in
+            (s.get("max_mems") or (1 << 24, 1 << 26, 1 << 28))],
+        bench=_oocfft_bench,
+        shapes=lambda smoke: (
+            [{"n": 1 << 14, "max_mems": (1 << 16, 1 << 20)}]
+            if smoke else [{"n": 1 << 22}]),
     ),
 }
 

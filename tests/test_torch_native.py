@@ -7,11 +7,20 @@ stream_blocks delivers read_spectra's blocks; the quality reports are
 equal as JSON; the device feed (pipeline/fusion.feed_blocks) delivers
 the channel-major blocks of the read + preprocess + transpose sequence
 it replaced, bit for bit.
+
+The JAX package builds its library in place (``make -C csrc`` on first
+load), so under several test workers one of them can find the file
+half written and give up on it for good.  ``jax_native`` takes a lock,
+waits for the file to settle, retries such a load, and then asserts
+the library is loaded: a missing reference library fails the test.
 """
 
 import argparse
+import fcntl
 import json
 import os
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -29,6 +38,44 @@ from presto_tpu_torch.pipeline import fusion
 
 RNG = np.random.default_rng(4321)
 
+#: how long a load waits for another process's build of the JAX library
+JAX_BUILD_WAIT_S = 300.0
+
+
+def _settled(path: str, quiet_s: float = 2.0) -> bool:
+    """The file exists and has not been written for ``quiet_s``."""
+    try:
+        return time.time() - os.path.getmtime(path) >= quiet_s
+    except OSError:
+        return False
+
+
+@pytest.fixture(scope="module")
+def jax_native():
+    """The JAX package's native module with its library loaded, however
+    the test workers raced to build it; fails when it cannot load."""
+    lock = os.path.join(tempfile.gettempdir(),
+                        "presto_tpu_io_native.lock")
+    with open(lock, "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        assert not os.environ.get("PRESTO_TPU_NO_NATIVE"), \
+            "PRESTO_TPU_NO_NATIVE disables the reference library"
+        deadline = time.monotonic() + JAX_BUILD_WAIT_S
+        while True:
+            if jnative._lib is None and (
+                    not os.path.exists(jnative._SO)
+                    or _settled(jnative._SO)):
+                # a load that failed on another worker's half-written
+                # file is retried once the file has settled
+                jnative._load_failed = False
+                jnative._load()
+            if jnative._lib is not None or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    assert jnative._lib is not None, \
+        "the JAX package's native library %s did not load" % jnative._SO
+    return jnative
+
 
 def _hdr(mod, nchan, nbits, nifs=1, foff=-1.0):
     return mod.FilterbankHeader(nchans=nchan, nifs=nifs, nbits=nbits,
@@ -37,17 +84,17 @@ def _hdr(mod, nchan, nbits, nifs=1, foff=-1.0):
 
 
 @pytest.mark.parametrize("nbits", [1, 2, 4, 8])
-def test_unpack_bits_parity(nbits):
+def test_unpack_bits_parity(nbits, jax_native):
     raw = RNG.integers(0, 256, size=4096).astype(np.uint8)
     got = tnative.unpack_bits(raw, nbits)
     assert np.array_equal(got, tsig.unpack_bits(raw, nbits))
-    assert np.array_equal(got, jnative.unpack_bits(raw, nbits))
+    assert np.array_equal(got, jax_native.unpack_bits(raw, nbits))
 
 
 @pytest.mark.parametrize("nbits", [1, 2, 4, 8])
 @pytest.mark.parametrize("nifs", [1, 2])
 @pytest.mark.parametrize("flip", [False, True])
-def test_decode_spectra_parity(nbits, nifs, flip):
+def test_decode_spectra_parity(nbits, nifs, flip, jax_native):
     """Native decode == the JAX package's native decode == the port's
     NumPy decode, and the same bytes when written into a caller's
     buffer (the NumPy view of a torch tensor, as the upload ring's)."""
@@ -57,8 +104,8 @@ def test_decode_spectra_parity(nbits, nifs, flip):
     got = tnative.decode_spectra(raw, nspec, nifs, nchan, nbits, flip)
     hdr = _hdr(tsig, nchan, nbits, nifs, -1.0 if flip else 1.0)
     assert np.array_equal(got, tsig.decode_spectra_numpy(hdr, raw, nspec))
-    assert np.array_equal(got, jnative.decode_spectra(raw, nspec, nifs,
-                                                      nchan, nbits, flip))
+    assert np.array_equal(got, jax_native.decode_spectra(
+        raw, nspec, nifs, nchan, nbits, flip))
     buf = torch.full((nspec + 3, nchan), -1.0)
     view = tsig.decode_spectra_block(hdr, raw, nspec, out=buf.numpy())
     assert np.array_equal(view, got)
@@ -68,7 +115,7 @@ def test_decode_spectra_parity(nbits, nifs, flip):
 
 @pytest.mark.parametrize("nbits", [2, 4, 8])
 @pytest.mark.parametrize("npol,pol_mode", [(1, 0), (2, -2), (4, 1)])
-def test_decode_subint_parity(nbits, npol, pol_mode):
+def test_decode_subint_parity(nbits, npol, pol_mode, jax_native):
     nspec, nchan = 11, 24
     raw = RNG.integers(0, 256, size=nspec * npol * nchan * nbits // 8
                        ).astype(np.uint8)
@@ -78,7 +125,7 @@ def test_decode_subint_parity(nbits, npol, pol_mode):
     args = (raw, nspec, npol, nchan, nbits, 1.5, scl, offs, wts, pol_mode,
             True)
     assert np.array_equal(tnative.decode_subint(*args),
-                          jnative.decode_subint(*args))
+                          jax_native.decode_subint(*args))
 
 
 def test_decode_rejects_what_it_cannot_take():

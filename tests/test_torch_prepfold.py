@@ -238,11 +238,11 @@ def test_fold_dat_cands_byte_equal_to_cli(datdir):
     ["-mask", "x.mask", "-bin", "-pb", "1000", "-x", "1"],
     ["-ignorechan", "0:3", "-psr", "B1937+21"], []])
 def test_unported_flags_are_refused(datdir, flags):
-    """Ephemeris folds, orbits and (no -noplot) the plot raise
-    NotImplementedError before any work, beside -mask and -ignorechan
-    too (which the port takes)."""
-    argv = flags + ["-f", "41.3", "-nosearch"] + \
-        ([] if not flags else ["-noplot"]) + ["x.dat"]
+    """The diagnostic plot (a run without -noplot) raises
+    NotImplementedError before any work, whatever else is given: the
+    ephemeris folds, the orbits, -mask and -ignorechan, which the port
+    takes (tests/test_torch_prepfold_ephem.py runs them)."""
+    argv = flags + ["-f", "41.3", "-nosearch"] + ["x.dat"]
     with pytest.raises(NotImplementedError, match="later slice"):
         tapp.main(argv, device="cpu")
     assert not os.path.exists("x.pfd")

@@ -228,7 +228,7 @@ def test_runner_timeout_and_cuda_default():
 @pytest.mark.parametrize("name", ["pipeline_inflight_depth",
                                   "sharded_inflight_depth",
                                   "serve_batch_geometry", "beam_stack_size",
-                                  "plancache_bucket"])
+                                  "plancache_bucket", "oocfft_block"])
 def test_family_candidates_equal_jax_and_smoke_bench_runs(name):
     fam, jfam = space.FAMILIES[name], jspace.FAMILIES[name]
     for smoke in (True, False):
