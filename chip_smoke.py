@@ -211,7 +211,9 @@ Phases (any failure exits non-zero before the final line):
              the beam barycentred, its .dat/.inf byte-equal to the CPU's,
              with its ingest wait and dedispersion device ms a block;
              realfft in core (card) and -disk (host, out of core, many
-             slabs a pass), the spectra within CLASSIC_RTOL of the RMS,
+             slabs a pass), the spectra within CLASSIC_RTOL of the RMS
+             and, of the mean-free series, bin by bin of max(|X_k|,
+             RMS),
              realfft -inv back to the .dat within it; accelsearch on the
              .fft (launches read around it) with the 40.3 Hz pulsar at f
              (1 + avgvoverc), both kernels held to their plain versions
@@ -221,7 +223,8 @@ Phases (any failure exits non-zero before the final line):
              prepfold -psr J0737-3039A on a barycentred series of the
              binary made on the card, card against CPU by the fold
              phase's chi2 rule, reduced chi2 >= FOLD_REDCHI_MIN with the
-             catalog's orbit and under it without;
+             catalog's orbit and under it without (the same search at
+             the catalog's f and fd);
  12. summary the kernels line (launches of the main path, the sharded
              main path, by shard too, the serve path, the fleet path, the
              federation path (A's last snapshot and B's replicas'), the
@@ -4761,11 +4764,15 @@ CLASSIC_DM = 22.0
 CLASSIC_OOC_MEM = 1 << 22
 # the in-core spectrum against the out-of-core one: the RMS of their
 # difference within this share of the spectrum's RMS (the norm-wise
-# fftpack bound; the series' mean puts |DC| = sqrt(n/2) x the RMS into
-# bin 0, whose float32 spacing alone is ~9e-5 of the RMS at the beam's
-# 2^21 bins, so no float32 spectrum meets it bin by bin); realfft -inv
-# of the card's .fft against the .dat: the largest difference within
-# this share of the series' RMS
+# fftpack bound), on the .dat as it is and on the mean-free series; bin
+# by bin, |diff_k| within this share of max(|X_k|, RMS) on the
+# mean-free series (a bin's own float32 spacing, |X_k| x 1.19e-7, passes
+# 1e-5 of the RMS once |X_k| passes ~84 RMS).  The .dat as it is is not
+# held bin by bin: the float32 FFT rounds the large partial sums of the
+# series' mean, and those errors land on the bins at multiples of
+# n/2^j (the phase prints its largest bins); realfft
+# -inv of the card's .fft against the .dat: the largest difference
+# within this share of the series' RMS
 CLASSIC_RTOL = 1e-5
 # a barycentred series of J0737-3039A made on the card: 2^22 samples of
 # 1.28e-4 s (537 s, 16 MB), a gaussian pulse of `width` turns (FWHM)
@@ -4774,9 +4781,6 @@ CLASSIC_RTOL = 1e-5
 # 0.33 s, 14.5 turns, over the series; the phase prints it)
 CLASSIC_PSR = dict(name="J0737-3039A", N=1 << 22, dt=1.28e-4, mjd=59000.0,
                    width=0.05, amp=0.5, seed=37)
-# the fold without the orbit (-p, -nosearch) smears flat: its reduced
-# chi2 must stay under FOLD_REDCHI_MIN
-CLASSIC_FLAT_P = "0.022699"
 
 
 def classic_psr_dat(path, device="cuda"):
@@ -4812,6 +4816,19 @@ def classic_psr_dat(path, device="cuda"):
                 turns=float((delays.max() - delays.min()) * pp.f))
 
 
+def _spectra_diff(card, disk):
+    """Card against disk packed spectrum: the RMS of |card - disk| over
+    the spectrum's RMS (`rms`), the largest |diff_k| / max(|X_k|, RMS)
+    (`bin`), and the four largest |diff_k| / RMS by bin (`top`)."""
+    mag = np.abs(disk.astype(np.complex128))
+    rms = float(np.sqrt(np.mean(mag ** 2)))
+    diff = np.abs(card.astype(np.complex128) - disk)
+    top = np.argsort(diff)[-4:][::-1]
+    return dict(rms=float(np.sqrt(np.mean(diff ** 2))) / rms,
+                bin=float((diff / np.maximum(mag, rms)).max()),
+                top=[(int(k), float(diff[k]) / rms) for k in top])
+
+
 def _peak_bin(prof):
     return int(np.argmax(np.asarray(prof)))
 
@@ -4827,10 +4844,11 @@ def phase_classic(raw, workdir, device="cuda"):
     samples under RECIPE_POSITION's header), its .dat/.inf byte-equal to
     the same command on the CPU, its ingest wait and dedispersion device
     ms a block; realfft in core on the card and realfft -disk (host, out
-    of core, CLASSIC_OOC_MEM blocks), the RMS of the two spectra's
-    difference within CLASSIC_RTOL of the spectrum's RMS with the packed
-    layout exact, realfft -inv of the card's .fft back to the .dat
-    within CLASSIC_RTOL of its RMS; accelsearch
+    of core, its oocfft.realfft_ooc with CLASSIC_OOC_MEM blocks), the
+    RMS of the two spectra's difference within CLASSIC_RTOL of the
+    spectrum's RMS, and on the mean-free series each bin's within
+    CLASSIC_RTOL of max(|X_k|, RMS) too, with the packed layout exact, realfft -inv of the card's .fft back
+    to the .dat within CLASSIC_RTOL of its RMS; accelsearch
     (zmax 200, numharm 8) on the card's .fft, launches read around it,
     the 40.3 Hz pulsar among its candidates within RECIPE_FREQ_TOL_BINS
     of f (1 + avgvoverc), and both kernels against their plain versions
@@ -4842,10 +4860,10 @@ def phase_classic(raw, workdir, device="cuda"):
     orbit from the catalog) of CLASSIC_PSR's series on the card and on
     the CPU, the chi2 surfaces within CHI2_ATOL of their maximum and the
     best trial equal unless a near-tie, its reduced chi2 at least
-    FOLD_REDCHI_MIN while the -p CLASSIC_FLAT_P -nosearch fold without
-    the orbit stays under it.  The card work runs on ``device`` (a CPU
-    rehearsal at a small beam passes "cpu", its counts and timings then
-    meaningless)."""
+    FOLD_REDCHI_MIN while the fold at the catalog's f and fd for the
+    epoch, with the same search and without the orbit, stays under it.
+    The card work runs on ``device`` (a CPU rehearsal at a small beam
+    passes "cpu", its counts and timings then meaningless)."""
     from presto_tpu_torch.apps import (accelsearch, common, pfd_for_timing,
                                        prepdata, prepfold, realfft)
     from presto_tpu_torch.io import datfft
@@ -4916,30 +4934,33 @@ def phase_classic(raw, workdir, device="cuda"):
     realfft.main(["-mem", dat], device=device)
     incore_s = time.time() - t0
     os.replace(base + ".fft", base + ".card.fft")
-    saved_mem = oocfft._DEF_MAX_MEM
-    oocfft._DEF_MAX_MEM = CLASSIC_OOC_MEM
-    try:
-        t0 = time.time()
-        realfft.main(["-disk", dat], device=device)
-        ooc_s = time.time() - t0
-    finally:
-        oocfft._DEF_MAX_MEM = saved_mem
+    # realfft -disk's transform, given the small block buffer
+    t0 = time.time()
+    ran = oocfft.realfft_ooc(dat, base + ".fft", forward=True,
+                             max_mem=CLASSIC_OOC_MEM)
+    ooc_s = time.time() - t0
+    (R, C), passes = ran["split"], ran["slabs"]
     series = datfft.read_dat(dat)
     n = series.size & ~1
     nc = n // 2
-    R, C = oocfft._split_n(nc)
-    passes = (-(-C // max(1, CLASSIC_OOC_MEM // (R * 32))),
-              -(-R // max(1, CLASSIC_OOC_MEM // (C * 32))))
     card_fft = datfft.read_fft(base + ".card.fft")
     disk_fft = datfft.read_fft(base + ".fft")
-    rms = float(np.sqrt(np.mean(np.abs(disk_fft.astype(np.complex128))
-                                ** 2)))
-    diff = np.abs(card_fft.astype(np.complex128) - disk_fft)
-    fft_err = float(np.sqrt(np.mean(diff ** 2))) / rms
-    fft_max = float(diff.max()) / rms
-    dc_err = float(diff[0]) / float(abs(complex(disk_fft[0])))
-    del diff
     layout_ok = card_fft.shape == disk_fft.shape == (nc,)
+    asis = _spectra_diff(card_fft, disk_fft)
+    del card_fft, disk_fft
+    # the same two transforms of the mean-free series, held bin by bin
+    zdir = os.path.join(workdir, "meanfree")
+    os.makedirs(zdir)
+    zbase = os.path.join(zdir, os.path.basename(base))
+    (series[:n] - series[:n].mean(dtype=np.float64)).astype(
+        np.float32).tofile(zbase + ".dat")
+    shutil.copy(base + ".inf", zbase + ".inf")
+    realfft.main(["-mem", zbase + ".dat"], device=device)
+    oocfft.realfft_ooc(zbase + ".dat", zbase + ".disk.fft", forward=True,
+                       max_mem=CLASSIC_OOC_MEM)
+    free = _spectra_diff(datfft.read_fft(zbase + ".fft"),
+                         datfft.read_fft(zbase + ".disk.fft"))
+    shutil.rmtree(zdir)
     x_d = torch.from_numpy(series[:n]).to(device)
     fft_ms = cuda_time_ms(lambda: fftpack.realfft_packed_pairs(x_d), 10)
     del x_d
@@ -4953,17 +4974,25 @@ def phase_classic(raw, workdir, device="cuda"):
     srms = float(np.sqrt(np.mean(series[:n].astype(np.float64) ** 2)))
     inv_err = float(np.abs(back.astype(np.float64)
                            - series[:n]).max()) / srms
-    fft_ok = (layout_ok and fft_err <= CLASSIC_RTOL
+    fft_ok = (layout_ok and asis["rms"] <= CLASSIC_RTOL
+              and free["rms"] <= CLASSIC_RTOL
+              and free["bin"] <= CLASSIC_RTOL
               and back.shape == (n,) and inv_err <= CLASSIC_RTOL)
+    top = lambda d: ", ".join("%d (%.3f n/64) %.3g" % (k, 64.0 * k / n, e)
+                              for k, e in d["top"])
     log("classic: realfft of %d samples in core on the card %.2f s "
         "(torch.fft %.3f device ms), -disk out of core %.2f s (host; "
-        "%d x %d two-pass split, %d + %d slabs of a %d-byte buffer); "
-        "in core - out of core: RMS / RMS %.3g (bound %g), max / RMS "
-        "%.3g, bin 0 / |bin 0| %.3g; realfft -inv of the card's .fft max "
-        "|x' - x| / RMS %.3g (bound %g); layout %s %s"
+        "%d x %d two-pass split, %d + %d slabs of a %d-byte buffer, as "
+        "run); in core - out of core: the .dat RMS / RMS %.3g (bound %g), "
+        "bin by bin max |diff| / max(|X_k|, RMS) %.3g, its largest |diff| "
+        "/ RMS at bins %s; the mean-free series RMS / RMS %.3g (bound %g), "
+        "bin by bin %.3g (bound %g), largest at bins %s; realfft -inv of "
+        "the card's .fft max |x' - x| / RMS %.3g (bound %g); layout %s %s"
         % (n, incore_s, fft_ms, ooc_s, R, C, passes[0], passes[1],
-           CLASSIC_OOC_MEM, fft_err, CLASSIC_RTOL, fft_max, dc_err,
-           inv_err, CLASSIC_RTOL, layout_ok, "ok" if fft_ok else "FAIL"))
+           ran["max_mem"], asis["rms"], CLASSIC_RTOL, asis["bin"],
+           top(asis), free["rms"], CLASSIC_RTOL, free["bin"], CLASSIC_RTOL,
+           top(free), inv_err, CLASSIC_RTOL, layout_ok,
+           "ok" if fft_ok else "FAIL"))
     os.replace(base + ".card.fft", base + ".fft")
     shutil.rmtree(inv_dir)
 
@@ -5059,7 +5088,8 @@ def phase_classic(raw, workdir, device="cuda"):
     for name, flags, dev in (
             ("card", ["-psr", CLASSIC_PSR["name"]], device),
             ("cpu", ["-psr", CLASSIC_PSR["name"]], "cpu"),
-            ("flat", ["-p", CLASSIC_FLAT_P, "-nosearch"], device)):
+            ("flat", ["-f", "%.15g" % made["f"],
+                      "-fd=%.15g" % made["fd"]], device)):
         t0 = time.time()
         psr[name] = prepfold.run(prepfold.build_parser().parse_args(
             flags + ["-noplot", "-o", pdat[:-4] + "_" + name, pdat]),
@@ -5083,15 +5113,15 @@ def phase_classic(raw, workdir, device="cuda"):
         "s, x %.4f lt-s, e %.4f; Roemer delay spans %.3f s, %.1f turns); "
         "prepfold -psr on the card %.2f s: reduced chi2 %.1f, best p "
         "%.12f s; on the CPU %.2f s; chi2 surfaces card vs CPU max |diff| "
-        "/ max %s (tolerance %g), best indices %s; -p %s -nosearch without "
-        "the orbit: reduced chi2 %.2f (under %.0f) %s"
+        "/ max %s (tolerance %g), best indices %s; -f/-fd at the epoch, the "
+        "same search, without the orbit: reduced chi2 %.2f (under %.0f) %s"
         % (CLASSIC_PSR["name"], psr_make_s, made["f"], made["pb_s"],
            made["x"], made["e"], made["delay_span_s"], made["turns"],
            psr_s["card"], psr["card"].best_redchi, psr["card"].best_p,
            psr_s["cpu"],
            json.dumps({k: float("%.3g" % e) for k, e in errs.items()}),
-           CHI2_ATOL, json.dumps(notes), CLASSIC_FLAT_P,
-           psr["flat"].best_redchi, FOLD_REDCHI_MIN,
+           CHI2_ATOL, json.dumps(notes), psr["flat"].best_redchi,
+           FOLD_REDCHI_MIN,
            "ok" if psr_ok else "FAIL"))
     phase_s = time.time() - t_phase
     ok = (prep_same and bary_ok and fft_ok and accel_ok and kern_ok
@@ -5102,8 +5132,8 @@ def phase_classic(raw, workdir, device="cuda"):
                 dedisp_ms_a_block=dedisp_ms, blocklen=blocklen,
                 nblocks=nblocks - 1, realfft_incore_s=incore_s,
                 fft_ms=fft_ms, realfft_ooc_s=ooc_s, ooc_split=[R, C],
-                ooc_slabs=list(passes), fft_rms_rel_err=fft_err,
-                fft_max_rel_err=fft_max, fft_dc_rel_err=dc_err,
+                ooc_slabs=list(passes), fft_err=asis,
+                fft_err_mean_free=free,
                 inverse_rel_err=inv_err, accelsearch_s=accel_s,
                 launches=launches, pulsar_hits=len(hits),
                 pulsar_off_bins=best[2], plane_build=kern[0],

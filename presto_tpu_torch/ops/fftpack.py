@@ -15,8 +15,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from presto_tpu_torch.utils.psr import good_fft_size
-
 
 def realfft_packed(x: torch.Tensor) -> torch.Tensor:
     """Forward packed real FFT of float32 series [..., n] (n even) ->
@@ -27,11 +25,9 @@ def realfft_packed(x: torch.Tensor) -> torch.Tensor:
                      dim=-1).to(torch.complex64)
 
 
-def irealfft_packed(packed: torch.Tensor, scale: bool = True
-                    ) -> torch.Tensor:
-    """Inverse of realfft_packed: complex [..., n//2] -> float32 [..., n].
-    With ``scale`` the series itself (the reference's isign=+1 path);
-    without, n times it (the unnormalized inverse)."""
+def irealfft_packed(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of realfft_packed: complex [..., n//2] -> float32 [..., n],
+    the series itself (the reference's isign=+1 path)."""
     n2 = packed.shape[-1]
     dc = torch.complex(packed[..., 0].real,
                        torch.zeros_like(packed[..., 0].real))
@@ -39,10 +35,7 @@ def irealfft_packed(packed: torch.Tensor, scale: bool = True
                         torch.zeros_like(packed[..., 0].imag))
     full = torch.cat([dc[..., None], packed[..., 1:], nyq[..., None]],
                      dim=-1)
-    x = torch.fft.irfft(full, n=2 * n2)
-    if scale:
-        return x.to(torch.float32)
-    return (x * (2 * n2)).to(torch.float32)
+    return torch.fft.irfft(full, n=2 * n2).to(torch.float32)
 
 
 def complex_to_pairs(z: torch.Tensor) -> torch.Tensor:
@@ -63,24 +56,6 @@ def realfft_packed_pairs(x: torch.Tensor) -> torch.Tensor:
 def irealfft_packed_pairs(p: torch.Tensor) -> torch.Tensor:
     """Inverse of realfft_packed_pairs ([..., n//2, 2] float32 -> x)."""
     return irealfft_packed(pairs_to_complex(p))
-
-
-def spectral_power(packed: torch.Tensor) -> torch.Tensor:
-    """|X_k|^2 for a packed spectrum, k = 0..n/2-1 (the DC power at k=0
-    uses only the DC part, as PRESTO's power spectra of .fft files)."""
-    p = packed.abs() ** 2
-    dc = packed[..., 0].real ** 2
-    return torch.cat([dc[..., None], p[..., 1:]], dim=-1)
-
-
-def fourier_freqs(n: int, dt: float) -> np.ndarray:
-    """Frequencies (Hz) of packed bins 0..n/2-1."""
-    return np.arange(n // 2) / (n * dt)
-
-
-def next_good_fftlen(n: int) -> int:
-    """Smallest even 7-smooth length >= n."""
-    return good_fft_size(n, multiple_of=2)
 
 
 def np_pairs_to_complex64(p: np.ndarray) -> np.ndarray:

@@ -103,12 +103,14 @@ def _split_n(n: int) -> tuple[int, int]:
 def ooc_complex_fft(src_path: str, dst_path: str, n: int,
                     forward: bool = True,
                     max_mem: int | None = None,
-                    scratch_path: str | None = None) -> None:
+                    scratch_path: str | None = None) -> dict:
     """Out-of-core complex64 FFT of an n-point file.
 
     forward=True: unnormalized e^{-2 pi i} transform (numpy fft).
     forward=False: normalized inverse (numpy ifft).
     src and dst may be the same path (scratch holds the intermediate).
+    Returns the geometry that ran: the split (R, C), the slabs of each
+    pass and the block buffer's bytes.
     """
     max_mem = _resolve_max_mem(max_mem)
     R, C = _split_n(n)
@@ -130,6 +132,7 @@ def ooc_complex_fft(src_path: str, dst_path: str, n: int,
         mid[c0:c1, :] = block.T.astype(np.complex64)
     mid.flush()
     del src, mid
+    slabs1 = -(-C // cb)
 
     # pass 2: FFTs of length C down the c axis; output element
     # (k2, k1) of O[C][R] sits at offset k2*R + k1 = k: natural order
@@ -148,6 +151,7 @@ def ooc_complex_fft(src_path: str, dst_path: str, n: int,
     dst.flush()
     del mid, dst
     os.remove(scratch)
+    return dict(split=(R, C), slabs=(slabs1, -(-R // kb)), max_mem=max_mem)
 
 
 def _real_fixup_forward(path: str, nc: int, max_mem: int) -> None:
@@ -210,7 +214,7 @@ def _real_fixup_inverse(path: str, nc: int, max_mem: int) -> None:
 
 def realfft_ooc(src_path: str, dst_path: str, forward: bool = True,
                 max_mem: int | None = None,
-                tmpdir: str | None = None) -> None:
+                tmpdir: str | None = None) -> dict:
     """Out-of-core packed real FFT: .dat (float32[n]) <-> .fft
     (packed complex64[n/2]), matching fftpack.realfft_packed /
     irealfft_packed to float32 tolerance.
@@ -219,6 +223,7 @@ def realfft_ooc(src_path: str, dst_path: str, forward: bool = True,
     two-pass complex FFT into dst, then the blocked separation pass.
     inverse: copy src -> dst, inverse-separate in place, inverse
     two-pass FFT in place; dst bytes are then the float32 series.
+    Returns the two-pass geometry that ran (ooc_complex_fft's).
     """
     max_mem = _resolve_max_mem(max_mem)
     scratch = None
@@ -229,8 +234,8 @@ def realfft_ooc(src_path: str, dst_path: str, forward: bool = True,
         nbytes = os.path.getsize(src_path)
         n = (nbytes // 4) & ~1
         nc = n // 2
-        ooc_complex_fft(src_path, dst_path, nc, forward=True,
-                        max_mem=max_mem, scratch_path=scratch)
+        ran = ooc_complex_fft(src_path, dst_path, nc, forward=True,
+                              max_mem=max_mem, scratch_path=scratch)
         _real_fixup_forward(dst_path, nc, max_mem)
     else:
         nbytes = os.path.getsize(src_path)
@@ -245,6 +250,7 @@ def realfft_ooc(src_path: str, dst_path: str, forward: bool = True,
                     break
                 fo.write(chunk)
         _real_fixup_inverse(tmp, nc, max_mem)
-        ooc_complex_fft(tmp, dst_path, nc, forward=False,
-                        max_mem=max_mem, scratch_path=scratch)
+        ran = ooc_complex_fft(tmp, dst_path, nc, forward=False,
+                              max_mem=max_mem, scratch_path=scratch)
         os.remove(tmp)
+    return ran

@@ -113,13 +113,16 @@ def test_disk_equals_jax_bytes(tmp_path, direction):
 def test_ooc_equals_jax_in_small_blocks(tmp_path, max_mem):
     """Many passes (a 4 kB block buffer) or few: the bytes of the JAX
     package's oocfft either way, and the in-core spectrum within the
-    bound."""
+    bound.  The port reports the geometry that ran: 6144 complex points
+    split 64 x 96, and the slabs of each pass."""
     x = _series(3 * (1 << 12), 9)
     src = str(tmp_path / "s.dat")
     x.tofile(src)
     for mod, out in ((jooc, "j.fft"), (tooc, "t.fft")):
-        mod.realfft_ooc(src, str(tmp_path / out), forward=True,
-                        max_mem=max_mem, tmpdir=str(tmp_path))
+        ran = mod.realfft_ooc(src, str(tmp_path / out), forward=True,
+                              max_mem=max_mem, tmpdir=str(tmp_path))
+    assert ran == dict(split=(64, 96), max_mem=max_mem,
+                       slabs={1 << 12: (48, 64), 1 << 16: (3, 4)}[max_mem])
     got = np.fromfile(str(tmp_path / "t.fft"), np.complex64)
     assert got.tobytes() == open(str(tmp_path / "j.fft"), "rb").read()
     _close(got, tfft.realfft_packed(torch.as_tensor(x)).numpy())
@@ -156,24 +159,17 @@ def test_round_trip_outdir_and_delete(tmp_path):
 
 @pytest.mark.parametrize("n", [1 << 10, 998])
 def test_fftpack_inverse_half_equals_jax(n):
-    """irealfft_packed(_pairs), complex/pairs helpers, spectral_power,
-    fourier_freqs and next_good_fftlen against the JAX package's."""
+    """irealfft_packed(_pairs) and the complex/pairs helpers against the
+    JAX package's."""
     x = _series(n, n)
     packed = tfft.realfft_packed(torch.as_tensor(x))
     jpacked = np.asarray(jfft.realfft_packed(x))
     _close(packed.numpy(), jpacked)
     _close(tfft.irealfft_packed(packed).numpy(),
            np.asarray(jfft.irealfft_packed(jpacked)))
-    _close(tfft.irealfft_packed(packed, scale=False).numpy(),
-           np.asarray(jfft.irealfft_packed(jpacked, scale=False)))
     pairs = tfft.complex_to_pairs(packed)
     assert torch.equal(tfft.pairs_to_complex(pairs), packed)
     _close(tfft.irealfft_packed_pairs(pairs).numpy(), x)
-    _close(tfft.spectral_power(packed).numpy(),
-           np.asarray(jfft.spectral_power(jpacked)))
-    assert np.array_equal(tfft.fourier_freqs(n, 1e-3),
-                          jfft.fourier_freqs(n, 1e-3))
-    assert tfft.next_good_fftlen(n + 1) == jfft.next_good_fftlen(n + 1)
 
 
 def test_realfft_without_device_needs_cuda(tmp_path, monkeypatch):
