@@ -225,14 +225,29 @@ Phases (any failure exits non-zero before the final line):
              phase's chi2 rule, reduced chi2 >= FOLD_REDCHI_MIN with the
              catalog's orbit and under it without (the same search at
              the catalog's f and fd);
+  6j. binary  the binary searches through the port's CLIs
+             (phase_binary): a 2^22-sample series of a 200 Hz pulsar in a
+             400 s orbit (modulation index 25 rad), realfft on the card;
+             search_bin at its defaults over the whole spectrum (the
+             miniFFT programs' device ms a window size, the host share),
+             its top candidate within 10% of Pb and 5% of 1/f; search_bin
+             over 2^18 bins on the card and the CPU, the lists held by
+             bincands_agreement (ties logged); bincand from a perturbed
+             trial on the card and the CPU (the same grid orbit each
+             round, Pb within 5%, x within 25%) and -candfile on the top
+             candidate; monte_binresp at the JAX package's campaign test,
+             launches read around it, both kernels held to their plain
+             versions at its geometry; quicklook's top peak within the
+             signal's bandwidth;
  12. summary the kernels line (launches of the main path, the sharded
              main path, by shard too, the serve path, the fleet path, the
              federation path (A's last snapshot and B's replicas'), the
              tune sweep, the recipe path, the psrfits path, the classic
-             path, the jerk paths and the live paths; each kernel's bound
-             also at the measured peaks, and its numbers at the recipe's
-             two pass geometries and at the classic accelsearch's),
-             the card, and the final ok line.
+             path, the monte path, the jerk paths and the live paths; each
+             kernel's bound also at the measured peaks, and its numbers at
+             the recipe's two pass geometries, at the classic
+             accelsearch's and at monte's), the card, and the final ok
+             line.
 
 Prints the full results as one JSON line (``results: {...}``).  Imports
 no JAX and nothing of the JAX package.  ``--live-only`` runs phases 10 and
@@ -4235,16 +4250,18 @@ def _inf_bytes(path):
             if not ln.startswith(" Data file name")]
 
 
-def recipe_kernels(pcfg, T, nbins, pairs, gen, label, device="cuda"):
-    """Both kernels at one recipe pass's geometry (zmax, numharm) on the
-    recipe run's spectrum: the plane builder against its plain version
-    (plane_case), then the stage reducer on that plane, bit-equal to its
-    plain version, kernel and plain times and the bound."""
+def recipe_kernels(pcfg, T, nbins, pairs, gen, label, device="cuda",
+                   uselen=None):
+    """Both kernels at one recipe pass's geometry (zmax, numharm; the
+    searcher's uselen unless given) on the recipe run's spectrum: the
+    plane builder against its plain version (plane_case), then the stage
+    reducer on that plane, bit-equal to its plain version, kernel and
+    plain times and the bound."""
     from presto_tpu_torch.search import accel, accel_cuda, build_cuda
-    s = accel.AccelSearch(accel.AccelConfig(zmax=pcfg.zmax,
-                                            numharm=pcfg.numharm,
-                                            sigma=pcfg.sigma, flo=pcfg.flo),
-                          T=T, numbins=nbins, device=device)
+    s = accel.AccelSearch(accel.AccelConfig(
+        zmax=pcfg.zmax, numharm=pcfg.numharm, sigma=pcfg.sigma,
+        flo=pcfg.flo, uselen=uselen or accel.ACCEL_USELEN),
+        T=T, numbins=nbins, device=device)
     pb, S = plane_case(s, nbins, gen, label, pairs=pairs)
     nblocks, nb_pad, numr = s.plane_geom()
     plane = build_cuda.build_plane(S, s._kbank, s.numz_pad, nb_pad,
@@ -5147,6 +5164,408 @@ def phase_classic(raw, workdir, device="cuda"):
                 phase_s=phase_s)
 
 
+# the binary searches: a phase-modulated pulsar through search_bin,
+# bincand and quicklook, and the Monte-Carlo campaign (phase_binary).
+# The series: 2^22 samples of 2.5e-4 s (T = 1048.6 s, the JAX phasemod
+# test's T), a 200 Hz sinusoid in a circular 400 s orbit of x = 0.0199
+# lt-s (modulation index 2 pi f x = 25 rad: ~51 sidebands 2.62 bins
+# apart), unit noise from its own seed.  amp 0.02 is the JAX test's
+# signal to noise scaled to this N (0.05 at 2^20 samples is 0.025 here)
+# and lowered until the sidebands pruned by prune_powers cost the least
+# (0.025 prunes more and loses sigma).  Every sideband under the 25x
+# cutoff needs amp <= ~0.012, where the binary (sigma ~4.8) sits under
+# noise candidates of the full-width search (5.0-5.6): the phase prints
+# the bins over the cutoff
+BINARY_PSR = dict(N=1 << 22, dt=2.5e-4, f=200.0, pb=400.0, x=0.0199,
+                  amp=0.02, seed=18)
+# search_bin on the card against the CPU: -rlo/-rhi span this many bins
+# around the spin bin; mini_power within BINARY_POWER_RTOL; a candidate
+# whose sigma lies within BINARY_TIE_SIGMA of a neighbour's or of the
+# list's cut may move or trade places (a stage-sum tie), and is logged
+BINARY_CPU_BINS = 1 << 18
+BINARY_POWER_RTOL = 1e-4
+BINARY_TIE_SIGMA = 1e-3
+# bincand's trial: the JAX test's perturbation (Pb 1.05x, x 0.8x)
+BINARY_TRIAL = dict(porb=1.05, x=0.8)
+# the JAX package's campaign test (tests/test_explore_monte.py)
+BINARY_MONTE = ["--N", "524288", "--dt", "0.01", "--fpsr", "20", "--amp",
+                "0.2", "--asini", "0.2", "--ratios", "0.1", "20",
+                "--ntrials", "2", "--sigma", "4", "--seed", "7",
+                "--methods", "ffdot", "long"]
+
+
+def binary_psr_dat(path):
+    """BINARY_PSR's .dat/.inf: the orbit's Roemer delays
+    (ops/orbit.orbit_delays, host float64) subtracted from each sample
+    time, the sinusoid and the unit noise (np.random.default_rng(seed))
+    on the host.  Returns the sidebands' peak power over the noise mean,
+    noise-free, for the log."""
+    from presto_tpu_torch.io.datfft import write_dat
+    from presto_tpu_torch.io.infodata import InfoData
+    from presto_tpu_torch.ops.orbit import OrbitParams, orbit_delays
+    c = BINARY_PSR
+    t = np.arange(c["N"]) * c["dt"]
+    delays = orbit_delays(t, OrbitParams(p=c["pb"], x=c["x"]))
+    sig = c["amp"] * np.cos(2.0 * np.pi * c["f"] * (t - delays))
+    noise = np.random.default_rng(c["seed"]).standard_normal(c["N"])
+    write_dat(path, (sig + noise).astype(np.float32), InfoData(
+        name=path[:-4], telescope="None", object="binary", N=float(c["N"]),
+        dt=c["dt"], mjd_i=59000, mjd_f=0.0))
+    return float((np.abs(np.fft.rfft(sig)) ** 2).max() / c["N"])
+
+
+class MiniFFTClock:
+    """While installed, each call of search/phasemod._minifft_topk with
+    its window size, window count and CUDA events around it (the span of
+    one window batch's device program, the host's launches of its ops
+    included); read after a synchronize."""
+
+    def __enter__(self):
+        from presto_tpu_torch.search import phasemod
+        self.calls = []
+        self._mod, self._orig = phasemod, phasemod._minifft_topk
+
+        def timed(windows, numsumpow, fftlen, *a, **k):
+            e0, e1 = cuda_event(), cuda_event()
+            e0.record()
+            out = self._orig(windows, numsumpow, fftlen, *a, **k)
+            e1.record()
+            self.calls.append((fftlen, int(windows.shape[0]), e0, e1))
+            return out
+        phasemod._minifft_topk = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._minifft_topk = self._orig
+
+    def by_size(self):
+        """{fftlen: [calls, windows, device ms]} and the total ms."""
+        torch.cuda.synchronize()
+        out = {}
+        for fftlen, nwin, e0, e1 in self.calls:
+            row = out.setdefault(fftlen, [0, 0, 0.0])
+            row[0] += 1
+            row[1] += nwin
+            row[2] += e0.elapsed_time(e1)
+        return out, sum(r[2] for r in out.values())
+
+
+class CorrRecorder:
+    """While installed, each call of search/bincand._corr_max (one a
+    refinement round): the best template's index, its power, the
+    template count and the call's CUDA-event span; and the host seconds
+    of each round's template build (bincand._make_templates)."""
+
+    def __enter__(self):
+        from presto_tpu_torch.search import bincand
+        self.rounds, self.build_s = [], []
+        self._mod = bincand
+        self._orig = bincand._corr_max, bincand._make_templates
+        corr, make = self._orig
+
+        def rec(seg, tmpl, fftlen):
+            e0, e1 = cuda_event(), cuda_event()
+            e0.record()
+            pows, args = corr(seg, tmpl, fftlen)
+            e1.record()
+            p = pows.cpu().numpy()
+            self.rounds.append((int(np.argmax(p)), float(p.max()),
+                                int(tmpl.shape[0]), e0.elapsed_time(e1)))
+            return pows, args
+
+        def timed_make(*a, **k):
+            t0 = time.time()
+            out = make(*a, **k)
+            self.build_s.append(time.time() - t0)
+            return out
+        bincand._corr_max, bincand._make_templates = rec, timed_make
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._corr_max, self._mod._make_templates = self._orig
+
+
+def _cli_out(fn, *a, **k):
+    """Run a CLI, return (its result, its standard output)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*a, **k)
+    return res, buf.getvalue()
+
+
+def bincands_agreement(card, cpu, rtol=BINARY_POWER_RTOL,
+                       tie=BINARY_TIE_SIGMA):
+    """search_bin's card list against the CPU's: the same (mini_N,
+    full_lo_r, mini_r, mini_numsum) keys in the same order, mini_power
+    within rtol.  A candidate in one list only, or out of order, passes as
+    a tie when its sigma lies within ``tie`` of an unmatched one's in the
+    other list or of a neighbour's, or of the list's cut.  Returns (ok,
+    ties, largest power rel err, keys matched)."""
+    key = lambda c: (c.mini_N, c.full_lo_r, c.mini_r, c.mini_numsum)
+    ck, pk = {key(c): c for c in card}, {key(c): c for c in cpu}
+    cut = min([c.mini_sigma for c in cpu + card] or [0.0])
+    only_card = [c for k, c in ck.items() if k not in pk]
+    only_cpu = [c for k, c in pk.items() if k not in ck]
+    ok, ties, err = True, [], 0.0
+    for c, others in ([(c, only_cpu) for c in only_card]
+                      + [(c, only_card) for c in only_cpu]):
+        near = [o for o in others if abs(o.mini_sigma - c.mini_sigma) <= tie]
+        if near or abs(c.mini_sigma - cut) <= tie:
+            ties.append(("only_card" if c in only_card else "only_cpu",
+                         key(c), c.mini_sigma))
+        else:
+            ok = False
+            log("binary: search_bin candidate %s sigma %.4f in one list "
+                "only, no tie" % (key(c), c.mini_sigma))
+    for k in ck.keys() & pk.keys():
+        err = max(err, abs(ck[k].mini_power - pk[k].mini_power)
+                  / pk[k].mini_power)
+    order_c = [key(c) for c in card if key(c) in pk]
+    order_p = [key(c) for c in cpu if key(c) in ck]
+    for i, (a, b) in enumerate(zip(order_c, order_p)):
+        if a != b:
+            if abs(pk[a].mini_sigma - pk[b].mini_sigma) <= tie:
+                ties.append(("order", i, pk[a].mini_sigma, pk[b].mini_sigma))
+            else:
+                ok = False
+                log("binary: search_bin order differs at %d: %s against %s"
+                    % (i, a, b))
+    return ok and err <= rtol, ties, err, len(order_c)
+
+
+def _bincand_orbit(out):
+    """(P_orb s, x lt-s, power) from bincand's printed result."""
+    val = lambda tag: float(re.search(tag + r"\s*=\s*(\S+)", out).group(1))
+    return (val("P_orb"), val("x"),
+            float(re.search(r"power (\S+)", out).group(1)))
+
+
+def phase_binary(workdir, device="cuda"):
+    """The binary searches on the card, each through the port's CLI:
+    BINARY_PSR's series made on the host (binary_psr_dat) and realfft on
+    the card; search_bin at its defaults over the whole spectrum, its
+    miniFFT programs timed per window size (MiniFFTClock), the top
+    candidate within 10% of Pb and 5% of 1/f; search_bin -rlo/-rhi over
+    BINARY_CPU_BINS around the spin bin on the card and on the CPU, held
+    by bincands_agreement; bincand from BINARY_TRIAL on the card and the
+    CPU (the same grid orbit each round, powers within
+    BINARY_POWER_RTOL, the refined Pb within 5% and x within 25%) and
+    bincand -candfile on the top candidate (logged); monte_binresp at
+    BINARY_MONTE with launches read around it (the JAX test's detection
+    checks), both kernels held to their plain versions at its geometry
+    on its first trial's spectrum; quicklook on the .dat, its top peak
+    within the signal's Carson bandwidth, f +- (2 pi f x + 1) / Pb (the
+    carrier keeps J0(25)^2 = 0.3% of the power: the peak is a sideband).
+    The card work runs on ``device`` (a CPU rehearsal passes "cpu")."""
+    from presto_tpu_torch.apps import (bincand, monte_binresp, quicklook,
+                                       realfft, search_bin)
+    from presto_tpu_torch.io import datfft
+    from presto_tpu_torch.ops import fftpack
+    from presto_tpu_torch.pipeline import monte
+    c = BINARY_PSR
+    t_phase = time.time()
+    os.makedirs(workdir, exist_ok=True)
+    T = c["N"] * c["dt"]
+    r0 = c["f"] * T
+
+    # 1. the series, realfft on the card
+    dat = os.path.join(workdir, "binary.dat")
+    base = dat[:-4]
+    t0 = time.time()
+    peak_pow = binary_psr_dat(dat)
+    make_s = time.time() - t0
+    realfft.main([dat], device=device)
+    amps = datfft.read_fft(base + ".fft")
+    pows = np.abs(amps) ** 2
+    lo = int(r0) - 196608
+    med = float(np.median(pows[lo:lo + 393216]))
+    carson = (2.0 * np.pi * c["f"] * c["x"] + 1.0) * T / c["pb"]
+    band = pows[int(r0 - carson):int(r0 + carson) + 1]
+    over = int((band > 25.0 * med).sum())
+    log("binary: %d x %g s series (f %g Hz, Pb %g s, x %g lt-s, amp %g, "
+        "seed %d) made in %.2f s; sideband peak power %.1f x the noise "
+        "mean noise-free, the spectrum's %d bins within f +- %.1f bins: %d "
+        "over prune_powers' 25x median (max %.1f x)"
+        % (c["N"], c["dt"], c["f"], c["pb"], c["x"], c["amp"], c["seed"],
+           make_s, peak_pow, band.size, carson, over, band.max() / med))
+    del pows, band
+
+    # 2. search_bin at its defaults over the whole spectrum
+    with MiniFFTClock() as clock:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cands, out = _cli_out(search_bin.run, search_bin.build_parser()
+                              .parse_args([base + ".fft"]), device=device)
+        torch.cuda.synchronize()
+        full_s = time.time() - t0
+    sizes, dev_ms = clock.by_size()
+    nwin = sum(r[1] for r in sizes.values())
+    top = cands[0] if cands else None
+    full_ok = (top is not None
+               and abs(top.orb_p - c["pb"]) / c["pb"] < 0.10
+               and abs(top.psr_p * c["f"] - 1.0) < 0.05)
+    log("binary: search_bin (minfft 32, maxfft 65536, harmsum 3) on the "
+        "card over %d bins %.2f s host: %d windows, miniFFT programs %.1f "
+        "ms of CUDA-event spans (each program's launches included; host "
+        "share %.3f); per size {fftlen: [calls, windows, ms]} %s; %d "
+        "candidates, top sigma %.2f orb_p %.1f s psr_p %.7f s "
+        "(Pb %g, 1/f %g) %s"
+        % (amps.size, full_s, nwin, dev_ms, 1.0 - dev_ms / 1e3 / full_s,
+           json.dumps({k: [v[0], v[1], round(v[2], 3)]
+                       for k, v in sorted(sizes.items())}),
+           len(cands), top.mini_sigma if top else 0.0,
+           top.orb_p if top else 0.0, top.psr_p if top else 0.0, c["pb"],
+           1.0 / c["f"], "ok" if full_ok else "FAIL"))
+    top_cand = base + "_bin3.cand"
+
+    # 3. the same CLI over BINARY_CPU_BINS, on the card and on the CPU
+    rlo, rhi = int(r0) - BINARY_CPU_BINS // 2, int(r0) + BINARY_CPU_BINS // 2
+    band_lists, band_s = {}, {}
+    for where, dev in (("card", device), ("cpu", "cpu")):
+        d = os.path.join(workdir, "band_" + where)
+        os.makedirs(d)
+        for ext in (".fft", ".inf"):
+            os.symlink(base + ext, os.path.join(d, "binary" + ext))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        band_lists[where], _ = _cli_out(
+            search_bin.run, search_bin.build_parser().parse_args(
+                ["-rlo", str(rlo), "-rhi", str(rhi),
+                 os.path.join(d, "binary.fft")]), device=dev)
+        torch.cuda.synchronize()
+        band_s[where] = time.time() - t0
+    band_ok, ties, perr, matched = bincands_agreement(band_lists["card"],
+                                                      band_lists["cpu"])
+    for t in ties:
+        log("binary: search_bin card/CPU tie %s" % (t,))
+    log("binary: search_bin -rlo %d -rhi %d on the card %.2f s, on the CPU "
+        "%.2f s; %d / %d candidates, %d keys in the same order, mini_power "
+        "max rel err %.3g (bound %g), %d ties (sigma within %g) %s"
+        % (rlo, rhi, band_s["card"], band_s["cpu"], len(band_lists["card"]),
+           len(band_lists["cpu"]), matched, perr, BINARY_POWER_RTOL,
+           len(ties), BINARY_TIE_SIGMA, "ok" if band_ok else "FAIL"))
+
+    # 4. bincand from the perturbed trial, card and CPU; -candfile
+    trial = ["-ppsr", "%.12g" % (1.0 / c["f"]), "-porb",
+             "%.12g" % (c["pb"] * BINARY_TRIAL["porb"]), "-x",
+             "%.12g" % (c["x"] * BINARY_TRIAL["x"]), base + ".fft"]
+    bc, bc_s = {}, {}
+    for where, dev in (("card", device), ("cpu", "cpu")):
+        with CorrRecorder() as rec:
+            t0 = time.time()
+            _, out = _cli_out(bincand.main, trial, device=dev)
+            bc_s[where] = time.time() - t0
+        bc[where] = (_bincand_orbit(out), rec.rounds)
+        if where == "card":
+            corr_ms = [r[3] for r in rec.rounds]
+            build_s = list(rec.build_s)
+    (pb_c, x_c, pw_c), rounds_c = bc["card"]
+    (pb_u, x_u, pw_u), rounds_u = bc["cpu"]
+    same_grid = [a[0] == b[0] for a, b in zip(rounds_c, rounds_u)]
+    rerr = max(abs(a[1] - b[1]) / b[1] for a, b in zip(rounds_c, rounds_u))
+    bc_ok = (len(rounds_c) == len(rounds_u) == 2 and all(same_grid)
+             and rerr <= BINARY_POWER_RTOL and pb_c == pb_u and x_c == x_u
+             and abs(pb_c - c["pb"]) / c["pb"] < 0.05
+             and abs(x_c - c["x"]) / c["x"] < 0.25)
+    t0 = time.time()
+    _, out = _cli_out(bincand.main, ["-candfile", top_cand, base + ".fft"],
+                      device=device)
+    cf_s = time.time() - t0
+    cf = _bincand_orbit(out)
+    log("binary: bincand -porb %g -x %g (%d templates a round) on the card "
+        "%.2f s, on the CPU %.2f s: P_orb %.8g s (%.2f%% off Pb), x %.6g "
+        "lt-s (%.1f%% off), power %.3f / %.3f; grid orbit equal each round "
+        "%s, round powers max rel err %.3g (bound %g); on the card the "
+        "rounds' template builds %s s host, correlations %s device ms; "
+        "-candfile on the top candidate %.2f s: P_orb %.8g s, x %.6g lt-s, "
+        "power %.3f %s"
+        % (c["pb"] * BINARY_TRIAL["porb"], c["x"] * BINARY_TRIAL["x"],
+           rounds_c[0][2] if rounds_c else 0, bc_s["card"], bc_s["cpu"],
+           pb_c, 100.0 * abs(pb_c - c["pb"]) / c["pb"], x_c,
+           100.0 * abs(x_c - c["x"]) / c["x"], pw_c, pw_u, same_grid, rerr,
+           BINARY_POWER_RTOL, [round(b, 3) for b in build_s],
+           [round(m, 3) for m in corr_ms], cf_s, cf[0], cf[1], cf[2],
+           "ok" if bc_ok else "FAIL"))
+
+    # 5. monte_binresp at the JAX test's campaign, launches around it
+    mjson = os.path.join(workdir, "monte.json")
+    read = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, out = _cli_out(monte_binresp.main, BINARY_MONTE + ["-q", "-o", mjson],
+                      device=device)
+    torch.cuda.synchronize()
+    monte_s = time.time() - t0
+    launches = read()
+    launches.pop("stage_reduce_planes")
+    frac = json.load(open(mjson))["results"]
+    monte_ok = (frac["0.1"]["long"] >= 0.5 and frac["20.0"]["ffdot"] >= 0.5
+                and frac["0.1"]["ffdot"] < frac["0.1"]["long"]
+                and all(v >= 1 for v in launches.values()))
+    margs = monte_binresp.build_parser().parse_args(BINARY_MONTE)
+    ntrials = len(margs.ratios) * margs.ntrials
+    log("binary: monte_binresp %s on the card %.2f s (%.2f s a trial), "
+        "launches %s; detection %s %s"
+        % (" ".join(BINARY_MONTE), monte_s, monte_s / ntrials,
+           json.dumps(launches), json.dumps(frac),
+           "ok" if monte_ok else "FAIL"))
+    # the campaign's first trial (the generator's first draws)
+    mcfg = monte.MonteConfig(N=margs.N, dt=margs.dt, f_psr=margs.fpsr,
+                             amp=margs.amp, asini_lts=margs.asini,
+                             sigma_cut=margs.sigma)
+    x = monte._make_trial(mcfg, margs.ratios[0] * mcfg.tobs,
+                          np.random.default_rng(margs.seed))
+    pairs = fftpack.realfft_packed_pairs(
+        torch.from_numpy(x - x.mean()).to(device))
+    kgen = torch.Generator(device=device)
+    kgen.manual_seed(BINARY_PSR["seed"])
+    acfg = monte._make_accel(mcfg, mcfg.N // 2, device).cfg
+    kern = recipe_kernels(acfg, mcfg.tobs, mcfg.N // 2, pairs, kgen,
+                          "monte ffdot (zmax %d, numharm %d, uselen %d)"
+                          % (acfg.zmax, acfg.numharm, acfg.uselen),
+                          device, uselen=acfg.uselen)
+    del pairs
+    torch.cuda.empty_cache()
+    kern_ok = kern[0]["ok"] and kern[1]["ok"]
+
+    # 6. quicklook on the .dat
+    t0 = time.time()
+    _, out = _cli_out(quicklook.main, [dat], device=device)
+    ql_s = time.time() - t0
+    rows = [ln.split() for ln in out.splitlines()[2:] if ln.strip()]
+    f_top = float(rows[0][1])
+    off = (f_top - c["f"]) * T
+    ql_ok = abs(off) <= carson
+    log("binary: quicklook on the .dat %.2f s: top peak %.6f Hz (bin %s, "
+        "power/med %s), %.1f bins from f, within the Carson bandwidth +-%.1f "
+        "bins %s" % (ql_s, f_top, rows[0][0], rows[0][2], off, carson,
+                     "ok" if ql_ok else "FAIL"))
+    phase_s = time.time() - t_phase
+    ok = full_ok and band_ok and bc_ok and monte_ok and kern_ok and ql_ok
+    log("binary: phase %.1f s %s" % (phase_s, "ok" if ok else "FAIL"))
+    return dict(ok=ok, make_s=make_s, sideband_peak_power=peak_pow,
+                bins_over_prune_cutoff=over,
+                search_bin=dict(seconds=full_s, windows=nwin,
+                                device_ms=dev_ms,
+                                host_share=1.0 - dev_ms / 1e3 / full_s,
+                                by_size={str(k): v for k, v in sizes.items()},
+                                top=dict(sigma=top.mini_sigma if top else 0,
+                                         orb_p=top.orb_p if top else 0,
+                                         psr_p=top.psr_p if top else 0)),
+                band=dict(seconds=band_s, ties=len(ties),
+                          power_rel_err=perr, matched=matched),
+                bincand=dict(seconds=bc_s, card=bc["card"][0],
+                             cpu=bc["cpu"][0], candfile=cf,
+                             candfile_s=cf_s, template_build_s=build_s,
+                             corr_ms=corr_ms),
+                monte=dict(seconds=monte_s, detection=frac),
+                launches=launches, plane_build=kern[0], stage_reduce=kern[1],
+                quicklook=dict(seconds=ql_s, f_top=f_top, off_bins=off),
+                phase_s=phase_s)
+
+
 def keep_cands(res, keep):
     """recipe_cands.tar.xz in ``keep``: the survey's ACCEL tables, .cand
     files and .inf files by base name, and its cands_sifted.txt."""
@@ -5269,6 +5688,8 @@ def main():
         torch.cuda.empty_cache()
         classic = phase_classic(raw, os.path.join(work, "classic"))
         torch.cuda.empty_cache()
+        binary = phase_binary(os.path.join(work, "binary"))
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     small = phase_small_reference(gen)
@@ -5288,7 +5709,7 @@ def main():
                    toas=toas, singlepulse=spb, jerk=jerk, sharded=shard,
                    cluster=cluster, serve=serve, fleet=fleet,
                    federation=feder, recipe=recipe, psrfits=psrfits,
-                   classic=classic, small_reference=small,
+                   classic=classic, binary=binary, small_reference=small,
                    **live,
                    total_s=time.time() - t_start)
     # launches: the main path's (run_survey, and run_survey on the DM
@@ -5313,7 +5734,8 @@ def main():
                    "tune": feder["tune_launches"][name],
                    "recipe": recipe["launches"][name],
                    "psrfits": psrfits["launches"][name],
-                   "classic": classic["launches"][name]}
+                   "classic": classic["launches"][name],
+                   "monte": binary["launches"][name]}
         for path, counts in zip(("jerk_bench", "accelsearch_wmax",
                                  "stream", "beams"),
                                 jl + [live["stream"]["launches"],
@@ -5345,9 +5767,11 @@ def main():
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms")}
                            for ps in ("lo", "hi")},
-                        "classic": {x: classic[name][x] for x in (
+                        **{ph: {x: res[name][x] for x in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms")}})
+                            "bound_by", "library_ms")}
+                           for ph, res in (("classic", classic),
+                                           ("monte", binary))}})
     log("results: %s" % json.dumps(results, default=float))
     failed = [n for n, ok in (("build", build["ok"]),
                               ("plane_build", k1["ok"]),
@@ -5366,6 +5790,7 @@ def main():
                               ("recipe", recipe["ok"]),
                               ("psrfits", psrfits["ok"]),
                               ("classic", classic["ok"]),
+                              ("binary", binary["ok"]),
                               ("stream", live["stream"]["ok"]),
                               ("beams", live["beams"]["ok"])) if not ok]
     if failed:

@@ -11,17 +11,21 @@ Parity targets: reference src/responses.c.
   gen_z_response        responses.c:234-322  (constant-fdot template via
                                               Fresnel integrals)
   gen_w_response        responses.c:325-...  (fdotdot template)
+  binary_velocity       responses.c:91-139
+  bin_resp_halfwidth    responses.c:141-163
+  gen_bin_response      responses.c:460-626  (binary-orbit template)
   place_complex_kernel  corr_prep.c:58-80    (NR wrap-around placement)
   spread_no_pad         corr_prep.c:28-40    (interbin zero interleave)
 
 These run once at search setup in float64 (SURVEY.md §7.3 hard part 2:
 Fresnel accuracy is a setup-time concern, so it stays on host at full
 precision); the resulting kernel banks move to device as float32 pairs.
-The port keeps the z and w (jerk) parts; the binary-orbit responses are
-left for later slices.
 """
 
 from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 from scipy.special import fresnel as _fresnel
@@ -221,6 +225,135 @@ def next_pow2(n: int) -> int:
     while p < n:
         p <<= 1
     return p
+
+
+# Reference constants (responses.c:3-4)
+MIN_NUMDATA = 131072
+
+
+def binary_velocity(T: float, orbit) -> tuple:
+    """(min, max) orbital velocity of the pulsar during an observation,
+    as a fraction of c.  Parity: binary_velocity (responses.c:91-139);
+    the T < p_orb branch samples the orbit with the vectorized solver
+    instead of RK4."""
+    from presto_tpu_torch.ops.orbit import keplers_eqn, E_to_v, SOL
+    if T >= orbit.p:
+        c1 = 2.0 * np.pi * orbit.x / (
+            orbit.p * np.sqrt(1.0 - orbit.e ** 2))
+        c2 = orbit.e * np.cos(np.deg2rad(orbit.w))
+        return c1 * (c2 - 1.0), c1 * (c2 + 1.0)
+    t = orbit.t + np.linspace(0.0, T, 1025)
+    v = E_to_v(keplers_eqn(t, orbit.p, orbit.e), orbit) * 1000.0 / SOL
+    return float(v.min()), float(v.max())
+
+
+def bin_resp_halfwidth(ppsr: float, T: float, orbit) -> int:
+    """Approximate kernel halfwidth (FFT bins) for a binary response.
+    Parity: bin_resp_halfwidth (responses.c:141-163)."""
+    minv, maxv = binary_velocity(T, orbit)
+    mv = minv if abs(minv) > abs(maxv) else maxv
+    maxdevbins = abs(T * mv / (ppsr * (1.0 + mv)))
+    return max(int(np.floor(1.1 * maxdevbins + 0.5)), NUMFINTBINS)
+
+
+def gen_bin_response(roffset: float, numbetween: int, ppsr: float,
+                     T: float, orbit, numkern: int) -> np.ndarray:
+    """Fourier response of a sinusoidal pulsar in a Keplerian orbit.
+
+    Parity target: gen_bin_response (responses.c:460-626).  The
+    reference synthesizes a short normalized observation — a cosine at
+    datar = numdata/4 cycles, phase-delayed by the (time-scaled) orbit
+    — FFTs it, and Fourier-interpolates numbetween points per bin via
+    correlation with an r-response kernel.  Here the interpolation is
+    done the equivalent, simpler way: zero-pad the synthesized series
+    x numbetween before the rfft (spectral interpolation identity), so
+    no kernel correlation pass is needed.  The orbit solution uses the
+    vectorized Kepler solver (ops/orbit.py) instead of RK4+interp.
+
+    `orbit` is an ops.orbit.OrbitParams with p/x/t in seconds (w deg).
+    Returns numkern complex amplitudes spaced 1/numbetween bins,
+    centered on the unmodulated pulsar bin.
+    """
+    from presto_tpu_torch.ops.orbit import (OrbitParams, keplers_eqn,
+                                            E_to_phib)
+
+    assert 0.0 <= roffset < 1.0
+    assert numkern >= numbetween and numkern % (2 * numbetween) == 0
+    numdata = MIN_NUMDATA
+    datar = numdata // 4
+    if numkern > datar:
+        numdata = next_pow2(numkern * 4)
+        datar = numdata // 4
+    dt = 1.0 / numdata
+    # normalized units: observation length 1, pulsar freq datar cycles
+    # (responses.c:518-527)
+    norb = OrbitParams(p=orbit.p / T, e=orbit.e,
+                       x=orbit.x / (ppsr * datar), w=orbit.w,
+                       t=orbit.t / T)
+    t = np.arange(numdata, dtype=np.float64) * dt
+    E = keplers_eqn(t + norb.t, norb.p, norb.e)
+    tp = t - E_to_phib(E, norb)
+    data = (2.0 * dt) * np.cos(2.0 * np.pi * (datar + roffset) * tp)
+    # zero-pad x numbetween == Fourier-interpolate 1/numbetween spacing
+    spec = np.fft.rfft(data, n=numdata * numbetween)
+    center = datar * numbetween
+    begin = center - numkern // 2
+    return spec[begin:begin + numkern].astype(np.complex128)
+
+
+def gen_bin_responses(orbits, ppsr: float, T: float, numkern: int,
+                      numbetween: int = 1, roffset: float = 0.0,
+                      chunk: int = 32) -> np.ndarray:
+    """Batched gen_bin_response over a list of OrbitParams.
+
+    One vectorized Kepler solve + one batched rfft per `chunk` orbits
+    (memory-bounded) instead of a per-template Python pass — the grid
+    synthesis path for bincand refinement.  The chunks run on a pool of
+    host threads (NumPy releases the interpreter lock in its loops); each
+    is the JAX package's computation, so the bytes are its.  Returns
+    [len(orbits), numkern] complex128.
+    """
+    norbs = len(orbits)
+    numdata = MIN_NUMDATA
+    datar = numdata // 4
+    if numkern > datar:
+        numdata = next_pow2(numkern * 4)
+        datar = numdata // 4
+    dt = 1.0 / numdata
+    t = np.arange(numdata, dtype=np.float64) * dt
+    out = np.empty((norbs, numkern), dtype=np.complex128)
+    center = datar * numbetween
+    begin = center - numkern // 2
+
+    def one_chunk(c0):
+        sub = orbits[c0:c0 + chunk]
+        p = np.array([o.p / T for o in sub])[:, None]
+        e = np.array([o.e for o in sub])[:, None]
+        x = np.array([o.x / (ppsr * datar) for o in sub])[:, None]
+        w = np.deg2rad(np.array([o.w for o in sub]))[:, None]
+        t0 = np.array([o.t / T for o in sub])[:, None]
+        M = 2.0 * np.pi * (t[None, :] + t0) / p
+        E = M + e * np.sin(M)
+        for _ in range(8):
+            E = M + e * np.sin(E)
+        for _ in range(40):
+            dE = (E - e * np.sin(E) - M) / (1.0 - e * np.cos(E))
+            E = E - dE
+            if np.max(np.abs(dE)) < 1e-14:
+                break
+        c1 = x * np.sin(w)
+        c2 = x * np.cos(w) * np.sqrt(1.0 - e ** 2)
+        phib = c1 * (np.cos(E) - e) + c2 * np.sin(E)
+        tp = t[None, :] - phib
+        data = (2.0 * dt) * np.cos(2.0 * np.pi * (datar + roffset) * tp)
+        spec = np.fft.rfft(data, n=numdata * numbetween, axis=-1)
+        out[c0:c0 + len(sub)] = spec[:, begin:begin + numkern]
+
+    starts = range(0, norbs, chunk)
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1,
+                                            len(starts) or 1)) as pool:
+        list(pool.map(one_chunk, starts))
+    return out
 
 
 def place_complex_kernel(kernel: np.ndarray, fftlen: int) -> np.ndarray:

@@ -515,3 +515,60 @@ def test_control_loop_and_federation_modules_stand_alone(tmp_path):
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "CONTROL ISOLATED" in out.stdout
+
+
+BINARY_SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+from presto_tpu_torch.apps import (bincand, fit_circular_orbit,
+                                   monte_binresp, orbellipsefit,
+                                   plotbincand, psrorbit, quicklook,
+                                   search_bin)
+from presto_tpu_torch.io import makfile
+from presto_tpu_torch.ops import responses
+from presto_tpu_torch.pipeline import monte
+from presto_tpu_torch.search import bincand as sbincand, orbitfit, phasemod
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "presto_tpu" or m.startswith("presto_tpu.")
+             or m == "matplotlib" or m.startswith("matplotlib."))
+assert not bad, bad
+if not torch.cuda.is_available():
+    from presto_tpu_torch.ops.orbit import OrbitParams
+    pairs = np.ones((4096, 2), np.float32)
+    for call in (lambda: phasemod.search_phasemod(pairs, 8192, 1e-2),
+                 lambda: sbincand.optimize_bincand(
+                     pairs, 8192, 1e-2, OrbitParams(p=900.0, x=0.3), 0.02),
+                 lambda: monte.run_campaign(monte.MonteConfig(ntrials=1)),
+                 lambda: search_bin.main(["missing.fft"]),
+                 lambda: bincand.main(["-ppsr", "0.02", "-porb", "900",
+                                       "-x", "0.3", "missing.fft"]),
+                 lambda: monte_binresp.main(["--ntrials", "1"]),
+                 lambda: quicklook.main(["missing.dat"])):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError("an entry point ran without CUDA")
+print("BINARY ISOLATED")
+"""
+
+
+def test_binary_search_modules_stand_alone_and_need_cuda(tmp_path):
+    """The binary-search modules (search/{phasemod, bincand, orbitfit},
+    pipeline/monte, ops/responses, io/makfile and the apps search_bin,
+    bincand, monte_binresp, quicklook, fit_circular_orbit, orbellipsefit,
+    psrorbit and plotbincand) import neither jax, presto_tpu nor
+    matplotlib (the plotting CLIs import it when they draw); the search,
+    the refinement, the campaign and the four device CLIs called without
+    device= raise without a card, before reading a file."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", BINARY_SCRIPT],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "BINARY ISOLATED" in out.stdout
+    assert os.listdir(str(tmp_path)) == []
