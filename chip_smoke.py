@@ -239,11 +239,23 @@ Phases (any failure exits non-zero before the final line):
              launches read around it, both kernels held to their plain
              versions at its geometry; quicklook's top peak within the
              signal's bandwidth;
+  6k. plots   the .pfd plots' numbers on the card (phase_plots): every
+             .pfd of the main survey's directory (its three folds and the
+             fold phase's, with its 833-DM curve and 513 x 513 P-Pdot
+             plane) through plotting/pfdplot.pfd_panels on the card and
+             on the CPU, the plane and DM curve within PLOTS_RTOL of their
+             maximum, the growth curve within PLOTS_GROWTH_RTOL; the
+             plane's call timed by CUDA events; launches read around it
+             (no kernel of the port runs there: 0 and 0); prepfold
+             without -noplot raising ImportError naming matplotlib before
+             any work (the card's machine has none); within
+             PLOTS_BUDGET_S;
  12. summary the kernels line (launches of the main path, the sharded
              main path, by shard too, the serve path, the fleet path, the
              federation path (A's last snapshot and B's replicas'), the
              tune sweep, the recipe path, the psrfits path, the classic
-             path, the monte path, the jerk paths and the live paths; each
+             path, the monte path, the plots path (0), the jerk paths and
+             the live paths; each
              kernel's bound also at the measured peaks, and its numbers at
              the recipe's two pass geometries, at the classic
              accelsearch's and at monte's), the card, and the final ok
@@ -542,14 +554,16 @@ def check_stage_reduce(s, S, gen):
     ok16 = err16 == 0.0 and bool((hz == pz).all())
     del hm, hz, pm, pz
     ms16 = cuda_time_ms(lambda: accel_cuda.reduce_stages(*args16), 10)
+    plain16 = cuda_time_ms(
+        lambda: accel_cuda.reduce_stages_plain(*args16), 1)
     bytes16 = reducer_design_bytes(z16, plane.shape[0], slab,
                                    len(start_cols), 5)
     bms16, by16, _, _ = reducer_bound(plane, scols, z16, slab, 5,
                                       c16.numz)
     log("stage_reduce numharm 16 (5 stages) on the bench plane: "
-        "max_abs_err %.3g, colz equal %s; kernel %.3f ms, bound %.3f ms "
-        "(%s), design bytes %.3f GB (%.1f%% of 3.35 TB/s) %s"
-        % (err16, ok16, ms16, bms16, by16, bytes16 / 1e9,
+        "max_abs_err %.3g, colz equal %s; kernel %.3f ms, plain %.3f ms, "
+        "bound %.3f ms (%s), design bytes %.3f GB (%.1f%% of 3.35 TB/s) %s"
+        % (err16, ok16, ms16, plain16, bms16, by16, bytes16 / 1e9,
            100 * bytes16 / (ms16 * 1e-3) / PEAK_BYTES_PER_S,
            "ok" if ok16 else "FAIL"))
     # ragged: 16 harmonics (5 stages), 29 rows, unaligned slabs
@@ -585,6 +599,7 @@ def check_stage_reduce(s, S, gen):
                 bound_by=by, bytes=nbytes, flops=flops,
                 design_bytes=design, design_share=share,
                 numharm16=dict(ok=ok16, max_abs_err=err16, ms=ms16,
+                               plain_ms=plain16, library_ms=None,
                                bound_ms=bms16, bound_by=by16,
                                design_bytes=bytes16),
                 collect_ms=collect_ms,
@@ -5566,6 +5581,120 @@ def phase_binary(workdir, device="cuda"):
                 phase_s=phase_s)
 
 
+# the plots phase: the .pfd plot's panels (plotting/pfdplot.pfd_panels)
+# on the card against the same function on the CPU.  The plane and the
+# DM curve are float32 rotate-and-sums that the card and the CPU reduce
+# in their own order (the fold phase's surfaces differ by ~1e-5 of their
+# maximum): PLOTS_RTOL of the array's maximum.  The growth curve is
+# float64 cumulative sums: PLOTS_GROWTH_RTOL.
+PLOTS_RTOL = 1e-4
+PLOTS_GROWTH_RTOL = 1e-12
+PLOTS_BUDGET_S = 60.0
+
+
+def phase_plots(pfddir, card, device="cuda"):
+    """The .pfd plots' numbers on the card (phase_plots): every .pfd in
+    ``pfddir`` (the main survey's three folds, fold_cand1-3, and the fold
+    phase's fold_fil, the one with a DM curve and a P-Pdot plane) through
+    pfd_panels on ``device`` and on the CPU, the plane, the DM curve and
+    the growth curve held within PLOTS_RTOL / PLOTS_GROWTH_RTOL of their
+    maximum; the plane's call timed by CUDA events around it (warm, a mean
+    of 3: the host's trial offsets, the upload, the trials, the download);
+    then prepfold without -noplot on a .dat of the survey, which must
+    raise ImportError naming matplotlib before any work where matplotlib
+    is missing (as on the card's machine), or draw its .pfd.png where it
+    is installed.  The phase must end within PLOTS_BUDGET_S."""
+    import importlib.util
+    from presto_tpu_torch.apps import prepfold
+    from presto_tpu_torch.io.pfd import read_pfd
+    from presto_tpu_torch.plotting import pfdplot
+    t_phase = time.time()
+    paths = sorted(glob.glob(os.path.join(pfddir, "*.pfd")))
+    ok = bool(paths)
+    files = {}
+    for path in paths:
+        p = read_pfd(path)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = pfdplot.pfd_panels(p, device=device)
+        card_s = time.time() - t0
+        t0 = time.time()
+        want = pfdplot.pfd_panels(p, device="cpu")
+        cpu_s = time.time() - t0
+        errs, good = {}, True
+        for key, rtol in (("plane", PLOTS_RTOL), ("dm_chi2", PLOTS_RTOL),
+                          ("growth", PLOTS_GROWTH_RTOL)):
+            a, c = got[key], want[key]
+            if a is None or c is None:
+                good = good and a is None and c is None
+                errs[key] = None
+                continue
+            scale = float(np.abs(c).max()) or 1.0
+            errs[key] = float(np.abs(a - c).max()) / scale
+            good = (good and a.shape == c.shape
+                    and bool(np.isfinite(a).all())
+                    and errs[key] <= rtol)
+        plane_ms = None
+        if got["plane"] is not None:
+            profs = np.asarray(p.profs, float)
+            tvph = profs.sum(axis=1)
+            plane_ms = cuda_time_ms(lambda: pfdplot._ppd_chi2_plane(
+                p, tvph, device), 3)
+        shape = None if got["plane"] is None else list(got["plane"].shape)
+        ndm = 0 if got["dm_chi2"] is None else len(got["dm_chi2"])
+        log("plots: %s (%d parts x %d subbands x %d bins): panels on the "
+            "card %.3f s, on the CPU %.3f s; plane %s in %s ms (CUDA "
+            "events around the call, warm; %s); "
+            "DM curve %d DMs; card vs CPU max |diff| / max %s (tolerance "
+            "%g, growth %g) %s"
+            % (os.path.basename(path), p.npart, p.nsub, p.proflen, card_s,
+               cpu_s, shape, "%.3f" % plane_ms if plane_ms else "-", card,
+               ndm, json.dumps({k: (None if v is None else
+                                    float("%.3g" % v))
+                                for k, v in errs.items()}),
+               PLOTS_RTOL, PLOTS_GROWTH_RTOL, "ok" if good else "FAIL"))
+        files[os.path.basename(path)] = dict(
+            ok=good, card_s=card_s, cpu_s=cpu_s, plane_shape=shape,
+            plane_ms=plane_ms, numdms=ndm, rel_err=errs)
+        ok = ok and good
+    planes = [f for f in files.values() if f["plane_shape"]]
+    ok = ok and bool(planes)
+    # a prepfold run that would draw, on the card
+    dats = sorted(glob.glob(os.path.join(pfddir, "*.dat")))
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    out = os.path.join(pfddir, "plots_refusal")
+    argv = ["-f", "40.3", "-nosearch", "-n", "64", "-npart", "16", "-o",
+            out, dats[0]] if dats else []
+    t0 = time.time()
+    try:
+        prepfold.main(argv, device=device)
+        raised = None
+    except ImportError as e:
+        raised = str(e)
+    refusal_s = time.time() - t0
+    if have_mpl:
+        refusal_ok = raised is None and os.path.exists(out + ".pfd.png")
+    else:
+        refusal_ok = (raised is not None and "matplotlib" in raised
+                      and not os.path.exists(out + ".pfd"))
+    refusal_ok = refusal_ok and bool(dats)
+    log("plots: prepfold without -noplot on %s (matplotlib %s): %s in "
+        "%.3f s %s" % (os.path.basename(dats[0]) if dats else "no .dat",
+                       "installed" if have_mpl else "missing",
+                       "drew %s.pfd.png" % os.path.basename(out)
+                       if raised is None else "ImportError: %s" % raised,
+                       refusal_s, "ok" if refusal_ok else "FAIL"))
+    phase_s = time.time() - t_phase
+    in_budget = phase_s <= PLOTS_BUDGET_S
+    log("plots: phase %.1f s of its %.0f s budget (%s) %s"
+        % (phase_s, PLOTS_BUDGET_S, card, "ok" if in_budget else "FAIL"))
+    return dict(ok=ok and refusal_ok and in_budget, files=files,
+                matplotlib=have_mpl, refusal=raised, refusal_ok=refusal_ok,
+                phase_s=phase_s, budget_s=PLOTS_BUDGET_S,
+                tolerance="plane and DM curve within %g of their maximum, "
+                "growth within %g" % (PLOTS_RTOL, PLOTS_GROWTH_RTOL))
+
+
 def keep_cands(res, keep):
     """recipe_cands.tar.xz in ``keep``: the survey's ACCEL tables, .cand
     files and .inf files by base name, and its cands_sifted.txt."""
@@ -5690,6 +5819,10 @@ def main():
         torch.cuda.empty_cache()
         binary = phase_binary(os.path.join(work, "binary"))
         torch.cuda.empty_cache()
+        read = launch_counts()
+        plots = phase_plots(mwork, card)
+        plots["launches"] = read()
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     small = phase_small_reference(gen)
@@ -5709,7 +5842,8 @@ def main():
                    toas=toas, singlepulse=spb, jerk=jerk, sharded=shard,
                    cluster=cluster, serve=serve, fleet=fleet,
                    federation=feder, recipe=recipe, psrfits=psrfits,
-                   classic=classic, binary=binary, small_reference=small,
+                   classic=classic, binary=binary, plots=plots,
+                   small_reference=small,
                    **live,
                    total_s=time.time() - t_start)
     # launches: the main path's (run_survey, and run_survey on the DM
@@ -5735,7 +5869,8 @@ def main():
                    "recipe": recipe["launches"][name],
                    "psrfits": psrfits["launches"][name],
                    "classic": classic["launches"][name],
-                   "monte": binary["launches"][name]}
+                   "monte": binary["launches"][name],
+                   "plots": plots["launches"][name]}
         for path, counts in zip(("jerk_bench", "accelsearch_wmax",
                                  "stream", "beams"),
                                 jl + [live["stream"]["launches"],
@@ -5791,6 +5926,7 @@ def main():
                               ("psrfits", psrfits["ok"]),
                               ("classic", classic["ok"]),
                               ("binary", binary["ok"]),
+                              ("plots", plots["ok"]),
                               ("stream", live["stream"]["ok"]),
                               ("beams", live["beams"]["ok"])) if not ok]
     if failed:

@@ -17,8 +17,11 @@ reference.  The fold and the trial search run on ``device``
 to the JAX package's.  -barypolycos is parsed and, as in the JAX
 package, read by nothing.
 
-Not in the port yet (it raises NotImplementedError): the diagnostic
-plot (give -noplot).  A raw fold (SIGPROC or PSRFITS,
+Unless -noplot is given, the diagnostic plot is drawn to <outbase>.pfd.png
+(plotting/pfdplot: its chi2 panels computed on ``device``, drawn with
+matplotlib; -scaleparts, -allgrey, -fixchi and -justprofs choose how).
+Without matplotlib such a run raises ImportError before any work.  A raw
+fold (SIGPROC or PSRFITS,
 apps/common.open_raw_args) streams through pipeline/fusion.feed_blocks
 (the native decoder, the -mask substitution with padding values from
 the .stats beside the mask, the clip and -ignorechan on the host, the
@@ -123,20 +126,19 @@ def build_parser():
     p.add_argument("-searchfdd", action="store_true",
                    help="Search f-dotdots (implies -searchpdd)")
     p.add_argument("-noplot", "-noxwin", action="store_true",
-                   help="Skip the diagnostic plot (required: the port "
-                        "has no plots yet)")
+                   help="Skip the diagnostic plot")
     p.add_argument("-nosearch", action="store_true")
     p.add_argument("-nopsearch", action="store_true")
     p.add_argument("-nopdsearch", action="store_true")
     p.add_argument("-nodmsearch", action="store_true")
     p.add_argument("-scaleparts", action="store_true",
-                   help="Plot flag (accepted for parity)")
+                   help="Scale the part profiles independently")
     p.add_argument("-allgrey", action="store_true",
-                   help="Plot flag (accepted for parity)")
+                   help="Greyscale images instead of color")
     p.add_argument("-fixchi", action="store_true",
-                   help="Plot flag (accepted for parity)")
+                   help="Scale so off-pulse reduced chi2 = 1")
     p.add_argument("-justprofs", action="store_true",
-                   help="Plot flag (accepted for parity)")
+                   help="Only output the profile portions of the plot")
     p.add_argument("-start", dest="startT", type=float, default=0.0,
                    help="Folding start as a fraction of the obs")
     p.add_argument("-end", dest="endT", type=float, default=1.0,
@@ -175,13 +177,6 @@ def build_parser():
     add_raw_flags(p, start_flags=False)
     p.add_argument("infile")
     return p
-
-
-def _refuse_unported(args) -> None:
-    if not args.noplot:
-        raise NotImplementedError(
-            "prepfold: the diagnostic plot (pass -noplot) comes in a "
-            "later slice of the port")
 
 
 def apply_presets(args):
@@ -519,9 +514,12 @@ def _errors(res, device):
 
 def run(args, device="cuda"):
     """Fold ``args.infile`` on ``device`` and write <outbase>.pfd and
-    .pfd.bestprof; returns the FoldResult."""
-    _refuse_unported(args)
+    .pfd.bestprof (and, unless -noplot, .pfd.png); returns the
+    FoldResult."""
     device = resolve_device(device)
+    if not args.noplot:     # a run that draws needs matplotlib: raise now
+        from presto_tpu_torch.plotting import pyplot
+        pyplot("prepfold's diagnostic plot (-noplot skips it)")
     apply_presets(args)
     if args.absphase and not (args.polycos or args.parfile):
         raise SystemExit("prepfold: -absphase requires -polycos or "
@@ -593,6 +591,16 @@ def run(args, device="cuda"):
     print("prepfold: folded %s  best p=%.9g s  pd=%.3g  DM=%.3f  "
           "redchi=%.2f -> %s" % (args.infile, res.best_p, res.best_pd,
                                  res.best_dm, res.best_redchi, pfdnm))
+    if not args.noplot:
+        from presto_tpu_torch.plotting import plot_pfd
+        from presto_tpu_torch.plotting.pfdplot import PlotFlags
+        flags = PlotFlags(scaleparts=args.scaleparts,
+                          allgrey=args.allgrey,
+                          justprofs=args.justprofs,
+                          fixchi=args.fixchi)
+        plot_pfd(pfd, pfdnm + ".png", best_prof=res.best_prof,
+                 flags=flags, device=device)
+        print("prepfold: diagnostic plot -> %s.png" % pfdnm)
     return res
 
 

@@ -3,8 +3,9 @@
 Host copy of ``presto_tpu/apps/psrfits_quick_bandpass.py`` for the
 PyTorch port (twin of bin/psrfits_quick_bandpass.py): reads a sample of
 subints, computes the per-channel mean and standard deviation and writes
-<base>.bandpass (chan, freq, mean, stdev columns).  The plot (-plot) is
-not in the port and is refused.
+<base>.bandpass (chan, freq, mean, stdev columns), and with -plot
+<base>.bandpass.png, which needs matplotlib (ImportError naming it,
+before any file is read, where it is missing).
 """
 
 from __future__ import annotations
@@ -32,9 +33,8 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.plot:
-        raise NotImplementedError(
-            "psrfits_quick_bandpass: the bandpass plot is not in the port; "
-            "drop -plot")
+        from presto_tpu_torch.plotting import pyplot
+        plt = pyplot("psrfits_quick_bandpass -plot")
     with PsrfitsFile(args.fitsfiles) as pf:
         nch = pf.nchan
         nspec = pf.nspectra
@@ -63,6 +63,17 @@ def main(argv=None):
                     % (i, freqs[i], means[i], stdevs[i]))
     print("psrfits_quick_bandpass: %d subints, %d chans -> %s"
           % (len(picks), nch, out))
+    if args.plot:
+        fig, ax = plt.subplots(figsize=(8, 5))
+        ax.plot(freqs, means, "-k", label="mean")
+        ax.plot(freqs, means + stdevs, "-r", lw=0.7, label="+1 sigma")
+        ax.plot(freqs, means - stdevs, "-r", lw=0.7)
+        ax.set_xlabel("frequency (MHz)")
+        ax.set_ylabel("counts")
+        ax.legend()
+        fig.savefig(out + ".png", dpi=100)
+        plt.close(fig)
+        print("wrote", out + ".png")
     return 0
 
 

@@ -11,9 +11,10 @@ become zapped intervals.  The intervals stream through the reader's
 prefetching feeder and the pinned upload ring (pipeline/fusion
 .feed_blocks); the per-cell statistics run on the device.
 
-The mask summary plot (the JAX package's plotting/rfiplot.py) is not in
-the port: a run without -noplot is refused.  -xwin, -rfips and -rfixwin
-only choose plot outputs and are refused with it.  The raw input is
+Unless -noplot is given, the mask summary plot is drawn to
+<o>_rfifind.png (plotting/rfiplot; -rfips adds <o>_rfifind.ps, -xwin and
+-rfixwin show it where a display is up).  Without matplotlib such a run
+raises ImportError before any work.  The raw input is
 whatever apps/common.open_raw_args opens: SIGPROC or PSRFITS, one file
 or several as one observation (-psrfits/-filterbank choose the format);
 -blocks sizes the intervals by the reader's block (NSBLK for PSRFITS,
@@ -24,12 +25,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 
 import numpy as np
 
 from presto_tpu_torch.apps.common import (add_common_flags, add_raw_flags,
                                           block_prep, fil_to_inf,
-                                          open_raw_args)
+                                          obs_metadata, open_raw_args)
 from presto_tpu_torch.io.infodata import read_inf, write_inf
 from presto_tpu_torch.io.maskfile import read_statsfile
 from presto_tpu_torch.pipeline import fusion
@@ -67,21 +69,34 @@ def build_parser():
                    help="Re-threshold from the existing "
                         "_rfifind.stats/.inf (no raw data read)")
     p.add_argument("-noplot", action="store_true",
-                   help="Skip the mask summary plot (required: the "
-                        "plot is not in the port)")
-    p.add_argument("-xwin", action="store_true")
-    p.add_argument("-rfips", action="store_true")
-    p.add_argument("-rfixwin", action="store_true")
+                   help="Skip the mask summary plot")
+    p.add_argument("-xwin", action="store_true",
+                   help="Also draw plots to the screen")
+    p.add_argument("-rfips", action="store_true",
+                   help="Also write the summary plot as PostScript")
+    p.add_argument("-rfixwin", action="store_true",
+                   help="Show RFI instances on screen (with -xwin)")
     add_raw_flags(p, start_flags=False)
     p.add_argument("rawfiles", nargs="*")
     return p
 
 
-def _refuse_unported(args) -> None:
-    if not args.noplot or args.xwin or args.rfips or args.rfixwin:
-        raise NotImplementedError(
-            "rfifind: the mask plot (plotting/rfiplot.py) is not in the "
-            "port; pass -noplot")
+def _plots(args, res, outbase):
+    if args.noplot:
+        return
+    from presto_tpu_torch.plotting import plot_rfifind
+    plot_rfifind(res, outbase + "_rfifind.png")
+    print("rfifind: mask plot -> %s_rfifind.png" % outbase)
+    if args.rfips:
+        plot_rfifind(res, outbase + "_rfifind.ps")
+        print("rfifind: mask plot -> %s_rfifind.ps" % outbase)
+    if args.xwin or args.rfixwin:
+        if os.environ.get("DISPLAY") or os.environ.get("MPLBACKEND"):
+            import matplotlib.pyplot as plt
+            plt.show()
+        else:
+            print("rfifind: no display available for -xwin/-rfixwin "
+                  "(plots were written to files)")
 
 
 def _zaps(args):
@@ -105,17 +120,24 @@ def _run_nocompute(args):
         chantrigfrac=args.chanfrac, inttrigfrac=args.intfrac,
         mjd=info.mjd_i + info.mjd_f, zap_chans=zap_chans,
         zap_ints=zap_ints)
+    res.info = {"filenm": getattr(info, "name", "") or "-",
+                "telescope": info.telescope, "ra": info.ra_str,
+                "dec": info.dec_str, "chanfrac": args.chanfrac,
+                "intfrac": args.intfrac}
     write_rfifind_products(res, outbase)
     print("rfifind -nocompute: re-thresholded %d ints x %d chans, "
           "%.1f%% masked -> %s_rfifind.mask"
           % (res.mask.numint, res.mask.numchan,
              100 * res.masked_fraction(), outbase))
+    _plots(args, res, outbase)
     return res
 
 
 def run(args, device="cuda"):
-    _refuse_unported(args)
     dev = resolve_device(device)
+    if not args.noplot:     # a run that draws needs matplotlib: raise now
+        from presto_tpu_torch.plotting import pyplot
+        pyplot("rfifind's mask plot (-noplot skips it)")
     if args.nocompute:
         return _run_nocompute(args)
     if not args.rawfiles:
@@ -157,10 +179,15 @@ def run(args, device="cuda"):
     write_rfifind_products(res, outbase)
     write_inf(fil_to_inf(fb, outbase + "_rfifind", hdr.N),
               outbase + "_rfifind.inf")
+    tel, ra, dec = obs_metadata(fb)
+    res.info = {"filenm": args.rawfiles[0], "telescope": tel,
+                "ra": ra, "dec": dec, "chanfrac": args.chanfrac,
+                "intfrac": args.intfrac}    # plot info block
     fb.close()
     print("rfifind: %d ints x %d chans, %.1f%% masked -> %s_rfifind.mask"
           % (res.mask.numint, res.mask.numchan,
              100 * res.masked_fraction(), outbase))
+    _plots(args, res, outbase)
     return res
 
 

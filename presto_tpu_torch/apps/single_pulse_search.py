@@ -8,9 +8,10 @@ inputs are read back and aggregated, as the reference's read-only mode
 does.  The search runs on ``device`` (CUDA unless the caller passes
 "cpu").
 
-The summary plot (the JAX package's plotting/spplot.py, which needs
-matplotlib) is not in the port: a run without -p that finds events is
-refused, after its .singlepulse files are written.
+Unless -p is given, a run that finds events draws the summary plot to
+<first input>_singlepulse.png (plotting/spplot.plot_singlepulse) after
+its .singlepulse files are written; without matplotlib that raises
+ImportError.
 """
 
 from __future__ import annotations
@@ -49,8 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=[1, 2, 4, 8, 16, 32],
                    help="Detrend chunk size in 1000s of samples")
     p.add_argument("-p", "--noplot", action="store_true",
-                   help="Skip the summary plot (the port has none: "
-                        "required when events are found)")
+                   help="Skip the summary plot (reference -noplot)")
     p.add_argument("datfiles", nargs="+")
     return p
 
@@ -142,9 +142,16 @@ def main(argv=None, device="cuda"):
     args = build_parser().parse_args(argv)
     allcands = run(args, device=device)
     if not args.noplot and allcands:
-        raise NotImplementedError(
-            "single_pulse_search: the summary plot (matplotlib) is not in "
-            "the port; the .singlepulse files are written, rerun with -p")
+        from presto_tpu_torch.plotting import plot_singlepulse
+        base = args.datfiles[0]
+        for suf in (".dat", ".singlepulse"):
+            if base.endswith(suf):
+                base = base[:-len(suf)]
+        out = base + "_singlepulse.png"
+        plot_singlepulse(allcands, out,
+                         title="%s (%d events)" % (base,
+                                                   len(allcands)))
+        print("single_pulse_search: summary plot -> %s" % out)
     return 0
 
 

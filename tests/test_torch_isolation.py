@@ -572,3 +572,59 @@ def test_binary_search_modules_stand_alone_and_need_cuda(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert "BINARY ISOLATED" in out.stdout
     assert os.listdir(str(tmp_path)) == []
+
+
+PLOT_SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+from presto_tpu_torch import plotting
+from presto_tpu_torch.apps import (pfd2png, plot_spd, prepfold,
+                                   psrfits_quick_bandpass, pulsestack,
+                                   pyplotres, rfifind, show_pfd,
+                                   single_pulse_search, sum_profiles)
+from presto_tpu_torch.io.pfd import Pfd
+from presto_tpu_torch.plotting import (accelplot, explore, pfdplot, rfiplot,
+                                       spplot)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "presto_tpu" or m.startswith("presto_tpu.")
+             or m == "matplotlib" or m.startswith("matplotlib."))
+assert not bad, bad
+if not torch.cuda.is_available():
+    p = Pfd(npart=4, nsub=2, proflen=8, numchan=2, dt=1e-3, fold_p1=2.0,
+            dms=np.array([1.0, 2.0]), periods=np.array([0.5, 0.501]),
+            pdots=np.array([0.0, 1e-9]),
+            profs=np.ones((4, 2, 8)), stats=np.ones((4, 2, 7)))
+    for call in (lambda: pfdplot.pfd_panels(p),
+                 lambda: show_pfd.main(["missing.pfd"]),
+                 lambda: pfd2png.main(["missing.pfd"]),
+                 lambda: prepfold.main(["-f", "10", "missing.dat"])):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError("an entry point ran without CUDA")
+    pan = pfdplot.pfd_panels(p, device="cpu")
+    assert pan["plane"].shape == (2, 2) and pan["dm_chi2"].shape == (2,)
+print("PLOT ISOLATED")
+"""
+
+
+def test_plot_modules_stand_alone_and_need_cuda(tmp_path):
+    """The plotting modules (plotting/{pfdplot, accelplot, explore,
+    rfiplot, spplot}) and the plot CLIs (apps/{show_pfd, pfd2png,
+    sum_profiles, pulsestack, plot_spd, pyplotres}), with the CLIs whose
+    plots they draw, import neither jax, presto_tpu nor matplotlib (it is
+    imported when a plot is drawn); the .pfd panels, show_pfd, pfd2png
+    and prepfold without -noplot called without device= raise without a
+    card, before reading a file; the panels run on the CPU when asked."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", PLOT_SCRIPT],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "PLOT ISOLATED" in out.stdout
+    assert os.listdir(str(tmp_path)) == []

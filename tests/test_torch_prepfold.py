@@ -14,6 +14,7 @@ pick the same best (DM, f, fd[, fdd]) indices.
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -232,15 +233,25 @@ def test_fold_dat_cands_byte_equal_to_cli(datdir):
 
 
 @pytest.mark.parametrize("flags", [[], ["-psr", "B1937+21"]])
-def test_unported_flags_are_refused(datdir, flags):
-    """The diagnostic plot, the one prepfold feature not ported (a run
-    without -noplot), raises NotImplementedError before any work, alone
-    and beside a ported ephemeris fold (tests/test_torch_prepfold_ephem.py
-    runs those)."""
+def test_unported_flags_are_refused(datdir, flags, monkeypatch):
+    """A run without -noplot draws the diagnostic plot, alone and beside
+    an ephemeris fold (tests/test_torch_prepfold_ephem.py runs those);
+    where matplotlib is missing it is refused with ImportError naming
+    matplotlib before any work, and -noplot runs without it
+    (tests/test_torch_plots.py holds the drawing to the JAX CLI's)."""
     argv = flags + ["-f", "41.3", "-nosearch"] + ["x.dat"]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tapp.main(argv, device="cpu")
-    assert not os.path.exists("x.pfd")
+    with monkeypatch.context() as m:
+        for name in [k for k in sys.modules
+                     if k.startswith("matplotlib.")] + ["matplotlib"]:
+            m.setitem(sys.modules, name, None)
+        with pytest.raises(ImportError, match="matplotlib"):
+            tapp.main(argv, device="cpu")
+        assert not os.path.exists("x.pfd")
+        assert tapp.main(argv + ["-noplot", "-o", "n"], device="cpu") == 0
+        assert os.path.exists("n.pfd") and not os.path.exists("n.pfd.png")
+    assert tapp.main(argv, device="cpu") == 0
+    with open("x.pfd.png", "rb") as f:
+        assert f.read(4) == b"\x89PNG"
 
 
 def test_fold_geometry_matches_jax(datdir):

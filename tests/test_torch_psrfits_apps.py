@@ -11,6 +11,7 @@ byte.
 
 import io
 import os
+import sys
 from contextlib import redirect_stdout
 
 import numpy as np
@@ -87,11 +88,23 @@ def test_quick_bandpass_equals_jax(pair, tmp_path, nsub):
     assert _read(b) == _read(a) and _read(b).count(b"\n") == NCHAN + 1
 
 
-def test_quick_bandpass_plot_is_refused(pair, tmp_path):
+def test_quick_bandpass_plot_is_refused(pair, tmp_path, monkeypatch):
+    """-plot is refused with ImportError naming matplotlib, before any
+    file is read, where matplotlib is missing; with it the plot is the
+    JAX CLI's, byte for byte."""
     out = str(tmp_path / "t.bandpass")
-    with pytest.raises(NotImplementedError, match="plot"):
-        tbp.main(["-plot", "-o", out] + pair)
-    assert not os.path.exists(out)
+    with monkeypatch.context() as m:
+        for name in [k for k in sys.modules
+                     if k.startswith("matplotlib.")] + ["matplotlib"]:
+            m.setitem(sys.modules, name, None)
+        with pytest.raises(ImportError, match="matplotlib"):
+            tbp.main(["-plot", "-o", out] + pair)
+        assert not os.path.exists(out)
+    ref = str(tmp_path / "j.bandpass")
+    assert jbp.main(["-plot", "-o", ref] + pair) == 0
+    assert tbp.main(["-plot", "-o", out] + pair) == 0
+    assert _read(out) == _read(ref)
+    assert _read(out + ".png") == _read(ref + ".png")
 
 
 @pytest.mark.parametrize("cmd", ["dumparrays", "weight", "delrow",

@@ -13,6 +13,7 @@ the statistics: equal headers, values within the same tolerances.
 
 import os
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -167,12 +168,31 @@ def test_quality_zaps_join_the_mask(tmp_path):
     assert {BURST_INT, 4} <= set(m.zap_ints.tolist())   # 9000:9300
 
 
-def test_plot_request_is_refused(tmp_path, fil):
-    for flags in ([], ["-noplot", "-rfips"], ["-noplot", "-xwin"]):
-        with pytest.raises(NotImplementedError, match="plot"):
-            tapp.main(flags + ["-o", str(tmp_path / "x"), fil],
+def test_plot_request_is_refused(tmp_path, fil, monkeypatch):
+    """A run that draws the mask plot is refused with ImportError naming
+    matplotlib, before any work, where matplotlib is missing; -noplot
+    (with or without -rfips or -xwin, which only choose where the plot
+    goes) runs without it.  With matplotlib the plot is drawn
+    (tests/test_torch_plots.py holds it to the JAX CLI's)."""
+    out = str(tmp_path / "x")
+    with monkeypatch.context() as m:
+        for name in [k for k in sys.modules
+                     if k.startswith("matplotlib.")] + ["matplotlib"]:
+            m.setitem(sys.modules, name, None)
+        for flags in ([], ["-rfips"], ["-xwin"]):
+            with pytest.raises(ImportError, match="matplotlib"):
+                tapp.main(flags + ["-o", out, fil], device="cpu")
+        assert not os.path.exists(out + "_rfifind.mask")
+        for flags in (["-noplot", "-rfips"], ["-noplot", "-xwin"]):
+            tapp.main(flags + ["-time", str(RFI_TIME), "-o", out, fil],
                       device="cpu")
-    assert not os.path.exists(str(tmp_path / "x_rfifind.mask"))
+        assert os.path.exists(out + "_rfifind.mask")
+        assert not os.path.exists(out + "_rfifind.png")
+    tapp.main(["-time", str(RFI_TIME), "-rfips", "-o", out, fil],
+              device="cpu")
+    for ext, magic in ((".png", b"\x89PNG"), (".ps", b"%!PS")):
+        with open(out + "_rfifind" + ext, "rb") as f:
+            assert f.read(4) == magic
 
 
 def test_maskfile_cross_package(tmp_path):

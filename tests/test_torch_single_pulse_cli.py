@@ -6,11 +6,13 @@ dt) groups) are searched by each package's CLI in a directory of its
 own, across -f, -b, -d 2, -s/-e and -m/-t.  Each .singlepulse pair and
 the returned event lists are held by singlepulse.agreement (files
 byte-equal where no line is near a boundary); .singlepulse inputs are
-read back alike.  The port refuses a run that would plot.
+read back alike.  A run that finds events draws the summary plot, and is
+refused where matplotlib is missing.
 """
 
 import os
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -128,12 +130,24 @@ def test_cli_reads_singlepulse_inputs_like_jax(tmp_path, inputs):
     assert len(got) >= 3
 
 
-def test_cli_refuses_a_run_that_would_plot(tmp_path, inputs):
-    """Without -p a run that finds events is refused (after writing its
-    .singlepulse files); a run without events has nothing to plot."""
+def test_cli_refuses_a_run_that_would_plot(tmp_path, inputs, monkeypatch):
+    """Where matplotlib is missing, a run without -p that finds events is
+    refused with ImportError naming matplotlib (after writing its
+    .singlepulse files); a run without events has nothing to plot, and
+    -p runs.  With matplotlib the summary plot is drawn beside the first
+    input (tests/test_torch_plots.py holds it to the JAX CLI's)."""
     tdats = _copy(inputs, str(tmp_path / "t"))
-    with pytest.raises(NotImplementedError):
-        tapp.main(tdats, device="cpu")
-    assert all(os.path.exists(p[:-4] + ".singlepulse") for p in tdats)
-    assert tapp.main(["-t", "1000"] + tdats, device="cpu") == 0
-    assert tapp.main(["-p"] + tdats, device="cpu") == 0
+    png = tdats[0][:-4] + "_singlepulse.png"
+    with monkeypatch.context() as m:
+        for name in [k for k in sys.modules
+                     if k.startswith("matplotlib.")] + ["matplotlib"]:
+            m.setitem(sys.modules, name, None)
+        with pytest.raises(ImportError, match="matplotlib"):
+            tapp.main(tdats, device="cpu")
+        assert all(os.path.exists(p[:-4] + ".singlepulse") for p in tdats)
+        assert tapp.main(["-t", "1000"] + tdats, device="cpu") == 0
+        assert tapp.main(["-p"] + tdats, device="cpu") == 0
+        assert not os.path.exists(png)
+    assert tapp.main(tdats, device="cpu") == 0
+    with open(png, "rb") as f:
+        assert f.read(4) == b"\x89PNG"
