@@ -250,16 +250,35 @@ Phases (any failure exits non-zero before the final line):
              without -noplot raising ImportError naming matplotlib before
              any work (the card's machine has none); within
              PLOTS_BUDGET_S;
+  6l. tools   the last host tools (phase_tools): tests/test_referee.py's
+             spectrum (2^19 bins, four chirped tones) searched by
+             AccelSearch on the card and held by search/accel_ref
+             .agreement to the float64 referee on the host; injectpsr of
+             a 17.3 Hz pulsar at DM 23 into the beam at full width, then
+             prepdata, realfft and accelsearch -zmax 0 on the card and
+             triage/calibrate's labels on the sifted candidates (the
+             injected pulsar labelled; the beam alone, the control,
+             labelled by nothing at the search's resolution); launches
+             read around the referee's two searches and the two
+             accelsearch runs; both kernels against their plain versions
+             at the referee's geometry (zmax 100, numharm 8) and at
+             accelsearch -zmax 0 -numharm 8's on the injected .fft; the
+             host CLIs on the main survey's files (readfile,
+             rfifind_stats, ddplan, dat2tim -> tim2dat byte-equal,
+             downsample, quick_prune_cands, powerstats, dftfold,
+             rednoise) exiting 0, and quickffdots raising
+             ImportError naming matplotlib within 1 s; within
+             TOOLS_BUDGET_S;
  12. summary the kernels line (launches of the main path, the sharded
              main path, by shard too, the serve path, the fleet path, the
              federation path (A's last snapshot and B's replicas'), the
              tune sweep, the recipe path, the psrfits path, the classic
-             path, the monte path, the plots path (0), the jerk paths and
-             the live paths; each
+             path, the monte path, the plots path (0), the tools path, the
+             jerk paths and the live paths; each
              kernel's bound also at the measured peaks, and its numbers at
              the recipe's two pass geometries, at the classic
-             accelsearch's and at monte's), the card, and the final ok
-             line.
+             accelsearch's, at monte's and at the tools phase's two), the
+             card, and the final ok line.
 
 Prints the full results as one JSON line (``results: {...}``).  Imports
 no JAX and nothing of the JAX package.  ``--live-only`` runs phases 10 and
@@ -5695,6 +5714,323 @@ def phase_plots(pfddir, card, device="cuda"):
                 "growth within %g" % (PLOTS_RTOL, PLOTS_GROWTH_RTOL))
 
 
+# the tools phase.  The referee's spectrum is tests/test_referee.py's: 2^19
+# bins of T = 600 s, noise and four chirped tones (r0, z, amp), seed 99,
+# searched at zmax 100, numharm 8, sigma 4.  The injected pulsar goes into
+# the beam at f 17.3 Hz and DM 23 (beside the beam's 40.3, 7.13 and
+# 113.7 Hz pulsars), at a matched S/N of 1000 against the beam's
+# per-channel noise, above the beam's own pulsars by the same measure
+# (amp_for_snr).  calibrate's rule (a candidate within 2% of a harmonic or
+# subharmonic k <= 16 of f, DM within 3) also meets harmonics of the
+# beam's pulsars in a search of the beam alone (40.3 x 3 = 120.9 Hz against
+# 17.3 x 7 = 121.1 Hz), so the control is labelled twice: by that rule,
+# whose matches are counted and named, and at the search's own frequency
+# resolution (f_tol = R_ERR / (T f), 1.1 Fourier bins at f), which must
+# label nothing.
+TOOLS_REFEREE = dict(numbins=1 << 19, T=600.0, zmax=100, numharm=8,
+                     sigma=4.0, seed=99,
+                     tones=((9000.5, 0.0, 0.035), (50000.25, 40.0, 0.05),
+                            (200000.0, -80.0, 0.06),
+                            (401234.6, 12.0, 0.045)))
+TOOLS_INJECT = dict(f=17.3, dm=23.0, snr=1000.0)
+TOOLS_BUDGET_S = 90.0
+
+
+def chirp_pairs(numbins, tones, seed):
+    """tests/test_referee.py's _chirp_pairs: the packed spectrum of unit
+    noise plus tones (r0, z, amp) that start at bin r0 and drift z bins
+    over the observation."""
+    N = 2 * numbins
+    rng = np.random.default_rng(seed)
+    t = np.arange(N) / N
+    x = rng.normal(size=N)
+    for (r0, z, amp) in tones:
+        x += amp * np.cos(2 * np.pi * (r0 * t + 0.5 * z * t * t))
+    X = np.fft.rfft(x)[:numbins]
+    return np.stack([X.real, X.imag], -1).astype(np.float32)
+
+
+def _run_cli(main_fn, argv, **kw):
+    """(exit code, seconds, stdout lines) of one CLI run in-process: the
+    code main returned (None is 0) or its SystemExit's; an exception is
+    its text."""
+    t0 = time.time()
+    try:
+        rc, out = _cli_out(main_fn, argv, **kw)
+        rc = 0 if rc is None else rc
+    except SystemExit as e:
+        rc, out = e.code, ""
+    except Exception as e:                  # noqa: BLE001 (reported)
+        rc, out = "%s: %s" % (type(e).__name__, e), ""
+    return rc, time.time() - t0, len(out.splitlines())
+
+
+def tools_search(fil, workdir, device):
+    """prepdata -dm TOOLS_INJECT's DM -nobary, realfft, accelsearch -zmax 0
+    -numharm 8 on ``device`` (the port's CLIs), the ACCEL file sifted
+    (sifting.sift_candidates: one DM, so no DM check); (candidates,
+    host seconds, the kernel launches read from zero around
+    accelsearch)."""
+    from presto_tpu_torch.apps import accelsearch, prepdata, realfft
+    from presto_tpu_torch.pipeline import sifting
+    os.makedirs(workdir)
+    base = os.path.join(workdir, "beam")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _cli_out(prepdata.main, ["-dm", "%.1f" % TOOLS_INJECT["dm"], "-nobary",
+                             "-o", base, fil], device=device)
+    _cli_out(realfft.main, [base + ".dat"], device=device)
+    read = launch_counts()
+    _cli_out(accelsearch.main, ["-zmax", "0", "-numharm", "8",
+                                base + ".fft"], device=device)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    return (list(sifting.sift_candidates([base + "_ACCEL_0"])), secs,
+            read())
+
+
+def phase_tools(raw, workdir, mwork, device="cuda"):
+    """The last host tools (phase_tools), in three parts.
+    1. The float64 referee against the card: TOOLS_REFEREE's spectrum
+       searched by the port's AccelSearch on ``device`` (CUDA events, the
+       first call and a warm one), remove_duplicates, held by
+       search/accel_ref.agreement (tests/test_referee.py's rule) to
+       accel_ref.search_ref in float64 on the host over the same search's
+       geometry, and each tone found on both sides at its mid-observation
+       r; both kernels against their plain versions at this search's
+       geometry on this spectrum (recipe_kernels).
+    2. An injected pulsar through the card's search, labelled by triage:
+       injectpsr (-snr TOOLS_INJECT's, -noise the beam's median channel
+       std) into the beam at full width, its host seconds; prepdata,
+       realfft and accelsearch -zmax 0 on the card (tools_search); the
+       sifted candidates labelled by triage/calibrate against the
+       injection's sidecar, by calibrate's rule and at the search's
+       resolution: the injected pulsar (or a harmonic) labelled by both;
+       the same search of the beam alone labels nothing at the search's
+       resolution (its matches by calibrate's 2% rule are reported);
+       both kernels against their plain versions at accelsearch -zmax 0
+       -numharm 8's geometry (numz 1, 4 stages) on the injected .fft.
+    3. The host CLIs on the main survey's files (copies in the phase's
+       directory where a CLI writes beside its input): readfile on the
+       .fil, a .dat, a .fft, a .pfd, the .mask (-int: its numchan,
+       numint and ptsperint) and an ACCEL
+       .cand (-rzwcand); rfifind_stats; ddplan without -o; dat2tim then
+       tim2dat, byte-equal to the .dat; downsample; quick_prune_cands;
+       powerstats; dftfold at the injected f; rednoise: each exits 0.
+       quickffdots must raise ImportError naming matplotlib within 1 s
+       where matplotlib is missing (the card's machine), or draw.
+    The kernel launches are read from zero around the referee's card
+    searches and the two accelsearch runs, not around the kernels'
+    checks.  The phase must end within TOOLS_BUDGET_S."""
+    import importlib.util
+    from presto_tpu_torch.apps import (dat2tim, ddplan, dftfold, downsample,
+                                       injectpsr, powerstats,
+                                       quick_prune_cands, quickffdots,
+                                       readfile, rednoise, rfifind_stats,
+                                       tim2dat)
+    from presto_tpu_torch.apps.common import load_spectrum
+    from presto_tpu_torch.io.sigproc import FilterbankFile
+    from presto_tpu_torch.models.inject import truth_sidecar_path
+    from presto_tpu_torch.pipeline import sifting
+    from presto_tpu_torch.search import accel_ref
+    from presto_tpu_torch.search.accel import (AccelConfig, AccelSearch,
+                                               remove_duplicates)
+    from presto_tpu_torch.triage.calibrate import label_candidates, load_truth
+    t_phase = time.time()
+    os.makedirs(workdir)
+
+    # 1. the referee
+    r = TOOLS_REFEREE
+    pairs = chirp_pairs(r["numbins"], r["tones"], r["seed"])
+    cfg = AccelConfig(zmax=r["zmax"], numharm=r["numharm"], sigma=r["sigma"])
+    s = AccelSearch(cfg, T=r["T"], numbins=r["numbins"], device=device)
+    dpairs = torch.as_tensor(pairs, device=device)
+    card_ms = []
+    read = launch_counts()
+    for _ in range(2):
+        e0, e1 = cuda_event(), cuda_event()
+        e0.record()
+        raw_dev = s.search(dpairs)
+        e1.record()
+        torch.cuda.synchronize()
+        card_ms.append(e0.elapsed_time(e1))
+    launches = read()
+    dev = remove_duplicates(raw_dev)
+    t0 = time.time()
+    ref = remove_duplicates(accel_ref.search_ref(pairs, s, dtype=np.float64))
+    ref_s = time.time() - t0
+    agr = accel_ref.agreement(dev, ref, cfg.sigma)
+    tones_ok = all(any(abs(c.r - (r0 + 0.5 * z)) < 7.5 for c in lst)
+                   for (r0, z, _a) in r["tones"] for lst in (dev, ref))
+    kern = {"referee": recipe_kernels(
+        cfg, r["T"], r["numbins"], dpairs, None,
+        "tools referee (zmax %d, numharm %d)" % (r["zmax"], r["numharm"]),
+        device)}
+    ref_ok = agr["ok"] and tones_ok and all(k["ok"]
+                                            for k in kern["referee"])
+    log("tools: referee: %d bins, zmax %d, numharm %d, sigma %g; the "
+        "card's search %.3f ms first, %.3f ms warm (CUDA events), %d "
+        "candidates after remove_duplicates (%d strong); the float64 "
+        "referee on the host %.3f s, %d candidates (%d strong); %d isolated "
+        "strong candidates equal, largest sigma difference %.3g, power "
+        "%.3g relative; tones found %s; %s%s"
+        % (r["numbins"], r["zmax"], r["numharm"], r["sigma"], card_ms[0],
+           card_ms[1], agr["n_dev"], agr["n_dev_strong"], ref_s,
+           agr["n_ref"], agr["n_ref_strong"], agr["exact"],
+           agr["max_sigma_diff"], agr["max_power_rdiff"], tones_ok,
+           "ok" if ref_ok else "FAIL", "".join(
+               "\n  " + f for f in agr["failures"][:20])))
+    del s, dpairs
+    torch.cuda.empty_cache()
+
+    # 2. an injected pulsar through the card's search, labelled by triage
+    inj = os.path.join(workdir, "inj.fil")
+    with FilterbankFile(raw) as fb:
+        nspec, tsamp = fb.header.N, fb.header.tsamp
+        noise = float(np.median(fb.read_spectra(0, 1 << 16).std(axis=0)))
+    i = TOOLS_INJECT
+    t0 = time.time()
+    rc, out = _cli_out(injectpsr.main, [
+        "-f", str(i["f"]), "-dm", str(i["dm"]), "-snr", str(i["snr"]),
+        "-noise", "%.4f" % noise, "-o", inj, raw])
+    inject_s = time.time() - t0
+    truth = load_truth(truth_sidecar_path(inj))
+    T = nspec * tsamp
+    tight = sifting.R_ERR / (T * i["f"])
+    runs = {}
+    for name, fil in (("injected", inj), ("control", raw)):
+        cands, secs, n = tools_search(fil, os.path.join(workdir, name),
+                                      device)
+        launches = {k: v + n[k] for k, v in launches.items()}
+        rule = label_candidates(cands, truth)
+        res = label_candidates(cands, truth, f_tol=tight)
+        runs[name] = dict(
+            search_s=secs, ncands=len(cands),
+            labelled=[(c.f, c.sigma, c.numharm) for c, x in zip(cands, rule)
+                      if x],
+            labelled_at_resolution=[(c.f, c.sigma, c.numharm) for c, x in
+                                    zip(cands, res) if x],
+            top=[(c.f, c.sigma) for c in cands[:5]])
+    ipairs, info = load_spectrum(os.path.join(workdir, "injected", "beam"))
+    kern["injected"] = recipe_kernels(
+        AccelConfig(zmax=0, numharm=8, sigma=2.0, flo=1.0), info.N * info.dt,
+        ipairs.shape[0], torch.as_tensor(ipairs, device=device), None,
+        "tools injected (zmax 0, numharm 8)", device)
+    del ipairs
+    torch.cuda.empty_cache()
+    hit = runs["injected"]["labelled_at_resolution"]
+    inj_ok = (rc == 0 and len(truth) == 1 and bool(runs["injected"][
+        "labelled"]) and bool(hit)
+              and not runs["control"]["labelled_at_resolution"]
+              and all(k["ok"] for k in kern["injected"]))
+    log("tools: injectpsr -f %g -dm %g -snr %g -noise %.4f into %s (%d x %d "
+        "spectra, full width) on the host %.2f s: %s; sidecar %d record(s)"
+        % (i["f"], i["dm"], i["snr"], noise, os.path.basename(raw), nspec,
+           BEAM["nchan"], inject_s, out.strip(), len(truth)))
+    for name, v in runs.items():
+        log("tools: %s: prepdata + realfft + accelsearch on the card %.2f s, "
+            "%d sifted candidates (top 5 f Hz, sigma: %s); calibrate's rule "
+            "labels %d %s; at the search's resolution (f_tol %.3g) %d %s"
+            % (name, v["search_s"], v["ncands"],
+               ", ".join("%.4f %.1f" % c for c in v["top"]),
+               len(v["labelled"]),
+               ["%.4f (%.1f, %d harm)" % c for c in v["labelled"]], tight,
+               len(v["labelled_at_resolution"]),
+               ["%.4f (%.1f, %d harm)" % c
+                for c in v["labelled_at_resolution"]]))
+    log("tools: injected pulsar labelled (%s), control labels nothing at "
+        "the search's resolution: %s"
+        % ("%.4f Hz, sigma %.1f" % hit[0][:2] if hit else "none",
+           "ok" if inj_ok else "FAIL"))
+
+    # 3. the host CLIs on the main survey's files
+    cli = os.path.join(workdir, "cli")
+    os.makedirs(cli)
+    d22 = "psr_DM%.2f" % BEAM["dm"]
+    for f in (d22 + ".dat", d22 + ".inf", d22 + ".fft",
+              d22 + "_ACCEL_%d" % main_cfg().zmax,
+              d22 + "_ACCEL_%d.cand" % main_cfg().zmax,
+              "psr_rfifind.mask", "psr_rfifind.stats", "psr_rfifind.inf"):
+        shutil.copy(os.path.join(mwork, f), cli)
+
+    def c(f):
+        return os.path.join(cli, f)
+
+    pfd = sorted(glob.glob(os.path.join(mwork, "fold_cand*.pfd")))[0]
+    accel = c(d22 + "_ACCEL_%d" % main_cfg().zmax)
+    injdat = os.path.join(workdir, "injected", "beam.dat")
+    runs_cli = [
+        ("readfile", readfile.main, ["-n", "4", raw, c(d22 + ".dat"),
+                                     c(d22 + ".fft"), pfd]),
+        ("readfile -int (mask)", readfile.main,
+         ["-int", "-index", "12", "15", c("psr_rfifind.mask")]),
+        ("readfile -rzwcand (ACCEL)", readfile.main,
+         ["-rzwcand", accel + ".cand"]),
+        ("rfifind_stats", rfifind_stats.main, [c("psr_rfifind.mask")]),
+        ("ddplan", ddplan.main, ["-l", "20", "-d", "24", raw]),
+        ("dat2tim", dat2tim.main, [c(d22 + ".dat")]),
+        ("tim2dat", tim2dat.main, ["-o", c("back"), c(d22 + ".tim")]),
+        ("downsample", downsample.main, ["-factor", "4", c(d22 + ".dat")]),
+        ("quick_prune_cands", quick_prune_cands.main, [accel]),
+        ("powerstats", powerstats.main, ["-power", "40", "-numsum", "8",
+                                         "-numtrials", "1e7", "-sigma",
+                                         "6"]),
+        ("dftfold", dftfold.main, ["-n", "32", "-f", str(i["f"]), injdat]),
+        ("rednoise", rednoise.main, [c(d22 + ".fft")]),
+    ]
+    clis = {}
+    for name, fn, argv in runs_cli:
+        rc, secs, nlines = _run_cli(fn, argv)
+        clis[name] = dict(rc=rc, s=secs, lines=nlines)
+    same = (os.path.exists(c("back.dat")) and open(c("back.dat"), "rb").read()
+            == open(c(d22 + ".dat"), "rb").read())
+    clis_ok = all(v["rc"] == 0 for v in clis.values()) and same
+    log("tools: host CLIs: %s; tim2dat(dat2tim(.dat)) equals the .dat: %s %s"
+        % ("; ".join("%s rc %s %.2f s (%d lines)" % (k, v["rc"], v["s"],
+                                                      v["lines"])
+                     for k, v in clis.items()), same,
+           "ok" if clis_ok else "FAIL"))
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    png = c("ffdots.png")
+    t0 = time.time()
+    try:
+        _cli_out(quickffdots.main, ["-nr", "11", "-nz", "5", "-o", png,
+                                    c(d22 + ".fft"), "40.3"])
+        raised = None
+    except ImportError as e:
+        raised = str(e)
+    refusal_s = time.time() - t0
+    if have_mpl:
+        refusal_ok = raised is None and os.path.exists(png)
+    else:
+        refusal_ok = (raised is not None and "matplotlib" in raised
+                      and refusal_s <= 1.0 and not os.path.exists(png))
+    log("tools: quickffdots (matplotlib %s): %s in %.3f s %s"
+        % ("installed" if have_mpl else "missing",
+           "drew ffdots.png" if raised is None else "ImportError: %s"
+           % raised, refusal_s, "ok" if refusal_ok else "FAIL"))
+    phase_s = time.time() - t_phase
+    in_budget = phase_s <= TOOLS_BUDGET_S
+    launched = launches["plane_build"] >= 1 and launches["stage_reduce"] >= 1
+    log("tools: kernel launches around the searches %s %s; phase %.1f s of "
+        "its %.0f s budget %s"
+        % (json.dumps(launches), "ok" if launched else "FAIL", phase_s,
+           TOOLS_BUDGET_S, "ok" if in_budget else "FAIL"))
+    return dict(ok=ref_ok and inj_ok and clis_ok and refusal_ok
+                and launched and in_budget, launches=launches,
+                plane_build={k: v[0] for k, v in kern.items()},
+                stage_reduce={k: v[1] for k, v in kern.items()},
+                referee=dict(ok=ref_ok, card_ms=card_ms, host_s=ref_s,
+                             tones_ok=tones_ok,
+                             **{k: v for k, v in agr.items() if k != "ok"}),
+                inject=dict(ok=inj_ok, host_s=inject_s, noise=noise,
+                            f_tol_resolution=tight, **runs),
+                clis=clis, dat2tim_tim2dat_equal=same,
+                matplotlib=have_mpl, refusal=raised, refusal_s=refusal_s,
+                refusal_ok=refusal_ok, phase_s=phase_s,
+                budget_s=TOOLS_BUDGET_S)
+
+
 def keep_cands(res, keep):
     """recipe_cands.tar.xz in ``keep``: the survey's ACCEL tables, .cand
     files and .inf files by base name, and its cands_sifted.txt."""
@@ -5823,6 +6159,8 @@ def main():
         plots = phase_plots(mwork, card)
         plots["launches"] = read()
         torch.cuda.empty_cache()
+        tools = phase_tools(raw, os.path.join(work, "tools"), mwork)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     small = phase_small_reference(gen)
@@ -5843,7 +6181,7 @@ def main():
                    cluster=cluster, serve=serve, fleet=fleet,
                    federation=feder, recipe=recipe, psrfits=psrfits,
                    classic=classic, binary=binary, plots=plots,
-                   small_reference=small,
+                   tools=tools, small_reference=small,
                    **live,
                    total_s=time.time() - t_start)
     # launches: the main path's (run_survey, and run_survey on the DM
@@ -5870,7 +6208,8 @@ def main():
                    "psrfits": psrfits["launches"][name],
                    "classic": classic["launches"][name],
                    "monte": binary["launches"][name],
-                   "plots": plots["launches"][name]}
+                   "plots": plots["launches"][name],
+                   "tools": tools["launches"][name]}
         for path, counts in zip(("jerk_bench", "accelsearch_wmax",
                                  "stream", "beams"),
                                 jl + [live["stream"]["launches"],
@@ -5906,7 +6245,11 @@ def main():
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms")}
                            for ph, res in (("classic", classic),
-                                           ("monte", binary))}})
+                                           ("monte", binary))},
+                        **{"tools_" + c: {x: tools[name][c][x] for x in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}
+                           for c in ("referee", "injected")}})
     log("results: %s" % json.dumps(results, default=float))
     failed = [n for n, ok in (("build", build["ok"]),
                               ("plane_build", k1["ok"]),
@@ -5927,6 +6270,7 @@ def main():
                               ("classic", classic["ok"]),
                               ("binary", binary["ok"]),
                               ("plots", plots["ok"]),
+                              ("tools", tools["ok"]),
                               ("stream", live["stream"]["ok"]),
                               ("beams", live["beams"]["ok"])) if not ok]
     if failed:

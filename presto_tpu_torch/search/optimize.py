@@ -6,10 +6,11 @@ which imports nothing from the JAX package: the (r, z) parts and the
 jerk's (r, z, w) interpolation and simplex (rzw_interp, power_at_rzw,
 max_rzw_arr: the reference's per-candidate path, which the port's
 accelsearch refine does not fall back to; the library and the tests
-use them).  corr_rz_plane is not ported.
+use them), and corr_rz_plane.
 
 Parity targets (behavioral, not line-for-line):
   rz_interp            rzinterp.c:144-...   amplitude at fractional (r,z)
+  corr_rz_plane        rzinterp.c:3-...     small (r,z) power patch
   max_rz_arr           maximize_rz.c:22-... simplex max of power over (r,z)
   max_rz_arr_harmonics maximize_rz.c:140    joint harmonic refinement
   get_localpower3d     characteristics.c:77
@@ -109,6 +110,19 @@ def power_at_rzw(amps: np.ndarray, r: float, z: float,
                  w: float) -> float:
     a = rzw_interp(amps, r, z, w)
     return a.real * a.real + a.imag * a.imag
+
+
+def corr_rz_plane(amps: np.ndarray, rlo: float, rhi: float, dr: float,
+                  zlo: float, zhi: float, dz: float) -> np.ndarray:
+    """Power patch P[iz, ir] over an (r, z) grid (explorefft-style zoom;
+    reference corr_rz_plane rzinterp.c:3)."""
+    rs = np.arange(rlo, rhi + dr * 0.5, dr)
+    zs = np.arange(zlo, zhi + dz * 0.5, dz)
+    out = np.empty((zs.size, rs.size))
+    for i, z in enumerate(zs):
+        for j, r in enumerate(rs):
+            out[i, j] = power_at_rz(amps, r, z)
+    return out
 
 
 # ---------------------------------------------------------------------------

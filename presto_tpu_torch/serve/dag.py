@@ -100,10 +100,9 @@ def plan_dag(spec: dict):
     learned ranker (triage/) and fans out only the
     surviving budget — the SAME `complete_and_expand` transaction,
     cascade-fail, and chaos seams the sift fan-out rides.  Truth
-    sidecars (``<rawfile>_injected.json``, the JAX package's
-    models/inject naming) found
-    beside the rawfiles at submission are stamped into the node spec
-    so injection recall rides real traffic.
+    sidecars (``<rawfile>_injected.json``, the port's models/inject
+    naming) found beside the rawfiles at submission are stamped into
+    the node spec so injection recall rides real traffic.
 
     The search node is an ordinary survey job (it stacks with plain
     search traffic) with folding disabled — folds are DAG nodes —

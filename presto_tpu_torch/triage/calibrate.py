@@ -5,7 +5,7 @@ Host copy of ``presto_tpu/triage/calibrate.py`` for the PyTorch port;
 training and scoring run on the caller's ``device``.
 
 The labeling trick (the whole reason triage can be trusted at all):
-`models/inject.py` writes a ground-truth sidecar
+`models/inject.py` (the port's own) writes a ground-truth sidecar
 (``<out>_injected.json``) beside every injected file, so any survey
 or campaign that processed injected data carries its own eval set —
 a sifted candidate matching an injected pulsar's (period, DM) within
@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from presto_tpu_torch.models.inject import truth_sidecar_path
 from presto_tpu_torch.triage.features import featurize
 from presto_tpu_torch.triage.model import TriageModel, train_model
 
@@ -255,12 +256,6 @@ def acceptance_report(seed: int = 20, n_obs: int = 12,
 # ----------------------------------------------------------------------
 # sidecar discovery
 # ----------------------------------------------------------------------
-
-def truth_sidecar_path(datapath: str) -> str:
-    """``<out>_injected.json`` beside an injected data file (the JAX
-    package's models/inject naming)."""
-    return os.path.splitext(datapath)[0] + "_injected.json"
-
 
 def find_truth_sidecars(paths: Sequence[str]) -> List[str]:
     """Existing ``*_injected.json`` sidecars for a list of data

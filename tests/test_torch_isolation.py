@@ -7,6 +7,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
@@ -627,4 +629,88 @@ def test_plot_modules_stand_alone_and_need_cuda(tmp_path):
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "PLOT ISOLATED" in out.stdout
+    assert os.listdir(str(tmp_path)) == []
+
+
+TOOLS_SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+from presto_tpu_torch.apps import (a2x, dat2tim, datutils, ddplan, dftfold,
+                                   downsample, downsample_filterbank,
+                                   event_peak, exploredat, explorefft,
+                                   fb_truncate, filter_zerolags, injectpsr,
+                                   makedata, makeinf, powerstats,
+                                   quick_prune_cands, quickffdots, readfile,
+                                   rednoise, rfifind_stats, subband_smearing,
+                                   tim2dat, timeconv, weights_to_ignorechan,
+                                   window)
+from presto_tpu_torch.io import spectra
+from presto_tpu_torch.models import inject
+from presto_tpu_torch.search import accel, accel_ref, optimize
+from presto_tpu_torch.triage import calibrate
+from presto_tpu_torch.utils import events, gaussfit
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "presto_tpu" or m.startswith("presto_tpu.")
+             or m == "matplotlib" or m.startswith("matplotlib."))
+assert not bad, bad
+assert calibrate.truth_sidecar_path is inject.truth_sidecar_path
+assert callable(optimize.corr_rz_plane)
+pairs = np.zeros((1 << 14, 2), np.float32)
+cfg = accel.AccelConfig(zmax=10, numharm=2)
+if not torch.cuda.is_available():
+    try:
+        accel.AccelSearch(cfg, T=10.0, numbins=1 << 14)
+    except RuntimeError as e:
+        assert "CUDA" in str(e), e
+    else:
+        raise AssertionError("a search was built without CUDA")
+search = accel.AccelSearch(cfg, T=10.0, numbins=1 << 14, device="cpu")
+assert accel_ref.search_ref(pairs, search) == []
+assert accel_ref.timed_search_ref(pairs, search)[0] == []
+print("TOOLS ISOLATED")
+"""
+
+
+def test_host_tool_modules_stand_alone(tmp_path):
+    """The host tools (the 26 CLIs of apps/, io/spectra, models/inject,
+    search/accel_ref, utils/{events, gaussfit}) import neither jax,
+    presto_tpu nor matplotlib; triage/calibrate names the sidecar through
+    models/inject; the searcher whose geometry the referee reads needs a
+    card unless built for the CPU, the referee itself runs on the host,
+    and nothing is written."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", TOOLS_SCRIPT],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "TOOLS ISOLATED" in out.stdout
+    assert os.listdir(str(tmp_path)) == []
+
+
+def test_drawing_tools_without_matplotlib_raise(tmp_path, monkeypatch):
+    """With matplotlib hidden, each drawing CLI (a2x, ddplan -o,
+    subband_smearing, event_peak -o, quickffdots, window, explorefft,
+    exploredat) raises ImportError naming it before any of its work: its
+    inputs do not exist, and nothing is written."""
+    from presto_tpu_torch.apps import (a2x, ddplan, event_peak, exploredat,
+                                       explorefft, quickffdots,
+                                       subband_smearing, window)
+    for name in [m for m in sys.modules if m.startswith("matplotlib.")] \
+            + ["matplotlib"]:
+        monkeypatch.setitem(sys.modules, name, None)
+    monkeypatch.chdir(tmp_path)
+    for call in (lambda: a2x.main(["missing.txt"]),
+                 lambda: ddplan.main(["-o", "plan.png", "missing.fil"]),
+                 lambda: subband_smearing.main(["-o", "s.png"]),
+                 lambda: event_peak.main(["-o", "e.png", "missing.txt",
+                                          "2.0"]),
+                 lambda: quickffdots.main(["missing.fft", "17.3"]),
+                 lambda: window.main(["-o", "w.png"]),
+                 lambda: explorefft.main(["-png", "f.png", "missing.fft"]),
+                 lambda: exploredat.main(["-png", "d.png", "missing.dat"])):
+        with pytest.raises(ImportError, match="matplotlib"):
+            call()
     assert os.listdir(str(tmp_path)) == []
