@@ -372,7 +372,8 @@ def _seam_handoff(args, s: _Setup, seam, parts, plan, outbase, names,
     dedispersed."""
     nvalid = s.valid
     host = fusion.gather_shards([p[:, :nvalid] for p in parts],
-                                plan.row_ranges)
+                                plan.row_ranges,
+                                obs=seam.obs if sharded else None)
     resampled = s.bary is not None and s.bary.diffbins.size > 0
     host, valid, numout = pad_to_good_N(s.resample(host), args.numout)
     devs = []

@@ -31,6 +31,8 @@ JAX package's names and schema:
 
   kernel_flops_total{kind}        cumulative modeled FLOPs per kind
   kernel_hbm_bytes_total{kind}    cumulative modeled device bytes per kind
+  cost_model_unavailable{reason}  probes of a kind with no formula (each
+                                  counted, then raised)
 
 ``probe(obs, kind, **shape)`` at a dispatch site installs the unit for
 that shape once (under an ``obs:roofline-probe`` span); every
@@ -324,10 +326,18 @@ def kernel_shapes(shape: dict):
 # probing
 # ----------------------------------------------------------------------
 
+def _note_unavailable(obs, reason: str) -> None:
+    obs.metrics.counter(
+        "cost_model_unavailable",
+        "Cost-model failures (a kind or shape with no formula)",
+        ("reason",)).labels(reason=reason).inc()
+
+
 def probe(obs, kind: str, **shape) -> Optional[KindCost]:
     """Install the unit cost of ``kind`` at ``shape`` on the handle's
     book, once per (kind, shape), under an ``obs:roofline-probe`` span.
-    None when the handle is disabled; an unknown kind raises."""
+    None when the handle is disabled; an unknown kind is counted on
+    ``cost_model_unavailable{reason}`` and raises (no fallback)."""
     bk = book(obs)
     if bk is None:
         return None
@@ -339,6 +349,7 @@ def probe(obs, kind: str, **shape) -> Optional[KindCost]:
         unit = analytic(kind, **shape)
     except BaseException as e:
         sp.finish("error: %s" % type(e).__name__)
+        _note_unavailable(obs, type(e).__name__)
         raise
     bk.mark(kind, sig)
     _install(obs, bk, unit)
@@ -439,7 +450,11 @@ def snapshot(obs) -> dict:
             if unit.hbm_bytes > 0:
                 ent["intensity"] = unit.flops / unit.hbm_bytes
         kinds[kind] = ent
-    return {"schema": COSTS_SCHEMA, "kinds": kinds, "unavailable": {}}
+    unavailable = _counter_by_label(obs, "cost_model_unavailable",
+                                    "reason")
+    return {"schema": COSTS_SCHEMA, "kinds": kinds,
+            "unavailable": {k: int(v)
+                            for k, v in sorted(unavailable.items())}}
 
 
 def write_costs(obs, dirpath: str, db_path: Optional[str] = None

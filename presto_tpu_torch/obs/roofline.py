@@ -31,7 +31,7 @@ SHAPE_KEY = "peaks_v1"
 # the microbenchmark
 # ----------------------------------------------------------------------
 
-def _best_ms(fn, reps: int) -> float:
+def best_ms(fn, reps: int) -> float:
     """Best of ``reps`` CUDA-event times of fn() after one warm-up."""
     fn()
     torch.cuda.synchronize()
@@ -73,12 +73,12 @@ def measure_peaks(obs=None, reps: int = 5, n_mm: int = 8192,
             a = torch.randn((n_mm, n_mm), generator=gen, device=dev)
             b = torch.randn((n_mm, n_mm), generator=gen, device=dev)
             c = torch.empty_like(a)
-            mm_ms = _best_ms(lambda: torch.matmul(a, b, out=c), reps)
+            mm_ms = best_ms(lambda: torch.matmul(a, b, out=c), reps)
             del a, b, c
             x = torch.randn(n_bw, generator=gen, device=dev)
             y = torch.randn(n_bw, generator=gen, device=dev)
             z = torch.empty_like(x)
-            bw_ms = _best_ms(lambda: torch.add(y, x, alpha=1.0001, out=z),
+            bw_ms = best_ms(lambda: torch.add(y, x, alpha=1.0001, out=z),
                              reps)
             del x, y, z
             torch.cuda.empty_cache()

@@ -3,14 +3,13 @@
 Host copy of ``presto_tpu_torch/obs/taxonomy.py``: every survey stage, chaos
 kill point, serve/fleet/SLO/supervisor/campaign/federation/triage/
 stream/beam event kind, span name and metric name the port emits is
-listed here.  The port has no linter package: the tier-1 test
-``tests/test_torch_taxonomy.py`` holds the port's source to this
-catalog (literal event kinds, span names and metric names in serve/,
-stream/, obs/ and pipeline/survey.py; the kill-point tuples of
-testing/chaos, stream/beams and serve/federation), and the catalog to
-the JAX package's up to :data:`PORT_CHANGES`.  The comments below that
-name an ``obs_lint`` / ``obs-coverage`` check mean the JAX package's
-linter (presto_tpu/lint), which pins the same sets in that package.
+listed here.  The port's presto-lint family ``obs-coverage``
+(presto_tpu_torch/lint/obscoverage.py, the checks the comments below
+name) holds the port's source to this catalog in both directions; the
+tier-1 test ``tests/test_torch_taxonomy.py`` holds the literal names in
+serve/, stream/, obs/ and pipeline/survey.py and the kill-point tuples
+of testing/chaos, stream/beams and serve/federation to it, and the
+catalog to the JAX package's up to :data:`PORT_CHANGES`.
 
 The catalog starts as a copy of the JAX package's.  Where the port's
 names differ, the sets below carry the port's names and

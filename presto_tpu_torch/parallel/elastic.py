@@ -40,6 +40,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from presto_tpu_torch.obs import get_obs
 from presto_tpu_torch.pipeline.shardledger import (Lease, ShardLedger,
                                                    ShardLedgerError,
                                                    StaleEpochError)
@@ -202,12 +203,16 @@ class ElasticCluster:
         cluster.close()
 
     ``stats`` counts what the run saw: heartbeats, shards done, redos,
-    epoch bumps, barrier timeouts and fenced (stale) commits.
+    epoch bumps, barrier timeouts and fenced (stale) commits.  ``obs``
+    (default: the process's, obs.get_obs) receives, when enabled, the
+    flight-recorder events of obs/taxonomy.CLUSTER_EVENTS: the ledger's,
+    and the cluster's own chaos points, joins, barrier timeouts and
+    reforms.
     """
 
     def __init__(self, workdir: str, host: str,
                  cfg: Optional[ElasticConfig] = None, fault_injector=None,
-                 ledger_name: Optional[str] = None):
+                 ledger_name: Optional[str] = None, obs=None):
         self.workdir = os.path.abspath(workdir)
         self.host = host
         self.cfg = cfg or ElasticConfig()
@@ -215,8 +220,9 @@ class ElasticCluster:
                                if fault_injector is not None
                                else process_injector())
         os.makedirs(self.workdir, exist_ok=True)
+        self.obs = obs if obs is not None else get_obs()
         kw = {} if ledger_name is None else {"name": ledger_name}
-        self.ledger = ShardLedger(self.workdir, **kw)
+        self.ledger = ShardLedger(self.workdir, obs=self.obs, **kw)
         self.epoch = 0
         self.distributed = False
         self.coordinator: Optional[str] = None
@@ -226,7 +232,9 @@ class ElasticCluster:
         self._last_reap = 0.0
 
     def _point(self, name: str) -> None:
-        """Chaos kill point."""
+        """Chaos kill point: flight-recorded first, so a kill here names
+        itself in the dump."""
+        self.obs.event("chaos-point", point=name, host=self.host)
         if self.fault_injector is not None:
             self.fault_injector.point(name)
 
@@ -253,6 +261,8 @@ class ElasticCluster:
                 self.distributed = True
             except BarrierTimeout:
                 self.stats["barrier_timeouts"] += 1
+                self.obs.event("barrier-timeout", name="init-distributed",
+                               timeout=self.cfg.barrier_timeout)
                 print("elastic: cluster join timed out after %.1fs — "
                       "continuing on the local device"
                       % self.cfg.barrier_timeout)
@@ -264,6 +274,8 @@ class ElasticCluster:
         self._readmit_own_leases()
         self.ledger.heartbeat(self.host, self.epoch)
         self.stats["heartbeats"] += 1
+        self.obs.event("cluster-join", host=self.host, epoch=self.epoch,
+                       distributed=self.distributed)
         self._hb_thread = threading.Thread(
             target=self._hb_loop, daemon=True,
             name="elastic-hb-%s" % self.host)
@@ -284,6 +296,8 @@ class ElasticCluster:
                 return True
             time.sleep(min(0.05, self.cfg.idle_poll))
         self.stats["barrier_timeouts"] += 1
+        self.obs.event("barrier-timeout", name="join-rendezvous",
+                       timeout=self.cfg.barrier_timeout, expected=expected)
         print("elastic: join rendezvous timed out (%d process(es) "
               "expected) — proceeding with the survivors" % expected)
         return False
@@ -355,9 +369,13 @@ class ElasticCluster:
                     self.cfg.barrier_timeout, "reform") == len(alive)
             except BarrierTimeout:
                 self.stats["barrier_timeouts"] += 1
+                self.obs.event("barrier-timeout", name="reform",
+                               timeout=self.cfg.barrier_timeout)
             except Exception:
                 ok = False
         self.distributed = ok
+        self.obs.event("mesh-reform", mode="cluster" if ok else "local",
+                       survivors=sorted(alive), epoch=self.epoch)
         print("elastic: epoch %d — %s over %d survivor(s)"
               % (self.epoch, "process group re-formed" if ok
                  else "per-process", max(len(alive), 1)))
@@ -382,6 +400,8 @@ class ElasticCluster:
             return True
         except BarrierTimeout:
             self.stats["barrier_timeouts"] += 1
+            self.obs.event("barrier-timeout", name=name,
+                           timeout=self.cfg.barrier_timeout)
             return False
         except Exception:
             return False
@@ -446,11 +466,11 @@ def run_elastic(workdir: str, host: str,
                 coordinator: Optional[str] = None,
                 nproc: Optional[int] = None,
                 procid: Optional[int] = None, fault_injector=None,
-                meta: Optional[dict] = None) -> int:
+                meta: Optional[dict] = None, obs=None) -> int:
     """One call: join, run every shard, leave.  Returns the number of
     shards this process committed."""
     cluster = ElasticCluster(workdir, host, cfg,
-                             fault_injector=fault_injector)
+                             fault_injector=fault_injector, obs=obs)
     cluster.join(coordinator, nproc, procid)
     try:
         return cluster.run(specs, compute_fn, meta=meta)

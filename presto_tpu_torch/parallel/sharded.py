@@ -34,6 +34,7 @@ import torch
 
 from presto_tpu_torch.ops import dedispersion as dd
 from presto_tpu_torch.parallel.mesh import Mesh, shard_row_ranges
+from presto_tpu_torch.search import accel, accel_cuda, build_cuda
 
 #: by shard index, over the sharded_accel_search_many calls (every
 #: non-jerk search_many; a one-device search is shard 0): the shard's
@@ -258,26 +259,86 @@ def _shard_inputs(pairs_batch, mesh: Mesh):
             zip(mesh.devices, shard_row_ranges(mesh, nd + pad))], nd
 
 
+class TrialSteps:
+    """The search of one trial on one device, step by step: ``run`` is
+    what sharded_accel_search_many queues for each trial of a shard,
+    ``fetch`` its one copy of a shard's compacted candidates to the host
+    and ``decode`` the candidates of one trial there.  Each step is also
+    a method of its own, so apps/profile_accel times the search's own
+    steps."""
+
+    def __init__(self, searcher, device, plan, compact_m: int):
+        self.s = searcher
+        self.device = torch.device(device)
+        self.slab, self.k, self.start_cols = plan
+        self.kbank, self.zinds, self.powcut = searcher.state_on(device)
+        self.scols = torch.tensor(self.start_cols, dtype=torch.int32,
+                                  device=device)
+        self.nst = searcher.cfg.numharmstages
+        self.m = compact_m
+
+    def build(self, x, spectra=None):
+        """The trial's plane (forward_spectra, then plane_build)."""
+        return self.s.build_plane(x, self.kbank, spectra=spectra)
+
+    def scan(self, plane):
+        """stage_reduce over the slabs: (column max, argmax z)."""
+        return accel_cuda.reduce_stages(plane, self.scols, self.zinds,
+                                        self.slab, self.nst)
+
+    def collect(self, colmax, colz):
+        return accel.collect_from_reduced(colmax, colz, self.powcut, self.k)
+
+    def compact(self, packed):
+        return accel.compact_scan_packed(packed, self.m)
+
+    def run(self, x):
+        """(packed, compacted) of one trial, queued on the device."""
+        plane = self.build(x)
+        colmax, colz = self.scan(plane)
+        del plane
+        packed = self.collect(colmax, colz)
+        del colmax, colz
+        return packed, self.compact(packed)
+
+    def fetch(self, comps):
+        """The trials' compacted outputs stacked, on the host: (host,
+        done), a pinned copy and the event that ends it on a CUDA
+        device, the stack itself and None elsewhere."""
+        comp = torch.stack(comps)
+        if self.device.type != "cuda":
+            return comp, None
+        host = torch.empty(comp.shape, dtype=comp.dtype, pin_memory=True)
+        with torch.cuda.device(self.device):
+            host.copy_(comp, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        return host, done
+
+    def decode(self, comp, packed):
+        """One trial's candidates from its row of fetch's host copy."""
+        return self.s._decode(comp.numpy(), packed, self.start_cols,
+                              self.m)
+
+
 def sharded_accel_search_many(searcher, pairs_batch, mesh: Mesh,
-                              slab: int = 1 << 20, compact_m: int = None
+                              slab: int = accel.SEARCH_SLAB,
+                              compact_m: int = accel.COMPACT_CANDS
                               ) -> List[list]:
     """Accelsearch over a DM fan-out with the trial axis split over
     ``mesh`` (the search-stage mpiprepsubband invariant): each shard
     builds (plane_build), reduces (stage_reduce), collects and compacts
     (compact_scan_packed) every one of its trials on its device, queued
-    with no host sync between trials; then one device-to-host copy per
-    shard, and collect_compacted on the host, with the lossless dense
-    fallback for a trial whose compacted budget overflows.  This is
-    searcher.search_many's search (a one-device run is a one-entry mesh),
-    so the lists do not depend on the mesh.
+    with no host sync between trials (TrialSteps.run); then one
+    device-to-host copy per shard, and collect_compacted on the host,
+    with the lossless dense fallback for a trial whose compacted budget
+    overflows.  This is searcher.search_many's search (a one-device run
+    is a one-entry mesh), so the lists do not depend on the mesh.
 
     pairs_batch: [nd, numbins, 2] float32 (numpy or a tensor), or the
     per-shard tensors already on the mesh's devices.  A jerk search
     (cfg.wmax) goes to searcher.search_many on the searcher's device.
     """
-    from presto_tpu_torch.search import accel, accel_cuda, build_cuda
-    if compact_m is None:
-        compact_m = accel.COMPACT_CANDS
     if searcher.cfg.wmax:
         return searcher.search_many(pairs_batch, slab=slab,
                                     compact_m=compact_m)
@@ -288,48 +349,30 @@ def sharded_accel_search_many(searcher, pairs_batch, mesh: Mesh,
     plan = searcher.slab_plan(geom[2], slab) if geom else None
     if plan is None:
         return [[] for _ in range(nd)]
-    slab_, k, start_cols = plan
-    nst = searcher.cfg.numharmstages
     for d in mesh.distinct_devices():
-        searcher._check_memory(geom[1] * searcher.cfg.uselen, slab_,
-                               len(start_cols), device=d)
+        searcher._check_memory(geom[1] * searcher.cfg.uselen, plan[0],
+                               len(plan[2]), device=d)
     pend = []
     for shard, (d, x) in enumerate(zip(mesh.devices, parts)):
-        kbank, zinds, powcut = searcher.state_on(d)
-        scols = torch.tensor(start_cols, dtype=torch.int32, device=d)
+        steps = TrialSteps(searcher, d, plan, compact_m)
         before = (build_cuda.launches, accel_cuda.launches)
         packs, comps = [], []
         for j in range(x.shape[0]):
-            plane = searcher.build_plane(x[j], kbank)
-            colmax, colz = accel_cuda.reduce_stages(plane, scols, zinds,
-                                                    slab_, nst)
-            del plane
-            packed = accel.collect_from_reduced(colmax, colz, powcut, k)
-            del colmax, colz
+            packed, comp = steps.run(x[j])
             packs.append(packed)
-            comps.append(accel.compact_scan_packed(packed, compact_m))
-        done = None
-        comp = torch.stack(comps) if comps else None
-        if comp is not None and d.type == "cuda":
-            host = torch.empty(comp.shape, dtype=comp.dtype,
-                               pin_memory=True)
-            with torch.cuda.device(d):
-                host.copy_(comp, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-            comp = host
+            comps.append(comp)
+        host, done = steps.fetch(comps) if comps else (None, None)
         rec = shard_launches.setdefault(shard, {
             "device": str(d), "trials": 0, "plane_build": 0,
             "stage_reduce": 0})
         rec["trials"] += x.shape[0]
         rec["plane_build"] += build_cuda.launches - before[0]
         rec["stage_reduce"] += accel_cuda.launches - before[1]
-        pend.append((packs, comp, done))
+        pend.append((steps, packs, host, done))
     out: List[list] = []
-    for packs, comp, done in pend:
+    for steps, packs, host, done in pend:
         if done is not None:
             done.synchronize()
         for j, packed in enumerate(packs):
-            out.append(searcher._decode(comp[j].numpy(), packed,
-                                        start_cols, compact_m))
+            out.append(steps.decode(host[j], packed))
     return out[:nd]

@@ -34,6 +34,7 @@ import torch
 
 from presto_tpu_torch.io.datfft import write_dat
 from presto_tpu_torch.io.infodata import write_inf
+from presto_tpu_torch.obs.trace import NOOP_SPAN
 from presto_tpu_torch.ops import fftpack
 
 DEFAULT_WINDOW_DEPTH = 2     # sharded FFT chunks queued ahead of their search
@@ -361,15 +362,22 @@ def is_sharded(block) -> bool:
     return getattr(block, "mesh", None) is not None
 
 
-def gather_shards(parts, row_ranges) -> np.ndarray:
+def gather_shards(parts, row_ranges, obs=None) -> np.ndarray:
     """The host copy of per-shard device tensors: each shard's rows copied
     device-to-host into its own rows of one host array, with no gather
-    through one device."""
+    through one device.  The bytes are counted on ``obs``'s
+    survey_fused_shard_gather_bytes_total (the sharded seam's bulk
+    download)."""
     nrows = max(hi for _lo, hi in row_ranges)
     out = np.empty((nrows,) + tuple(parts[0].shape[1:]),
                    dtype=np.float32)
     for part, (lo, hi) in zip(parts, row_ranges):
         out[lo:hi] = part.cpu().numpy()
+    if obs is not None and obs.enabled:
+        obs.metrics.counter(
+            "survey_fused_shard_gather_bytes_total",
+            "Bytes downloaded per-shard from the DM-sharded seam "
+            "(pad/spill/candidate collection)").inc(int(out.nbytes))
     return out
 
 
@@ -380,7 +388,10 @@ class StageSeam:
     trial's ``.dat`` on demand (ensure_dat), journaled in ``manifest``
     (pipeline/manifest.SurveyManifest) when one is given.  ``depth`` is
     the sharded chunks' window (resolve_depth); ``obs`` receives the
-    producers' dispatch telemetry (prepsubband's dedispersion steps)."""
+    producers' dispatch telemetry (prepsubband's dedispersion steps) and
+    the seam's own: a ``pipeline:seam`` span (``pipeline:shard-seam`` for
+    a sharded block) around each hand-off and spill, and the
+    survey_fused_* counters of trials handed over and bytes spilled."""
 
     def __init__(self, workdir: str, durable: bool = True, manifest=None,
                  inflight_depth: Optional[int] = None, obs=None):
@@ -393,12 +404,26 @@ class StageSeam:
         self._by_dat: Dict[str, tuple] = {}    # abs .dat -> (block, row)
 
     def add_block(self, block: SeamBlock) -> None:
+        sp = self._span("handoff", is_sharded(block),
+                        trials=len(block.names), numout=block.numout)
         self.blocks.append(block)
         for row, name in enumerate(block.names):
             write_inf(block.infos[row], name + ".inf")
             self._by_dat[os.path.abspath(name + ".dat")] = (block, row)
+        if self.obs is not None and self.obs.enabled:
+            self.obs.metrics.counter(
+                "survey_fused_trials_total",
+                "DM trials handed across the in-memory stage seam"
+            ).inc(len(block.names))
+            if is_sharded(block):
+                self.obs.metrics.counter(
+                    "survey_fused_shard_trials_total",
+                    "DM trials handed across the seam as device "
+                    "shards (one DM sub-range per mesh device)"
+                ).inc(len(block.names))
         if self.durable:
             self.spill(block)
+        sp.finish()
 
     def __len__(self) -> int:
         return sum(len(b.names) for b in self.blocks)
@@ -416,11 +441,15 @@ class StageSeam:
     def spill(self, block: SeamBlock) -> int:
         """Write one block's ``.dat`` + ``.inf`` from the host copy;
         returns the bytes written."""
+        sp = self._span("spill", is_sharded(block),
+                        trials=len(block.names), numout=block.numout)
         total = 0
         for row, name in enumerate(block.names):
             write_dat(name + ".dat", block.series_host[row],
                       block.infos[row])
             total += block.series_host[row].nbytes
+        self._count_spill(total)
+        sp.finish()
         return total
 
     def ensure_dat(self, datpath: str) -> bool:
@@ -433,11 +462,15 @@ class StageSeam:
         if ent is None or os.path.exists(datpath):
             return os.path.exists(datpath)
         block, row = ent
+        sp = self._span("spill", is_sharded(block), trials=1,
+                        numout=block.numout, on_demand=True)
         write_dat(datpath, block.series_host[row], block.infos[row])
         if self.manifest is not None:
             self.manifest.record_many(
                 [p for p in (datpath, block.names[row] + ".inf")
                  if os.path.exists(p)], "prepsubband")
+        self._count_spill(block.series_host[row].nbytes)
+        sp.finish()
         return True
 
     def release(self, block: SeamBlock) -> None:
@@ -445,6 +478,20 @@ class StageSeam:
         last FFT chunk has consumed it (the host copy stays for
         spills)."""
         block.series_dev = None
+
+    def _span(self, op: str, sharded: bool, **attrs):
+        if self.obs is None:
+            return NOOP_SPAN
+        if sharded:
+            return self.obs.span("pipeline:shard-seam", op=op, **attrs)
+        return self.obs.span("pipeline:seam", op=op, **attrs)
+
+    def _count_spill(self, nbytes: int) -> None:
+        if nbytes and self.obs is not None and self.obs.enabled:
+            self.obs.metrics.counter(
+                "survey_fused_bytes_spilled_total",
+                "Seam-held artifact bytes spilled to the durable tier"
+            ).inc(int(nbytes))
 
 
 def fused_rfft_batch(series_dev, mesh=None):

@@ -701,7 +701,7 @@ def _device_search_stages(seam, disk_only, datfiles, cfg, timer, manifest,
             searched = {os.path.abspath(a[:a.rfind("_ACCEL_")]) + ".fft"
                         for a in found}
             timer.mark("realfft")
-        _staged_fft(disk_only, device, manifest, obs=obs)
+        _staged_fft(disk_only, cfg, device, manifest, obs=obs)
         # the staged sweep: the disk trials, and a seam trial's zapped
         # .fft on disk that this run did not search (a resumed run's)
         fftfiles = sorted(f for f in {f[:-4] + ".fft" for f in disk_only}
@@ -727,14 +727,16 @@ def _device_search_stages(seam, disk_only, datfiles, cfg, timer, manifest,
                              device, manifest, timer, obs=obs)
 
 
-def _staged_fft(datfiles, device, manifest, obs=None) -> None:
+def _staged_fft(datfiles, cfg, device, manifest, obs=None) -> None:
     """Disk trials with no verified .fft: batched rFFT on the device,
     the .fft written and journaled under "realfft" (the staged flow
-    zapbirds intervenes in).  An .fft the journal marks "zapbirds" is a
-    zapped spectrum: valid, and never made again."""
+    zapbirds intervenes in), kill point ``fft-chunk`` after each chunk.
+    An .fft the journal marks "zapbirds" is a zapped spectrum: valid,
+    and never made again."""
     todo = _without_fft(datfiles, manifest)
     for names, pairs, _T in _disk_rffts(todo, device, obs):
         _write_ffts(pairs, names, manifest, "realfft", obs=obs)
+        _chaos(cfg, "fft-chunk")
     if todo:
         print("survey: realfft over %d series (batched)" % len(todo))
 

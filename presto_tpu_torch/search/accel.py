@@ -66,6 +66,7 @@ SEARCH_SEG = 16      # columns per segment-max before top-k (8 r-bins <
                      # ACCEL_CLOSEST_R: merged candidates are ones the
                      # r-dedup collapses anyway)
 COMPACT_CANDS = 2048  # default top-m budget per trial
+SEARCH_SLAB = 1 << 20  # default plane columns a stage_reduce slab
 _CMP_ZBITS = 12      # compact meta word: zrow | stage << 12 | slab << 15
 _CMP_SBITS = 3
 MEM_HEADROOM = 0.9   # share of free device memory one trial may use
@@ -699,7 +700,7 @@ class AccelSearch:
 
     # -- search --------------------------------------------------------
 
-    def slab_plan(self, plane_numr: int, slab: int = 1 << 20):
+    def slab_plan(self, plane_numr: int, slab: int = SEARCH_SLAB):
         """(slab, k, start_cols) covering [rlo, rhi) in aligned slabs,
         the last one overlapped backwards (accel.py:1467-1555)."""
         cfg = self.cfg
@@ -752,11 +753,11 @@ class AccelSearch:
                               "more than the device has free"
                               % (plane_numr, need / 1e9))
 
-    def search(self, pairs, slab: int = 1 << 20) -> List[AccelCand]:
+    def search(self, pairs, slab: int = SEARCH_SLAB) -> List[AccelCand]:
         """The staged search of one spectrum ([numbins, 2] float32)."""
         return self.search_many(torch.as_tensor(pairs)[None], slab=slab)[0]
 
-    def search_many(self, pairs_batch, slab: int = 1 << 20,
+    def search_many(self, pairs_batch, slab: int = SEARCH_SLAB,
                     compact_m: int = COMPACT_CANDS, mesh=None
                     ) -> List[List[AccelCand]]:
         """Search many same-length spectra ([nd, numbins, 2] float32,

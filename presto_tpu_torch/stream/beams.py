@@ -250,6 +250,12 @@ class BeamLedger(LeaseLedger):
     ITEMS_KEY = "beams"
     ERROR = BeamLedgerError
     STALE = StaleBeamWrite
+    EV_LEASE = "beam-lease"
+    EV_DONE = "beam-done"
+    EV_REDO = "beam-redo"
+    EV_STALE = "beam-stale-write"
+    EV_HOST_DEAD = "beam-replica-dead"
+    EV_EPOCH_BUMP = "beam-epoch-bump"
 
     def advance(self, leases: Dict[str, "ItemLease"], host: str,
                 updates: Dict[str, dict], ttl: float,
@@ -552,7 +558,7 @@ class BeamMultiplexer:
     def _attach_ledger(self) -> None:
         if self.fleet_dir is None:
             return
-        self.ledger = BeamLedger(self.fleet_dir)
+        self.ledger = BeamLedger(self.fleet_dir, obs=self.obs)
         self.epoch = self.ledger.join(self.host)
         if self.adopt:
             self.ledger.reap(self.heartbeat_ttl)

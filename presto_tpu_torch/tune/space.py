@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import tune
+from presto_tpu_torch.io.atomic import atomic_open
 
 
 @dataclass
@@ -329,7 +330,8 @@ def _oocfft_bench(shape, config, device):
     src = os.path.join(d, "tune_%d.dat" % n)
     if not os.path.exists(src) or os.path.getsize(src) != 4 * n:
         rng = np.random.default_rng(9)
-        rng.normal(size=n).astype(np.float32).tofile(src)
+        with atomic_open(src, "wb") as f:
+            rng.normal(size=n).astype(np.float32).tofile(f)
     dst = os.path.join(d, "tune_%d_%d.fft" % (n, max_mem))
 
     def fn():
