@@ -64,7 +64,13 @@ Phases (any failure exits non-zero before the final line):
   6. toas    get_TOAs (-n 8 -d <best DM>) on that fold, on the card and
              on the CPU: 8 TOAs whose phases under the injected (f0,
              fdot) agree within their errors, and the two agree;
-  6b. sharded  torch.cuda.device_count() printed; the beam through
+  6a. short  the short beam, the beam's first 2^20 spectra
+             (SHORT_SPECTRA), through run_survey with the main
+             configuration: the reference run of phases 6b-6f and 6h,
+             which take the short beam and hold their files to it (on
+             the whole beam they took ~400 s of the script); phase 6l
+             injects its pulsar into it;
+  6b. sharded  torch.cuda.device_count() printed; the short beam through
              run_survey on a DM mesh over every card, or 4 logical shards
              of cuda:0 on one card (said so: they share its memory and
              stream, no speed-up is shown), with the main phase's
@@ -75,16 +81,18 @@ Phases (any failure exits non-zero before the final line):
              the one-device search_many's on the same spectra; the two
              runs' stage times side by side, no claim;
   6c. cluster  two processes on the card run the survey's prepsubband
-             method: through -coordinator (gloo; each writes its own
+             method on the short beam: through -coordinator (gloo; each
+             writes its own
              rows), then through -elastic with one killed at a shard's
              commit point, the survivor finishing; every .dat of both
              byte-equal to the unsharded run's;
   6d. serve  survey jobs on the port's SearchService, four services on
-             one plan store: two POST /submit specs of the beam with the
-             main phase's configuration run as one stacked batch (one
-             schedule event of occupancy 2, no degrade), each job's .dat,
-             .singlepulse, ACCEL files, cands_sifted.txt and .pfd equal
-             to the main run's; then, each prewarmed from the store
+             one plan store, on the short beam with the main phase's
+             configuration, each job's .dat, .singlepulse, ACCEL files,
+             cands_sifted.txt and .pfd equal to phase 6a's: two POST
+             /submit specs run as one stacked batch (one schedule event
+             of occupancy 2, no degrade); then, each prewarmed from the
+             store
              (warm fraction 1.0, plan hits, no plan build), two jobs one
              after the other (stacked=False), two jobs as one stacked
              batch again (the pair timed against the pair alone, both
@@ -93,8 +101,9 @@ Phases (any failure exits non-zero before the final line):
              metrics() with the kernel cost book; the card's roofline
              peaks measured beside the nominal ones; a smoke-shape
              tuning sweep into a DB, read back through tune.best;
-  6e. fleet  a discovery DAG of the beam (search -> sift -> triage ->
-             2 folds -> toa, the main configuration) POSTed to the
+  6e. fleet  a discovery DAG of the short beam (search -> sift ->
+             triage -> 2 folds -> toa, the main configuration; "the main
+             run" below is phase 6a's) POSTed to the
              port's router (in this process, loopback HTTP) with
              weights from presto-triage train --synthetic on the card;
              two replica processes (python3 -m
@@ -113,13 +122,13 @@ Phases (any failure exits non-zero before the final line):
              router (in this process, loopback HTTP): each fleet the
              port's router and presto-supervise (1-2 replica processes
              on the card) as processes of their own; survey job J1 of
-             the beam (the main configuration) placed on fleet A (it
-             holds the beam), A's router, supervisor and replica
+             the short beam (the main configuration) placed on fleet A
+             (it holds the beam), A's router, supervisor and replica
              SIGKILLed once A's replica leases J1, J1 re-admitted on B,
              J2 after it so that B's /scale wants 2 and B's supervisor
              spawns a second replica, then drains it by SIGTERM when
              idle: each job committed once by the federation, its files
-             equal to the main run's, the committed counter over B's
+             equal to the short phase's run, the committed counter over B's
              snapshots 2, the supervisor events carrying the advisory
              inputs, /fed, /fleet/metrics, /slo, /usage and /scale
              answering, presto-report -fleet rendering B's supervisor
@@ -176,7 +185,8 @@ Phases (any failure exits non-zero before the final line):
              header with the Crab's position (GBT, MJD 59000), GBNCC's
              recipe (the default zaplist, the lo pass zmax 0 / numharm 16
              / flo 2 and the hi pass zmax 50 / numharm 8 / flo 1, its sift
-             policy, 20 + 10 fold caps) through run_survey with bary=True
+             policy; its 20 + 10 fold caps cut to 6 + 3) through
+             run_survey with bary=True
              and durable stages over DM 20-24: launches read around it
              (2 passes x 24 trials); every .inf barycentred at the plan's
              epoch; every .dat/.inf byte-equal to a staged prepsubband on
@@ -192,15 +202,15 @@ Phases (any failure exits non-zero before the final line):
              bound counts the plane's numz real rows, not its zero pad
              rows); the stage times, with the host resample and zap as
              run_survey's StageTimer booked them;
-  6h. psrfits  the beam's samples as two PSRFITS files (the port's
-             write_psrfits: 2^21 spectra each, rows of 2048, the .fil's
-             descending band, unit scales): the reader's stitched length
-             (2^22) and clean quality ledger; run_survey on the pair with
-             the main configuration, launches read around it (24 + 24),
-             its 24 .dat, .mask arrays, ACCEL tables and .cand files,
-             sifted list and three folds' profile cubes equal to the main
-             phase's .fil run, its rfifind and head beside the main
-             phase's; the PSRFITS ingest's host ms a 2^17-spectrum block
+  6h. psrfits  the short beam's samples as two PSRFITS files (the
+             port's write_psrfits: 2^19 spectra each, rows of 2048, the
+             .fil's descending band, unit scales): the reader's stitched
+             length (2^20) and clean quality ledger; run_survey on the
+             pair with the main configuration, launches read around it
+             (24 + 24), its 24 .dat, .mask arrays, ACCEL tables and .cand
+             files, sifted list and three folds' profile cubes equal to
+             phase 6a's .fil run, its rfifind and head beside 6a's; the
+             PSRFITS ingest's host ms a 2^17-spectrum block
              (read_spectra, the copy into a pinned buffer); prepsubband
              -sub -subdm 22 on the pair and on the .fil, the .sub####
              files byte-equal; prepfold -psrfits -mask -ignorechan 90
@@ -254,10 +264,11 @@ Phases (any failure exits non-zero before the final line):
              spectrum (2^19 bins, four chirped tones) searched by
              AccelSearch on the card and held by search/accel_ref
              .agreement to the float64 referee on the host; injectpsr of
-             a 17.3 Hz pulsar at DM 23 into the beam at full width, then
+             a 17.3 Hz pulsar at DM 23 into the short beam at full width,
+             then
              prepdata, realfft and accelsearch -zmax 0 on the card and
              triage/calibrate's labels on the sifted candidates (the
-             injected pulsar labelled; the beam alone, the control,
+             injected pulsar labelled; the short beam alone, the control,
              labelled by nothing at the search's resolution); launches
              read around the referee's two searches and the two
              accelsearch runs; both kernels against their plain versions
@@ -2516,17 +2527,77 @@ def _same_files(a_dir, b_dir, pattern):
     return out
 
 
+# the short beam: the main beam's first 2^20 spectra (134 s), through
+# run_survey with the main configuration in phase_short; the sharded,
+# cluster, serve, fleet, federation and psrfits phases run it and hold
+# their files to that run (on the whole beam they took ~400 of the
+# script's 917-1047 s; the federation ~84 s), and the tools phase injects
+# its pulsar into it
+SHORT_SPECTRA = 1 << 20
+
+
+def short_beam(raw, path, nspectra):
+    """The first ``nspectra`` spectra of a filterbank, its header kept."""
+    from presto_tpu_torch.io.sigproc import FilterbankFile
+    with FilterbankFile(raw) as fb:
+        start = fb.header.headerlen
+        nbytes = nspectra * fb.header.nchans * fb.header.nbits // 8
+    with open(path, "wb") as out, open(raw, "rb") as src:
+        out.write(src.read(start))
+        out.write(src.read(nbytes))
+    return path
+
+
+def phase_short(raw, workdir, device="cuda"):
+    """The short beam (``psr.fil`` in ``workdir``) through run_survey with
+    the main configuration into ``workdir``/reference: the reference run
+    of the later phases that take the short beam (its stage times as
+    phase_main's, its mask, its 24 DMs and three folds)."""
+    from presto_tpu_torch.pipeline import survey
+    from presto_tpu_torch.utils.timing import StageTimer
+    os.makedirs(workdir, exist_ok=True)
+    beam = short_beam(raw, os.path.join(workdir, "psr.fil"), SHORT_SPECTRA)
+    ref = os.path.join(workdir, "reference")
+    timer = StageTimer()
+    t0 = time.time()
+    with IngestWait() as wait:
+        res = survey.run_survey([beam], main_cfg(), ref, timer=timer,
+                                device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    total_s = time.time() - t0
+    st = timer.stages
+    fused = st["realfft+accelsearch (fused)"]
+    stages = dict(run_survey_s=total_s, rfifind_s=st["rfifind"],
+                  survey_head_s=st["prepsubband"],
+                  single_pulse_s=st["single_pulse"], fused_s=fused,
+                  polish_s=st["polish"], accel_writes_s=st["accel writes"],
+                  sift_s=st["sift"], prepfold_s=st["prepfold"],
+                  fft_search_s=fused - st["polish"] - st["accel writes"])
+    ndms = len(res.datfiles)
+    ok = ndms == 24 and len(res.folded) == 3 and len(res.sifted) >= 3
+    log("short: the beam's first %d spectra through run_survey %.1f s "
+        "(%d DMs, %d sifted, %d folds), the reference of the sharded, "
+        "cluster, serve, fleet, federation and psrfits phases %s"
+        % (SHORT_SPECTRA, total_s, ndms, len(res.sifted), len(res.folded),
+           "ok" if ok else "FAIL"))
+    return dict(ok=ok, beam=beam, reference=ref, maskfile=res.maskfile,
+                ndms=ndms, stages=stages, ingest_wait=wait.by_app,
+                spectra=SHORT_SPECTRA)
+
+
 def phase_sharded(raw, workdir, mwork, main_res):
-    """The main beam through survey.run_survey on a DM mesh with the main
-    phase's configuration: every card, or SHARDS_ON_ONE_CARD logical
+    """The beam ``raw`` through survey.run_survey on a DM mesh with the
+    main phase's configuration: every card, or SHARDS_ON_ONE_CARD logical
     shards of cuda:0 on a one-card machine (they share its memory and
     stream: the per-shard programs and the placement are shown, not a
     speed-up).  Launch counters read around it, per shard
     (parallel/sharded.shard_launches) and per device (each wrapper
     counts its launches by the device it made current); every .dat,
-    .singlepulse and cands_sifted.txt byte-equal to the unsharded main
-    run's (mwork), its .fft compared too (the per-shard FFT batches are
-    not the unsharded run's); then on the sharded run's own spectra each
+    .singlepulse and cands_sifted.txt byte-equal to its unsharded run's
+    (``mwork``, ``main_res``), its .fft compared too (the per-shard FFT
+    batches are not the unsharded run's); then on the sharded run's own
+    spectra each
     shard's candidate lists from search_many(mesh=) equal to the
     one-device search_many's, field for field.  The two runs' stage
     times are printed side by side, with no claim."""
@@ -2706,13 +2777,14 @@ SERVE_COST_KINDS = ("plane_build", "stage_reduce", "rfft_batch",
                     "accel_search")
 
 
-def phase_serve(raw, workdir, mwork, device="cuda"):
+def phase_serve(short, workdir, device="cuda"):
     """Survey jobs on the port's SearchService on the card, four services
     on one plan store, each with its jobs admitted before its scheduler
-    starts: (1) stacked=True with its HTTP front end takes two POST
-    /submit specs of the beam with the main phase's configuration (two
-    workdirs, one bucket): one schedule event of occupancy 2, no
-    degrade, each job's files equal to the main run's; (2) stacked=False
+    starts, on the short beam (phase_short's ``short``), each job's files
+    held to phase_short's run_survey: (1) stacked=True with its HTTP front
+    end takes two POST /submit specs of the short beam (two workdirs, one
+    bucket): one schedule event of occupancy 2, no degrade, each job's
+    files equal to run_survey's; (2) stacked=False
     prewarms from the store (>= 1 plan, warm fraction 1.0) and runs two
     jobs one after the other, each a plan hit and no plan build; (3)
     stacked=True prewarmed runs two jobs as one stacked batch again, so
@@ -2743,6 +2815,8 @@ def phase_serve(raw, workdir, mwork, device="cuda"):
               if f.name in ("lodm", "hidm", "nsub", "zmax", "numharm",
                             "fold_top", "durable_stages")}
     store = os.path.join(workdir, "store")
+    raw, mwork = short["beam"], short["reference"]
+    read = launch_counts()
 
     def run(svc, name, njobs, base=None):
         """njobs specs of the beam admitted (POSTed when ``base``), then
@@ -2780,7 +2854,7 @@ def phase_serve(raw, workdir, mwork, device="cuda"):
                      and all(j.status == "done" for j in jobs))
         log("serve: %s: %d job(s) %.3f s; schedule occupancy %s, degrades "
             "%d, stacked %s; plan hits %d -> %d, builds %d -> %d; files "
-            "equal to the main run's %s %s"
+            "equal to run_survey's %s %s"
             % (name, njobs, seconds, out["occupancy"], out["degrades"],
                out["stacked"], before["hits"], out["after"]["hits"],
                before["misses"], out["after"]["misses"], json.dumps(files),
@@ -2832,6 +2906,7 @@ def phase_serve(raw, workdir, mwork, device="cuda"):
             "%s); shards %s"
             % (name, prewarmed, fraction, json.dumps(r["plan_store"]),
                json.dumps(r["shards"])))
+    launches = read()
     warm["stacked"]["ok"] &= warm["stacked"]["stacked"] == [2, 2]
     per = {k: v for k, v in warm["mesh"]["shards"].items()}
     counted = device != "cuda" or all(
@@ -2887,7 +2962,8 @@ def phase_serve(raw, workdir, mwork, device="cuda"):
         % (stacked_s, alone_s, stacked_s / alone_s, cold["seconds"]))
     ok = stack_ok and warm_ok and costs_ok and tune_ok
     return dict(ok=ok, stacked_s=stacked_s, two_alone_s=alone_s,
-                stacked_cold_s=cold["seconds"], files=cold["files"],
+                stacked_cold_s=cold["seconds"], launches=launches,
+                spectra=short["spectra"], files=cold["files"],
                 occupancy=cold["occupancy"], degrades=cold["degrades"],
                 warm={k: {x: v[x] for x in (
                     "ok", "seconds", "occupancy", "degrades", "stacked",
@@ -3612,17 +3688,18 @@ def phase_fleet(raw, workdir, mwork, device="cuda", config=None,
     Weights from ``presto-triage train --synthetic`` (timed); the port's
     router in this process (loopback HTTP, a ready replica required);
     replica r1 started, the DAG POSTed (search -> sift -> triage ->
-    folds -> toa over the beam with the main phase's configuration),
+    folds -> toa over ``raw`` with the main phase's configuration),
     r1 SIGKILLed right after it leases the search node, r2 started; the
     reaper re-admits the node and r2 runs the whole DAG, then SIGTERM
     drains it.  Checks: every node done once (one usage row and one
     result.json a node, r2's; redos 1 on the search node, 0 elsewhere);
     the search node's .dat, .singlepulse, ACCEL and .cand files and both
-    cands_sifted.txt byte-equal to the main phase's; the triage
-    selection equal to TriagePolicy.select on the card over the main
-    phase's sifted list with the same weights; each fold's .pfd
-    byte-equal to a CPU refold of its candidate and, where the main
-    phase folded that candidate, to that .pfd (names aside); one TOA a
+    cands_sifted.txt byte-equal to the reference run's in ``mwork``
+    (run_survey of ``raw``, the main configuration); the triage
+    selection equal to TriagePolicy.select on the card over its
+    sifted list with the same weights; each fold's .pfd
+    byte-equal to a CPU refold of its candidate and, where the
+    reference run folded that candidate, to that .pfd (names aside); one TOA a
     fold in the .tim; fleet_jobs_committed_total summed over the
     snapshots by obs/fleetagg equal to r2's commits; both kernels
     launched by r2.  ``device`` "cpu" (replicas run with -device cpu)
@@ -3907,15 +3984,16 @@ def phase_federation(raw, workdir, mwork, device="cuda", config=None):
     presto_tpu_torch.apps.supervise, 1-2 replicas of -device ``device``)
     as processes of their own; each supervisor spawns its first replica.
     The federation router runs in this process (start_fed_http,
-    loopback).  Survey job J1 (the beam, the main configuration) goes to
-    the federation, which places it on A (A holds the beam); once A's
+    loopback).  Survey job J1 (``raw``, the short beam in the script,
+    the main configuration) goes to the federation, which places it on
+    A (A holds the beam); once A's
     replica has leased J1 in A's ledger, A's router, supervisor and
     replica are SIGKILLed; the federation reaps A and re-admits J1 on
     B.  J2 follows, B's /scale wants 2 replicas and B's supervisor spawns
     a second; idle again, B drains back to 1 by SIGTERM.  Checks: one
     federated commit each (fleets.json), each job's .dat, .singlepulse,
-    ACCEL, .cand, cands_sifted.txt and (rebased) .pfd equal to the main
-    phase's; fleet_jobs_committed_total over B's snapshots 2; B's
+    ACCEL, .cand, cands_sifted.txt and (rebased) .pfd equal to the run
+    in ``mwork``; fleet_jobs_committed_total over B's snapshots 2; B's
     supervisor-spawn events carry the advisory inputs, its drain ends in
     supervisor-drained without a timeout; /fed, /fleet/metrics, /slo,
     /usage and /scale answer; apps/report -fleet renders B's supervisor
@@ -4271,8 +4349,10 @@ def phase_federation(raw, workdir, mwork, device="cuda", config=None):
 # GBT and MJD 59000, so prepsubband barycentres it
 RECIPE_POSITION = dict(src_raj=53431.97, src_dej=220052.1, telescope_id=6,
                        tstart=59000.0)
-# the GBNCC recipe's fold caps, lo pass and hi pass
-RECIPE_FOLD_CAPS = (20, 10)
+# the fold caps of the recipe run, lo pass and hi pass: GBNCC's 20 + 10
+# folds took 18.3 s of its 40.5 s run_survey (PERF.md §5); the phase
+# folds the 6 + 3 strongest so that the script keeps within its time
+RECIPE_FOLD_CAPS = (6, 3)
 # the pulsar's barycentric frequency, predicted f (1 + avgvoverc), and
 # the topocentric one lie 0.57 Fourier bins apart on the beam; the
 # measured one must sit within this many bins of the prediction
@@ -4349,8 +4429,9 @@ def recipe_kernels(pcfg, T, nbins, pairs, gen, label, device="cuda",
 def phase_recipe(raw, workdir, main_res=None, device="cuda", keep=None):
     """The survey as users run it: the beam barycentred (its samples
     under RECIPE_POSITION's header), GBNCC's recipe (the default
-    zaplist, the lo and hi accel passes, its sift policy and 20 + 10
-    fold caps) through run_survey with bary=True and durable stages:
+    zaplist, the lo and hi accel passes, its sift policy; its 20 + 10
+    fold caps cut to RECIPE_FOLD_CAPS) through run_survey with bary=True
+    and durable stages:
     the launches read around it; every .inf barycentred at the plan's
     epoch; every .dat/.inf byte-equal to a staged prepsubband on the card
     (no -nobary, the survey's mask); for two DMs the spilled .fft equal
@@ -4383,6 +4464,8 @@ def phase_recipe(raw, workdir, main_res=None, device="cuda", keep=None):
     cfg = get_recipe("gbncc").to_config(20.0, 24.0, nsub=32)
     cfg.bary = True
     cfg.durable_stages = True
+    cfg.max_folds = sum(RECIPE_FOLD_CAPS)
+    cfg.max_folds_per_pass = RECIPE_FOLD_CAPS
     work = os.path.join(workdir, "survey")
     timer = StageTimer()
     read = launch_counts()
@@ -4576,8 +4659,8 @@ def beam_as_psrfits(raw, workdir):
     """The beam's 8-bit samples, read back from the .fil, as two PSRFITS
     files written by the port's write_psrfits: the .fil's descending
     band, rows of PSRFITS_NSBLK spectra, scales 1, offsets 0, weights 1;
-    the first 2^21 spectra in a.fits, the rest in b.fits, whose start MJD
-    is a.fits' plus 2^21 dt."""
+    the first half of the spectra in a.fits, the rest in b.fits, whose
+    start MJD is a.fits' plus that many dt."""
     from presto_tpu_torch.io.psrfits import write_psrfits
     from presto_tpu_torch.io.sigproc import FilterbankFile
     with FilterbankFile(raw) as fb:
@@ -4623,15 +4706,15 @@ def _sifted_rows(path, prefix):
 
 
 def phase_psrfits(raw, workdir, mwork, main_res=None, device="cuda"):
-    """The beam as a PSRFITS pair (beam_as_psrfits) through the port's
-    PSRFITS and multi-file path on the card: the reader's stitched length
-    and quality ledger; run_survey on the pair with the main phase's
-    configuration, launches read around it, held against the main
-    phase's run on the .fil in ``mwork`` (24/24 .dat bytes, the .mask
+    """The beam ``raw`` as a PSRFITS pair (beam_as_psrfits) through the
+    port's PSRFITS and multi-file path on the card: the reader's stitched
+    length and quality ledger; run_survey on the pair with the main
+    phase's configuration, launches read around it, held against the run
+    of ``raw`` in ``mwork`` (24/24 .dat bytes, the .mask
     arrays, every ACCEL table and .cand, the sifted list with the names
     aside, the three folds' profile cubes); its rfifind and survey head,
     and the host seconds each streamed pass waited on its ingest worker
-    (IngestWait), beside the main phase's (``main_res``); the PSRFITS
+    (IngestWait), beside that run's (``main_res``); the PSRFITS
     ingest's host ms a block (split_psrfits, median of INGEST_REPEATS);
     prepsubband -sub -subdm 22 on the pair and on the .fil, the .sub####
     files byte-equal; prepfold -psrfits -mask <the run's mask>
@@ -4660,8 +4743,10 @@ def phase_psrfits(raw, workdir, mwork, main_res=None, device="cuda"):
                         rows=[m.nsubint for m in pf.meta],
                         start_spec=[m.start_spec for m in pf.meta],
                         ledger=pf.quality.to_json()["counts"])
-    reader_ok = (stitched["N"] == b["N"] and not stitched["ledger"]
-                 and stitched["start_spec"] == [0, b["N"] // 2])
+    with FilterbankFile(raw) as fb:
+        nspec = int(fb.header.N)
+    reader_ok = (stitched["N"] == nspec and not stitched["ledger"]
+                 and stitched["start_spec"] == [0, nspec // 2])
     log("psrfits: wrote %s (%.1f s, %d MB each); stitched N %d (rows %s, "
         "file starts %s), quality ledger %s %s"
         % ([os.path.basename(p) for p in pair], write_s,
@@ -4724,13 +4809,14 @@ def phase_psrfits(raw, workdir, mwork, main_res=None, device="cuda"):
            json.dumps(launches)))
     if main_res is not None:
         ms = main_res["stages"]
-        log("psrfits: the pair against the .fil (main phase): rfifind %.3f "
+        log("psrfits: the pair against the .fil (its reference run): "
+            "rfifind %.3f "
             "against %.3f s, survey head %.3f against %.3f s, run_survey "
             "%.1f against %.1f s"
             % (stages["rfifind_s"], ms["rfifind_s"], stages["survey_head_s"],
                ms["survey_head_s"], run_s, ms["run_survey_s"]))
     log("psrfits: ingest consumer wait per app (host s, IngestWait) on the "
-        "pair %s; on the .fil (main phase) %s"
+        "pair %s; on the .fil (its reference run) %s"
         % (json.dumps(wait.by_app),
            json.dumps((main_res or {}).get("ingest_wait"))))
     log("psrfits: against the .fil run: .dat equal %d/%d, ACCEL + .cand "
@@ -4740,7 +4826,7 @@ def phase_psrfits(raw, workdir, mwork, main_res=None, device="cuda"):
            mask_same, sift_same, folds_same, quality_clean,
            "ok" if survey_ok else "FAIL"))
     # the PSRFITS ingest's host ms a block at the head's block length
-    blocklen = stream_blocklen(b["nchan"], 0, b["N"])
+    blocklen = stream_blocklen(b["nchan"], 0, nspec)
     ingest = _median_of([split_psrfits(pair, blocklen, INGEST_BLOCKS,
                                        pin=device != "cpu")
                          for _ in range(INGEST_REPEATS)])
@@ -5807,7 +5893,7 @@ def tools_search(fil, workdir, device):
             read())
 
 
-def phase_tools(raw, workdir, mwork, device="cuda"):
+def phase_tools(raw, workdir, mwork, short, device="cuda"):
     """The last host tools (phase_tools), in three parts.
     1. The float64 referee against the card: TOOLS_REFEREE's spectrum
        searched by the port's AccelSearch on ``device`` (CUDA events, the
@@ -5819,12 +5905,13 @@ def phase_tools(raw, workdir, mwork, device="cuda"):
        geometry on this spectrum (recipe_kernels).
     2. An injected pulsar through the card's search, labelled by triage:
        injectpsr (-snr TOOLS_INJECT's, -noise the beam's median channel
-       std) into the beam at full width, its host seconds; prepdata,
+       std) into ``short`` (the short beam) at full width, its host
+       seconds; prepdata,
        realfft and accelsearch -zmax 0 on the card (tools_search); the
        sifted candidates labelled by triage/calibrate against the
        injection's sidecar, by calibrate's rule and at the search's
        resolution: the injected pulsar (or a harmonic) labelled by both;
-       the same search of the beam alone labels nothing at the search's
+       the same search of the short beam alone labels nothing at the search's
        resolution (its matches by calibrate's 2% rule are reported);
        both kernels against their plain versions at accelsearch -zmax 0
        -numharm 8's geometry (numz 1, 4 stages) on the injected .fft.
@@ -5903,20 +5990,20 @@ def phase_tools(raw, workdir, mwork, device="cuda"):
 
     # 2. an injected pulsar through the card's search, labelled by triage
     inj = os.path.join(workdir, "inj.fil")
-    with FilterbankFile(raw) as fb:
+    with FilterbankFile(short) as fb:
         nspec, tsamp = fb.header.N, fb.header.tsamp
         noise = float(np.median(fb.read_spectra(0, 1 << 16).std(axis=0)))
     i = TOOLS_INJECT
     t0 = time.time()
     rc, out = _cli_out(injectpsr.main, [
         "-f", str(i["f"]), "-dm", str(i["dm"]), "-snr", str(i["snr"]),
-        "-noise", "%.4f" % noise, "-o", inj, raw])
+        "-noise", "%.4f" % noise, "-o", inj, short])
     inject_s = time.time() - t0
     truth = load_truth(truth_sidecar_path(inj))
     T = nspec * tsamp
     tight = sifting.R_ERR / (T * i["f"])
     runs = {}
-    for name, fil in (("injected", inj), ("control", raw)):
+    for name, fil in (("injected", inj), ("control", short)):
         cands, secs, n = tools_search(fil, os.path.join(workdir, name),
                                       device)
         launches = {k: v + n[k] for k, v in launches.items()}
@@ -5941,9 +6028,10 @@ def phase_tools(raw, workdir, mwork, device="cuda"):
         "labelled"]) and bool(hit)
               and not runs["control"]["labelled_at_resolution"]
               and all(k["ok"] for k in kern["injected"]))
-    log("tools: injectpsr -f %g -dm %g -snr %g -noise %.4f into %s (%d x %d "
-        "spectra, full width) on the host %.2f s: %s; sidecar %d record(s)"
-        % (i["f"], i["dm"], i["snr"], noise, os.path.basename(raw), nspec,
+    log("tools: injectpsr -f %g -dm %g -snr %g -noise %.4f into the short "
+        "beam (%d x %d spectra, full width) on the host %.2f s: %s; sidecar "
+        "%d record(s)"
+        % (i["f"], i["dm"], i["snr"], noise, nspec,
            BEAM["nchan"], inject_s, out.strip(), len(truth)))
     for name, v in runs.items():
         log("tools: %s: prepdata + realfft + accelsearch on the card %.2f s, "
@@ -6157,6 +6245,138 @@ def phase_devtools(workdir, device="cuda"):
                 phase_s=phase_s, budget_s=DEVTOOLS_BUDGET_S)
 
 
+TARGET_BUDGET_S = 150.0
+# the referee's spectrum in this phase: the probe series' first 2^20
+# samples (the float64 referee over the whole 2^22-bin probe takes longer
+# than the phase's budget; apps/target_scale_e2e runs it in full)
+TARGET_REFEREE_BINS = 1 << 19
+
+
+def phase_target(workdir, device="cuda"):
+    """One card's share of the target-scale plan (phase_target; see the
+    module docstring, phase 6n): apps/target_scale, target_scale_chip and
+    target_scale_e2e at the plan's full width (512 of 4096 DMs, 256
+    channels, 2^23 samples, zmax 200, numharm 8), fed by one pass of host
+    blocks, launches read around the three apps; both kernels against
+    their plain versions at the share's geometry on the probe spectrum.
+    The phase must end within TARGET_BUDGET_S."""
+    from presto_tpu_torch.apps import target_scale as ts
+    from presto_tpu_torch.apps import target_scale_chip as tsc
+    from presto_tpu_torch.apps import target_scale_e2e as tse
+    from types import SimpleNamespace
+    os.makedirs(workdir, exist_ok=True)
+    t_phase = time.time()
+    share = ts.Share()
+    chan_d, dm_full, dms = ts.delays(share)
+    lo, hi = ts.dm_slice(share, dms)
+    eq = tsc.Equality(share, chan_d, np.ascontiguousarray(dm_full[lo:hi]),
+                      device)
+    read = launch_counts()
+    t0 = time.time()
+    plan, series = ts.run(share, device=device, consumers=[eq])
+    plan_s = time.time() - t0
+    log("target: plan %d DMs x %d samples over %d logical shards; %d host "
+        "blocks in %.1f s (%s threads, %.1f s waiting; consumers %s); "
+        "full width %s: "
+        "%d blocks bit-equal to one device %s, %.1f ms a block (CUDA events "
+        "on the step's own stream, the other consumers beside it); probe rows "
+        "%s equal to the full width %s, pulsar row equal to the host's %s; "
+        "8 rows' lists sharded == one device %s; pulsar %s %s, DM 0 clean "
+        "%s; residency %s"
+        % (share.numdms, share.nsamp, share.ndev, plan["stream"]["blocks"],
+           plan["stream"]["pass_sec"], plan["stream"]["workers"],
+           plan["stream"]["block_wait_sec"],
+           json.dumps(plan["stream"]["consumer_sec"]),
+           plan["full_width_shape"],
+           plan["full_width_blocks"], plan["full_width_bit_equal"],
+           plan["full_width_ms_per_block"], plan["probe_rows"],
+           plan["probe_stream_matches_full_width"],
+           plan["probe_row_equals_host"],
+           plan["lists_equal_sharded_vs_one_device"],
+           json.dumps(plan["pulsar_recovered"]), plan["pulsar_ok"],
+           plan["wrong_dm_clean"], plan["hbm_plan"]["note"]))
+    t0 = time.time()
+    chip = tsc.run(share, device=device, equality=eq, series=series)
+    chip_s = time.time() - t0
+    thr = chip["throughput"]
+    log("target: share DMs %s: %d streamed blocks bit-equal to NumPy %s "
+        "(max diff %g); %d card-made blocks %.1f ms a block (%.1f DM "
+        "trials/s, peak %.2f GB); one host block uploaded and dedispersed "
+        "%.3f s; probe search %.3f s: %s %s"
+        % (chip["dm_slice"], chip["equality_blocks"],
+           chip["bit_equal_vs_numpy"], chip["equality_max_diff"],
+           thr["stream_blocks"], 1e3 * thr["sec_per_block"],
+           thr["dm_trials_per_sec"], (thr["peak_bytes"] or 0) / 1e9,
+           chip["sec_per_block_incl_upload"],
+           chip["search"]["accelsearch_sec"],
+           json.dumps(chip["search"]["pulsar_recovered"]),
+           "ok" if chip["ok"] else "FAIL"))
+    t0 = time.time()
+    e2e = tse.run(share, device=device, workdir=os.path.join(workdir, "e2e"),
+                  series=series, referee_bins=TARGET_REFEREE_BINS,
+                  replay_workers=(8,))
+    e2e_s = time.time() - t0
+    launches = read()
+    ref = e2e["referee"]
+    ref_ok = (ref["feature_match_above_floor"] == [1.0, 1.0]
+              and min(ref["n_above_floor"]) > 0 and not ref["violations"])
+    log("target: e2e %d DMs: subband pass %.2f s, warm-up %.2f s, device "
+        "floor %.2f s, e2e share %.2f s (host collect %.2f s inside: "
+        "decode %.2f s, %d threads writing %.2f s, %.2f s waited on them; "
+        "sift %.2f s), %d raw / %d sifted candidates, overflow trials %s; "
+        "single pulse %.2f s (%d events, %d files overflowed G); polish "
+        "%.2f s of %d; replay %s; peak %.2f GB; pulsar at the probe DM %s"
+        % (e2e["dms_per_device"], e2e["subband_pass_sec"],
+           e2e["search_warmup_sec"], e2e["device_floor_sec"],
+           e2e["e2e_share_sec"], e2e["host_collect_sec_inside"],
+           e2e["host_decode_sec"], e2e["write_threads"],
+           e2e["host_write_sec"], e2e["write_wait_sec"],
+           e2e["final_sift_sec"], e2e["ncands_raw"], e2e["ncands_sifted"],
+           e2e["compact_overflow_trials"],
+           e2e["singlepulse"]["sp_share_sec"],
+           e2e["singlepulse"]["sp_nevents"],
+           e2e["singlepulse"]["sp_overflow_files"], e2e["polish_top_sec"],
+           e2e["polish_top_n"],
+           json.dumps({k: v["wall_sec"] for k, v
+                       in e2e["host_concurrency"].items()}),
+           (e2e["peak_bytes"] or 0) / 1e9,
+           json.dumps(e2e["pulsar_recovered"])))
+    log("target: referee (%d bins): card %d / referee %d candidates, top %d "
+        "identical (first divergence sigma %s), containment above sigma %.0f "
+        "%s (%s above it), cluster %s, %d mismatches explained, card %.3f s, "
+        "float64 referee %.1f s %s"
+        % (ref["numbins"], ref["card_n"], ref["ref_n"],
+           ref["top_identical_n"], ref["first_divergence_sigma"],
+           ref["sigma_floor"], ref["feature_match_above_floor"],
+           ref["n_above_floor"], ref["cluster_match_all"],
+           len(ref["mismatch_explanations"]), ref["card_search_sec"],
+           ref["referee_sec"], "ok" if ref_ok else
+           "FAIL: %s" % ref["violations"]))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2222)
+    pairs = torch.as_tensor(ts.probe_pairs(series), device=device)
+    pb, sr = recipe_kernels(
+        SimpleNamespace(zmax=share.zmax, numharm=share.numharm,
+                        sigma=share.sigma, flo=1.0),
+        share.T, share.numbins, pairs, gen, "target", device=device)
+    del pairs
+    torch.cuda.empty_cache()
+    launched = launches["plane_build"] >= 1 and launches["stage_reduce"] >= 1
+    phase_s = time.time() - t_phase
+    in_budget = phase_s <= TARGET_BUDGET_S
+    log("target: launches around the three apps %s %s; apps %.1f + %.1f + "
+        "%.1f s; phase %.1f s of its %.0f s budget %s"
+        % (json.dumps(launches), "ok" if launched else "FAIL", plan_s,
+           chip_s, e2e_s, phase_s, TARGET_BUDGET_S,
+           "ok" if in_budget else "FAIL"))
+    ok = (plan["ok"] and chip["ok"] and e2e["ok"] and ref_ok and pb["ok"]
+          and sr["ok"] and launched and in_budget)
+    return dict(ok=ok, launches=launches, plane_build=pb, stage_reduce=sr,
+                plan=plan, chip=chip, e2e=e2e, plan_s=plan_s,
+                chip_s=chip_s, e2e_s=e2e_s, phase_s=phase_s,
+                budget_s=TARGET_BUDGET_S)
+
+
 def keep_cands(res, keep):
     """recipe_cands.tar.xz in ``keep``: the survey's ACCEL tables, .cand
     files and .inf files by base name, and its cands_sifted.txt."""
@@ -6207,6 +6427,9 @@ def main():
     ap.add_argument("--live-only", action="store_true",
                     help="run the stream and beams phases alone (no build, "
                          "no kernels line, no final ok line)")
+    ap.add_argument("--target-only", action="store_true",
+                    help="build the kernels and run the target phase alone "
+                         "(no kernels line, no final ok line)")
     ap.add_argument("--keep-recipe-cands", metavar="DIR",
                     help="write the recipe phase's sift input and output "
                          "to DIR/recipe_cands.tar.xz")
@@ -6226,6 +6449,16 @@ def main():
         live = live_phases()
         log("results: %s" % json.dumps(live, default=float))
         return 0 if all(v["ok"] for v in live.values()) else 1
+    if opts.target_only:
+        build = phase_build()
+        d = tempfile.mkdtemp(prefix="chip_smoke_target_")
+        try:
+            target = phase_target(os.path.join(d, "target"))
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        log("results: %s" % json.dumps(dict(build=build, target=target),
+                                       default=float))
+        return 0 if build["ok"] and target["ok"] else 1
     t_start = time.time()
     results = {"card": card}
     build = phase_build()
@@ -6256,26 +6489,29 @@ def main():
         toas = (phase_toas(fold["pfd"], fold["best_dm"], mwork)
                 if "pfd" in fold else dict(ok=False))
         torch.cuda.empty_cache()
-        shard = phase_sharded(raw, os.path.join(work, "sharded"), mwork,
-                              main_res)
+        short = phase_short(raw, os.path.join(work, "short"))
         torch.cuda.empty_cache()
-        cluster = phase_cluster(raw, os.path.join(work, "cluster"), mwork,
-                                main_res["maskfile"])
+        shard = phase_sharded(short["beam"], os.path.join(work, "sharded"),
+                              short["reference"], short)
         torch.cuda.empty_cache()
-        read = launch_counts()
-        serve = phase_serve(raw, os.path.join(work, "serve"), mwork)
-        serve["launches"] = read()
+        cluster = phase_cluster(short["beam"], os.path.join(work, "cluster"),
+                                short["reference"], short["maskfile"])
         torch.cuda.empty_cache()
-        fleet = phase_fleet(raw, os.path.join(work, "fleet"), mwork)
+        serve = phase_serve(short, os.path.join(work, "serve"))
         torch.cuda.empty_cache()
-        feder = phase_federation(raw, os.path.join(work, "federation"),
-                                 mwork)
+        fleet = phase_fleet(short["beam"], os.path.join(work, "fleet"),
+                            short["reference"])
+        torch.cuda.empty_cache()
+        feder = phase_federation(short["beam"],
+                                 os.path.join(work, "federation"),
+                                 short["reference"])
         torch.cuda.empty_cache()
         recipe = phase_recipe(raw, os.path.join(work, "recipe"), main_res,
                               keep=opts.keep_recipe_cands)
         torch.cuda.empty_cache()
-        psrfits = phase_psrfits(raw, os.path.join(work, "psrfits"), mwork,
-                                main_res)
+        psrfits = phase_psrfits(short["beam"],
+                                os.path.join(work, "psrfits"),
+                                short["reference"], short)
         torch.cuda.empty_cache()
         classic = phase_classic(raw, os.path.join(work, "classic"))
         torch.cuda.empty_cache()
@@ -6285,9 +6521,12 @@ def main():
         plots = phase_plots(mwork, card)
         plots["launches"] = read()
         torch.cuda.empty_cache()
-        tools = phase_tools(raw, os.path.join(work, "tools"), mwork)
+        tools = phase_tools(raw, os.path.join(work, "tools"), mwork,
+                            short["beam"])
         torch.cuda.empty_cache()
         devtools = phase_devtools(os.path.join(work, "devtools"))
+        torch.cuda.empty_cache()
+        target = phase_target(os.path.join(work, "target"))
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -6305,11 +6544,13 @@ def main():
     live = live_phases()
     results.update(plane_build=k1, stage_reduce=k2, polish=pol,
                    main=main_res, ingest=ingest, fold=fold,
-                   toas=toas, singlepulse=spb, jerk=jerk, sharded=shard,
+                   toas=toas, singlepulse=spb, jerk=jerk, short=short,
+                   sharded=shard,
                    cluster=cluster, serve=serve, fleet=fleet,
                    federation=feder, recipe=recipe, psrfits=psrfits,
                    classic=classic, binary=binary, plots=plots,
-                   tools=tools, devtools=devtools, small_reference=small,
+                   tools=tools, devtools=devtools, target=target,
+                   small_reference=small,
                    **live,
                    total_s=time.time() - t_start)
     # launches: the main path's (run_survey, and run_survey on the DM
@@ -6338,7 +6579,8 @@ def main():
                    "monte": binary["launches"][name],
                    "plots": plots["launches"][name],
                    "tools": tools["launches"][name],
-                   "devtools": devtools["launches"][name]}
+                   "devtools": devtools["launches"][name],
+                   "target_scale": target["launches"][name]}
         for path, counts in zip(("jerk_bench", "accelsearch_wmax",
                                  "stream", "beams"),
                                 jl + [live["stream"]["launches"],
@@ -6383,7 +6625,10 @@ def main():
                                              for x in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms")}
-                           for c in ("headline", "smoke")}})
+                           for c in ("headline", "smoke")},
+                        "target_scale": {x: target[name][x] for x in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}})
     log("results: %s" % json.dumps(results, default=float))
     failed = [n for n, ok in (("build", build["ok"]),
                               ("plane_build", k1["ok"]),
@@ -6394,6 +6639,7 @@ def main():
                               ("small_reference", small_ok),
                               ("singlepulse", spb["ok"]),
                               ("jerk", jerk["ok"]),
+                              ("short", short["ok"]),
                               ("sharded", shard["ok"]),
                               ("cluster", cluster["ok"]),
                               ("serve", serve["ok"]),
@@ -6406,6 +6652,7 @@ def main():
                               ("plots", plots["ok"]),
                               ("tools", tools["ok"]),
                               ("devtools", devtools["ok"]),
+                              ("target", target["ok"]),
                               ("stream", live["stream"]["ok"]),
                               ("beams", live["beams"]["ok"])) if not ok]
     if failed:

@@ -285,9 +285,21 @@ def block_median_norms(data: torch.Tensor) -> torch.Tensor:
     lo, hi = (n - 1) // 2, n // 2
     med = (srt[:, lo] + srt[:, hi]) * 0.5
     med = torch.clamp(med, min=1e-30)
-    ln2 = torch.log(torch.tensor(2.0, dtype=torch.float32,
-                                 device=data.device))
-    return (1.0 / torch.sqrt(med / ln2))[:, None]
+    return (1.0 / torch.sqrt(med / _ln2(data.device)))[:, None]
+
+
+_LN2 = {}
+
+
+def _ln2(device) -> torch.Tensor:
+    """float32 log(2) on ``device``, made once a device: a tensor made
+    from a host value is a copy that waits for the device's queue, which
+    a search of many trials must not do once a trial."""
+    t = _LN2.get(device)
+    if t is None:
+        t = _LN2[device] = torch.log(torch.tensor(2.0, dtype=torch.float32,
+                                                  device=device))
+    return t
 
 
 def _topk_desc(x: torch.Tensor, k: int):
@@ -817,15 +829,17 @@ class AccelSearch:
             stg.ravel()[g])
 
     def collect_compacted(self, comp: np.ndarray, start_cols,
-                          requested_m: Optional[int] = None
+                          requested_m: Optional[int] = None,
+                          allow_truncated: bool = False
                           ) -> List[AccelCand]:
         """Host decode of compact_scan_packed output [3, m]; raises
-        ValueError when all m slots are positive (possible truncation)."""
+        ValueError when all m slots are positive (possible truncation)
+        unless ``allow_truncated`` (then the m strongest are decoded)."""
         cfg = self.cfg
         assert cfg.numz < (1 << _CMP_ZBITS), cfg.numz
         comp = np.asarray(comp)
         v = comp[0].view(np.float32)
-        if (v.size and v[-1] > 0.0
+        if (not allow_truncated and v.size and v[-1] > 0.0
                 and (requested_m is None or v.size >= requested_m)):
             raise ValueError(
                 "compact_scan_packed budget exhausted (m=%d slots all "

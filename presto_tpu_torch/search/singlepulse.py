@@ -468,7 +468,7 @@ class SinglePulseSearch:
     def search_many_resident(self, series, dt: float,
                              dms: Sequence[float],
                              offregions_list=None, G: int = 2048,
-                             obs=None):
+                             obs=None, overflowed=None):
         """search_many with the series DEVICE-RESIDENT end to end (the
         survey's seam regime: the dedispersed series are already on the
         device).  Only small arrays cross the boundary: per-block stds
@@ -481,8 +481,9 @@ class SinglePulseSearch:
         search_many exactly (same chunking, pruning, bad-block cuts)
         unless a file has more than G above-threshold top-k samples
         (heavy RFI): that file goes through search_many on the same
-        device, the JAX package's own path.  ``obs`` receives the unit
-        cost of the call (obs/costmodel kind "sp_search") for its shape.
+        device, the JAX package's own path; ``overflowed``, a list, gets
+        the index of each such file.  ``obs`` receives the unit cost of
+        the call (obs/costmodel kind "sp_search") for its shape.
         """
         nf = int(series.shape[0])
         N = int(series.shape[1])
@@ -497,7 +498,7 @@ class SinglePulseSearch:
                 # there, the overflow path included
                 return replace(self, device=series.device) \
                     .search_many_resident(series, dt, dms, offregions_list,
-                                          G=G, obs=obs)
+                                          G=G, obs=obs, overflowed=overflowed)
             dev = series
         else:
             dev = torch.as_tensor(np.asarray(series, np.float32),
@@ -532,6 +533,8 @@ class SinglePulseSearch:
             capped = np.minimum(counts[fi], k).sum()
             if capped > G:
                 # compaction overflow (pathological RFI): the host path
+                if overflowed is not None:
+                    overflowed.append(fi)
                 row = dev[fi].cpu().numpy()
                 out.append(self.search_many([row], dt, [dms[fi]],
                                             [offregions_list[fi]])[0])
