@@ -58,7 +58,10 @@ Phases (any failure exits non-zero before the final line):
              of the uploads, the transpose and one rfifind interval's
              statistics;
   5. fold    prepfold of the filterbank at the top sifted candidate with
-             the default (DM, p, pd) search on the card: the best DM
+             the (DM, p, pd) search at -npfact 1 on the card (a 257 x
+             257 (p, pd) plane; the default npfact 2's 513 x 513 is cut
+             for the script's time, the CPU's search of it taking ~4x
+             longer): the best DM
              within two grid steps of the injected, and the same cube
              searched on the CPU (chi2 surfaces and best trial);
   6. toas    get_TOAs (-n 8 -d <best DM>) on that fold, on the card and
@@ -155,7 +158,7 @@ Phases (any failure exits non-zero before the final line):
              at its geometry on the w = 300 bank and stage_reduce_planes
              on the four distinct planes of a w = 300 scan, against their
              plain versions (the z-only stage_reduce stays timed in
-             phase 2); a jerk pulsar (2^21 samples) through accelsearch
+             phase 2); a jerk pulsar (2^20 samples) through accelsearch
              -wmax on the card and on the CPU, recovered on top, the two
              _JERK_ tables held by accel_agreement.jerk_file_agreement,
              and both kernels again at that path's geometry (numz 61,
@@ -172,7 +175,7 @@ Phases (any failure exits non-zero before the final line):
              sample a trigger; the blocks, triggers, latency p50/p99, the
              dedispersion step's device ms, the per-trial single-pulse
              loop's host ms a block and the real-time factor;
- 11. beams   13 beams of that geometry (4 blocks each) through
+ 11. beams   13 beams of that geometry (3 blocks each) through
              BeamMultiplexer, fed as fast as the rings take them, with the
              veto off (each beam's triggers equal to an independent
              StreamSearch's, its stacked series bit-equal to that one-beam
@@ -231,7 +234,8 @@ Phases (any failure exits non-zero before the final line):
              of the -f/-fd fold, reduced chi2 >= FOLD_REDCHI_MIN),
              -timing (accepted by pfd_for_timing) and -absphase;
              prepfold -psr J0737-3039A on a barycentred series of the
-             binary made on the card, card against CPU by the fold
+             binary made on the card (its (p, pd) search at -npfact 1,
+             as the fold phase's), card against CPU by the fold
              phase's chi2 rule, reduced chi2 >= FOLD_REDCHI_MIN with the
              catalog's orbit and under it without (the same search at
              the catalog's f and fd);
@@ -251,7 +255,7 @@ Phases (any failure exits non-zero before the final line):
              signal's bandwidth;
   6k. plots   the .pfd plots' numbers on the card (phase_plots): every
              .pfd of the main survey's directory (its three folds and the
-             fold phase's, with its 833-DM curve and 513 x 513 P-Pdot
+             fold phase's, with its DM curve and 257 x 257 P-Pdot
              plane) through plotting/pfdplot.pfd_panels on the card and
              on the CPU, the plane and DM curve within PLOTS_RTOL of their
              maximum, the growth curve within PLOTS_GROWTH_RTOL; the
@@ -288,16 +292,40 @@ Phases (any failure exits non-zero before the final line):
              to AccelSearch.search's and the three tones found;
              apps/perf_gate --measure three times into a ledger of the
              phase's directory (the first seeds and passes, the others
-             are gated and their verdicts reported, not required: on
-             unchanged code the host-bound smoke drifts by about the
-             gate's tolerance, so a flag here is no regression) and
-             --inject-slowdown 2.0 exiting 1; launches read around those
+             are gated and their verdicts reported, not required; on the
+             card its samples are device time, CUDA events around calls
+             queued behind a spin kernel) and --inject-slowdown 2.0
+             exiting 1, each episode's MAD as a share of its median
+             printed (and the host clock's beside it) with the
+             injection's delta and threshold; launches read around those
              two tools; both kernels against their plain versions at the
              headline's geometry and at perf_gate's smoke geometry (2^15
              bins, zmax 20, numharm 2); `python -m
              presto_tpu_torch.apps.presto_lint --json` over the checkout
              exiting 0 (no JAX on the card's machine); within
              DEVTOOLS_BUDGET_S;
+  6n. target  one card's share of the target-scale plan (phase_target);
+  6o. loadgen the load generators (phase_loadgen): apps/serve_loadgen's
+             run_loadgen against a SearchService on the card (-selfhost)
+             with 4 beams of make_beams at 128 channels x 2^20 spectra
+             at 2 jobs/s, every job done, jobs/s and job_total p50/p99;
+             both kernels against their plain versions at its jobs'
+             geometry (zmax 0, numharm 4) on the first beam's spectrum
+             at DM 55 (prepdata -nobary on the card); -replicas 2
+             -subprocess at the tool's defaults (both replica processes
+             up on the card, every job done, the
+             replicas' launches from their snapshots); -stacked -Ns 1,4
+             (PASS: byte-equal digests, fewer dispatches stacked,
+             compiles no greater); apps/stream_loadgen paced at 8x real
+             time at 128 channels in the live beam's 8192-spectrum
+             blocks (LOADGEN_STREAM; every pulse triggered once, none
+             unmatched, no drop, latency p50/p99) and --beams 4
+             (byte_equal, o1_dispatch, the veto); launches read around
+             the serve modes; within LOADGEN_BUDGET_S.  The verdict
+             modes -dag, -obs, -slo, -supervisor and -campaign, the
+             in-process fleet, -stacked at -Ns 1,4,8 and the paced
+             stream at the CLI's defaults (64 channels) run with
+             --loadgen-only;
  12. summary the kernels line (launches of the main path, the sharded
              main path, by shard too, the serve path, the fleet path, the
              federation path (A's last snapshot and B's replicas'), the
@@ -307,11 +335,15 @@ Phases (any failure exits non-zero before the final line):
              kernel's bound also at the measured peaks, and its numbers at
              the recipe's two pass geometries, at the classic
              accelsearch's, at monte's, at the tools phase's two and at
-             the devtools phase's two), the card, and the final ok line.
+             the devtools phase's two, at the target share's and at the
+             loadgen's), the card, and the final ok line.
 
 Prints the full results as one JSON line (``results: {...}``).  Imports
 no JAX and nothing of the JAX package.  ``--live-only`` runs phases 10 and
-11 alone (no build, no kernels line, no final ok line).
+11 alone (no build, no kernels line, no final ok line); ``--target-only``
+and ``--loadgen-only`` build the kernels and run phase 6n, or phase 6o
+with every mode of both load generators to its verdict, alone
+(``--loadgen-records DIR`` writes the verdict reports under DIR).
 ``--keep-recipe-cands DIR`` writes the recipe phase's sift input (ACCEL
 tables, .cand and .inf files) and cands_sifted.txt to
 DIR/recipe_cands.tar.xz.
@@ -1954,19 +1986,28 @@ def _argmax_agree(card, cpu, what, atol):
     return gap <= atol, note
 
 
+# the (p, pd) search half-width of the fold phase's and the classic
+# -psr folds, in units of proflen / 2 steps: 1 gives a 257 x 257 plane at
+# 128 bins, where prepfold's default 2 gives 513 x 513 (the CPU's search
+# of it, the plots phase's CPU panels of it and the CPU's -psr fold took
+# 29-38 s, 30-48 s and 28 s of the script)
+FOLD_NPFACT = 1
+
+
 def phase_fold(raw, workdir, top, device="cuda"):
     """prepfold on the filterbank at the top sifted candidate
-    (-accelfile -accelcand -dm, the default DM, p and pd search) on
-    ``device``: the best DM within two grid steps of the injected; the
-    same pre-search cube searched again on the CPU, chi2 surfaces within
-    CHI2_ATOL of their maximum and the same best (DM, f, fd) indices
-    unless a near-tie is logged."""
+    (-accelfile -accelcand -dm, the DM, p and pd search at -npfact
+    FOLD_NPFACT) on ``device``: the best DM within two grid steps of the
+    injected; the same pre-search cube searched again on the CPU, chi2
+    surfaces within CHI2_ATOL of their maximum and the same best (DM, f,
+    fd) indices unless a near-tie is logged."""
     from presto_tpu_torch.apps import prepfold as app
     from presto_tpu_torch.search import prepfold as spf
     acc = os.path.join(top.path or workdir, top.filename)
     out = os.path.join(workdir, "fold_fil")
     argv = ["-accelfile", acc + ".cand", "-accelcand", str(top.candnum),
-            "-dm", "%.2f" % top.DM, "-noplot", "-o", out, raw]
+            "-dm", "%.2f" % top.DM, "-npfact", str(FOLD_NPFACT), "-noplot",
+            "-o", out, raw]
     captured = {}
     orig = app.search_fold
 
@@ -2156,9 +2197,11 @@ JERK_BENCH = dict(numbins=1 << 20, zmax=100, wmax=300, numharm=4, sigma=6.0,
                   T=1000.0, seed=11, tone_bin=123456, tone=200.0)
 # A jerk pulsar: tests/test_e2e_accel.py:162-196's shape (f0 7.37 Hz, z 10
 # and w 60 bins at the start, a Gaussian pulse of width 0.1, unit noise,
-# seed 17) at 2^21 samples of 1 ms; searched at that test's zmax 60, wmax
-# 80, numharm 2 on the card and on the CPU.
-JERK_PSR = dict(N=1 << 21, dt=1e-3, f0=7.37, z=10.0, w=60.0, amp=0.15,
+# seed 17) at 2^20 samples of 1 ms (cut from 2^21 for the script's time:
+# its S/N, amp x sqrt(N), stays 1.4x the test's at 2^15 samples and amp
+# 0.6); searched at that test's zmax 60, wmax 80, numharm 2 on the card
+# and on the CPU.
+JERK_PSR = dict(N=1 << 20, dt=1e-3, f0=7.37, z=10.0, w=60.0, amp=0.15,
                 width=0.1, seed=17,
                 argv=["-zmax", "60", "-wmax", "80", "-numharm", "2",
                       "-sigma", "5.0"])
@@ -3087,15 +3130,18 @@ STREAM_PULSES = ((4.1, 21.6, 0.5e-3, 6.0), (10.3, 57.0, 1.0e-3, 5.0),
 STREAM_DAT_DMS = (0, 57, 114, 171)
 # a trigger matches an injected pulse within this time and DM
 TRIGGER_DT_S, TRIGGER_DDM = 0.2, 5.0
-# 13 beams of 4 blocks (32768 spectra, 4.2 s) each, fed as fast as the
+# 13 beams of 3 blocks (24576 spectra, 3.1 s) each, fed as fast as the
 # rings take them; one dispersed pulse in beam 0 alone and a broadband
-# burst in all.  Cut from 2^17 spectra (16.8 s), which took 198 s for the
-# phase on an H100 (the per-trial single-pulse loop: 13 x 256 host round
-# trips a tick, three passes), then from 6 blocks (80-131 s), to keep
-# both live phases near 90 s
-BEAMS = dict(N=4 * 8192, nbeams=13, seed=41, coincidence_k=3)
+# burst in all, both in the middle block (the stream triggers nothing in
+# its last block: the burst at 2.6 s there went unseen in every beam and
+# in each one-beam reference).  Cut from 2^17 spectra (16.8 s), which
+# took 198 s for the phase on an H100 (the per-trial single-pulse loop:
+# 13 x 256 host round trips a tick, three passes), then from 6 blocks
+# (80-131 s), to keep both live phases near 90 s, then from 4 blocks
+# (the burst at 3.0 s, in the third) for the script's time limit
+BEAMS = dict(N=3 * 8192, nbeams=13, seed=41, coincidence_k=3)
 BEAMS_PULSE = (1.5, 57.0, 1.0e-3, 5.0)
-BEAMS_BURST = (3.0, 0.0, 1.0e-3, 4.0)
+BEAMS_BURST = (1.9, 0.0, 1.0e-3, 4.0)
 
 
 def live_filterbank(path, seed, n, bursts, device="cuda"):
@@ -5011,8 +5057,8 @@ def phase_classic(raw, workdir, device="cuda"):
     with a .par of the injection in the .dat's frame, its profile peak
     within one bin of the -f/-fd fold's and its reduced chi2 at least
     FOLD_REDCHI_MIN, then -timing (the .pfd accepted by pfd_for_timing)
-    and -absphase; prepfold -psr J0737-3039A (the default search, the
-    orbit from the catalog) of CLASSIC_PSR's series on the card and on
+    and -absphase; prepfold -psr J0737-3039A (the search at -npfact
+    FOLD_NPFACT, the orbit from the catalog) of CLASSIC_PSR's series on the card and on
     the CPU, the chi2 surfaces within CHI2_ATOL of their maximum and the
     best trial equal unless a near-tie, its reduced chi2 at least
     FOLD_REDCHI_MIN while the fold at the catalog's f and fd for the
@@ -5234,7 +5280,9 @@ def phase_classic(raw, workdir, device="cuda"):
                                           for k, s in fold_s.items()}),
            "ok" if par_ok else "FAIL"))
 
-    # 5. prepfold -psr J0737-3039A, with and without its orbit
+    # 5. prepfold -psr J0737-3039A, with and without its orbit, the
+    # (p, pd) search at FOLD_NPFACT (the default's 513 x 513 took the CPU
+    # 28 s of the script)
     pdat = os.path.join(workdir, "j0737.dat")
     t0 = time.time()
     made = classic_psr_dat(pdat, device)
@@ -5247,8 +5295,8 @@ def phase_classic(raw, workdir, device="cuda"):
                       "-fd=%.15g" % made["fd"]], device)):
         t0 = time.time()
         psr[name] = prepfold.run(prepfold.build_parser().parse_args(
-            flags + ["-noplot", "-o", pdat[:-4] + "_" + name, pdat]),
-            device=dev)
+            flags + ["-npfact", str(FOLD_NPFACT), "-noplot", "-o",
+                     pdat[:-4] + "_" + name, pdat]), device=dev)
         psr_s[name] = time.time() - t0
     errs, notes = {}, {}
     agree_ok = True
@@ -6172,12 +6220,10 @@ def phase_devtools(workdir, device="cuda"):
     launches = read()
     episodes = perfledger.PerfLedger.load(ledger).episodes
     # the first episode seeds; the later two are gated and their
-    # verdicts logged, not required: the smoke is a few ms of host-bound
-    # calls whose rate drifts between episodes by about the gate's 15%
-    # on the card's shared host, so on unchanged code the gate flags
-    # some episodes (PERF.md §6 counts them) and is no regression gate
-    # there yet; this checks that it measures, gates and trips on the
-    # injected 2x slowdown
+    # verdicts logged, not required (PR 21's host-clock episodes drifted
+    # by about the gate's 15% on the card's shared host; the device-time
+    # statistic is new, PERF.md §6); this checks that it measures, gates
+    # and trips on the injected 2x slowdown
     gate_ok = (gate_rcs[0] == 0 and set(gate_rcs) <= {0, 1}
                and inject_rc == 1 and len(episodes) == 3
                and all(np.isfinite(m["median"]) and m["median"] > 0
@@ -6187,6 +6233,26 @@ def phase_devtools(workdir, device="cuda"):
         % (gate_rcs, sum(gate_rcs[1:]), inject_rc, len(episodes),
            json.dumps([{k: v["median"] for k, v in ep["metrics"].items()}
                        for ep in episodes]), "ok" if gate_ok else "FAIL"))
+    # each episode's MAD as a share of its median (device samples, and
+    # the host clock's samples of the whole calls beside them), and the
+    # injected 2x episode's rows against the gate's threshold
+    shares = [{k: m["mad"] / m["median"] for k, m in ep["metrics"].items()}
+              for ep in episodes]
+    host_shares = [{k: float(np.median(np.abs(np.asarray(v)
+                                               - np.median(v))))
+                    / float(np.median(v))
+                    for k, v in ep["meta"].get("host_samples_s", {}).items()}
+                   for ep in episodes]
+    inj = perfledger.gate(perfledger.inject_slowdown(episodes[-1], 2.0),
+                          episodes)
+    log("devtools: perf_gate statistic %s; MAD / median by episode %s "
+        "(host clock's samples %s); the 2x injection: %s"
+        % (episodes[-1]["meta"].get("statistic"), json.dumps(shares),
+           json.dumps(host_shares),
+           json.dumps([{k: r[k] for k in ("metric", "value", "baseline",
+                                          "delta_worse", "threshold",
+                                          "noise_band", "status")}
+                       for r in inj["rows"]])))
     launched = launches["plane_build"] >= 1 and launches["stage_reduce"] >= 1
     gen = torch.Generator(device=device)
     gen.manual_seed(2121)
@@ -6235,9 +6301,14 @@ def phase_devtools(workdir, device="cuda"):
                     "bounds", "cells", "cells_per_s", "same_as_search",
                     "tones_found")},
                 perf_gate=dict(rcs=gate_rcs, inject_rc=inject_rc,
+                               mad_shares=shares,
+                               host_mad_shares=host_shares,
+                               injection=inj["rows"],
                                episodes=[dict(ep["metrics"],
                                               samples_s=ep["meta"][
-                                                  "samples_s"])
+                                                  "samples_s"],
+                                              host_samples_s=ep["meta"].get(
+                                                  "host_samples_s"))
                                          for ep in episodes]),
                 lint=dict(rc=lint.returncode, seconds=lint_s,
                           checks=report.get("checks"),
@@ -6377,6 +6448,259 @@ def phase_target(workdir, device="cuda"):
                 budget_s=TARGET_BUDGET_S)
 
 
+LOADGEN_BUDGET_S = 120.0
+# the loadgen phase's full-width beams: the short beam's 128 channels and
+# 2^20 spectra (make_beams' own geometry otherwise: 0.5 ms samples,
+# 400-528 MHz, a 23 Hz pulsar at DM 55), at the tool's -rate 2
+LOADGEN_BEAMS = dict(n=4, nsamp=1 << 20, nchan=128, rate=2.0)
+# the paced stream's width, the live beam's 128 channels, and its block:
+# at 128 channels the tool's band (1 MHz channels down from 400 MHz)
+# reaches 273 MHz, where its DM 25-65 grid sweeps up to 5785 samples a
+# stage, past the tool's 4096-spectrum block (the two-block carry
+# refuses it), so the phase takes the live beam's 8192
+LOADGEN_STREAM = dict(nchan=LIVE["nchan"], blocklen=LIVE_CFG["blocklen"])
+
+
+def _loadgen_kernels(beam, config, gen, device="cuda"):
+    """Both kernels at the loadgen's geometry: the search configuration
+    of run_loadgen's jobs on the spectrum of the first full-width beam at
+    DM 55 (its pulsar's; prepdata -nobary on the card, the jobs keep no
+    .dat), through recipe_kernels."""
+    from presto_tpu_torch.apps import prepdata
+    from presto_tpu_torch.io.datfft import read_dat_with_inf
+    from presto_tpu_torch.ops import fftpack
+    from presto_tpu_torch.pipeline.survey import SurveyConfig
+    base = os.path.join(os.path.dirname(beam), "dm55")
+    _cli_out(prepdata.main, ["-dm", "55", "-nobary", "-o", base, beam],
+             device=device)
+    series, inf = read_dat_with_inf(base + ".dat")
+    x = torch.as_tensor(series - series.mean(), device=device)
+    pairs = fftpack.realfft_packed_pairs(x)
+    del x
+    pb, sr = recipe_kernels(SurveyConfig(**config), float(inf.N) * inf.dt,
+                            pairs.shape[0], pairs, gen, "loadgen (DM 55)",
+                            device=device)
+    del pairs
+    torch.cuda.empty_cache()
+    return pb, sr
+
+
+def _loadgen_serve(workdir, device, gen):
+    """serve_loadgen -selfhost at full width (LOADGEN_BEAMS), launches
+    read around it, and both kernels at its geometry."""
+    from presto_tpu_torch.apps import serve_loadgen as slg
+    from presto_tpu_torch.serve.server import SearchService, start_http
+    t0 = time.time()
+    beams = slg.make_beams(workdir, LOADGEN_BEAMS["n"],
+                           nsamp=LOADGEN_BEAMS["nsamp"],
+                           nchan=LOADGEN_BEAMS["nchan"])
+    beams_s = time.time() - t0
+    read = launch_counts()
+    t0 = time.time()
+    servedir = os.path.join(workdir, "serve")
+    svc = SearchService(servedir, device=device).start()
+    httpd = start_http(svc)
+    try:
+        rep = slg.run_loadgen("http://%s:%d" % httpd.server_address[:2],
+                              beams, rate=LOADGEN_BEAMS["rate"])
+    finally:
+        httpd.shutdown()
+        svc.stop()
+    launches = read()
+    serve_s = time.time() - t0
+    ok = (rep["done"] == LOADGEN_BEAMS["n"] and rep["failed"] == 0
+          and rep["unfinished"] == 0)
+    log("loadgen: -selfhost %d beams of %d x %d (made in %.1f s, %d "
+        "threads) at %.0f jobs/s submitted: done %d, failed %d, unfinished "
+        "%d; %.3f jobs/s over %.2f s, job_total p50 %.3f s, p99 %.3f s; "
+        "batch occupancy %s, plan hit rate %s; launches %s %s"
+        % (LOADGEN_BEAMS["n"], LOADGEN_BEAMS["nsamp"], LOADGEN_BEAMS["nchan"],
+           beams_s, LOADGEN_BEAMS["n"], LOADGEN_BEAMS["rate"], rep["done"],
+           rep["failed"], rep["unfinished"], rep["throughput_jobs_per_s"],
+           rep["wall_s"], rep["p50_s"], rep["p99_s"], rep["batch_occupancy"],
+           rep["plan_hit_rate"], json.dumps(launches),
+           "ok" if ok else "FAIL"))
+    pb, sr = _loadgen_kernels(beams[0], {
+        "lodm": 45.0, "hidm": 65.0, "nsub": 16, "zmax": 0, "numharm": 4,
+        "fold_top": 0, "singlepulse": False, "skip_rfifind": True},
+        gen, device)
+    return dict(ok=ok and pb["ok"] and sr["ok"], report=rep,
+                launches=launches, beams_s=beams_s, serve_s=serve_s,
+                plane_build=pb, stage_reduce=sr)
+
+
+def _loadgen_fleet(workdir, device, subprocess_mode=True):
+    """serve_loadgen -replicas 2 [-subprocess] at the tool's defaults (4
+    beams of 2^14 x 16, -rate 2); the replica processes' launches from
+    their last snapshots."""
+    from presto_tpu_torch.apps import serve_loadgen as slg
+    read = launch_counts()
+    t0 = time.time()
+    beams = slg.make_beams(workdir, 4)
+    rep = slg.run_fleet_loadgen(workdir, beams, replicas=2, rate=2.0,
+                                subprocess_mode=subprocess_mode,
+                                device=device)
+    seconds = time.time() - t0
+    launches = read()
+    procs = _fleet_launches(os.path.join(workdir, "fleet"))
+    for name in launches:
+        launches[name] += sum(r.get(name, 0) for r in procs.values())
+    ok = (rep["done"] == len(beams) and rep["failed"] == 0
+          and rep["unfinished"] == 0
+          and rep["fleet"]["ready_replicas"] == 2
+          and all(e is None for e in rep["replica_exits"]))
+    log("loadgen: -replicas 2%s: %d ready, done %d, failed %d, unfinished "
+        "%d, %.3f jobs/s over %.2f s, per replica %s; launches %s (replica "
+        "snapshots %s); %.1f s %s"
+        % (" -subprocess" if subprocess_mode else "",
+           rep["fleet"]["ready_replicas"], rep["done"], rep["failed"],
+           rep["unfinished"], rep["throughput_jobs_per_s"], rep["wall_s"],
+           json.dumps({k: {x: v[x] for x in ("jobs_committed", "p50_s",
+                                              "p99_s")}
+                       for k, v in rep["per_replica"].items()}),
+           json.dumps(launches), json.dumps(procs), seconds,
+           "ok" if ok else "FAIL"))
+    return dict(ok=ok, report=rep, launches=launches, seconds=seconds)
+
+
+def _loadgen_verdict(name, fn, *a, **k):
+    """One verdict mode: its report, seconds and verdict logged."""
+    t0 = time.time()
+    rep = fn(*a, **k)
+    seconds = time.time() - t0
+    ok = rep.get("verdict", "PASS" if rep.get("ok") else "FAIL") == "PASS"
+    checks = rep.get("checks")
+    if rep.get("mode") == "dag":
+        checks = {"pipeline_equivalence": rep["pipeline_equivalence"],
+                  "stacked_folds": rep["stacked_folds"],
+                  "executor_coalescing": rep["executor_coalescing"]}
+    log("loadgen: %s %s in %.1f s; checks %s"
+        % (name, "PASS" if ok else "FAIL", seconds,
+           json.dumps(checks if checks is not None else {
+               k: rep[k] for k in ("byte_equal", "o1_dispatch")
+               if k in rep}, default=float)))
+    return dict(ok=ok, report=rep, seconds=seconds)
+
+
+def _loadgen_stream(workdir, device, nchan, blocklen):
+    """stream_loadgen --mode paced --speed 8 at ``nchan`` channels and
+    ``blocklen``-spectrum blocks (the tool's other defaults)."""
+    from presto_tpu_torch.apps import stream_loadgen as stl
+    t0 = time.time()
+    v = stl.run_trial(workdir, mode="paced", speed=8.0, nchan=nchan,
+                      blocklen=blocklen, device=device)
+    seconds = time.time() - t0
+    ok = (v["ok"] and not v["missed"] and not v["duplicated"]
+          and not v["unmatched"] and v["source"]["dropped_spectra"] == 0)
+    log("loadgen: stream_loadgen --mode paced --speed 8 --nchan %d "
+        "(blocks of %d): %d pulses at %s, %d triggers, missed %s, "
+        "duplicated %s, unmatched %s, DM ok %s; source %s; latency %s s (%d "
+        "samples); wall %.2f s; %.1f s %s"
+        % (nchan, blocklen, v["pulses_injected"], v["pulse_times"],
+           v["triggers"], v["missed"], v["duplicated"], v["unmatched"],
+           v["dm_ok"], json.dumps(v["source"]), json.dumps(v["latency_s"]),
+           v["latency_samples"], v["wall_s"], seconds,
+           "ok" if ok else "FAIL: %s" % v.get("error")))
+    return dict(ok=ok, report=v, seconds=seconds)
+
+
+def _loadgen_beams(workdir, device):
+    """stream_loadgen --beams 4 (the tool's defaults)."""
+    from presto_tpu_torch.apps import stream_loadgen as stl
+    t0 = time.time()
+    v = stl.run_beam_trial(workdir, nbeams=4, beam_counts=[2, 4],
+                           device=device)
+    seconds = time.time() - t0
+    ok = v["ok"] and v["byte_equal"] and v["o1_dispatch"] and \
+        v["veto"]["ok"]
+    log("loadgen: stream_loadgen --beams 4: byte_equal %s, o1_dispatch %s, "
+        "axis %s, veto %s, slo %s; %.1f s %s"
+        % (v["byte_equal"], v["o1_dispatch"],
+           json.dumps([{k: r[k] for k in ("beams", "ticks", "dispatches",
+                                          "latency_p99_s")}
+                       for r in v["beams_axis"]]),
+           json.dumps(v["veto"]), json.dumps(v["slo"]), seconds,
+           "ok" if ok else "FAIL"))
+    return dict(ok=ok, report=v, seconds=seconds)
+
+
+def phase_loadgen(workdir, device="cuda", everything=False, records=None):
+    """The load generators on the card (phase_loadgen; see the module
+    docstring, phase 6o).  By default: serve_loadgen -selfhost at full
+    width with both kernels at its geometry, -replicas 2 -subprocess,
+    -stacked -Ns 1,4, stream_loadgen paced at 128 channels and --beams 4,
+    within LOADGEN_BUDGET_S; the launches of the serve modes read around
+    each.  ``everything`` (--loadgen-only) runs all eight serve modes
+    (the in-process fleet too, -stacked at the tool's -Ns 1,4,8, -dag,
+    -obs, -slo, -supervisor, -campaign) and both stream modes, each to
+    its verdict, with no budget; ``records`` is a directory the verdict
+    modes' reports go to (records/torch/<name>.json under it, each
+    naming the card)."""
+    from presto_tpu_torch.apps import serve_loadgen as slg
+    os.makedirs(workdir, exist_ok=True)
+    t_phase = time.time()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2323)
+    d = lambda name: os.path.join(workdir, name)  # noqa: E731
+    out = {"serve": _loadgen_serve(d("serve"), device, gen)}
+    torch.cuda.empty_cache()
+    out["fleet_subprocess"] = _loadgen_fleet(d("fleet_proc"), device)
+    if everything:
+        out["fleet"] = _loadgen_fleet(d("fleet"), device,
+                                      subprocess_mode=False)
+    read = launch_counts()
+    out["stacked"] = _loadgen_verdict(
+        "-stacked -Ns %s" % ("1,4,8" if everything else "1,4"),
+        slg.run_stacked_loadgen, d("stacked"),
+        Ns=(1, 4, 8) if everything else (1, 4), device=device)
+    out["stacked"]["launches"] = read()
+    torch.cuda.empty_cache()
+    if everything:
+        for name, fn in (("dag", slg.run_dag_loadgen),
+                         ("obs", slg.run_obs_loadgen),
+                         ("slo", slg.run_slo_loadgen),
+                         ("supervisor", slg.run_supervisor_loadgen),
+                         ("campaign", slg.run_campaign_loadgen)):
+            out[name] = _loadgen_verdict("-" + name, fn, d(name),
+                                         device=device)
+            torch.cuda.empty_cache()
+    out["stream"] = _loadgen_stream(d("stream"), device, **LOADGEN_STREAM)
+    torch.cuda.empty_cache()
+    if everything:      # the CLI's defaults: 64 channels, 4096 spectra
+        out["stream_cli_defaults"] = _loadgen_stream(
+            d("stream_cli"), device, nchan=64, blocklen=4096)
+    out["beams"] = _loadgen_beams(d("beams"), device)
+    torch.cuda.empty_cache()
+    if records:
+        card = slg.card_line()
+        for mode, name in slg.VERDICT_MODES:
+            if mode in out:
+                rep = dict(out[mode]["report"], card=card)
+                log("loadgen: %s -> %s"
+                    % (mode, slg.commit_report(rep, name, root=records)))
+    launches = {k: sum(r["launches"][k] for r in out.values()
+                       if "launches" in r)
+                for k in ("plane_build", "stage_reduce")}
+    launched = launches["plane_build"] >= 1 and launches["stage_reduce"] >= 1
+    phase_s = time.time() - t_phase
+    in_budget = everything or phase_s <= LOADGEN_BUDGET_S
+    log("loadgen: launches of the serve modes %s %s; seconds %s; phase "
+        "%.1f s%s %s"
+        % (json.dumps(launches), "ok" if launched else "FAIL",
+           json.dumps({k: round(r.get("seconds", r.get("serve_s", 0.0)), 1)
+                       for k, r in out.items()}), phase_s,
+           "" if everything else " of its %.0f s budget"
+           % LOADGEN_BUDGET_S, "ok" if in_budget else "FAIL"))
+    ok = all(r["ok"] for r in out.values()) and launched and in_budget
+    return dict(ok=ok, launches=launches,
+                plane_build=out["serve"]["plane_build"],
+                stage_reduce=out["serve"]["stage_reduce"],
+                modes={k: {x: v for x, v in r.items()
+                           if x not in ("plane_build", "stage_reduce")}
+                       for k, r in out.items()},
+                phase_s=phase_s, budget_s=LOADGEN_BUDGET_S)
+
+
 def keep_cands(res, keep):
     """recipe_cands.tar.xz in ``keep``: the survey's ACCEL tables, .cand
     files and .inf files by base name, and its cands_sifted.txt."""
@@ -6430,6 +6754,13 @@ def main():
     ap.add_argument("--target-only", action="store_true",
                     help="build the kernels and run the target phase alone "
                          "(no kernels line, no final ok line)")
+    ap.add_argument("--loadgen-only", action="store_true",
+                    help="build the kernels and run the loadgen phase alone "
+                         "with every serve and stream mode to its verdict "
+                         "(no kernels line, no final ok line)")
+    ap.add_argument("--loadgen-records", metavar="DIR",
+                    help="with --loadgen-only: write the verdict modes' "
+                         "reports to DIR/records/torch/<name>.json")
     ap.add_argument("--keep-recipe-cands", metavar="DIR",
                     help="write the recipe phase's sift input and output "
                          "to DIR/recipe_cands.tar.xz")
@@ -6449,6 +6780,18 @@ def main():
         live = live_phases()
         log("results: %s" % json.dumps(live, default=float))
         return 0 if all(v["ok"] for v in live.values()) else 1
+    if opts.loadgen_only:
+        build = phase_build()
+        d = tempfile.mkdtemp(prefix="chip_smoke_loadgen_")
+        try:
+            loadgen = phase_loadgen(os.path.join(d, "loadgen"),
+                                    everything=True,
+                                    records=opts.loadgen_records)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        log("results: %s" % json.dumps(dict(build=build, loadgen=loadgen),
+                                       default=float))
+        return 0 if build["ok"] and loadgen["ok"] else 1
     if opts.target_only:
         build = phase_build()
         d = tempfile.mkdtemp(prefix="chip_smoke_target_")
@@ -6528,6 +6871,8 @@ def main():
         torch.cuda.empty_cache()
         target = phase_target(os.path.join(work, "target"))
         torch.cuda.empty_cache()
+        loadgen = phase_loadgen(os.path.join(work, "loadgen"))
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     small = phase_small_reference(gen)
@@ -6550,7 +6895,7 @@ def main():
                    federation=feder, recipe=recipe, psrfits=psrfits,
                    classic=classic, binary=binary, plots=plots,
                    tools=tools, devtools=devtools, target=target,
-                   small_reference=small,
+                   loadgen=loadgen, small_reference=small,
                    **live,
                    total_s=time.time() - t_start)
     # launches: the main path's (run_survey, and run_survey on the DM
@@ -6580,7 +6925,8 @@ def main():
                    "plots": plots["launches"][name],
                    "tools": tools["launches"][name],
                    "devtools": devtools["launches"][name],
-                   "target_scale": target["launches"][name]}
+                   "target_scale": target["launches"][name],
+                   "loadgen": loadgen["launches"][name]}
         for path, counts in zip(("jerk_bench", "accelsearch_wmax",
                                  "stream", "beams"),
                                 jl + [live["stream"]["launches"],
@@ -6628,6 +6974,9 @@ def main():
                            for c in ("headline", "smoke")},
                         "target_scale": {x: target[name][x] for x in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")},
+                        "loadgen": {x: loadgen[name][x] for x in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms")}})
     log("results: %s" % json.dumps(results, default=float))
     failed = [n for n, ok in (("build", build["ok"]),
@@ -6653,6 +7002,7 @@ def main():
                               ("tools", tools["ok"]),
                               ("devtools", devtools["ok"]),
                               ("target", target["ok"]),
+                              ("loadgen", loadgen["ok"]),
                               ("stream", live["stream"]["ok"]),
                               ("beams", live["beams"]["ok"])) if not ok]
     if failed:

@@ -19,6 +19,19 @@ Modes:
                        instead of a real one — the deliberate-slowdown
                        proof that the gate trips (must exit 1)
 
+The smoke's statistic.  On the CPU each sample is the host clock's best
+of the calls that span SMOKE_SAMPLE_S (the JAX tool's statistic, kept).
+On a card the samples are device time: each is the CUDA-event span of
+SMOKE_REPS calls of the search's device steps (profile_accel.Stages.run:
+forward spectra, plane_build, stage_reduce, collect and compaction on
+the card) or of the dedispersion scan, queued behind a spin kernel long
+enough that the host has queued every call before the first one starts
+(the head start doubles until it is; _device_samples), so the span is
+the card's work alone.  The host clock's samples of the whole calls
+stay in the episode's meta (``host_samples_s``), not gated: on the
+card machine's shared host their MAD reached 21% of the median within
+an episode (PERF.md §6), and 4 x MAD had hidden a 2x injection.
+
 The default ledger is obs/perfledger.default_ledger_path(), the port's
 cache directory beside its tuning DB, outside any checkout; pass
 ``--ledger`` for any other file.  A corrupted or stale-schema ledger
@@ -58,6 +71,15 @@ SMOKE_NBLOCKS = 4
 #: host's cores are shared: a call's median drifts from one episode to
 #: the next far more than its best does
 SMOKE_SAMPLE_S = 0.2
+
+#: on a card: calls a device sample spans (the accel steps, the
+#: dedispersion scan), few enough that the host queues them all, about
+#: 250 launches, inside the head start
+SMOKE_REPS = {"accel": 8, "dedisp": 2}
+
+#: on a card: the first head start (ms of a spin kernel before a
+#: sample's calls) and the doublings allowed before a sample gives up
+SMOKE_HEAD_MS, SMOKE_HEAD_TRIES = 20.0, 6
 
 
 def smoke_pairs() -> np.ndarray:
@@ -112,49 +134,136 @@ def _samples(fn, k: int, dev: torch.device):
     return [min(timed() for _ in range(calls)) for _ in range(k)], calls
 
 
-def measure_smoke(k: int = 5, device="cuda") -> dict:
-    """The miniature episode: a small accelsearch and a small
-    dedispersion scan, k steady samples each (_samples: warm-up
-    excluded, each sample the best of the calls that span
-    SMOKE_SAMPLE_S, the device synchronized); median-of-k + MAD via
-    perfledger.metric_from_samples, the raw samples in the meta."""
-    from presto_tpu_torch.ops.dedispersion import dedisperse_scan
-    from presto_tpu_torch.search.accel import resolve_device
-    dev = resolve_device(device)
-    s = smoke_searcher(dev)
-    pairs = torch.as_tensor(smoke_pairs(), device=dev)
-    accel_samples, accel_calls = _samples(lambda: s.search(pairs), k, dev)
-    cells = s.cfg.numz * int(s.rhi - s.rlo) * 2
+class EventTimer:
+    """CUDA-event spans of calls queued behind a spin kernel on ``dev``
+    (torch.cuda._sleep), calibrated once: the spin's cycles a ms."""
 
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        with torch.cuda.device(dev):
+            start, end = self._events()
+            torch.cuda._sleep(1 << 22)        # clocks up
+            start.record()
+            torch.cuda._sleep(1 << 22)
+            end.record()
+            end.synchronize()
+        self.cycles_per_ms = (1 << 22) / max(start.elapsed_time(end), 1e-6)
+
+    @staticmethod
+    def _events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def span(self, fn, reps: int, head_ms: float):
+        """(ms a call, ahead): ``reps`` calls of fn queued behind a
+        ``head_ms`` spin, timed from the first call's start to the last
+        one's end; ahead is whether the host had queued every call
+        before the spin ended (else the span holds the host's time)."""
+        with torch.cuda.device(self.dev):
+            start, end = self._events()
+            torch.cuda._sleep(int(head_ms * self.cycles_per_ms))
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            ahead = not start.query()
+            end.synchronize()
+        return start.elapsed_time(end) / reps, ahead
+
+
+def _device_samples(fn, k: int, timer, reps: int,
+                    head_ms: float = SMOKE_HEAD_MS,
+                    tries: int = SMOKE_HEAD_TRIES):
+    """k device samples of fn's seconds a call (timer.span over ``reps``
+    queued calls each, after one warm span).  A span whose calls the
+    host had not all queued before the head start ended is taken again
+    with the head start doubled, at most ``tries`` times a sample (then
+    this raises).  Returns (samples, head start ms)."""
+    def one():
+        nonlocal head_ms
+        for _ in range(tries):
+            ms, ahead = timer.span(fn, reps, head_ms)
+            if ahead:
+                return ms * 1e-3
+            head_ms *= 2.0
+        raise RuntimeError("perf_gate: the host did not queue %d calls "
+                           "within a %.0f ms head start" % (reps, head_ms))
+    one()
+    return [one() for _ in range(k)], head_ms
+
+
+def _dedisp_case(dev: torch.device):
+    """The smoke's dedispersion scan on ``dev``: (fn, numdms); the
+    delays on the device, so a call copies nothing from the host."""
+    from presto_tpu_torch.ops.dedispersion import dedisperse_scan
     numchan, nsub, numdms = (SMOKE["dedisp_numchan"],
                              SMOKE["dedisp_nsub"],
                              SMOKE["dedisp_numdms"])
     numpts = SMOKE["dedisp_nsamples"] // 2
-    delays = {"chan": (np.arange(numchan) % 8).astype(np.int32),
-              "dm": (np.arange(numdms)[:, None]
-                     * np.linspace(0, 4, nsub)[None, :]).astype(np.int32)}
+    delays = {"chan": torch.as_tensor(np.arange(numchan) % 8,
+                                      dtype=torch.int64, device=dev),
+              "dm": torch.as_tensor(
+                  (np.arange(numdms)[:, None]
+                   * np.linspace(0, 4, nsub)[None, :]).astype(np.int32),
+                  dtype=torch.int64, device=dev)}
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     blocks = torch.randn((SMOKE_NBLOCKS, numchan, numpts), generator=gen,
                          device=dev)
-    dedisp_samples, dedisp_calls = _samples(
-        lambda: float(dedisperse_scan(blocks, delays, nsub)[:, ::1024].sum()),
-        k, dev)
+    return (lambda: dedisperse_scan(blocks, delays, nsub)[:, ::1024].sum(),
+            numdms)
+
+
+def measure_smoke(k: int = 5, device="cuda") -> dict:
+    """The miniature episode: a small accelsearch and a small
+    dedispersion scan, k steady samples each; median-of-k + MAD via
+    perfledger.metric_from_samples, the raw samples in the meta.  On
+    the CPU the samples are the host clock's (_samples: warm-up
+    excluded, each sample the best of the calls that span
+    SMOKE_SAMPLE_S); on a card they are device time (_device_samples
+    over the search's device steps and the scan, see the module
+    docstring), with the host clock's samples of the whole calls
+    beside them in the meta."""
+    from presto_tpu_torch.apps.profile_accel import Stages
+    from presto_tpu_torch.search.accel import resolve_device
+    dev = resolve_device(device)
+    s = smoke_searcher(dev)
+    pairs = torch.as_tensor(smoke_pairs(), device=dev)
+    cells = s.cfg.numz * int(s.rhi - s.rlo) * 2
+    dedisp, numdms = _dedisp_case(dev)
+    host = {}
+    calls = {}
+    host["accel"], calls["accel"] = _samples(lambda: s.search(pairs), k,
+                                             dev)
+    host["dedisp"], calls["dedisp"] = _samples(lambda: float(dedisp()), k,
+                                               dev)
+    meta = {"smoke": SMOKE, "k": k, "device": str(dev),
+            "device_name": (torch.cuda.get_device_name(dev)
+                            if dev.type == "cuda" else "cpu"),
+            "calls_per_sample": calls}
+    if dev.type == "cuda":
+        timer = EventTimer(dev)
+        stages = Stages(s, pairs)
+        samples, head = {}, {}
+        samples["accel"], head["accel"] = _device_samples(
+            lambda: stages.run(pairs), k, timer, SMOKE_REPS["accel"])
+        samples["dedisp"], head["dedisp"] = _device_samples(
+            dedisp, k, timer, SMOKE_REPS["dedisp"])
+        meta.update(statistic="device", samples_s=samples,
+                    host_samples_s=host, reps_per_sample=SMOKE_REPS,
+                    head_start_ms=head)
+    else:
+        samples = host
+        meta.update(statistic="host", samples_s=samples)
 
     return perfledger.make_episode({
         "smoke_accel_cells_per_sec": perfledger.metric_from_samples(
-            [cells / t for t in accel_samples], "cells/s", "higher"),
+            [cells / t for t in samples["accel"]], "cells/s", "higher"),
         "smoke_dedisp_trials_per_sec": perfledger.metric_from_samples(
-            [numdms / t for t in dedisp_samples], "trials/s",
+            [numdms / t for t in samples["dedisp"]], "trials/s",
             "higher"),
     }, fingerprint=_fingerprint(dev), workload="smoke", source="perf-gate",
-        meta={"smoke": SMOKE, "k": k, "device": str(dev),
-              "device_name": (torch.cuda.get_device_name(dev)
-                              if dev.type == "cuda" else "cpu"),
-              "calls_per_sample": {"accel": accel_calls,
-                                   "dedisp": dedisp_calls},
-              "samples_s": {"accel": accel_samples,
-                            "dedisp": dedisp_samples}})
+        meta=meta)
 
 
 def render(verdict: dict, episode: dict, file=None) -> None:

@@ -284,12 +284,16 @@ def fold_series_batch(items, device="cuda", obs=None) -> List[FoldResult]:
 
 def finish_fold_nosearch(results: List[FoldResult],
                          device="cuda", obs=None) -> List[FoldResult]:
-    """search_fold's ``-nosearch`` endgame for a whole stack: one stacked
-    profile-total fills every result's best summed profile; the other
-    search fields take the single-trial values search_fold sets when
-    every axis is off (best_* = fold values, one-entry period/pdot/dm
-    arrays).  The chi2 surfaces are left at zeros.  The profile-total is
-    booked on ``obs`` as ``fold_total``."""
+    """search_fold's ``-nosearch`` endgame for a whole stack: a
+    profile-total a fold fills each result's best summed profile; the
+    other search fields take the single-trial values search_fold sets
+    when every axis is off (best_* = fold values, one-entry
+    period/pdot/dm arrays).  The chi2 surfaces are left at zeros.  Each
+    total is the unstacked call's own ([npart, L] through _trial_total):
+    on a card the sum over the parts of one [J, npart, L] tensor reduces
+    in an order that depends on J (at J = 8 its .pfd bytes differed from
+    a lone fold's), so a stacked total would not be bit-identical.  Each
+    total is booked on ``obs`` as a ``fold_total``."""
     from presto_tpu_torch.obs import devtel
     if not results:
         return results
@@ -307,10 +311,10 @@ def finish_fold_nosearch(results: List[FoldResult],
         res.ppd_chi2 = np.zeros((1, 1))
         res.periods = np.array([1.0 / res.fold_f])
         res.pdots = np.array([res.best_pd])
-    profs = np.stack([r.cube[:, 0, :] for r in results])
-    shifts = np.zeros((len(results), results[0].npart), np.float32)
-    devtel.note_dispatch(obs, "fold_total")
-    totals = _trial_total(profs, shifts, device)
+    shifts = np.zeros(results[0].npart, np.float32)
+    devtel.note_dispatch(obs, "fold_total", len(results))
+    totals = [_trial_total(r.cube[:, 0, :], shifts, device)
+              for r in results]
     for res, tot in zip(results, totals):
         res.best_prof = tot.astype(np.float64)
         Ntot = float(res.stats[:, 0, 0].sum())
