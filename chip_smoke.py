@@ -67,7 +67,7 @@ Phases (any failure exits non-zero before the final line):
   6. toas    get_TOAs (-n 8 -d <best DM>) on that fold, on the card and
              on the CPU: 8 TOAs whose phases under the injected (f0,
              fdot) agree within their errors, and the two agree;
-  6a. short  the short beam, the beam's first 2^20 spectra
+  6a. short  the short beam, the beam's first 2^19 spectra
              (SHORT_SPECTRA), through run_survey with the main
              configuration: the reference run of phases 6b-6f and 6h,
              which take the short beam and hold their files to it (on
@@ -206,9 +206,9 @@ Phases (any failure exits non-zero before the final line):
              rows); the stage times, with the host resample and zap as
              run_survey's StageTimer booked them;
   6h. psrfits  the short beam's samples as two PSRFITS files (the
-             port's write_psrfits: 2^19 spectra each, rows of 2048, the
+             port's write_psrfits: 2^18 spectra each, rows of 2048, the
              .fil's descending band, unit scales): the reader's stitched
-             length (2^20) and clean quality ledger; run_survey on the
+             length (2^19) and clean quality ledger; run_survey on the
              pair with the main configuration, launches read around it
              (24 + 24), its 24 .dat, .mask arrays, ACCEL tables and .cand
              files, sifted list and three folds' profile cubes equal to
@@ -326,17 +326,44 @@ Phases (any failure exits non-zero before the final line):
              in-process fleet, -stacked at -Ns 1,4,8 and the paced
              stream at the CLI's defaults (64 channels) run with
              --loadgen-only;
+  6p. chaos  the chaos drivers (phase_chaos), each with its checks:
+             apps/chaos_survey's first trial of seed 0 (its kill
+             schedule, kills that fired and corruptions printed; every
+             comparable artifact byte-equal to the uninterrupted run) at
+             the beam's 128 channels over 2^15 spectra (CHAOS_SURVEY;
+             the tool's 2^13 x 16 otherwise); apps/multihost_chaos's
+             seed-4 trial, the stall mode (two prepsubband processes on
+             the card at 128 channels, every .dat byte-equal to the
+             one-process reference, the ledger's epoch >= 1 and redos
+             printed); apps/stream_chaos's stall, truncation, ring-drop
+             and beam-handoff trials, each PASS; apps/fleet_chaos's
+             classic seed-1 trial, killed at job-enqueued (every job done
+             once, digests byte-equal, the zombie's late commit fenced);
+             apps/fed_chaos's partition-zombie trial (every item once on
+             the survivor, the zombie fenced, the epoch bumped, digests
+             byte-equal), in a thread beside the other four; launches
+             read around the five (the fed replicas' from their
+             snapshots); both kernels against their
+             plain versions at chaos_survey's geometry (zmax 0, numharm
+             2) on its beam's spectrum at DM 10; within CHAOS_BUDGET_S.
+             Every driver at the JAX tools' defaults (chaos_survey
+             --trials 5, the six stream trials, multihost_chaos --trials
+             3, fleet_chaos -trials 3 -supervisor, -dag and -campaign,
+             the last also at -observations 16, fed_chaos -trials 2
+             -verdict) runs with --chaos-only;
  12. summary the kernels line (launches of the main path, the sharded
              main path, by shard too, the serve path, the fleet path, the
              federation path (A's last snapshot and B's replicas'), the
              tune sweep, the recipe path, the psrfits path, the classic
              path, the monte path, the plots path (0), the tools path, the
-             jerk paths and the live paths; each
+             devtools, target, loadgen and chaos paths, the jerk paths and
+             the live paths; each
              kernel's bound also at the measured peaks, and its numbers at
              the recipe's two pass geometries, at the classic
              accelsearch's, at monte's, at the tools phase's two and at
-             the devtools phase's two, at the target share's and at the
-             loadgen's), the card, and the final ok line.
+             the devtools phase's two, at the target share's, at the
+             loadgen's and at the chaos phase's), the card, and the final
+             ok line.
 
 Prints the full results as one JSON line (``results: {...}``).  Imports
 no JAX and nothing of the JAX package.  ``--live-only`` runs phases 10 and
@@ -344,6 +371,9 @@ no JAX and nothing of the JAX package.  ``--live-only`` runs phases 10 and
 and ``--loadgen-only`` build the kernels and run phase 6n, or phase 6o
 with every mode of both load generators to its verdict, alone
 (``--loadgen-records DIR`` writes the verdict reports under DIR).
+``--chaos-only`` builds the kernels and runs phase 6p, then every chaos
+driver at the JAX tools' defaults, alone (``--chaos-records DIR`` writes
+their reports under DIR).
 ``--keep-recipe-cands DIR`` writes the recipe phase's sift input (ACCEL
 tables, .cand and .inf files) and cands_sifted.txt to
 DIR/recipe_cands.tar.xz.
@@ -2570,13 +2600,14 @@ def _same_files(a_dir, b_dir, pattern):
     return out
 
 
-# the short beam: the main beam's first 2^20 spectra (134 s), through
+# the short beam: the main beam's first 2^19 spectra (67 s), through
 # run_survey with the main configuration in phase_short; the sharded,
 # cluster, serve, fleet, federation and psrfits phases run it and hold
 # their files to that run (on the whole beam they took ~400 of the
-# script's 917-1047 s; the federation ~84 s), and the tools phase injects
-# its pulsar into it
-SHORT_SPECTRA = 1 << 20
+# script's 917-1047 s; the federation ~84 s; the beam's first 2^20
+# spectra until the chaos phase came), and the tools phase injects its
+# pulsar into it
+SHORT_SPECTRA = 1 << 19
 
 
 def short_beam(raw, path, nspectra):
@@ -4873,12 +4904,13 @@ def phase_psrfits(raw, workdir, mwork, main_res=None, device="cuda"):
            "ok" if survey_ok else "FAIL"))
     # the PSRFITS ingest's host ms a block at the head's block length
     blocklen = stream_blocklen(b["nchan"], 0, nspec)
-    ingest = _median_of([split_psrfits(pair, blocklen, INGEST_BLOCKS,
+    nblocks = min(INGEST_BLOCKS, nspec // blocklen)
+    ingest = _median_of([split_psrfits(pair, blocklen, nblocks,
                                        pin=device != "cpu")
                          for _ in range(INGEST_REPEATS)])
     log("psrfits: ingest host ms a %d-spectrum block (per block, ms, "
         "mean and max over %d blocks, median of %d, as ingest split_after): "
-        "%s" % (blocklen, INGEST_BLOCKS, INGEST_REPEATS, json.dumps(
+        "%s" % (blocklen, nblocks, INGEST_REPEATS, json.dumps(
             {k: [round(v["mean_ms"], 3), round(v["max_ms"], 3)]
              for k, v in ingest.items()})))
     # prepsubband -sub on the pair and on the .fil
@@ -6317,10 +6349,11 @@ def phase_devtools(workdir, device="cuda"):
 
 
 TARGET_BUDGET_S = 150.0
-# the referee's spectrum in this phase: the probe series' first 2^20
-# samples (the float64 referee over the whole 2^22-bin probe takes longer
-# than the phase's budget; apps/target_scale_e2e runs it in full)
-TARGET_REFEREE_BINS = 1 << 19
+# the referee's spectrum in this phase: the probe series' first 2^18
+# samples (the float64 referee's host time grows with the bins: over the
+# whole 2^22-bin probe it takes longer than the phase's budget;
+# apps/target_scale_e2e runs it in full)
+TARGET_REFEREE_BINS = 1 << 17
 
 
 def phase_target(workdir, device="cuda"):
@@ -6449,8 +6482,8 @@ def phase_target(workdir, device="cuda"):
 
 
 LOADGEN_BUDGET_S = 120.0
-# the loadgen phase's full-width beams: the short beam's 128 channels and
-# 2^20 spectra (make_beams' own geometry otherwise: 0.5 ms samples,
+# the loadgen phase's full-width beams: the beam's 128 channels and 2^20
+# spectra (make_beams' own geometry otherwise: 0.5 ms samples,
 # 400-528 MHz, a 23 Hz pulsar at DM 55), at the tool's -rate 2
 LOADGEN_BEAMS = dict(n=4, nsamp=1 << 20, nchan=128, rate=2.0)
 # the paced stream's width, the live beam's 128 channels, and its block:
@@ -6461,24 +6494,23 @@ LOADGEN_BEAMS = dict(n=4, nsamp=1 << 20, nchan=128, rate=2.0)
 LOADGEN_STREAM = dict(nchan=LIVE["nchan"], blocklen=LIVE_CFG["blocklen"])
 
 
-def _loadgen_kernels(beam, config, gen, device="cuda"):
-    """Both kernels at the loadgen's geometry: the search configuration
-    of run_loadgen's jobs on the spectrum of the first full-width beam at
-    DM 55 (its pulsar's; prepdata -nobary on the card, the jobs keep no
-    .dat), through recipe_kernels."""
+def beam_kernels(beam, cfg, dm, label, gen, device="cuda"):
+    """Both kernels at a path's geometry: the search configuration of its
+    jobs (``cfg``'s zmax, numharm, sigma, flo) on the spectrum of
+    ``beam`` at DM ``dm`` (prepdata -nobary on the card), through
+    recipe_kernels."""
     from presto_tpu_torch.apps import prepdata
     from presto_tpu_torch.io.datfft import read_dat_with_inf
     from presto_tpu_torch.ops import fftpack
-    from presto_tpu_torch.pipeline.survey import SurveyConfig
-    base = os.path.join(os.path.dirname(beam), "dm55")
-    _cli_out(prepdata.main, ["-dm", "55", "-nobary", "-o", base, beam],
+    base = os.path.join(os.path.dirname(beam), "dm%g" % dm)
+    _cli_out(prepdata.main, ["-dm", "%g" % dm, "-nobary", "-o", base, beam],
              device=device)
     series, inf = read_dat_with_inf(base + ".dat")
     x = torch.as_tensor(series - series.mean(), device=device)
     pairs = fftpack.realfft_packed_pairs(x)
     del x
-    pb, sr = recipe_kernels(SurveyConfig(**config), float(inf.N) * inf.dt,
-                            pairs.shape[0], pairs, gen, "loadgen (DM 55)",
+    pb, sr = recipe_kernels(cfg, float(inf.N) * inf.dt,
+                            pairs.shape[0], pairs, gen, label,
                             device=device)
     del pairs
     torch.cuda.empty_cache()
@@ -6489,6 +6521,7 @@ def _loadgen_serve(workdir, device, gen):
     """serve_loadgen -selfhost at full width (LOADGEN_BEAMS), launches
     read around it, and both kernels at its geometry."""
     from presto_tpu_torch.apps import serve_loadgen as slg
+    from presto_tpu_torch.pipeline.survey import SurveyConfig
     from presto_tpu_torch.serve.server import SearchService, start_http
     t0 = time.time()
     beams = slg.make_beams(workdir, LOADGEN_BEAMS["n"],
@@ -6520,10 +6553,12 @@ def _loadgen_serve(workdir, device, gen):
            rep["wall_s"], rep["p50_s"], rep["p99_s"], rep["batch_occupancy"],
            rep["plan_hit_rate"], json.dumps(launches),
            "ok" if ok else "FAIL"))
-    pb, sr = _loadgen_kernels(beams[0], {
-        "lodm": 45.0, "hidm": 65.0, "nsub": 16, "zmax": 0, "numharm": 4,
-        "fold_top": 0, "singlepulse": False, "skip_rfifind": True},
-        gen, device)
+    # the jobs' geometry on the first full-width beam at DM 55, its
+    # pulsar's (the jobs keep no .dat)
+    pb, sr = beam_kernels(beams[0], SurveyConfig(
+        lodm=45.0, hidm=65.0, nsub=16, zmax=0, numharm=4, fold_top=0,
+        singlepulse=False, skip_rfifind=True), 55.0, "loadgen (DM 55)", gen,
+        device)
     return dict(ok=ok and pb["ok"] and sr["ok"], report=rep,
                 launches=launches, beams_s=beams_s, serve_s=serve_s,
                 plane_build=pb, stage_reduce=sr)
@@ -6701,6 +6736,304 @@ def phase_loadgen(workdir, device="cuda", everything=False, records=None):
                 phase_s=phase_s, budget_s=LOADGEN_BUDGET_S)
 
 
+CHAOS_BUDGET_S = 120.0
+# chaos_survey in the default phase: the tool's survey (DM 5-12, nsub 16,
+# zmax 0, numharm 2, single pulse on, rfifind -time 0.4) of its synthetic
+# 17 Hz pulsar at the beam's 128 channels over 2^15 spectra of 0.2 ms
+# (the tool's 2^13 x 16 otherwise); seed 0's first trial
+CHAOS_SURVEY = dict(nspec=1 << 15, nchan=LIVE["nchan"], seed=0)
+# multihost_chaos: the tool's 8 DMs over 2^13 spectra at 128 channels;
+# seed 4 draws the stall mode first (proc0 wedged at its first
+# pre-shard-commit), which phase_cluster's one exit kill does not cover
+CHAOS_MULTIHOST = dict(nspec=1 << 13, nchan=LIVE["nchan"], numdms=8,
+                       seed=4)
+CHAOS_STREAM_TRIALS = ("stall", "truncation", "ring-drop", "beam-handoff")
+# fleet_chaos: one classic trial at the tool's defaults (2 replicas, 3
+# jobs of 4096 x 8, lease batch 2); seed 1 draws job-enqueued first, so
+# the victim leaves a zombie survey whose late commit the fence rejects
+CHAOS_FLEET_SEED = 1
+# fed_chaos at the tool's defaults (3 jobs of 4096 x 8, seed 19); its
+# trial index 1 is the partition-zombie mode
+CHAOS_FED_SEED = 19
+
+
+def _chaos_run(name, fn, *a, **k):
+    """One driver of the chaos phase: its record with its seconds; an
+    exception fails it (its traceback logged), the phase goes on."""
+    import traceback
+    t0 = time.time()
+    try:
+        rec = fn(*a, **k)
+    except Exception:
+        tb = traceback.format_exc()
+        log("chaos: %s raised:\n%s" % (name, tb))
+        rec = dict(ok=False, error=tb[-2000:])
+    rec["seconds"] = time.time() - t0
+    return rec
+
+
+def _chaos_survey(workdir, device):
+    """chaos_survey's first trial of CHAOS_SURVEY's seed: the kill
+    schedule, the kills that fired, every comparable artifact against the
+    uninterrupted run."""
+    import random
+    from presto_tpu_torch.apps import chaos_survey as cs
+    c = CHAOS_SURVEY
+    raw, provider, ref = cs.reference(workdir, c["nspec"], c["nchan"],
+                                      device)
+    trial = cs.run_trial(0, random.Random(c["seed"]), raw, provider, ref,
+                         workdir, device)
+    ok = trial["ok"] and bool(ref)
+    log("chaos: chaos_survey at %d channels x %d spectra, seed %d: "
+        "schedule %s, kills that fired %s; %d comparable artifacts "
+        "byte-equal to the uninterrupted run %s%s"
+        % (c["nchan"], c["nspec"], c["seed"], " -> ".join(trial["schedule"]),
+           trial["hits"], len(ref), trial["ok"], trial["detail"]))
+    return dict(ok=ok, trial=trial, artifacts=len(ref), raw=raw)
+
+
+def _chaos_multihost(workdir, device):
+    """multihost_chaos's first trial of CHAOS_MULTIHOST's seed (the stall
+    mode): two prepsubband processes on the card, every .dat against the
+    one-process reference, the shard ledger's epoch and redos."""
+    import random
+    from presto_tpu_torch.apps import multihost_chaos as mh
+    c = CHAOS_MULTIHOST
+    raw, nsub = mh.prepare(workdir, c["nspec"], c["nchan"], c["numdms"],
+                           device)
+    res = mh.run_trial(0, random.Random(c["seed"]), raw, workdir,
+                       c["numdms"], nsub, max(1, c["numdms"] // 4),
+                       mh.LEASE_TTL_S, mh.BARRIER_TIMEOUT_S, mh.DEADLINE_S,
+                       device=device)
+    ok = (res["ok"] and res["mode"] == "stall"
+          and (res.get("epoch") or 0) >= 1)
+    log("chaos: multihost_chaos seed %d: victim proc%d %s at %s#%d; "
+        "survivor %s s (rc of the victim %s); %s/%s .dat byte-equal %s; "
+        "ledger epoch %s, redos %s %s%s"
+        % (c["seed"], res["victim"], res["mode"], res["point"], res["nth"],
+           res.get("survivor_seconds"), res.get("victim_rc"),
+           res.get("mh_files"), res.get("ref_files"),
+           res.get("byte_identical"), res.get("epoch"), res.get("redos"),
+           "ok" if ok else "FAIL",
+           "" if ok else ": %s" % (res.get("stage"), res.get("stderr"))))
+    return dict(ok=ok, report=res)
+
+
+def _chaos_stream(workdir, device, names):
+    """stream_chaos's named trials, each to its verdict."""
+    from presto_tpu_torch.apps import stream_chaos as sc
+    v = sc.run_trials(names, device=device, root=workdir)
+    for r in v["trials"]:
+        log("chaos: stream_chaos %s %s in %.1f s: %s"
+            % (r["trial"], "PASS" if r["ok"] else "FAIL", r["wall_s"],
+               json.dumps({k: x for k, x in r.items()
+                           if k not in ("trial", "ok", "wall_s")},
+                          default=str)))
+    return dict(ok=v["ok"], report=v)
+
+
+def _chaos_fleet(workdir, device):
+    """fleet_chaos's classic trial of CHAOS_FLEET_SEED (job-enqueued):
+    every job ledger-done once, the digests against the reference, the
+    zombie's late commit fenced."""
+    import random
+    from presto_tpu_torch.apps import fleet_chaos as fc
+    beam, ref = fc.classic_reference(workdir, 4096, 8, device)
+    rec = fc.run_trial(0, random.Random(CHAOS_FLEET_SEED), beam, ref,
+                       workdir, 2, 3, 300.0, device=device)
+    ok = (rec["ok"] and rec["kill_point"] == "job-enqueued"
+          and bool(rec["zombie_jobs"]) and rec["stale_rejected"] >= 1)
+    log("chaos: fleet_chaos seed %d: kill %s on %s, zombie jobs %s, "
+        "stale commits rejected %d, epoch %d, redos %s; checks %s %s"
+        % (CHAOS_FLEET_SEED, rec["kill_point"], rec["victim"],
+           rec["zombie_jobs"], rec["stale_rejected"], rec["epoch"],
+           rec["redos"], json.dumps(rec["checks"]), "ok" if ok else "FAIL"))
+    return dict(ok=ok, report=rec)
+
+
+def _chaos_fed(workdir, device):
+    """fed_chaos's partition-zombie trial: every item committed once on
+    the survivor, the zombie's late commits fenced, the epoch bumped, the
+    digests against the reference; the replicas' launches from their
+    snapshots."""
+    import random
+    from presto_tpu_torch.apps import fed_chaos as fd
+    beam, ref = fd.reference(workdir, 4096, 8, device)
+    rec = fd.run_fed_trial(1, random.Random(CHAOS_FED_SEED), beam, ref,
+                           workdir, 3, 300.0, device=device)
+    ok = rec["ok"] and rec["mode"] == "partition-zombie"
+    procs = {}
+    for name in ("A", "B"):
+        procs.update(_fleet_launches(os.path.join(workdir, "trial01", name,
+                                                  "fleet")))
+    log("chaos: fed_chaos %s: %d placed on A, %d open at the kill, %d "
+        "re-admitted, stale commits rejected %s, epoch %d, kill points %s; "
+        "checks %s; replica launches %s %s"
+        % (rec["mode"], rec.get("placed_on_victim", 0),
+           rec.get("open_at_kill", 0), rec.get("readmitted", 0),
+           rec.get("stale_rejected"), rec.get("epoch", 0),
+           rec.get("points_seen"), json.dumps(rec["checks"]),
+           json.dumps(procs), "ok" if ok else "FAIL"))
+    return dict(ok=ok, report=rec, launches_by_replica=procs)
+
+
+def _chaos_everything(workdir, device, records):
+    """Every driver at the JAX tools' defaults to its verdict (the
+    --chaos-only run): chaos_survey --trials 5, the six stream trials,
+    multihost_chaos --trials 3, fleet_chaos -trials 3 -supervisor, -dag
+    and -campaign (and -campaign -observations 16), fed_chaos -trials 2
+    -verdict; with ``records`` each report goes to records/torch/<the JAX
+    tool's name> under it."""
+    from presto_tpu_torch.apps import chaos_survey as cs
+    from presto_tpu_torch.apps import fed_chaos as fd
+    from presto_tpu_torch.apps import fleet_chaos as fc
+    from presto_tpu_torch.apps import multihost_chaos as mh
+    from presto_tpu_torch.apps import serve_loadgen as slg
+    from presto_tpu_torch.apps import stream_chaos as sc
+    d = lambda name: os.path.join(workdir, name)  # noqa: E731
+    out = {}
+
+    def survey():
+        trials = cs.run(cs.build_parser().parse_args(
+            ["--trials", "5", "--workdir", d("survey")]), device)
+        return dict(ok=all(t["ok"] for t in trials), report=dict(
+            trials=trials, passed=sum(t["ok"] for t in trials)))
+    out["chaos_survey"] = _chaos_run("chaos_survey --trials 5", survey)
+
+    def stream():
+        v = sc.run_trials(list(sc.TRIALS), device=device, root=d("stream"))
+        return dict(ok=v["ok"], report=v)
+    out["stream"] = _chaos_run("stream_chaos, six trials", stream)
+
+    def multihost():
+        art = mh.run(mh.build_parser().parse_args(
+            ["--trials", "3", "--workdir", d("multihost")]), device)
+        return dict(ok=art["ok"], report=art)
+    out["multihost"] = _chaos_run("multihost_chaos --trials 3", multihost)
+    # the campaign also at 16 observations: at the tool's 4 a card may
+    # finish the campaign before the trial's drawn kill delay (0.5-3 s)
+    for key, flags in (("fleet", ["-supervisor"]), ("dag", ["-dag"]),
+                       ("campaign", ["-campaign"]),
+                       ("campaign16", ["-campaign", "-observations", "16"])):
+        def fleet(flags=flags, key=key):
+            args = fc.build_parser().parse_args(
+                ["-trials", "3", "-workdir", d(key)] + flags)
+            _mode, rep = fc.run_mode(args, d(key), device)
+            return dict(ok=rep["failed"] == 0, report=rep)
+        out[key] = _chaos_run("fleet_chaos -trials 3 " + " ".join(flags),
+                              fleet)
+
+    def fed():
+        rep, verdict = fd.run(fd.build_parser().parse_args(
+            ["-trials", "2", "-verdict"]), d("fed"), device)
+        return dict(ok=rep["failed"] == 0 and verdict["ok"], report=rep,
+                    verdict=verdict)
+    out["fed"] = _chaos_run("fed_chaos -trials 2 -verdict", fed)
+    for key, r in out.items():
+        rep = r.get("report") or {}
+        trials = rep.get("results") or rep.get("trials") or []
+        log("chaos: --chaos-only %s %s in %.1f s: %s"
+            % (key, "PASS" if r["ok"] else "FAIL", r["seconds"],
+               json.dumps([{k: t.get(k) for k in (
+                   "trial", "kill_point", "crash_point", "mode", "victim",
+                   "point", "nth", "schedule", "ok", "wall_s",
+                   "survivor_seconds", "epoch", "checks") if k in t}
+                   for t in trials], default=str)))
+    if "verdict" in out["fed"]:
+        log("chaos: --chaos-only fed verdict %s: checks %s"
+            % ("PASS" if out["fed"]["verdict"]["ok"] else "FAIL",
+               json.dumps(out["fed"]["verdict"]["checks"])))
+    if records:
+        card = slg.card_line()
+        for key, name in (("fleet", "FLEET_CHAOS.json"),
+                          ("dag", "DAG_CHAOS.json"),
+                          ("campaign", "CAMPAIGN_CHAOS.json"),
+                          ("campaign16", "CAMPAIGN_CHAOS_observations16.json"),
+                          ("fed", "FED_CHAOS.json"),
+                          ("multihost", "MULTIHOST_CHAOS.json"),
+                          ("stream", "STREAM_CHAOS.json")):
+            if "report" in out[key]:
+                log("chaos: %s -> %s" % (key, slg.commit_report(
+                    dict(out[key]["report"], card=card), name,
+                    root=records)))
+        if "verdict" in out["fed"]:
+            log("chaos: fed verdict -> %s" % slg.commit_report(
+                dict(out["fed"]["verdict"], card=card), "FED_r19.json",
+                root=records))
+    return out
+
+
+def phase_chaos(workdir, device="cuda", everything=False, records=None):
+    """The chaos drivers on the card (phase_chaos; see the module
+    docstring, phase 6p).  By default, each with its checks and within
+    CHAOS_BUDGET_S: chaos_survey's first trial of seed 0 at 128 channels
+    (CHAOS_SURVEY), multihost_chaos's stall trial (CHAOS_MULTIHOST),
+    stream_chaos's stall, truncation, ring-drop and beam-handoff,
+    fleet_chaos's classic job-enqueued trial and fed_chaos's
+    partition-zombie trial (in a thread beside the other four: its
+    fleets are processes of their own); the launches read around the
+    five; both
+    kernels against their plain versions at chaos_survey's geometry
+    (zmax 0, numharm 2) on its beam's spectrum at DM 10, its pulsar's.
+    ``everything`` (--chaos-only) then runs every driver at the JAX
+    tools' defaults to its verdict (_chaos_everything), outside the
+    budget; ``records`` is a directory their reports go to."""
+    import threading
+    from presto_tpu_torch.apps import chaos_survey as cs
+    os.makedirs(workdir, exist_ok=True)
+    t_phase = time.time()
+    d = lambda name: os.path.join(workdir, name)  # noqa: E731
+    read = launch_counts()
+    # fed_chaos's fleets are processes of their own and its trial mostly
+    # waits on them: it runs in a lane beside the other four
+    fed = {}
+    lane = threading.Thread(target=lambda: fed.update(_chaos_run(
+        "fed_chaos", _chaos_fed, d("fed"), device)), name="chaos-fed")
+    lane.start()
+    out = {"chaos_survey": _chaos_run("chaos_survey", _chaos_survey,
+                                      d("survey"), device)}
+    out["multihost"] = _chaos_run("multihost_chaos", _chaos_multihost,
+                                  d("multihost"), device)
+    out["stream"] = _chaos_run("stream_chaos", _chaos_stream, d("stream"),
+                               device, CHAOS_STREAM_TRIALS)
+    out["fleet"] = _chaos_run("fleet_chaos", _chaos_fleet, d("fleet"),
+                              device)
+    lane.join()
+    out["fed"] = fed
+    torch.cuda.empty_cache()
+    launches = read()
+    for name in launches:
+        launches[name] += sum(r.get(name, 0) for r in out["fed"].get(
+            "launches_by_replica", {}).values())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2424)
+    raw = out["chaos_survey"].get("raw") or cs._make_obs(
+        d("survey"), CHAOS_SURVEY["nspec"], CHAOS_SURVEY["nchan"])
+    pb, sr = beam_kernels(raw, cs._cfg(None), 10.0, "chaos (DM 10)", gen,
+                          device)
+    launched = launches["plane_build"] >= 1 and launches["stage_reduce"] >= 1
+    phase_s = time.time() - t_phase
+    in_budget = phase_s <= CHAOS_BUDGET_S
+    log("chaos: launches around the drivers %s %s; seconds %s; phase %.1f "
+        "s of its %.0f s budget %s"
+        % (json.dumps(launches), "ok" if launched else "FAIL",
+           json.dumps({k: round(r["seconds"], 1) for k, r in out.items()}),
+           phase_s, CHAOS_BUDGET_S, "ok" if in_budget else "FAIL"))
+    ok = (all(r["ok"] for r in out.values()) and pb["ok"] and sr["ok"]
+          and launched and in_budget)
+    res = dict(ok=ok, launches=launches, plane_build=pb, stage_reduce=sr,
+               drivers={k: {x: v for x, v in r.items() if x != "raw"}
+                        for k, r in out.items()},
+               phase_s=phase_s, budget_s=CHAOS_BUDGET_S)
+    if everything:
+        t0 = time.time()
+        allrun = _chaos_everything(d("all"), device, records)
+        res["everything"] = allrun
+        res["everything_s"] = time.time() - t0
+        res["ok"] = ok and all(r["ok"] for r in allrun.values())
+    return res
+
+
 def keep_cands(res, keep):
     """recipe_cands.tar.xz in ``keep``: the survey's ACCEL tables, .cand
     files and .inf files by base name, and its cands_sifted.txt."""
@@ -6761,6 +7094,14 @@ def main():
     ap.add_argument("--loadgen-records", metavar="DIR",
                     help="with --loadgen-only: write the verdict modes' "
                          "reports to DIR/records/torch/<name>.json")
+    ap.add_argument("--chaos-only", action="store_true",
+                    help="build the kernels and run the chaos phase alone, "
+                         "then every chaos driver at the JAX tools' "
+                         "defaults to its verdict (no kernels line, no "
+                         "final ok line)")
+    ap.add_argument("--chaos-records", metavar="DIR",
+                    help="with --chaos-only: write the drivers' reports "
+                         "to DIR/records/torch/<name>.json")
     ap.add_argument("--keep-recipe-cands", metavar="DIR",
                     help="write the recipe phase's sift input and output "
                          "to DIR/recipe_cands.tar.xz")
@@ -6792,6 +7133,17 @@ def main():
         log("results: %s" % json.dumps(dict(build=build, loadgen=loadgen),
                                        default=float))
         return 0 if build["ok"] and loadgen["ok"] else 1
+    if opts.chaos_only:
+        build = phase_build()
+        d = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+        try:
+            chaos = phase_chaos(os.path.join(d, "chaos"), everything=True,
+                                records=opts.chaos_records)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        log("results: %s" % json.dumps(dict(build=build, chaos=chaos),
+                                       default=str))
+        return 0 if build["ok"] and chaos["ok"] else 1
     if opts.target_only:
         build = phase_build()
         d = tempfile.mkdtemp(prefix="chip_smoke_target_")
@@ -6873,6 +7225,8 @@ def main():
         torch.cuda.empty_cache()
         loadgen = phase_loadgen(os.path.join(work, "loadgen"))
         torch.cuda.empty_cache()
+        chaos = phase_chaos(os.path.join(work, "chaos"))
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     small = phase_small_reference(gen)
@@ -6895,7 +7249,7 @@ def main():
                    federation=feder, recipe=recipe, psrfits=psrfits,
                    classic=classic, binary=binary, plots=plots,
                    tools=tools, devtools=devtools, target=target,
-                   loadgen=loadgen, small_reference=small,
+                   loadgen=loadgen, chaos=chaos, small_reference=small,
                    **live,
                    total_s=time.time() - t_start)
     # launches: the main path's (run_survey, and run_survey on the DM
@@ -6926,7 +7280,8 @@ def main():
                    "tools": tools["launches"][name],
                    "devtools": devtools["launches"][name],
                    "target_scale": target["launches"][name],
-                   "loadgen": loadgen["launches"][name]}
+                   "loadgen": loadgen["launches"][name],
+                   "chaos": chaos["launches"][name]}
         for path, counts in zip(("jerk_bench", "accelsearch_wmax",
                                  "stream", "beams"),
                                 jl + [live["stream"]["launches"],
@@ -6975,9 +7330,11 @@ def main():
                         "target_scale": {x: target[name][x] for x in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms")},
-                        "loadgen": {x: loadgen[name][x] for x in (
+                        **{ph: {x: res[name][x] for x in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms")}})
+                            "bound_by", "library_ms")}
+                           for ph, res in (("loadgen", loadgen),
+                                           ("chaos", chaos))}})
     log("results: %s" % json.dumps(results, default=float))
     failed = [n for n, ok in (("build", build["ok"]),
                               ("plane_build", k1["ok"]),
@@ -7003,6 +7360,7 @@ def main():
                               ("devtools", devtools["ok"]),
                               ("target", target["ok"]),
                               ("loadgen", loadgen["ok"]),
+                              ("chaos", chaos["ok"]),
                               ("stream", live["stream"]["ok"]),
                               ("beams", live["beams"]["ok"])) if not ok]
     if failed:

@@ -3,9 +3,10 @@ isolation from the JAX package.
 
 Host copy of ``presto_tpu/lint/imports.py`` for the PyTorch port.
 Beside the JAX family's rules it flags every import of ``jax`` (or
-``jaxlib``) and of the JAX package ``presto_tpu`` anywhere in the
-port's tree: at module scope, inside functions and in ``try`` blocks
-alike, since the port runs where JAX is not installed.  It is the
+``jaxlib``), of the JAX package ``presto_tpu`` and of its drivers under
+``tools/`` anywhere in the port's tree: at module scope, inside
+functions and in ``try`` blocks alike, since the port runs where JAX is
+not installed (the drivers import the JAX package).  It is the
 static form of the subprocess checks in tests/test_torch_isolation.py.
 
 The in-tree twin of the ``[tool.ruff]`` config in pyproject.toml
@@ -62,7 +63,7 @@ def _in_try(stack: List[ast.AST]) -> bool:
 
 
 #: top-level packages the port never imports
-FOREIGN = ("jax", "jaxlib", "presto_tpu")
+FOREIGN = ("jax", "jaxlib", "presto_tpu", "tools")
 
 
 def _foreign(node) -> List[str]:
@@ -78,9 +79,9 @@ def _foreign(node) -> List[str]:
 
 def _isolation(sf) -> List[Finding]:
     return [Finding(CHECK, sf.path, node.lineno,
-                    "%r is imported — the port imports neither jax nor "
-                    "the JAX package (it keeps its own copy of what it "
-                    "needs)" % name)
+                    "%r is imported — the port imports neither jax, the "
+                    "JAX package nor its tools (it keeps its own copy of "
+                    "what it needs)" % name)
             for node in ast.walk(sf.tree)
             if isinstance(node, (ast.Import, ast.ImportFrom))
             for name in _foreign(node)]

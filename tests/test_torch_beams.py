@@ -12,10 +12,10 @@ package's (presto_tpu/stream/beams) on the CPU.
     independent port stream's, dispatches <= ticks, every spectrum
     accounted; with coincidence_k=3, a burst in every beam vetoed and a
     one-beam pulse kept.
-  * tools/stream_chaos.py's beam trials on the port: a stalled beam
-    quarantined, not fatal; a replica killed mid-observation hands its
-    beams off through the ledger with zero lost and zero duplicated
-    triggers.
+  * tools/stream_chaos.py's beam trials through the port's
+    apps/stream_chaos: a stalled beam quarantined, not fatal; a replica
+    killed mid-observation hands its beams off through the ledger with
+    zero lost and zero duplicated triggers.
 """
 
 import json
@@ -39,6 +39,8 @@ from presto_tpu.stream.beams import \
     StackedRollingDedisp as JStacked  # noqa: E402
 from presto_tpu.stream.rolling import Trigger as JTrigger  # noqa: E402
 
+from presto_tpu_torch import stream as stream_pkg  # noqa: E402
+from presto_tpu_torch.apps import stream_chaos  # noqa: E402
 from presto_tpu_torch.serve.scheduler import SchedulerConfig  # noqa: E402
 from presto_tpu_torch.serve.server import SearchService  # noqa: E402
 from presto_tpu_torch.stream import (BeamMultiplexer,  # noqa: E402
@@ -47,8 +49,7 @@ from presto_tpu_torch.stream import (BeamMultiplexer,  # noqa: E402
                                      StreamConfig, StreamService,
                                      make_beam_block_step)
 from presto_tpu_torch.stream.rolling import Trigger  # noqa: E402
-from presto_tpu_torch.testing.chaos import (FaultInjector,  # noqa: E402
-                                           SimulatedCrash)
+from presto_tpu_torch.testing.chaos import SimulatedCrash  # noqa: E402
 
 DT = 1e-3
 NCHAN = 16
@@ -333,7 +334,7 @@ def test_mux_coincidence_veto_kills_the_burst_keeps_the_pulse(tmp_path):
 
 
 # ----------------------------------------------------------------------
-# tools/stream_chaos.py's beam trials, on the port
+# tools/stream_chaos.py's beam trials, on the port: apps/stream_chaos
 # ----------------------------------------------------------------------
 
 def test_mux_tick_device_error_ends_the_multiplexer(tmp_path,
@@ -342,8 +343,8 @@ def test_mux_tick_device_error_ends_the_multiplexer(tmp_path,
     tick's bundle: the multiplexer ends with `failed` set, the retried
     job runs no further stacked step, and the job fails visibly."""
     import torch
-    hdr, datas, _, cfg = _beam_setup(2, (0,), 3, seconds=8.0,
-                                     npulses=1)
+    hdr, datas, _, cfg = stream_chaos._beam_setup(
+        str(tmp_path), 2, (0,), 3, seconds=8.0, npulses=1)
     feeds = []
     real_feed = StackedRollingDedisp.feed
 
@@ -375,178 +376,83 @@ def test_mux_tick_device_error_ends_the_multiplexer(tmp_path,
         assert len(feeds) == 2
         kinds = [e["kind"] for e in svc.events.tail(100000)]
         assert "stream-eof" not in kinds
-        assert _scheduler_alive(svc)
+        assert stream_chaos._scheduler_alive(svc)
     finally:
         svc.stop()
 
 
-def _beam_setup(nbeams, pulse_beams, seed, seconds=16.0, npulses=3):
-    hdr, datas, t_signal, _ = stream_loadgen.make_beam_feeds(
-        nbeams, pulse_beams=pulse_beams, seed=seed, nchan=64, dt=5e-4,
-        seconds=seconds, npulses=npulses, nrfi=0)
-    cfg = StreamConfig(lodm=25.0, dmstep=5.0, numdms=9, nsub=32,
-                       threshold=7.0, blocklen=4096, ring_capacity=64)
-    return hdr, datas, t_signal, cfg
+def _recorded_muxes(monkeypatch):
+    """The multiplexers apps/stream_chaos's trials make, recorded."""
+    made = []
 
-
-def _matched(trigs, truth, tol=0.2):
-    out = {i: 0 for i in range(len(truth))}
-    for ev in trigs:
-        for i, t in enumerate(truth):
-            if abs(ev["time"] - t) <= tol:
-                out[i] += 1
-                break
-    return out
-
-
-def _beam_triggers(svc):
-    out = {}
-    for ev in svc.events.tail(100000):
-        if ev["kind"] == "trigger":
-            out.setdefault(ev["beam"], []).append(ev)
-    return out
-
-
-def _scheduler_alive(svc):
-    done = threading.Event()
-    svc.submit_callable(lambda job: done.set() or {}, lane="deadline")
-    return done.wait(10.0)
+    class Recorded(BeamMultiplexer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+    monkeypatch.setattr(stream_pkg, "BeamMultiplexer", Recorded)
+    return made
 
 
 @pytest.mark.chaos
-def test_stalled_beam_quarantined_not_fatal(tmp_path):
+def test_stalled_beam_quarantined_not_fatal(tmp_path, monkeypatch):
     """One beam's feeder goes quiet mid-observation: the mux gap-fills
     that lane (quarantine "stall"), keeps ticking the healthy beam, and
     sheds the late data on resume; the healthy beam's pulses trigger
-    exactly once."""
-    hdr, datas, truth, cfg = _beam_setup(2, (0,), 4)
-    svc = SearchService(str(tmp_path), heartbeat_s=0.5).start()
-    try:
-        sources = [RingBlockSource(capacity=cfg.ring_capacity,
-                                   policy=cfg.ring_policy) for _ in datas]
-        threading.Thread(target=_push, args=(sources[0], hdr, datas[0]),
-                         daemon=True).start()
-        half = (len(datas[1]) // (2 * cfg.blocklen)) * cfg.blocklen
-
-        def push_half():
-            sources[1].set_header(hdr)
-            for lo in range(0, half, 1024):
-                sources[1].push_spectra(datas[1][lo:lo + 1024])
-
-        threading.Thread(target=push_half, daemon=True).start()
-        mux = BeamMultiplexer(svc, sources, cfg, qos_wait_s=0.25,
-                              device="cpu").start()
-        deadline = time.time() + 120.0
-        while time.time() < deadline and not (
-                len(mux.lanes) == 2 and mux.lanes[1].stalled_spectra > 0):
-            time.sleep(0.05)
-        assert mux.lanes[1].stalled_spectra > 0
-
-        def push_rest():                # resume: stale data, shed
-            for lo in range(half, len(datas[1]), 1024):
-                sources[1].push_spectra(datas[1][lo:lo + 1024])
-            sources[1].eof()
-
-        threading.Thread(target=push_rest, daemon=True).start()
-        assert mux.wait(120.0) and mux.failed is None
-        counts = _matched(_beam_triggers(svc).get("beam-0", []), truth)
-        lane1 = mux.lanes[1].health()
-        assert lane1["quarantine"].get("stall", 0) > 0
-        assert lane1["dropped_spectra"] + lane1["stalled_spectra"] > 0
-        assert all(c == 1 for c in counts.values()), counts
-        stalled = svc.obs.metrics.get("stream_beam_stalled_total")
-        assert stalled.labels(beam="beam-1").value == \
-            lane1["stalled_spectra"]
-        assert _scheduler_alive(svc)
-    finally:
-        svc.stop()
+    exactly once (stream_chaos.trial_beam_stall on the CPU)."""
+    made = _recorded_muxes(monkeypatch)
+    res = stream_chaos.trial_beam_stall(str(tmp_path), device="cpu")
+    mux = made[0]
+    assert res["stalled_spectra"] > 0
+    assert res["finished"] and mux.failed is None
+    assert res["quarantine"].get("stall", 0) > 0
+    assert res["dropped_spectra"] + res["stalled_spectra"] > 0
+    hits = res["healthy_beam_hits"]
+    assert hits and all(c == 1 for c in hits.values()), hits
+    stalled = mux.obs.metrics.get("stream_beam_stalled_total")
+    assert stalled.labels(beam="beam-1").value == res["stalled_spectra"]
+    assert res["scheduler_alive"] and res["ok"]
 
 
 @pytest.mark.chaos
-def test_beam_handoff_exactly_once(tmp_path):
+def test_truncated_beam_flushes_early(tmp_path, monkeypatch):
+    """One beam's feed dies halfway: that lane ends early while its
+    sibling runs to the end; the healthy beam's pulses and the dead
+    beam's pre-cut pulses trigger exactly once, none after the cut
+    (stream_chaos.trial_beam_truncation on the CPU)."""
+    made = _recorded_muxes(monkeypatch)
+    res = stream_chaos.trial_beam_truncation(str(tmp_path), device="cpu")
+    assert res["finished"] and made[0].failed is None
+    assert res["lane_states"] == ["done", "done"]
+    assert all(c == 1 for c in res["healthy_beam_hits"].values())
+    dead = res["truncated_beam_hits"]
+    assert res["expected_on_truncated"] and all(
+        dead[t] == 1 for t in res["expected_on_truncated"])
+    assert all(c == 0 for t, c in dead.items() if t > res["cut_at_s"])
+    assert res["scheduler_alive"] and res["ok"]
+
+
+@pytest.mark.chaos
+def test_beam_handoff_exactly_once(tmp_path, monkeypatch):
     """Replica A is killed at a beam-tick kill point mid-observation
     (after committing early triggers to the beam ledger); replica B
     reaps it, adopts the leases, replays the feeds and suppresses A's
     committed set: the ledger's per-beam triggers equal an untouched
-    reference's, with zero lost and zero duplicated."""
-    hdr, datas, truth, cfg = _beam_setup(2, (0, 1), 6)
-    ref = _run_reference(str(tmp_path / "ref"), hdr, datas, cfg)
-    fleet = str(tmp_path / "fleet")
-    os.makedirs(fleet)
-    svc_a = SearchService(str(tmp_path / "A"), heartbeat_s=0.5).start()
-    faults = FaultInjector(kill_at="beam-tick", kill_after=1, mode="off")
-    sources_a = [RingBlockSource(capacity=cfg.ring_capacity,
-                                 policy=cfg.ring_policy) for _ in datas]
-    gate = threading.Event()
-    hold = 7 * cfg.blocklen
-
-    def push_gated(source, data):
-        source.set_header(hdr)
-        for lo in range(0, len(data), 1024):
-            if lo >= hold:
-                gate.wait(120.0)
-            source.push_spectra(data[lo:lo + 1024])
-        source.eof()
-
-    for s, d in zip(sources_a, datas):
-        threading.Thread(target=push_gated, args=(s, d),
-                         daemon=True).start()
-    mux_a = BeamMultiplexer(svc_a, sources_a, cfg, fleet_dir=fleet,
-                            host="replica-A", lease_ttl=5.0,
-                            heartbeat_ttl=1.0, faults=faults,
-                            device="cpu").start()
-
-    def ledger_triggers():
-        try:
-            with open(os.path.join(fleet, "beams.json")) as f:
-                rows = json.load(f)["beams"]
-        except (OSError, ValueError, KeyError):
-            return 0
-        return sum(len(r.get("triggers") or []) for r in rows.values())
-
-    deadline = time.time() + 120.0
-    while ledger_triggers() == 0 and time.time() < deadline:
-        time.sleep(0.05)
-    faults.mode = "raise"               # arm: the next beam tick dies
-    gate.set()
-    while faults.fired is None and time.time() < deadline:
-        time.sleep(0.05)
-    assert faults.fired == "beam-tick"
+    reference's, with zero lost and zero duplicated
+    (stream_chaos.trial_beam_handoff on the CPU)."""
+    made = _recorded_muxes(monkeypatch)
+    res = stream_chaos.trial_beam_handoff(str(tmp_path), device="cpu")
+    mux_a, mux_b = made
+    assert res["killed_at"] == "beam-tick"
     # the tick's crash ends replica A itself: no later tick runs
-    assert mux_a.wait(10.0) and isinstance(mux_a.failed, SimulatedCrash)
-    a_committed = ledger_triggers()
-    svc_a.stop()
-    time.sleep(1.5)                     # A's heartbeat expires (ttl 1.0)
-    svc_b = SearchService(str(tmp_path / "B"), heartbeat_s=0.5).start()
-    try:
-        sources_b = [RingBlockSource(capacity=cfg.ring_capacity,
-                                     policy=cfg.ring_policy)
-                     for _ in datas]
-        for s, d in zip(sources_b, datas):
-            threading.Thread(target=_push, args=(s, hdr, d),
-                             daemon=True).start()
-        mux_b = BeamMultiplexer(svc_b, sources_b, cfg, fleet_dir=fleet,
-                                host="replica-B", lease_ttl=5.0,
-                                heartbeat_ttl=1.0, adopt=True,
-                                device="cpu").start()
-        assert mux_b.wait(120.0) and mux_b.failed is None
-        totals = mux_b.summary_totals()
-        with open(os.path.join(fleet, "beams.json")) as f:
-            rows = json.load(f)["beams"]
-        ledger = {beam: sorted(json.dumps(t, sort_keys=True)
-                               for t in (row.get("triggers") or []))
-                  for beam, row in rows.items()}
-        assert a_committed >= 1
-        assert totals["handoffs"] == len(datas)
-        assert totals["replayed"] == a_committed
-        for b in ref:
-            assert ledger[b] == sorted(ref[b])
-            assert len(set(ledger[b])) == len(ledger[b])
-        assert [r["state"] for _, r in sorted(rows.items())] == \
-            ["done", "done"]
-        assert _scheduler_alive(svc_b)
-    finally:
-        svc_b.stop()
+    assert mux_a.wait(0.1) and isinstance(mux_a.failed, SimulatedCrash)
+    assert res["committed_before_kill"] >= 1
+    assert res["handoffs"] == 2
+    assert res["replayed"] == res["committed_before_kill"]
+    assert res["byte_equal"] and res["no_duplicates"]
+    assert res["ledger_triggers"] == res["reference_triggers"]
+    assert res["ledger_states"] == ["done", "done"]
+    assert res["finished"] and mux_b.failed is None
+    assert res["scheduler_alive"] and res["ok"]
 
 
 def test_beams_cli_tails_files(tmp_path):

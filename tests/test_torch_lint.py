@@ -437,6 +437,29 @@ def test_imports_of_jax_or_the_jax_package_are_flagged(path):
     assert all(f.check == "import-hygiene" and f.path == path for f in fs)
 
 
+TOOLS = '''
+import numpy as np
+
+
+def beams():
+    from tools.serve_loadgen import make_beams
+    import tools.fleet_chaos as fc
+    return make_beams, fc, np
+'''
+
+
+@pytest.mark.parametrize("path", ["presto_tpu_torch/apps/fleet_chaos.py",
+                                  "chip_smoke.py"])
+def test_imports_of_the_jax_tools_are_flagged(path):
+    """The JAX package's drivers under tools/ import it: the port (its
+    chaos and loadgen apps in presto_tpu_torch/apps/) never imports
+    them."""
+    fs = pcore.run_checks(pcore.Tree.from_sources({path: TOOLS}),
+                          checks=["import-hygiene"])
+    assert [(f.line, f.message.split()[0]) for f in fs] == [
+        (6, "'tools.serve_loadgen'"), (7, "'tools.fleet_chaos'")]
+
+
 # ---------------------------------------------------------------------------
 # the real tree, the CLI, the shim
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@ package's (presto_tpu/stream) on the CPU.
   * StreamService end to end on the port's SearchService over a
     loopback socket: every pulse triggered once, deadline-lane ticks
     counted, the latency histogram filled; the chaos trials of
-    tools/stream_chaos.py (stall, truncation, ring drop) on the port.
+    tools/stream_chaos.py (stall, truncation, ring drop) through the
+    port's apps/stream_chaos.
 
 Feeds come from tools/stream_loadgen (the JAX package's injector).
 """
@@ -44,6 +45,7 @@ from presto_tpu.stream import StreamSearch as JStreamSearch  # noqa: E402
 from presto_tpu.stream.rolling import RollingDedisp as JRolling  # noqa: E402
 from presto_tpu.testing import chaos as jchaos  # noqa: E402
 
+from presto_tpu_torch.apps import stream_chaos  # noqa: E402
 from presto_tpu_torch.io import sigproc  # noqa: E402
 from presto_tpu_torch.search import singlepulse as spm  # noqa: E402
 from presto_tpu_torch.serve.scheduler import SchedulerConfig  # noqa: E402
@@ -686,7 +688,7 @@ def test_stream_service_tick_failure_skips_no_block(tmp_path, monkeypatch,
             time.sleep(0.02)
         assert reg.get("serve_jobs_failed_total").value == 1
         assert len(feeds) == 2        # the retries fed nothing further
-        assert _scheduler_alive(svc)
+        assert stream_chaos._scheduler_alive(svc)
     finally:
         svc.stop()
 
@@ -715,25 +717,8 @@ def test_stream_cli_runs_a_tailed_file(tmp_path, capsys):
 
 
 # ----------------------------------------------------------------------
-# tools/stream_chaos.py's trials, on the port
+# tools/stream_chaos.py's trials, on the port: apps/stream_chaos
 # ----------------------------------------------------------------------
-
-def _chaos_setup(workdir, seed, seconds, npulses, stall_timeout_s=None,
-                 ring=64, use_socket=True):
-    hdr, wire, truth = stream_loadgen.make_feed(
-        seed=seed, nchan=32, dt=5e-4, seconds=seconds, npulses=npulses,
-        dm=45.0)
-    cfg = StreamConfig(lodm=25.0, dmstep=5.0, numdms=5, nsub=32,
-                       threshold=7.0, blocklen=4096, ring_capacity=ring,
-                       stall_timeout_s=stall_timeout_s)
-    svc = SearchService(os.path.join(workdir, "serve"),
-                        heartbeat_s=0.5).start()
-    src = RingBlockSource(capacity=ring, policy="drop-oldest",
-                          stall_timeout_s=stall_timeout_s)
-    prod = SocketProducer(src).start() if use_socket else None
-    stream = StreamService(svc, src, cfg, device="cpu").start()
-    return hdr, wire, truth, svc, src, prod, stream
-
 
 def _wait_tick_done(svc, stream, n, timeout=30.0):
     """Wait until n of the stream's tick jobs have completed, or the
@@ -748,111 +733,73 @@ def _wait_tick_done(svc, stream, n, timeout=30.0):
         time.sleep(0.005)
 
 
-def _hits(svc, truth, tol=0.2):
+def _hits(svc, truth):
     """truth index -> trigger count (exactly-once per pulse)."""
-    out = {i: 0 for i in range(len(truth))}
-    for ev in svc.events.tail(100000):
-        if ev["kind"] != "trigger":
-            continue
-        for i, t in enumerate(truth):
-            if abs(ev["time"] - t) <= tol:
-                out[i] += 1
-                break
-    return out
+    return stream_chaos._matched(stream_chaos._triggers(svc), truth)
 
 
-def _scheduler_alive(svc) -> bool:
-    done = threading.Event()
-    svc.submit_callable(lambda job: done.set() or {}, lane="deadline")
-    return done.wait(10.0)
+def _recorded_setup(monkeypatch):
+    """apps/stream_chaos._setup, each trial's (header, wire, truth,
+    service, source, producer, stream) recorded."""
+    made = []
+    real = stream_chaos._setup
+
+    def setup(*a, **k):
+        made.append(real(*a, **k))
+        return made[-1]
+    monkeypatch.setattr(stream_chaos, "_setup", setup)
+    return made
 
 
 @pytest.mark.chaos
-def test_chaos_stall_quarantined_and_post_stall_pulses_trigger(tmp_path):
+def test_chaos_stall_quarantined_and_post_stall_pulses_trigger(
+        tmp_path, monkeypatch):
     """The producer freezes mid-stream past the stall budget: zero fill
     quarantined as "stall", every pulse outside the damaged window
-    triggered once, the scheduler still alive."""
+    triggered once, the scheduler still alive (stream_chaos.trial_stall
+    on the CPU)."""
+    made = _recorded_setup(monkeypatch)
     # a 0.6 s stall budget (the JAX trial's is 0.3 s) keeps a busy
     # host's sending hiccups from reading as stalls; the 1.5 s freeze
     # still spans two budgets
-    hdr, wire, truth, svc, src, prod, stream = _chaos_setup(
-        str(tmp_path), 1, 24.0, 4, stall_timeout_s=0.6)
-    try:
-        stall_at = int((truth[1] + 1.0) / hdr.tsamp)
-        faults = chaos.StreamFaults([(stall_at, "stall", 1.5)])
-        threading.Thread(target=stream_loadgen.send_wire,
-                         args=(prod.address, wire, hdr),
-                         kwargs=dict(mode="paced", speed=16.0,
-                                     faults=faults), daemon=True).start()
-        assert stream.wait(120.0) and stream.failed is None
-        counts = _hits(svc, truth)
-        safe = [i for i, t in enumerate(truth)
-                if not (stall_at * hdr.tsamp - 0.5 <= t
-                        <= stall_at * hdr.tsamp + 2.0)]
-        assert faults.fired
-        assert src.quality.counts().get("stall", 0) > 0
-        assert all(counts[i] == 1 for i in safe), counts
-        assert all(c <= 1 for c in counts.values())
-        assert _scheduler_alive(svc)
-    finally:
-        svc.stop()
-        prod.close()
+    res = stream_chaos.trial_stall(str(tmp_path), device="cpu",
+                                   stall_timeout_s=0.6, stall_s=1.5)
+    stream = made[0][6]
+    assert res["finished"] and stream.failed is None
+    assert res["stall_fired"]
+    assert res["quarantine"].get("stall", 0) > 0
+    hits = res["pulse_hits"]
+    assert all(hits[t] == 1 for t in res["safe_pulses"]), hits
+    assert all(c <= 1 for c in hits.values())
+    assert res["scheduler_alive"]
+    assert res["ok"]
 
 
 @pytest.mark.chaos
-def test_chaos_truncation_and_ring_drop(tmp_path):
+def test_chaos_truncation_and_ring_drop(tmp_path, monkeypatch):
     """The connection dies mid-spectrum: the partial spectrum is
     quarantined, the stream EOFs and pre-cut pulses trigger once.  A
     burst into a 2-block ring: shed blocks are quarantined as ring-drop
-    (every dropped spectrum accounted) and no trigger duplicates."""
-    hdr, wire, truth, svc, src, prod, stream = _chaos_setup(
-        str(tmp_path / "t"), 2, 24.0, 4)
-    try:
-        bps = hdr.bytes_per_spectrum
-        hdrlen = len(wire) - hdr.N * bps
-        cut_spectra = int((truth[1] + 1.5) / hdr.tsamp)
-        cut = hdrlen + cut_spectra * bps + bps // 2
-
-        def sender():
-            s = socket.create_connection(prod.address)
-            s.sendall(wire[:cut])
-            s.close()
-
-        threading.Thread(target=sender, daemon=True).start()
-        assert stream.wait(120.0) and stream.failed is None
-        counts = _hits(svc, truth)
-        assert src.quality.counts().get("truncated", 0) > 0
-        expected = [i for i, t in enumerate(truth)
-                    if t < cut_spectra * hdr.tsamp - 1.5]
-        assert expected and all(counts[i] == 1 for i in expected)
-        assert all(c <= 1 for c in counts.values())
-        assert _scheduler_alive(svc)
-    finally:
-        svc.stop()
-        prod.close()
-    hdr, wire, truth, svc, src, _, stream = _chaos_setup(
-        str(tmp_path / "r"), 3, 24.0, 4, ring=2, use_socket=False)
-    try:
-        raw = _wire_spectra(hdr, wire)
-
-        def pusher():
-            src.set_header(hdr)
-            for i in range(0, hdr.N, 8192):
-                src.push_spectra(raw[i:i + 8192])
-            src.eof()
-
-        threading.Thread(target=pusher, daemon=True).start()
-        assert stream.wait(120.0) and stream.failed is None
-        stats = src.stats()
-        assert stats["dropped_blocks"] > 0
-        assert stats["dropped_spectra"] <= \
-            src.quality.counts().get("ring-drop", 0)
-        assert all(c <= 1 for c in _hits(svc, truth).values())
-        drops = svc.obs.metrics.get("stream_drops_total").value
-        assert drops == stats["dropped_blocks"]
-        assert _scheduler_alive(svc)
-    finally:
-        svc.stop()
+    (every dropped spectrum accounted) and no trigger duplicates
+    (stream_chaos.trial_truncation and trial_ringdrop on the CPU)."""
+    made = _recorded_setup(monkeypatch)
+    res = stream_chaos.trial_truncation(str(tmp_path / "t"), device="cpu")
+    assert res["finished"] and made[0][6].failed is None
+    assert res["quarantine"].get("truncated", 0) > 0
+    hits = res["pulse_hits"]
+    assert res["expected_pulses"] and all(
+        hits[t] == 1 for t in res["expected_pulses"])
+    assert all(c <= 1 for c in hits.values())
+    assert res["scheduler_alive"] and res["ok"]
+    res = stream_chaos.trial_ringdrop(str(tmp_path / "r"), device="cpu")
+    svc, stream = made[1][3], made[1][6]
+    assert res["finished"] and stream.failed is None
+    assert res["dropped_blocks"] > 0
+    assert res["dropped_spectra"] <= res["quarantine"].get("ring-drop", 0)
+    assert all(c <= 1 for c in res["pulse_hits"].values())
+    drops = svc.obs.metrics.get("stream_drops_total").value
+    assert drops == res["dropped_blocks"]
+    assert res["scheduler_alive"] and res["ok"]
 
 
 class _Unseekable(io.BytesIO):

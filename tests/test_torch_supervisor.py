@@ -79,8 +79,9 @@ def _advice(wanted, reason="t", **inputs):
 
 
 #: scenarios over the fake table: (config overrides, ops).  Ops:
-#: ("advice", dict or None), ("step", now), ("hb", now) heartbeats every
-#: registered replica, ("exit", "draining") ends every draining process,
+#: ("advice", dict or None), ("step", now), ("hb", now[, state])
+#: heartbeats every registered replica (in that state), ("exit",
+#: "draining") ends every draining process,
 #: ("kill", i) kills the i-th replica (sorted names), ("owners", {i: n})
 #: campaign lease counts, ("popen_fails",), ("set", attr, value) on cfg,
 #: ("restart", now) drops the supervisor and adopts on a new one over the
@@ -124,6 +125,14 @@ SCENARIOS = {
         ("advice", _advice(4)), ("step", 0.0), ("step", 1.0), ("hb", 1.5),
         ("step", 2.0), ("owners", {0: 1, 1: 3}), ("step", 3.0),
         ("step", 5.0), ("owners", {0: 1}), ("step", 14.0)]),
+    # the real run's order under load: the backlog empties while the
+    # second replica still starts, and the drain takes the only UP one
+    "drain-while-spawning": ({"cooldown_s": 0.0}, [
+        ("step", 0.0), ("step", 1.0), ("hb", 1.5), ("step", 2.0),
+        ("advice", _advice(2, "backlog-drain", backlog_jobs=2)),
+        ("step", 3.0), ("step", 4.0), ("hb", 4.5, "up"),
+        ("advice", _advice(1, "idle")), ("step", 5.0), ("step", 6.0),
+        ("exit", "draining"), ("step", 7.0), ("hb", 7.5), ("step", 8.0)]),
     "preempt-floor": ({"cooldown_s": 0.0}, [
         ("advice", _advice(2)), ("step", 0.0), ("step", 1.0), ("hb", 1.5),
         ("owners", {0: 1, 1: 1}), ("step", 2.0),
@@ -148,8 +157,9 @@ def _run(mod, fleetdir, cfg, ops):
             decisions.append(d)
             names = sorted(set(names) | set(sup.replicas()))
         elif op[0] == "hb":
-            for name in sup.replicas():
-                sup.ledger.heartbeat(name, 0, now=op[1])
+            for name, row in sup.replicas().items():
+                if op[2:] in ((), (row["state"],)):
+                    sup.ledger.heartbeat(name, 0, now=op[1])
         elif op[0] == "exit":
             for name, row in sup.replicas().items():
                 if row["state"] == mod.DRAINING:
@@ -196,6 +206,28 @@ def test_decisions_events_and_registry_equal_jax(tmp_path, name):
     assert port[2] == ref[2]
     assert port[3] == ref[3]
     assert port[0], "no decision made"
+
+
+def test_drain_while_spawning_drains_the_up_replica(tmp_path):
+    """The sequence behind test_real_replicas_scale_one_two_one's race,
+    on the fake table: a scale-up spawns a second replica, the backlog
+    empties before it reports up, and the drain takes the youngest UP
+    replica, which is the first, while the second still starts; the
+    second reports up afterwards.  Both packages decide alike, so the
+    real run waits for both ups as well as the drain."""
+    cfg, ops = SCENARIOS["drain-while-spawning"]
+    for mod in (psup, jsup):
+        events = _run(mod, tmp_path / mod.__name__, cfg, ops)[1]
+        assert [(e["kind"], e["replica"]) for e in events
+                if e["kind"] in ("supervisor-spawn", "supervisor-up",
+                                 "supervisor-drain",
+                                 "supervisor-drained")] == [
+            ("supervisor-spawn", "sup-0001"),
+            ("supervisor-up", "sup-0001"),
+            ("supervisor-spawn", "sup-0002"),
+            ("supervisor-drain", "sup-0001"),
+            ("supervisor-drained", "sup-0001"),
+            ("supervisor-up", "sup-0002")]
 
 
 def test_scenarios_cover_every_actuation(tmp_path):
@@ -343,8 +375,12 @@ def test_real_replicas_scale_one_two_one(tmp_path):
             (led.view(j) or {}).get("state") == "done" for j in ids), 120)
         events = lambda: [json.loads(ln) for ln in open(
             psup.events_path(fleetdir)) if ln.strip()]
-        assert _until(lambda: sum(
-            e["kind"] == "supervisor-drained" for e in events()) >= 1, 60)
+        # the drain may take the first replica while the second still
+        # starts (test_drain_while_spawning_drains_the_up_replica): the
+        # run ends on both ups and the drain, whichever comes last
+        assert _until(lambda: (lambda k: k.count("supervisor-up") >= 2
+                               and "supervisor-drained" in k)(
+            [e["kind"] for e in events()]), 90)
     finally:
         sup.stop()
         sup.drain_all(timeout=20.0)
